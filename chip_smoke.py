@@ -18,6 +18,22 @@ line is printed:
   5. timings: CUDA-event medians of state-chained 2^23-sample steps, kernel
      against plain versions, and the CLI runs' end-to-end rate.
 
+and for the PFB kernels K3 (pfb_fm_fused) and K4 (pfb_channelize_fused):
+
+  3b. kernel vs plain: 3 state-chained blocks of the main path's size at
+      nch 64 and 20, each kernel against its plain version (every frame)
+      and the eager graph (K3 from frame 1), plus a DFT column shard
+      (ncho 32 of 64) against the plain version given the same shard;
+  4b. main paths through the CLI: --backend pfb_fused (K3) against phase
+      4's runs; per-channel AGC + squelch (K4) on a capture with half the
+      channels empty, pfb_fused against eager; the -c 4 DeNo raw split
+      (K4), pfb_fused against eager.  Every kernel count is set to 0 before
+      each run and read after it: a run's own kernels must have launched,
+      no other kernel may have;
+  5b. timings: K3 and K4 alone against their plain versions, the
+      PFBFusedFM path (eager DC blocker + NCO + K3) against the eager graph,
+      and the CLI flows' rates with the backends run in turns.
+
 Prints one JSON object per result, then the nvidia-smi line, the kernels
 line and, last, {"ok": true, "device": {...}}.  Nothing here imports JAX.
 """
@@ -43,6 +59,12 @@ STEPS = 20               # timed steps per measurement (after warm-up)
 KF = 0.6
 # bounds (tests/test_flagship_fused_wide.py:66-67, tests/test_flagship_fused.py:70)
 MAX_ERR, RMS_ERR, U8_ERR = 1.2e-3, 4e-5, 2e-4
+# K3/K4 (tests/test_pallas_fused.py:55, tests/test_pfb_channelize_fused.py:39;
+# RMS as above, the same arithmetic); the AGC flow, relative to the largest
+# output (tests/test_sharding.py:208-210)
+PFB_MAX_ERR, AGC_REL_ERR = 2e-3, 5e-3
+AGC_T = -48.0            # squelch threshold (dB) of the half-empty capture
+AGC_MARGIN = 15.0        # dB every channel must keep from it
 
 
 def fail(msg: str):
@@ -59,25 +81,28 @@ def emit(obj: dict):
     print(json.dumps(obj), flush=True)
 
 
-def occupied_band(torch, dev, nch: int, n: int, seed: int, tones=None):
+def occupied_band(torch, dev, nch: int, n: int, seed: int, tones=None, channels=None,
+                  noise: float = 0.01):
     """An FM carrier on every channel centre (channel k at (k − (nch−1)/2)/nch
     cycles/sample) plus noise, made on the device in float64 from a numpy
     seed.  Every channel is occupied, so no channel magnitude sits near zero
     where atan2 amplifies float32 rounding by 1/|d|.  ``tones[k]`` is channel
-    k's modulating frequency in cycles per input sample."""
+    k's modulating frequency in cycles per input sample; ``channels`` limits
+    the carriers to those channels, ``noise`` is the noise's std per
+    component."""
     rng = np.random.default_rng(seed)
     if tones is None:
         tones = 0.002 / nch * (1 + np.arange(nch) % 5)
     t = torch.arange(n, dtype=torch.float64, device=dev)
     x = torch.zeros(n, dtype=torch.complex128, device=dev)
     amp = 0.6 / np.sqrt(nch)
-    for k in range(nch):
+    for k in (range(nch) if channels is None else channels):
         fc = (k - (nch - 1) / 2) / nch
         ph = (2 * np.pi * torch.remainder(fc * t, 1.0)
               + 2.0 * torch.sin(2 * np.pi * torch.remainder(float(tones[k]) * t, 1.0))
               + float(rng.uniform(0, 2 * np.pi)))
         x += amp * torch.polar(torch.ones_like(ph), ph)
-    noise = rng.standard_normal((n, 2), dtype=np.float32) * np.float32(0.01)
+    noise = rng.standard_normal((n, 2), dtype=np.float32) * np.float32(noise)
     x += torch.view_as_complex(torch.from_numpy(noise).to(dev)).to(torch.complex128)
     return x.to(torch.complex64)
 
@@ -91,6 +116,11 @@ def to_cu8(torch, x):
 def errors(a, b) -> tuple[float, float]:
     d = (a.double() - b.double()).abs()
     return d.max().item(), d.pow(2).mean().sqrt().item()
+
+
+def errors_np(a: np.ndarray, b: np.ndarray) -> tuple[float, float]:
+    d = np.abs(a.astype(np.float64) - b)
+    return float(d.max()), float(np.sqrt((d ** 2).mean()))
 
 
 def time_steps(torch, step, steps: int = STEPS, warmup: int = 3) -> list[float]:
@@ -115,10 +145,11 @@ def ptxas_summary(lib) -> dict:
     log = lib.with_name(lib.name.replace("libcsdr_kernels-", "nvcc-").replace(".so", ".log"))
     out, name = {}, None
     for ln in log.read_text().splitlines():
-        m = re.search(r"Compiling entry function .*?(dc_pass|channel_pass|carry_scan)"
-                      r"(?:ILi(\d)ELb(\d)E)?", ln)
+        m = re.search(r"Compiling entry function .*?(dc_pass|channel_pass|carry_scan|pfb_tile)"
+                      r"(?:I((?:L[a-z]\d+E)+)E)?", ln)
         if m:
-            name = m.group(1) + (f"<{m.group(2)},{m.group(3)}>" if m.group(2) else "")
+            targs = re.findall(r"L[a-z](\d+)E", m.group(2) or "")
+            name = m.group(1) + (f"<{','.join(targs)}>" if targs else "")
         elif name and ("registers" in ln or "spill" in ln):
             out[name] = (out.get(name, "") + " " + ln.split(":", 1)[-1].strip()).strip()
     return out
@@ -185,7 +216,112 @@ def phase_compare(torch, ct, ff, dev, card):
     return result
 
 
-def phase_main_path(torch, ff, dev, card, tmp):
+def reset_counts(ff, pf):
+    ff.launches = 0
+    for k in pf.launches:
+        pf.launches[k] = 0
+
+
+def pfb_plain_step(torch, pf, state, x, nch: int, demod: bool):
+    """The K3 (demod) or K4 streaming step with the kernel's plain version in
+    its place: the NCO and panels of channelized_fm_pfb_step /
+    channelize_pfb_step, then pfb_fm_fused_ref / pfb_channelize_fused_ref."""
+    from csdr_tpu_torch.ops.nco import mix_stream
+    from csdr_tpu_torch.ops.pfb import pfb_offset
+
+    phase, hist_x, hist_v = state if demod else (state[0], *state[1])
+    phase, xs = mix_stream(phase, x, pfb_offset(nch), up=False)
+    hist_x, vfull = pf.frame_panels(hist_x, hist_v, xs, nch)
+    taps, W = pf.pfb_design(nch, 7, 80.0, x.device)
+    fn = pf.pfb_fm_fused_ref if demod else pf.pfb_channelize_fused_ref
+    y = fn(vfull, taps, W, nch=nch, L=14, **({"kf": KF} if demod else {}))
+    hist_v = vfull[y.shape[1]:].clone()
+    return ((phase, hist_x, hist_v) if demod else (phase, (hist_x, hist_v))), y
+
+
+def block_panels(torch, pf, x, nch: int):
+    """K3's panels (F + 14, nch) of one block from zero history, NCO-shifted
+    as on the main path.  Without the shift every carrier sits on a channel
+    edge, its demod phase step is ≈π, and atan2's ±π branch cut flips
+    between two right implementations."""
+    from csdr_tpu_torch.ops.nco import mix_stream
+    from csdr_tpu_torch.ops.pfb import pfb_offset
+
+    _, xs = mix_stream(torch.zeros((), device=x.device), x, pfb_offset(nch), up=False)
+    return pf.frame_panels(torch.zeros(nch - 1, dtype=torch.complex64, device=x.device),
+                           torch.zeros(14, nch, dtype=torch.complex64, device=x.device),
+                           xs, nch)[1]
+
+
+def as_real(torch, y):
+    return torch.view_as_real(y) if y.is_complex() else y
+
+
+def phase_compare_pfb(torch, ct, pf, dev, card):
+    """3b. K3 and K4 streaming steps vs their plain versions (every frame)
+    and the eager graphs (K3 from frame 1), and a DFT column shard."""
+    result = {}
+    for nch in (64, 20):
+        n = block_len(nch, pf.DEFAULT_TILE_F)
+        x = occupied_band(torch, dev, nch, 3 * n, SEED + 100 + nch)
+        eager = {True: ct.chain(ct.firpfbch_channelizer(nch),
+                                ct.PerChannel(ct.fm_demodulator(KF), nch)),
+                 False: ct.firpfbch_channelizer(nch)}
+        for demod, name in ((True, "pfb_fm_fused"), (False, "pfb_channelize_fused")):
+            if demod:
+                sk = st = pf.channelized_fm_pfb_init(nch, dev)
+                step = lambda s, xb: pf.channelized_fm_pfb_step(s, xb, nch=nch, kf=KF)
+            else:
+                sk = st = eager[False].init(dev)
+                step = lambda s, xb: pf.channelize_pfb_step(s, xb, nch=nch)
+            se = eager[demod].init(dev)
+            ks, ts, es = [], [], []
+            before = pf.launches[name]
+            for b in range(3):
+                xb = x[b * n:(b + 1) * n]
+                sk, yk = step(sk, xb)
+                st, yt = pfb_plain_step(torch, pf, st, xb, nch, demod)
+                se, ye = eager[demod].apply(se, xb)
+                ks.append(yk), ts.append(yt), es.append(ye)
+            torch.cuda.synchronize()
+            check(pf.launches[name] == before + 3, f"{name} nch={nch}: launch count")
+            yk, yt, ye = (as_real(torch, torch.cat(v, dim=1)) for v in (ks, ts, es))
+            check(yk.shape[:2] == (nch, 3 * n // nch), f"{name} nch={nch}: shape {tuple(yk.shape)}")
+            check(bool(torch.isfinite(yk).all()), f"{name} nch={nch}: non-finite output")
+            f0 = 1 if demod else 0  # K3's demod history starts at zeros
+            tw_max, tw_rms = errors(yk, yt)
+            ea_max, ea_rms = errors(yk[:, f0:], ye[:, f0:])
+            emit(dict(phase="compare_pfb", kernel=name, nch=nch, n_per_block=n, blocks=3,
+                      vs_plain_max=tw_max, vs_plain_rms=tw_rms, vs_eager_max=ea_max,
+                      vs_eager_rms=ea_rms, eager_from_frame=f0, **card))
+            check(tw_max < PFB_MAX_ERR and tw_rms < RMS_ERR,
+                  f"{name} nch={nch}: kernel vs plain max {tw_max} rms {tw_rms}")
+            check(ea_max < PFB_MAX_ERR and ea_rms < RMS_ERR,
+                  f"{name} nch={nch}: kernel vs eager max {ea_max} rms {ea_rms}")
+            result[(name, nch)] = tw_max
+
+    # a column shard of the DFT matrix, as the channel-sharded mesh gives it
+    nch, c0 = 64, 32
+    n = block_len(nch, pf.DEFAULT_TILE_F)
+    x = occupied_band(torch, dev, nch, n, SEED + 200)
+    taps, W = pf.pfb_design(nch, 7, 80.0, dev)
+    vfull = block_panels(torch, pf, x, nch)
+    for name, v, fn, ref in (("pfb_fm_fused", vfull, pf.pfb_fm_fused, pf.pfb_fm_fused_ref),
+                             ("pfb_channelize_fused", vfull[1:].contiguous(),
+                              pf.pfb_channelize_fused, pf.pfb_channelize_fused_ref)):
+        yk = fn(v, taps, W[:, c0:], nch=nch, L=14)
+        yt = ref(v, taps, W[:, c0:].contiguous(), nch=nch, L=14)
+        torch.cuda.synchronize()
+        check(yk.shape == yt.shape == (nch - c0, n // nch), f"{name} shard: shape")
+        sh_max, sh_rms = errors(as_real(torch, yk), as_real(torch, yt))
+        emit(dict(phase="compare_pfb_shard", kernel=name, nch=nch, columns=[c0, nch],
+                  vs_plain_max=sh_max, vs_plain_rms=sh_rms, **card))
+        check(sh_max < PFB_MAX_ERR and sh_rms < RMS_ERR,
+              f"{name} column shard: kernel vs plain max {sh_max} rms {sh_rms}")
+    return result
+
+
+def phase_main_path(torch, ff, pf, dev, card, tmp):
     """The CLI's channelized NBFM flow over a cu8 capture, fused and eager."""
     from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
 
@@ -209,7 +345,7 @@ def phase_main_path(torch, ff, dev, card, tmp):
                 "--blocksize", str(BLOCK)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ff.launches = 0
+        reset_counts(ff, pf)
         t0 = time.perf_counter()
         rc = cli_main(argv)
         torch.cuda.synchronize()
@@ -229,6 +365,7 @@ def phase_main_path(torch, ff, dev, card, tmp):
                   channels=nch, blocksize=BLOCK, seconds=dt, msps=CAPTURE / dt / 1e6,
                   flagship_fused_launches=launches,
                   peak_device_mib=torch.cuda.max_memory_allocated() / 2 ** 20, **card))
+        check(not any(pf.launches.values()), f"the {backend} CLI run launched a PFB kernel")
         if backend == "fused":
             check(launches > 0, "the fused CLI run launched the kernel no time")
             fused_launches, fused_msps = launches, CAPTURE / dt / 1e6
@@ -236,8 +373,7 @@ def phase_main_path(torch, ff, dev, card, tmp):
             check(launches == 0, "the eager CLI run launched the fused kernel")
             eager_msps = CAPTURE / dt / 1e6
 
-    d = np.abs(runs["fused"][:, 1:].astype(np.float64) - runs["eager"][:, 1:])
-    emax, erms = float(d.max()), float(np.sqrt((d ** 2).mean()))
+    emax, erms = errors_np(runs["fused"][:, 1:], runs["eager"][:, 1:])
     # every channel demodulates its own tone: the audio's spectral peak sits
     # on bin j_k·frames/1024
     spec = np.abs(np.fft.rfft(runs["fused"] - runs["fused"].mean(axis=1, keepdims=True),
@@ -249,7 +385,177 @@ def phase_main_path(torch, ff, dev, card, tmp):
     check(emax < MAX_ERR and erms < RMS_ERR, f"CLI fused vs eager max {emax} rms {erms}")
     check(bool((peaks == want).all()),
           f"channels off their tone: {np.flatnonzero(peaks != want).tolist()}")
-    return fused_launches, fused_msps, eager_msps
+    return fused_launches, fused_msps, eager_msps, runs, path, want
+
+
+def cli_run(torch, ff, pf, cli_main, argv: list[str]) -> tuple[float, dict]:
+    """One CLI run with every kernel count set to 0 just before it; returns
+    (seconds, the counts just after)."""
+    torch.cuda.synchronize()
+    reset_counts(ff, pf)
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(rc == 0, f"CLI {' '.join(argv[-8:])}: exit code {rc}")
+    return dt, dict(pf.launches, flagship_fused=ff.launches)
+
+
+def check_counts(counts: dict, want: str | None, what: str):
+    for k, v in counts.items():
+        if k == want:
+            check(v > 0, f"{what}: {k} launched no time")
+        else:
+            check(v == 0, f"{what}: {k} launched {v} times")
+
+
+def read_channels(prefix: str, ext: str, dtype, nch: int, size: int):
+    for k in range(nch):
+        got = os.path.getsize(f"{prefix}_ch{k + 1}.{ext}")
+        check(got == size, f"{prefix}_ch{k + 1}.{ext} has {got} bytes, want {size}")
+    return np.stack([np.fromfile(f"{prefix}_ch{k + 1}.{ext}", dtype) for k in range(nch)])
+
+
+def tone_peaks(audio: np.ndarray) -> np.ndarray:
+    spec = np.abs(np.fft.rfft(audio - audio.mean(axis=1, keepdims=True), axis=1))
+    return spec[:, 1:].argmax(axis=1) + 1
+
+
+def phase_main_path_pfb(torch, ct, ff, pf, dev, card, tmp, capture, runs, want_bins):
+    """4b. The K3 and K4 flows through the CLI at 64 channels."""
+    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
+
+    nch = 64
+    frames = CAPTURE // nch
+    common = ["-n", str(CAPTURE), "--device", "cuda", "--blocksize", str(BLOCK)]
+    out = {}
+
+    # K3: --backend pfb_fused against phase 4's fused and eager runs
+    prefix = os.path.join(tmp, "pfb_fused")
+    dt, counts = cli_run(torch, ff, pf, cli_main, ["--filename", capture, "-c", str(nch),
+                                                   "-o", prefix, "--demod", f"DeNBFM {KF} F32",
+                                                   "--backend", "pfb_fused", *common])
+    check_counts(counts, "pfb_fm_fused", "CLI pfb_fused")
+    audio = read_channels(prefix, "f32", np.float32, nch, frames * 4)
+    check(bool(np.isfinite(audio).all()), "CLI pfb_fused: non-finite audio")
+    vs = {b: errors_np(audio[:, 1:], runs[b][:, 1:]) for b in ("fused", "eager")}
+    on_tone = int((tone_peaks(audio) == want_bins).sum())
+    emit(dict(phase="main_path_pfb", flow="DeNBFM", backend="pfb_fused", wire="cu8",
+              samples=CAPTURE, channels=nch, seconds=dt, msps=CAPTURE / dt / 1e6,
+              launches=counts, vs_fused_max=vs["fused"][0], vs_fused_rms=vs["fused"][1],
+              vs_eager_max=vs["eager"][0], vs_eager_rms=vs["eager"][1],
+              channels_on_their_tone=on_tone, **card))
+    for b, (mx, rms) in vs.items():
+        check(mx < PFB_MAX_ERR and rms < RMS_ERR, f"CLI pfb_fused vs {b}: max {mx} rms {rms}")
+    check(on_tone == nch, "CLI pfb_fused: channels off their tone")
+    out["pfb_fm_fused"] = dict(launches=counts["pfb_fm_fused"], msps=CAPTURE / dt / 1e6)
+
+    # K4 with AGC + squelch: even channels occupied, odd ones empty
+    j = 5 + 3 * (np.arange(nch) % 7)
+    x = occupied_band(torch, dev, nch, CAPTURE, SEED + 300, tones=j / 1024.0 / nch,
+                      channels=range(0, nch, 2), noise=0.002)
+    u8 = to_cu8(torch, x)
+    del x
+    # every channel keeps AGC_MARGIN dB from the threshold, reckoned at the
+    # channelizer's output (rssi ≈ 20·log10|d| once the loop has settled)
+    g = ct.chain(ct.u8_to_iq(), ct.dc_blocker(), ct.firpfbch_channelizer(nch))
+    _, d = g.apply(g.init(dev), u8[:2 * BLOCK].view(BLOCK, 2))
+    settled = d[:, d.shape[1] // 8:]  # past the DC blocker's and the PFB's transients
+    level = (20 * torch.log10(settled.abs().pow(2).mean(dim=1).sqrt())).cpu().numpy()
+    agc_path = os.path.join(tmp, "half_empty.cu8")
+    u8.cpu().numpy().tofile(agc_path)
+    del u8, d, settled
+    emit(dict(phase="agc_capture", threshold_db=AGC_T, occupied_min_db=float(level[0::2].min()),
+              empty_max_db=float(level[1::2].max()), **card))
+    check(level[0::2].min() > AGC_T + AGC_MARGIN and level[1::2].max() < AGC_T - AGC_MARGIN,
+          f"half-empty capture too close to the squelch: {level.round(1).tolist()}")
+    agc = {}
+    for backend in ("pfb_fused", "eager"):
+        prefix = os.path.join(tmp, f"agc_{backend}")
+        dt, counts = cli_run(torch, ff, pf, cli_main, [
+            "--filename", agc_path, "-c", str(nch), "-o", prefix, "--demod", f"DeNBFM {KF} F32",
+            "-a", str(AGC_T), "--backend", backend, *common])
+        check_counts(counts, "pfb_channelize_fused" if backend == "pfb_fused" else None,
+                     f"CLI -a {AGC_T} {backend}")
+        audio = read_channels(prefix, "f32", np.float32, nch, frames * 4)
+        check(bool(np.isfinite(audio).all()), f"CLI -a {backend}: non-finite audio")
+        agc[backend] = (audio, dt, counts)
+    got, want = agc["pfb_fused"][0], agc["eager"][0]
+    rel = float(np.abs(got.astype(np.float64) - want).max() / np.abs(want).max())
+    on_tone = int((tone_peaks(got[0::2]) == want_bins[0::2]).sum())
+    closed = [int(not a[1::2].any()) for a in (got, want)]
+    emit(dict(phase="main_path_pfb", flow="DeNBFM -a", backend="pfb_fused", wire="cu8",
+              samples=CAPTURE, channels=nch, threshold_db=AGC_T,
+              seconds=agc["pfb_fused"][1], msps=CAPTURE / agc["pfb_fused"][1] / 1e6,
+              eager_seconds=agc["eager"][1], eager_msps=CAPTURE / agc["eager"][1] / 1e6,
+              launches=agc["pfb_fused"][2], vs_eager_rel=rel,
+              occupied_on_their_tone=on_tone, empty_all_zero=closed, **card))
+    check(rel < AGC_REL_ERR, f"CLI AGC pfb_fused vs eager: rel {rel}")
+    check(closed == [1, 1], "CLI AGC: an empty channel let audio through the squelch")
+    check(on_tone == nch // 2, "CLI AGC: occupied channels off their tone")
+    out["pfb_channelize_fused"] = dict(launches=agc["pfb_fused"][2]["pfb_channelize_fused"],
+                                       msps=CAPTURE / agc["pfb_fused"][1] / 1e6,
+                                       eager_msps=CAPTURE / agc["eager"][1] / 1e6)
+
+    # K4 raw split: -c 4 --demod DeNo, pfb_fused against eager
+    split = {}
+    for backend in ("pfb_fused", "eager"):
+        prefix = os.path.join(tmp, f"raw_{backend}")
+        dt, counts = cli_run(torch, ff, pf, cli_main, [
+            "--filename", capture, "-c", "4", "-o", prefix, "--demod", "DeNo",
+            "--backend", backend, *common])
+        check_counts(counts, "pfb_channelize_fused" if backend == "pfb_fused" else None,
+                     f"CLI -c 4 DeNo {backend}")
+        split[backend] = (read_channels(prefix, "cf32", np.complex64, 4, CAPTURE // 4 * 8),
+                          dt, counts)
+        for k in range(4):
+            os.unlink(f"{prefix}_ch{k + 1}.cf32")
+    got, want = split["pfb_fused"][0], split["eager"][0]
+    mx, rms = errors_np(got.view(np.float32), want.view(np.float32))
+    emit(dict(phase="main_path_pfb", flow="-c 4 DeNo", backend="pfb_fused", wire="cu8",
+              samples=CAPTURE, channels=4, seconds=split["pfb_fused"][1],
+              msps=CAPTURE / split["pfb_fused"][1] / 1e6,
+              eager_msps=CAPTURE / split["eager"][1] / 1e6, launches=split["pfb_fused"][2],
+              vs_eager_max=mx, vs_eager_rms=rms, **card))
+    check(bool(np.isfinite(got).all()), "CLI DeNo: non-finite output")
+    check(mx < PFB_MAX_ERR and rms < RMS_ERR, f"CLI DeNo pfb_fused vs eager: max {mx} rms {rms}")
+    out["raw_split"] = dict(launches=split["pfb_fused"][2]["pfb_channelize_fused"],
+                            msps=CAPTURE / split["pfb_fused"][1] / 1e6,
+                            eager_msps=CAPTURE / split["eager"][1] / 1e6)
+    return out, agc_path
+
+
+def phase_cli_rates(torch, ff, pf, card, tmp, capture, agc_path):
+    """5b. The CLI flows' end-to-end rates, each backend run in turns
+    (A, B, B, A) so that neither pays alone for the first run's pinned
+    buffers and file creation; the median per backend."""
+    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
+
+    common = ["-n", str(CAPTURE), "--device", "cuda", "--blocksize", str(BLOCK)]
+    flows = {
+        "DeNBFM": (["--filename", capture, "-c", "64", "--demod", f"DeNBFM {KF} F32"],
+                   {"fused": "flagship_fused", "pfb_fused": "pfb_fm_fused", "eager": None}),
+        "DeNBFM -a": (["--filename", agc_path, "-c", "64", "--demod", f"DeNBFM {KF} F32",
+                       "-a", str(AGC_T)], {"pfb_fused": "pfb_channelize_fused", "eager": None}),
+        "-c 4 DeNo": (["--filename", capture, "-c", "4", "--demod", "DeNo"],
+                      {"pfb_fused": "pfb_channelize_fused", "eager": None}),
+    }
+    rates = {}
+    for flow, (argv, backends) in flows.items():
+        order = list(backends) + list(backends)[::-1]
+        secs = {b: [] for b in backends}
+        for b in order:
+            prefix = os.path.join(tmp, "rate")
+            dt, counts = cli_run(torch, ff, pf, cli_main,
+                                 argv + ["-o", prefix, "--backend", b, *common])
+            check_counts(counts, backends[b], f"CLI {flow} {b}")
+            secs[b].append(dt)
+        for b, v in secs.items():
+            rates[(flow, b)] = CAPTURE / statistics.median(v) / 1e6
+        emit(dict(phase="cli_rates", flow=flow, order=order, samples=CAPTURE,
+                  seconds={b: v for b, v in secs.items()},
+                  median_msps={b: rates[(flow, b)] for b in backends}, **card))
+    return rates
 
 
 def phase_timing(torch, ct, ff, dev, card):
@@ -290,6 +596,48 @@ def phase_timing(torch, ct, ff, dev, card):
     return medians
 
 
+def phase_timing_pfb(torch, ct, pf, dev, card):
+    """5b. K3 and K4 alone against their plain versions on one 2^23-sample
+    block's panels, and the PFBFusedFM path against the eager graph,
+    state-chained, in turns (plain, kernel, kernel, plain)."""
+    nch = 64
+    x = occupied_band(torch, dev, nch, BLOCK, SEED + 2)
+    taps, W = pf.pfb_design(nch, 7, 80.0, dev)
+    v3 = block_panels(torch, pf, x, nch)
+    v4 = v3[1:].contiguous()
+    graphs = {"pfb_fused": ct.channelized_fm_receiver(nch, kf=KF, backend="pfb_fused"),
+              "eager": ct.channelized_fm_receiver(nch, kf=KF, backend="eager")}
+    box = {k: g.init(dev) for k, g in graphs.items()}
+
+    def path(name):
+        def run():
+            box[name], _ = graphs[name].apply(box[name], x)
+        return run
+
+    cases = {
+        "pfb_fm_fused": (lambda: pf.pfb_fm_fused(v3, taps, W, nch=nch, L=14, kf=KF),
+                         lambda: pf.pfb_fm_fused_ref(v3, taps, W, nch=nch, L=14, kf=KF)),
+        "pfb_channelize_fused": (lambda: pf.pfb_channelize_fused(v4, taps, W, nch=nch, L=14),
+                                 lambda: pf.pfb_channelize_fused_ref(v4, taps, W, nch=nch,
+                                                                     L=14)),
+        "pfb_fused_fm_path": (path("pfb_fused"), path("eager")),
+    }
+    medians = {}
+    for name, (kernel, plain) in cases.items():
+        ms = {"kernel": [], "plain": []}
+        for which, fn in (("plain", plain), ("kernel", kernel), ("kernel", kernel),
+                          ("plain", plain)):
+            ms[which] += time_steps(torch, fn)
+        for which, v in ms.items():
+            med = statistics.median(v)
+            q = statistics.quantiles(v, n=4)
+            medians[(name, which)] = med
+            emit(dict(phase="timing_pfb", path=name, impl=which, nch=nch, n=BLOCK,
+                      steps=len(v), median_ms=med, q1_ms=q[0], q3_ms=q[2], min_ms=min(v),
+                      msps=BLOCK / (med * 1e-3) / 1e6, **card))
+    return medians
+
+
 def main() -> int:
     import torch
 
@@ -301,6 +649,7 @@ def main() -> int:
     import csdr_tpu_torch as ct
     from csdr_tpu_torch.ops.cuda import _build
     from csdr_tpu_torch.ops.cuda import flagship_fused as ff
+    from csdr_tpu_torch.ops.cuda import pfb_fused as pf
 
     # 1. identity
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -323,13 +672,20 @@ def main() -> int:
 
     # 3. kernel vs plain
     errs = phase_compare(torch, ct, ff, dev, card)
+    errs.update(phase_compare_pfb(torch, ct, pf, dev, card))  # 3b
 
-    # 4. main path through the CLI
+    # 4. main paths through the CLI
     with tempfile.TemporaryDirectory() as tmp:
-        launches, fused_msps, eager_msps = phase_main_path(torch, ff, dev, card, tmp)
+        launches, fused_msps, eager_msps, runs, capture, bins = phase_main_path(
+            torch, ff, pf, dev, card, tmp)
+        pfb_runs, agc_path = phase_main_path_pfb(torch, ct, ff, pf, dev, card, tmp, capture,
+                                                 runs, bins)  # 4b
+        del runs
+        rates = phase_cli_rates(torch, ff, pf, card, tmp, capture, agc_path)  # 5b
 
     # 5. timings
     med = phase_timing(torch, ct, ff, dev, card)
+    med.update(phase_timing_pfb(torch, ct, pf, dev, card))  # 5b
 
     print(smi, flush=True)
     emit({"kernels": [{
@@ -345,6 +701,40 @@ def main() -> int:
         "eager_ms": med[("u8", "eager")],
         "shape": f"cu8 ({2 * BLOCK},) uint8 -> (64, {BLOCK // 64}) float32",
         "pipeline_msps": {"fused": fused_msps, "eager": eager_msps},
+        "pipeline_msps_in_turns": {b: rates[("DeNBFM", b)] for b in ("fused", "eager")},
+    }, {
+        "name": "pfb_fm_fused",
+        "route": "cuda",
+        "source": "csdr_tpu_torch/csrc/pfb_fused.cu",
+        "replaces": "csdr_tpu/ops/pallas/pfb_fused.py:149",
+        "launches": pfb_runs["pfb_fm_fused"]["launches"],
+        "max_abs_err": errs[("pfb_fm_fused", 64)],
+        "ms": med[("pfb_fm_fused", "kernel")],
+        "plain_ms": med[("pfb_fm_fused", "plain")],
+        "path_ms": {"pfb_fused": med[("pfb_fused_fm_path", "kernel")],
+                    "eager": med[("pfb_fused_fm_path", "plain")]},
+        "shape": f"({BLOCK // 64 + 14}, 64) complex64 -> (64, {BLOCK // 64}) float32",
+        "pipeline_msps": {"pfb_fused": pfb_runs["pfb_fm_fused"]["msps"]},
+        "pipeline_msps_in_turns": {"pfb_fused": rates[("DeNBFM", "pfb_fused")]},
+    }, {
+        "name": "pfb_channelize_fused",
+        "route": "cuda",
+        "source": "csdr_tpu_torch/csrc/pfb_fused.cu",
+        "replaces": "csdr_tpu/ops/pallas/pfb_fused.py:188",
+        "launches": pfb_runs["pfb_channelize_fused"]["launches"],
+        "launches_raw_split": pfb_runs["raw_split"]["launches"],
+        "max_abs_err": errs[("pfb_channelize_fused", 64)],
+        "ms": med[("pfb_channelize_fused", "kernel")],
+        "plain_ms": med[("pfb_channelize_fused", "plain")],
+        "shape": f"({BLOCK // 64 + 13}, 64) complex64 -> (64, {BLOCK // 64}) complex64",
+        "pipeline_msps": {
+            "agc_pfb_fused": pfb_runs["pfb_channelize_fused"]["msps"],
+            "agc_eager": pfb_runs["pfb_channelize_fused"]["eager_msps"],
+            "raw_split_pfb_fused": pfb_runs["raw_split"]["msps"],
+            "raw_split_eager": pfb_runs["raw_split"]["eager_msps"]},
+        "pipeline_msps_in_turns": {f"{flow} {b}": rates[(flow, b)]
+                                   for flow in ("DeNBFM -a", "-c 4 DeNo")
+                                   for b in ("pfb_fused", "eager")},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -8,9 +8,10 @@ imports).  Blocks are static config plus two functions over explicit state,
 
 composed with ``chain`` and streamed by ``Pipeline`` on an explicit
 ``torch.device``.  The fused DC blocker → NCO → PFB → DFT → FM demod chain
-is a hand-written CUDA kernel (``csrc/flagship_fused.cu``), built with
-``nvcc`` at its first CUDA launch; on a CPU tensor its plain PyTorch twin
-runs instead.
+(``csrc/flagship_fused.cu``) and the fused PFB FIR → DFT (→ FM demod) tail
+(``csrc/pfb_fused.cu``) are hand-written CUDA kernels, built with ``nvcc``
+at their first CUDA launch; on a CPU tensor their plain PyTorch versions
+run instead.
 """
 
 import torch as _torch
@@ -22,7 +23,9 @@ _torch.backends.cudnn.allow_tf32 = False
 
 from .core.block import Block, Chain, chain, PerChannel, MixChannels  # noqa: E402
 from .core.runtime import Pipeline, rechunk, take_n  # noqa: E402
-from .blocks import dc_blocker, firpfbch_channelizer, fm_demodulator, u8_to_iq  # noqa: E402
+from .blocks import (  # noqa: E402
+    automatic_gain_control, dc_blocker, firpfbch_channelizer, fm_demodulator, u8_to_iq,
+)
 from .models.receivers import channelized_receiver, channelized_fm_receiver  # noqa: E402
 from .io.sources import cf32_file_source, cu8_file_source  # noqa: E402
 from .io.sinks import (  # noqa: E402
@@ -32,7 +35,8 @@ from .io.sinks import (  # noqa: E402
 __all__ = [
     "Block", "Chain", "chain", "PerChannel", "MixChannels",
     "Pipeline", "rechunk", "take_n",
-    "dc_blocker", "firpfbch_channelizer", "fm_demodulator", "u8_to_iq",
+    "automatic_gain_control", "dc_blocker", "firpfbch_channelizer", "fm_demodulator",
+    "u8_to_iq",
     "channelized_receiver", "channelized_fm_receiver",
     "cf32_file_source", "cu8_file_source",
     "RawFileSink", "AudioFileSink", "ChannelFileSinks", "NullSink", "CollectSink",

@@ -6,6 +6,7 @@ Reference export          → here
 fmDemodulator kf          → fm_demodulator(kf)
 dcBlocker                 → dc_blocker()
 firpfbchChannelizer n     → firpfbch_channelizer(nch)
+automaticGainControl t    → automatic_gain_control(t)
 (cu8 capture input)       → u8_to_iq()
 """
 
@@ -17,13 +18,15 @@ import numpy as np
 import torch
 
 from ..core.block import Block, TailStateBlock
+from ..ops import agc as agc_ops
 from ..ops import demod as demod_ops
 from ..ops import iir as iir_ops
 from ..ops import nco as nco_ops
 from ..ops import pfb as pfb_ops
 
 __all__ = ["u8_to_iq", "fm_demodulator", "dc_blocker", "firpfbch_channelizer",
-           "U8ToIQ", "FMDemod", "DCBlocker", "PFBChannelizer"]
+           "automatic_gain_control", "U8ToIQ", "FMDemod", "DCBlocker", "PFBChannelizer",
+           "AGC"]
 
 
 class U8ToIQ(Block):
@@ -108,3 +111,26 @@ class PFBChannelizer(Block):
 
 def firpfbch_channelizer(nch: int, **kw) -> Block:
     return PFBChannelizer(nch, **kw)
+
+
+class AGC(Block):
+    """AGC with squelch (reference automaticGainControl: bandwidth 0.1,
+    signal level 1e-3).  State (ln_gain, prev_above); inside ``PerChannel``
+    both gain a leading channel axis."""
+
+    def __init__(self, squelch_threshold_db: float | None, bandwidth: float = 0.1,
+                 signal_level: float = 1e-3):
+        self.squelch_threshold_db = squelch_threshold_db
+        self.bandwidth = bandwidth
+        self.signal_level = signal_level
+        self.name = f"agc({squelch_threshold_db})"
+
+    def init(self, device: torch.device):
+        return agc_ops.agc_init(device, self.signal_level)
+
+    def apply(self, state, x):
+        return agc_ops.agc_stream(state, x, self.bandwidth, self.squelch_threshold_db)
+
+
+def automatic_gain_control(threshold_db: float) -> Block:
+    return AGC(threshold_db)

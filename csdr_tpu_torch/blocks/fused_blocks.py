@@ -1,6 +1,9 @@
 """Blocks backed by the hand-written CUDA kernels.
 
-Counterpart of ``csdr_tpu/blocks/pallas_blocks.py`` (``FlagshipFused``)."""
+Counterpart of ``csdr_tpu/blocks/pallas_blocks.py``: ``FlagshipFused``
+(the whole chain, K1/K2), ``PFBFusedFM`` (``PallasChannelizedFM``, K3) and
+``PFBFusedChannelizer`` (the channelizer alone on K4, which the JAX package
+calls inside its sharded AGC flow)."""
 
 from __future__ import annotations
 
@@ -9,9 +12,11 @@ from fractions import Fraction
 import torch
 
 from ..core.block import Block
+from ..ops import pfb as pfb_ops
 from ..ops.cuda import flagship_fused as ff
+from ..ops.cuda import pfb_fused as pf
 
-__all__ = ["FlagshipFused"]
+__all__ = ["FlagshipFused", "PFBFusedFM", "PFBFusedChannelizer"]
 
 
 class FlagshipFused(Block):
@@ -43,3 +48,50 @@ class FlagshipFused(Block):
             x = x.reshape(-1)  # (n, 2) rows → (2n,) interleaved, a view
         return ff.flagship_fused_step(state, x, nch=self.nch, m=self.m, as_db=self.as_db,
                                       kf=self.kf, dc_alpha=self.dc_alpha, tileF=self.tileF)
+
+
+class PFBFusedFM(Block):
+    """PFB channelizer >> PerChannel(FM demod) with the channelizer's NCO in
+    PyTorch and the FIR, DFT and demod in the K3 kernel
+    (``ops/cuda/pfb_fused.channelized_fm_pfb_step``).  Drop-in for
+    ``firpfbch_channelizer(nch) >> PerChannel(fm_demodulator(kf))`` from
+    frame 1 on; the state is the JAX ``PallasChannelizedFM``'s."""
+
+    def __init__(self, nch: int, kf: float = 0.6, m: int = 7, as_db: float = 80.0,
+                 tileF: int | None = None):
+        self.nch, self.kf, self.m, self.as_db = nch, kf, m, as_db
+        self.tileF = pf.DEFAULT_TILE_F if tileF is None else tileF
+        self.rate = Fraction(1, nch)
+        self.granule = nch * self.tileF
+        self.name = f"pfb_fused_fm({nch})"
+
+    def init(self, device: torch.device):
+        return pf.channelized_fm_pfb_init(self.nch, device, self.m)
+
+    def apply(self, state, x):
+        return pf.channelized_fm_pfb_step(state, x, nch=self.nch, m=self.m, as_db=self.as_db,
+                                          kf=self.kf, tileF=self.tileF)
+
+
+class PFBFusedChannelizer(Block):
+    """``PFBChannelizer`` with the FIR and DFT in the K4 kernel
+    (``ops/cuda/pfb_fused.channelize_pfb_step``): the same rate, output
+    (nch, n/nch) complex64 and state, and a granule of nch·tileF."""
+
+    def __init__(self, nch: int, m: int = 7, as_db: float = 80.0, tileF: int | None = None):
+        self.nch, self.m, self.as_db = nch, m, as_db
+        self.tileF = pf.DEFAULT_TILE_F if tileF is None else tileF
+        self.rate = Fraction(1, nch)
+        self.granule = nch * self.tileF
+        # "/torch-v1", as FlagshipFused: a layout version for saved states;
+        # this first layout is PFBChannelizer's, so either block resumes the
+        # other's state
+        self.name = f"pfb_fused_channelizer({nch})/torch-v1"
+
+    def init(self, device: torch.device):
+        return (torch.zeros((), dtype=torch.float32, device=device),
+                pfb_ops.pfb_analyze_init(self.nch, device, self.m))
+
+    def apply(self, state, x):
+        return pf.channelize_pfb_step(state, x, nch=self.nch, m=self.m, as_db=self.as_db,
+                                      tileF=self.tileF)

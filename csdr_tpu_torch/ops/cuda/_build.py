@@ -1,8 +1,9 @@
 """Build the package's CUDA sources into one shared library, on first use.
 
-``nvcc`` compiles every ``csdr_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
+``nvcc`` compiles every ``csdr_tpu_torch/csrc/*.cu`` for ``sm_90a`` — one
+process per source, all started together — and links the objects into
 ``build/csdr_tpu_torch/libcsdr_kernels-<hash>.so`` at the root of the
-checkout, keyed on a hash of the sources, and the library is loaded with
+checkout, keyed on a hash of the sources; the library is loaded with
 ``ctypes``.  The sources expose a plain C interface and include no PyTorch
 header, so a build takes seconds.  Nothing here runs at import time: the
 CPU-only test suite imports the package with no CUDA toolchain.
@@ -60,18 +61,32 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builds never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp, *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / f"nvcc-{key}.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    # compile into a private directory and rename the library into place:
+    # concurrent builds never load a half-written library
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        objs = [work / f"{p.stem}.o" for p in srcs]
+        procs = [subprocess.Popen([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                                   "-Xptxas", "-v", "-c", "-o", str(o), str(p)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(srcs, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [(p.name, proc.returncode, log) for p, proc, log in zip(srcs, procs, logs)
+                  if proc.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(work / "lib.so"),
+                                   *map(str, objs)], capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append(("the link", link.returncode, logs[-1]))
+        (BUILD_DIR / f"nvcc-{key}.log").write_text("".join(logs))
+        if failed:
+            what, rc, log = failed[0]
+            raise RuntimeError(f"nvcc failed on {what} ({rc}):\n{log[-4000:]}")
+        os.replace(work / "lib.so", out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

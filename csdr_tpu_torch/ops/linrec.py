@@ -1,6 +1,8 @@
 """Parallel first-order linear recurrences, y[n] = a·y[n−1] + b[n].
 
-Counterpart of ``csdr_tpu/ops/linrec.py``, with the same blocked algorithm:
+Counterpart of ``csdr_tpu/ops/linrec.py``, with the same blocked algorithm,
+run along the last axis so that a (nch, n) channel panel solves one
+recurrence per row (the JAX package vmaps the 1-D solve instead):
 
   1. reshape the forcing sequence into (B, L) blocks,
   2. solve each block with zero carry as one matmul, w = b @ Tᵀ with the
@@ -48,54 +50,64 @@ def _carry_powers(a: complex | float, L: int, B: int):
     return tuple(steps), seed
 
 
+@functools.lru_cache(maxsize=32)
+def _constants_on(a: complex | float, L: int, B: int, device: torch.device, dt: torch.dtype):
+    """The decay matrix, a^(i+1), the doubling steps and the carry seeds on
+    ``device``, made once per (a, L, B, device, dtype): a blocking
+    host→device copy synchronises the stream, so none runs per call."""
+    T_np, apow_np = _decay_matrices(a, L)
+    steps, seed_np = _carry_powers(a, L, B)
+    put = lambda v: torch.from_numpy(v).to(device)
+    return put(T_np).T, put(apow_np).to(dt), steps, put(seed_np).to(dt)
+
+
 def linrec(b: torch.Tensor, a: complex | float, y0: torch.Tensor,
            block: int = _DEF_L) -> torch.Tensor:
-    """Solve y[n] = a·y[n−1] + b[n] for all n with y[−1] = y0.
+    """Solve y[n] = a·y[n−1] + b[n] along the last axis, with y[−1] = y0.
 
-    ``a`` is a static python scalar, ``b`` a 1-D float32 or complex64
-    tensor, ``y0`` a scalar tensor.  Returns y with the promoted dtype of
-    (b, a, y0), on ``b``'s device."""
-    n = b.shape[0]
+    ``a`` is a static python scalar, ``b`` a float32 or complex64 tensor of
+    shape (..., n): every row is its own recurrence, and ``y0`` holds one
+    carry per row (shape (...), or a scalar for all rows).  Returns y with
+    the promoted dtype of (b, a, y0), on ``b``'s device."""
+    n = b.shape[-1]
     if isinstance(a, complex) and a.imag == 0.0:
         a = a.real
     a_complex = isinstance(a, complex)
     out_complex = a_complex or b.is_complex() or torch.as_tensor(y0).is_complex()
     dt = torch.complex64 if out_complex else torch.float32
     b = b.to(dt)
-    y0 = torch.as_tensor(y0, device=b.device).to(dt).reshape(())
+    batch = b.shape[:-1]
+    y0 = torch.as_tensor(y0, device=b.device).to(dt).expand(batch)[..., None]
 
     L = min(block, max(8, n))
     B = -(-n // L)
     pad = B * L - n
     if pad:
-        b = torch.cat([b, b.new_zeros(pad)])
-    bb = b.reshape(B, L)
+        b = torch.cat([b, b.new_zeros(batch + (pad,))], dim=-1)
+    bb = b.reshape(batch + (B, L))
 
     a_key = complex(a) if a_complex else float(a)
-    T_np, apow_np = _decay_matrices(a_key, L)
-    T = torch.from_numpy(T_np).to(b.device)
-    apow = torch.from_numpy(apow_np).to(b.device).to(dt)
+    Tt, apow, steps, seed = _constants_on(a_key, L, B, b.device, dt)
 
     # within-block solution with zero carry; a real pole on complex forcing
     # runs as two real matmuls
     if out_complex and not a_complex:
-        w = torch.complex(bb.real @ T.T, bb.imag @ T.T)
+        w = torch.complex(bb.real @ Tt, bb.imag @ Tt)
     else:
-        w = bb @ T.T.to(dt)
+        w = bb @ Tt
 
     # block carries: uniform decay aL, so the inclusive scan is a doubling
     # (Hillis-Steele) sum  v[k] += aL^d · v[k−d]
-    steps, seed_np = _carry_powers(a_key, L, B)
-    v = w[:, -1].clone()
+    v = w[..., -1].clone()
     d = 1
     for p in steps:
-        v = torch.cat([v[:d], v[d:] + p * v[:-d]])
+        v = torch.cat([v[..., :d], v[..., d:] + p * v[..., :-d]], dim=-1)
         d *= 2
-    g = v + torch.from_numpy(seed_np).to(b.device).to(dt) * y0
-    g_prev = torch.cat([y0.reshape(1), g[:-1]])
+    g = v + seed * y0
+    g_prev = torch.cat([y0, g[..., :-1]], dim=-1)
 
-    y = (w + apow[None, :] * g_prev[:, None]).reshape(B * L)
-    return y[:n] if pad else y
+    y = (w + apow * g_prev[..., None]).reshape(batch + (B * L,))
+    return y[..., :n] if pad else y
 
 
 def linrec_ref(b: np.ndarray, a: complex | float, y0: complex | float) -> np.ndarray:

@@ -20,7 +20,7 @@ import torch
 
 from ..utils.firdes import pfb_kaiser_prototype
 
-__all__ = ["pfb_offset", "pfb_taps", "pfb_dft_matrix", "pfb_analyze_init",
+__all__ = ["pfb_offset", "pfb_taps", "pfb_dft_matrix", "pfb_design", "pfb_analyze_init",
            "pfb_analyze_stream"]
 
 
@@ -46,6 +46,14 @@ def pfb_dft_matrix(nch: int) -> np.ndarray:
     return np.exp(2j * np.pi * np.outer(p, p) / nch).astype(np.complex64)
 
 
+@functools.lru_cache(maxsize=16)
+def pfb_design(nch: int, m: int, as_db: float, device: torch.device):
+    """(taps (L, nch) float32, W (nch, nch) complex64) on ``device``, made
+    once per device: a blocking host→device copy synchronises the stream."""
+    return (torch.from_numpy(pfb_taps(nch, m, as_db)).to(device),
+            torch.from_numpy(pfb_dft_matrix(nch)).to(device))
+
+
 def pfb_analyze_init(nch: int, device: torch.device, m: int = 7):
     """(tail of the previous block, nch−1 samples; branch FIR history, L−1
     frames)."""
@@ -60,7 +68,7 @@ def pfb_analyze_stream(state, x: torch.Tensor, nch: int, m: int = 7, as_db: floa
     hist_x, hist_v = state
     n = x.shape[0]
     F = n // nch
-    taps = torch.from_numpy(pfb_taps(nch, m, as_db)).to(x.device)
+    taps, W = pfb_design(nch, m, float(as_db), x.device)
     L = taps.shape[0]
 
     xfull = torch.cat([hist_x, x])                        # n + nch − 1
@@ -72,6 +80,5 @@ def pfb_analyze_stream(state, x: torch.Tensor, nch: int, m: int = 7, as_db: floa
         term = vfull[L - 1 - l: L - 1 - l + F] * taps[l][None, :]
         u = term if u is None else u + term
 
-    W = torch.from_numpy(pfb_dft_matrix(nch)).to(x.device)
     d = u @ W
     return (xfull[F * nch:], vfull[F:]), d.T

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["from_jax_chain_state", "from_jax_flagship_state"]
+__all__ = ["from_jax_chain_state", "from_jax_flagship_state", "from_jax_pfb_fm_state"]
 
 
 def _leaf(a, device: torch.device) -> torch.Tensor:
@@ -24,9 +24,11 @@ def from_jax_chain_state(state, device: torch.device):
 
     For ``dc_blocker >> firpfbch_channelizer >> PerChannel(fm_demodulator)``
     that is ``(dc_blocker_init, (phase, pfb_analyze_init), stacked FMDemod
-    state)``; the port's blocks carry the same leaves in the same nesting,
-    so the tuple structure maps one to one and each leaf keeps its shape
-    and dtype."""
+    state)``, and with the AGC ``PerChannel(chain(AGC, fm_demodulator))``
+    carries ``((ln_gain (nch,), prev_above (nch,) bool), FMDemod state)``;
+    the port's blocks carry the same leaves in the same nesting, so the
+    tuple structure maps one to one and each leaf keeps its shape and
+    dtype."""
     if isinstance(state, (tuple, list)):
         return tuple(from_jax_chain_state(s, device) for s in state)
     return _leaf(state, device)
@@ -45,3 +47,13 @@ def from_jax_flagship_state(state: dict, device: torch.device) -> dict:
         x_last=_leaf(np.complex64(scal[0] + 1j * scal[1]), device),
         y_dc_last=_leaf(np.complex64(scal[2] + 1j * scal[3]), device),
     )
+
+
+def from_jax_pfb_fm_state(state, device: torch.device):
+    """State of the JAX ``PallasChannelizedFM`` (``channelized_fm_pallas_init``:
+    phase, hist_x (nch−1,), hist_v (L, nch)) → the port's ``PFBFusedFM``
+    state, which has the same leaves."""
+    phase, hist_x, hist_v = state
+    return (_leaf(np.asarray(phase, np.float32).reshape(()), device),
+            _leaf(np.asarray(hist_x, np.complex64), device),
+            _leaf(np.asarray(hist_v, np.complex64), device))

@@ -1,5 +1,10 @@
-"""The port's soapy-sdr CLI (channelized NBFM flow) on the CPU, and the
-package's independence from JAX."""
+"""The port's soapy-sdr CLI (channelized NBFM, AGC and raw-split flows) on
+the CPU, and the package's independence from JAX.
+
+pfb_fused against eager: 2e-3 max from frame 1 for DeNBFM
+(tests/test_pallas_fused.py:55); for the K4 flows, whose plain version on
+the CPU is the eager channelizer's arithmetic, 2e-5 max-rel
+(tests/test_golden.py)."""
 
 import os
 import subprocess
@@ -33,7 +38,9 @@ def captures(tmp_path):
 
 
 @pytest.mark.parametrize("ext,backend,fmt", [("cf32", "eager", "F32"), ("cf32", "fused", "WAV"),
-                                             ("cu8", "eager", "WAV"), ("cu8", "fused", "F32")])
+                                             ("cu8", "eager", "WAV"), ("cu8", "fused", "F32"),
+                                             ("cf32", "pfb_fused", "F32"),
+                                             ("cu8", "pfb_fused", "WAV")])
 def test_channelized_nbfm_flow_writes_one_file_per_channel(captures, tmp_path, ext, backend,
                                                            fmt):
     out = str(tmp_path / f"out_{backend}")
@@ -62,7 +69,7 @@ def test_fused_and_eager_cli_outputs_agree(captures, tmp_path):
     assert np.max(np.abs(outs["fused"][:, 1:] - outs["eager"][:, 1:])) < 1.2e-3
 
 
-@pytest.mark.parametrize("extra", [["--mix"], ["--mesh", "2x1"], ["--agc", "-30"],
+@pytest.mark.parametrize("extra", [["--mix"], ["--mesh", "2x1"], ["--demod", "DeAM WAV"],
                                    ["--offset", "1000"], ["--demod", "DeWBFM 8 WAV"],
                                    ["--demod", "DeNBFM 0.6 AU"], ["-c", "1"], ["--no-file"]])
 def test_unported_options_exit_nonzero(captures, tmp_path, extra, capsys):
@@ -74,6 +81,83 @@ def test_unported_options_exit_nonzero(captures, tmp_path, extra, capsys):
         args += extra
     assert main(args) != 0
     assert "not yet ported in csdr_tpu_torch" in capsys.readouterr().err
+    assert not any(f.startswith("x_ch") for f in os.listdir(tmp_path))
+
+
+def read_channels(prefix, ext, dtype, nch=NCH):
+    return np.stack([np.fromfile(f"{prefix}_ch{i}.{ext}", dtype) for i in range(1, nch + 1)])
+
+
+def test_pfb_fused_and_eager_cli_outputs_agree(captures, tmp_path):
+    outs = {}
+    for backend in ("eager", "pfb_fused"):
+        out = str(tmp_path / backend)
+        assert main(["--filename", captures["cf32"], "-n", str(N), "-c", str(NCH), "-o", out,
+                     "--blocksize", "1024", "--demod", "DeNBFM 0.6 F32",
+                     "--backend", backend, "--device", "cpu"]) == 0
+        outs[backend] = read_channels(out, "f32", np.float32)
+    assert outs["eager"].shape == (NCH, N // NCH)
+    assert np.max(np.abs(outs["pfb_fused"][:, 1:] - outs["eager"][:, 1:])) < 2e-3
+
+
+@pytest.fixture
+def half_band_capture(tmp_path):
+    """FM carriers on the even channels at −30 dB, the odd channels empty
+    but for −100 dB of noise: far from the −60 dB squelch either way."""
+    rng = np.random.default_rng(3)
+    t = np.arange(N)
+    x = 1e-5 * (rng.normal(size=N) + 1j * rng.normal(size=N))
+    for k in range(0, NCH, 2):
+        fc = (k - (NCH - 1) / 2) / NCH
+        x += 0.03 * np.exp(1j * (2 * np.pi * np.mod(fc * t, 1.0)
+                                 + 2.0 * np.sin(2 * np.pi * 0.004 * t)))
+    path = tmp_path / "half.cf32"
+    x.astype(np.complex64).tofile(path)
+    return str(path)
+
+
+def test_agc_squelch_flow_both_backends(half_band_capture, tmp_path):
+    outs = {}
+    for backend in ("eager", "pfb_fused"):
+        out = str(tmp_path / backend)
+        assert main(["--filename", half_band_capture, "-n", str(N), "-c", str(NCH), "-o", out,
+                     "--blocksize", "1024", "--demod", "DeNBFM 0.6 F32", "-a", "-60",
+                     "--backend", backend, "--device", "cpu"]) == 0
+        for i in range(1, NCH + 1):
+            assert os.path.getsize(f"{out}_ch{i}.f32") == N // NCH * 4
+        outs[backend] = read_channels(out, "f32", np.float32)
+    got, want = outs["pfb_fused"], outs["eager"]
+    assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 2e-5
+    assert not want[1::2].any()                           # squelched: all zeros
+    assert np.all(np.abs(want[0::2]).max(axis=1) > 0.01)  # occupied: open
+
+
+@pytest.mark.parametrize("ext", ["cf32", "cu8"])
+@pytest.mark.parametrize("agc", [None, "-60"])
+def test_raw_split_writes_cf32_channels(captures, tmp_path, ext, agc):
+    nch = 4
+    outs = {}
+    for backend in ("eager", "pfb_fused"):
+        out = str(tmp_path / backend)
+        argv = ["--filename", captures[ext], "-n", str(N), "-c", str(nch), "-o", out,
+                "--blocksize", "1024", "--demod", "DeNo", "--backend", backend,
+                "--device", "cpu"]
+        assert main(argv + (["-a", agc] if agc else [])) == 0
+        for i in range(1, nch + 1):
+            assert os.path.getsize(f"{out}_ch{i}.cf32") == N // nch * 8
+        outs[backend] = read_channels(out, "cf32", np.complex64, nch)
+    got, want = outs["pfb_fused"], outs["eager"]
+    assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 2e-5
+    if agc:  # the AGC brings every open channel to unit level
+        assert abs(np.median(np.abs(want[:, N // nch // 2:])) - 1.0) < 0.2
+
+
+@pytest.mark.parametrize("extra", [["-a", "-60"], ["--demod", "DeNo"]])
+def test_fused_backend_refuses_agc_and_raw_flows(captures, tmp_path, extra, capsys):
+    args = ["--filename", captures["cf32"], "-c", str(NCH), "-o", str(tmp_path / "x"),
+            "--demod", "DeNBFM 0.6 F32", "--backend", "fused", "--device", "cpu"] + extra
+    assert main(args) != 0
+    assert "--backend pfb_fused" in capsys.readouterr().err
     assert not any(f.startswith("x_ch") for f in os.listdir(tmp_path))
 
 
@@ -93,6 +177,7 @@ def test_package_imports_without_jax():
         import csdr_tpu_torch
         import csdr_tpu_torch.apps.soapy_sdr_cli, csdr_tpu_torch.utils.convert
         import csdr_tpu_torch.blocks.fused_blocks, csdr_tpu_torch.ops.cuda._build
+        import csdr_tpu_torch.ops.cuda.pfb_fused, csdr_tpu_torch.ops.agc
         bad = [m for m in sys.modules if m == "jax" and sys.modules[m] is not None
                or m.startswith(("jax.", "jaxlib")) or m == "csdr_tpu"
                or m.startswith("csdr_tpu.")]

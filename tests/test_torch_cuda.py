@@ -1,6 +1,6 @@
-"""The CUDA kernel against its plain twin, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
-These tests need a CUDA device (the kernel has no CPU mode) and skip
+These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one.  The file imports no JAX, so it runs where only PyTorch is
 installed:
 
@@ -9,14 +9,20 @@ installed:
 Tolerance: 1.2e-3 max over every frame (tests/test_flagship_fused_wide.py:66;
 kernel and twin share frame 0's seed), on a band with a carrier in every
 channel so no channel magnitude sits near zero, where atan2 would amplify
-float32 rounding by 1/|d|.
+float32 rounding by 1/|d|.  The PFB kernels K3/K4 (``pfb_fused``): 2e-3
+max (tests/test_pallas_fused.py:55, tests/test_pfb_channelize_fused.py:39)
+and 4e-5 RMS (tests/test_flagship_fused_wide.py:67, the same arithmetic).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import csdr_tpu_torch as ct
 from csdr_tpu_torch.ops.cuda import flagship_fused as ff
+from csdr_tpu_torch.ops.cuda import pfb_fused as pf
+from csdr_tpu_torch.ops.nco import mix_stream
+from csdr_tpu_torch.ops.pfb import pfb_offset
 
 torch.set_num_threads(1)
 
@@ -71,3 +77,74 @@ def test_launch_refuses_bad_input_on_card(dev):
     with pytest.raises(ValueError):  # state on another device
         ff.flagship_fused_step(ff.flagship_fused_init(64, torch.device("cpu")),
                                torch.zeros(64 * 32, dtype=torch.complex64, device=dev), nch=64)
+
+
+def _err(a, b):
+    d = (a.double() - b.double()).abs()
+    return d.max().item(), d.pow(2).mean().sqrt().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch,shard", [(64, False), (64, True), (20, False)])
+@pytest.mark.parametrize("demod", [True, False])
+def test_pfb_kernels_match_plain(dev, nch, shard, demod):
+    """K3 (demod) and K4 on the same panels as their plain versions, the
+    full DFT matrix or its column shard [nch/2, nch)."""
+    L, tileF = 14, pf.DEFAULT_TILE_F
+    F = tileF * 40
+    x = torch.from_numpy(occupied_band(nch, (F + L) * nch, seed=nch + 1)).to(dev)
+    # NCO-shifted as on the main path: unshifted, every carrier sits on a
+    # channel edge, where the demod's phase step is ≈π and atan2's ±π branch
+    # cut flips between two right implementations
+    _, xs = mix_stream(torch.zeros((), device=dev), x, pfb_offset(nch), up=False)
+    vfull = xs.reshape(F + L, nch).flip(1).contiguous()
+    if not demod:
+        vfull = vfull[1:].contiguous()
+    taps, W = pf.pfb_design(nch, 7, 80.0, dev)
+    if shard:
+        W = W[:, nch // 2:]
+    name = "pfb_fm_fused" if demod else "pfb_channelize_fused"
+    fn, ref = ((pf.pfb_fm_fused, pf.pfb_fm_fused_ref) if demod
+               else (pf.pfb_channelize_fused, pf.pfb_channelize_fused_ref))
+    before = pf.launches[name]
+    got = fn(vfull, taps, W, nch=nch, L=L)
+    torch.cuda.synchronize()
+    assert pf.launches[name] == before + 1
+    want = ref(vfull, taps, W.contiguous(), nch=nch, L=L)
+    assert got.shape == want.shape == (W.shape[1], F)
+    assert got.dtype == (torch.float32 if demod else torch.complex64)
+    mx, rms = _err(torch.view_as_real(got) if not demod else got,
+                   torch.view_as_real(want) if not demod else want)
+    assert mx < 2e-3 and rms < 4e-5, (mx, rms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch", [64, 20])
+def test_pfb_fused_receivers_match_eager(dev, nch):
+    """dc_blocker >> PFBFusedFM (K3) and the K4 channelizer with AGC, three
+    state-chained blocks, against the eager graphs on the card (K3 from
+    frame 1: its demod history starts at zeros)."""
+    n = nch * pf.DEFAULT_TILE_F * 48
+    x = torch.from_numpy(occupied_band(nch, 3 * n, seed=nch + 2)).to(dev)
+    graphs = {
+        "k3": (ct.channelized_fm_receiver(nch, backend="pfb_fused"),
+               ct.channelized_fm_receiver(nch, backend="eager"), "pfb_fm_fused"),
+        "k4": (ct.channelized_receiver(nch, ct.fm_demodulator(0.6), agc_threshold_db=-60.0,
+                                       backend="pfb_fused"),
+               ct.channelized_receiver(nch, ct.fm_demodulator(0.6), agc_threshold_db=-60.0),
+               "pfb_channelize_fused"),
+    }
+    for fused, eager, name in graphs.values():
+        sf, se = fused.init(dev), eager.init(dev)
+        yf, ye = [], []
+        before = pf.launches[name]
+        for b in range(3):
+            sf, y = fused.apply(sf, x[b * n:(b + 1) * n])
+            yf.append(y)
+            se, y = eager.apply(se, x[b * n:(b + 1) * n])
+            ye.append(y)
+        assert pf.launches[name] == before + 3
+        yf, ye = torch.cat(yf, dim=1), torch.cat(ye, dim=1)
+        assert yf.shape == ye.shape == (nch, 3 * n // nch)
+        mx, rms = _err(yf[:, 1:], ye[:, 1:])
+        assert mx < 2e-3 and rms < 4e-5, (name, mx, rms)
