@@ -34,12 +34,34 @@ and for the PFB kernels K3 (pfb_fm_fused) and K4 (pfb_channelize_fused):
       PFBFusedFM path (eager DC blocker + NCO + K3) against the eager graph,
       and the CLI flows' rates with the backends run in turns.
 
+and for the FIR kernels K5 (fir_valid) and K6 (fft_fir):
+
+  3c. kernel vs plain: 3 state-chained blocks through the streaming FIR
+      (its hist carried), K5 at (64, 2^17) complex x 585 taps, (64, 2^17)
+      real x 585 and (1, 2^23) complex x 3,651 taps; K6 at (1, 2^23)
+      complex x the 1,826-tap USB band-pass and real x real 3,651 taps,
+      and K6 against the "fft" strategy;
+  4c. main paths on a 2^25-sample cu8 capture with keyed CW carriers in
+      the even channels of a 64-way split: -c 64 DeCW under --backend
+      eager (K5) and pfb_fused (K4 + K5), held against the same flow with
+      K5's plain version in its place, every occupied channel's audio on
+      its 700 Hz pitch and every empty one >= 20 dB below; -c 1 --offset
+      -b 48000 DeCW (front end + K5); -c 1 DeAM -a (no kernel) against the
+      same flow on the CPU; K6 through the library (FIRFilter with
+      strategy="pallas_fft") against strategy="fft".  Every kernel count
+      is set to 0 before each run: a run's own kernels must launch, no
+      other;
+  5c. timings: K5 and K6 against their plain versions and the "fft"
+      strategy at the shapes of 3c, and the 4c flows' rates (the DeCW
+      backends in turns).
+
 Prints one JSON object per result, then the nvidia-smi line, the kernels
 line and, last, {"ok": true, "device": {...}}.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -65,6 +87,15 @@ MAX_ERR, RMS_ERR, U8_ERR = 1.2e-3, 4e-5, 2e-4
 PFB_MAX_ERR, AGC_REL_ERR = 2e-3, 5e-3
 AGC_T = -48.0            # squelch threshold (dB) of the half-empty capture
 AGC_MARGIN = 15.0        # dB every channel must keep from it
+# K5 and K6, relative to the largest output (tests/test_pallas_fir.py:21,
+# tests/test_fftfir.py:36); K6 against the "fft" strategy
+# (tests/test_fftfir.py:82)
+K5_REL_ERR, K6_REL_ERR, K6_FFT_REL_ERR = 2e-3, 2e-4, 3e-4
+CW_BW, CW_PITCH = 500.0, 700.0   # Hz: "DeCW 500 700 WAV"
+CW_EMPTY_DB = 20.0       # an empty channel's audio stays this far below
+CW_DIT_S = 0.06          # keying unit of the CW carriers, seconds
+CW_TUNE = 100.0          # Hz the -c 1 flow tunes below its carrier
+AM_T = -70.0             # squelch of the DeAM -a run, far below the noise floor
 
 
 def fail(msg: str):
@@ -145,10 +176,14 @@ def ptxas_summary(lib) -> dict:
     log = lib.with_name(lib.name.replace("libcsdr_kernels-", "nvcc-").replace(".so", ".log"))
     out, name = {}, None
     for ln in log.read_text().splitlines():
-        m = re.search(r"Compiling entry function .*?(dc_pass|channel_pass|carry_scan|pfb_tile)"
-                      r"(?:I((?:L[a-z]\d+E)+)E)?", ln)
+        m = re.search(r"Compiling entry function .*?(dc_pass|channel_pass|carry_scan|pfb_tile|"
+                      r"fir_valid_tile|fft_fir_segment)"
+                      r"(?:I((?:L[a-z]\d+E)+)E|I((?:f|6float2|S\d*_)+)E)?", ln)
         if m:
             targs = re.findall(r"L[a-z](\d+)E", m.group(2) or "")
+            # type arguments: f = float; 6float2, or a back-reference to it
+            targs += ["float" if t == "f" else "float2"
+                      for t in re.findall(r"6float2|S\d*_|f", m.group(3) or "")]
             name = m.group(1) + (f"<{','.join(targs)}>" if targs else "")
         elif name and ("registers" in ln or "spill" in ln):
             out[name] = (out.get(name, "") + " " + ln.split(":", 1)[-1].strip()).strip()
@@ -216,10 +251,15 @@ def phase_compare(torch, ct, ff, dev, card):
     return result
 
 
-def reset_counts(ff, pf):
-    ff.launches = 0
+def reset_counts(ff, pf, fv, fx):
+    ff.launches = fv.launches = fx.launches = 0
     for k in pf.launches:
         pf.launches[k] = 0
+
+
+def read_counts(ff, pf, fv, fx) -> dict:
+    return dict(pf.launches, flagship_fused=ff.launches, fir_valid=fv.launches,
+                fft_fir=fx.launches)
 
 
 def pfb_plain_step(torch, pf, state, x, nch: int, demod: bool):
@@ -324,6 +364,8 @@ def phase_compare_pfb(torch, ct, pf, dev, card):
 def phase_main_path(torch, ff, pf, dev, card, tmp):
     """The CLI's channelized NBFM flow over a cu8 capture, fused and eager."""
     from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
 
     nch = 64
     frames = CAPTURE // nch
@@ -345,13 +387,14 @@ def phase_main_path(torch, ff, pf, dev, card, tmp):
                 "--blocksize", str(BLOCK)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts(ff, pf)
+        reset_counts(ff, pf, fv, fx)
         t0 = time.perf_counter()
         rc = cli_main(argv)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = ff.launches
         check(rc == 0, f"CLI {backend} exit code {rc}")
+        check(fv.launches == fx.launches == 0, f"the {backend} CLI run launched a FIR kernel")
         files = sorted(f for f in os.listdir(tmp) if f.startswith(f"{backend}_ch"))
         check(len(files) == nch, f"CLI {backend}: {len(files)} output files, want {nch}")
         for f in files:
@@ -391,19 +434,25 @@ def phase_main_path(torch, ff, pf, dev, card, tmp):
 def cli_run(torch, ff, pf, cli_main, argv: list[str]) -> tuple[float, dict]:
     """One CLI run with every kernel count set to 0 just before it; returns
     (seconds, the counts just after)."""
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+
     torch.cuda.synchronize()
-    reset_counts(ff, pf)
+    reset_counts(ff, pf, fv, fx)
     t0 = time.perf_counter()
     rc = cli_main(argv)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     check(rc == 0, f"CLI {' '.join(argv[-8:])}: exit code {rc}")
-    return dt, dict(pf.launches, flagship_fused=ff.launches)
+    return dt, read_counts(ff, pf, fv, fx)
 
 
-def check_counts(counts: dict, want: str | None, what: str):
+def check_counts(counts: dict, want, what: str):
+    """Every kernel named in ``want`` (a name, a tuple of names or None)
+    launched, no other did."""
+    want = () if want is None else (want,) if isinstance(want, str) else tuple(want)
     for k, v in counts.items():
-        if k == want:
+        if k in want:
             check(v > 0, f"{what}: {k} launched no time")
         else:
             check(v == 0, f"{what}: {k} launched {v} times")
@@ -560,13 +609,34 @@ def phase_cli_rates(torch, ff, pf, card, tmp, capture, agc_path):
 
 def phase_timing(torch, ct, ff, dev, card):
     """Kernel, its plain twin and the eager graph, one 2^23-sample
-    device-resident block, in turns (plain, kernel, kernel, plain)."""
+    device-resident block, in turns (plain, kernel, kernel, plain); then the
+    kernel and its twin at nch 20 (K2's any-nch path) on cu8."""
     nch = 64
     x = occupied_band(torch, dev, nch, BLOCK, SEED + 1)
     inputs = {"f32": x, "u8": to_cu8(torch, x)}
     eager = ct.channelized_fm_receiver(nch, kf=KF, backend="eager")
     graphs = {"f32": eager, "u8": ct.chain(ct.u8_to_iq(), eager)}
     medians = {}
+    n20 = block_len(20, ff.DEFAULT_TILE_F)
+    u8_20 = to_cu8(torch, occupied_band(torch, dev, 20, n20, SEED + 20))
+    box20 = {}
+
+    def run_kernel20():
+        box20["k"], _ = ff.flagship_fused_step(box20["k"], u8_20, nch=20, kf=KF)
+
+    def run_twin20():
+        box20["t"], _ = ff.flagship_fused_ref(box20["t"], u8_20, nch=20, kf=KF)
+
+    box20.update(k=ff.flagship_fused_init(20, dev), t=ff.flagship_fused_init(20, dev))
+    ms20 = {"kernel": [], "twin": []}
+    for name, fn in (("twin", run_twin20), ("kernel", run_kernel20),
+                     ("kernel", run_kernel20), ("twin", run_twin20)):
+        ms20[name] += time_steps(torch, fn)
+    for name, v in ms20.items():
+        med = statistics.median(v)
+        medians[("u8_nch20", name)] = med
+        emit(dict(phase="timing", path=name, input="u8", nch=20, n=n20, steps=len(v),
+                  median_ms=med, min_ms=min(v), msps=n20 / (med * 1e-3) / 1e6, **card))
     for fmt, xb in inputs.items():
         xe = xb if fmt == "f32" else xb.view(BLOCK, 2)
         box = {}
@@ -638,6 +708,321 @@ def phase_timing_pfb(torch, ct, pf, dev, card):
     return medians
 
 
+def cw_taps(rate: float):
+    """The DeCW filter's taps at a channel rate (cw_demodulator's design)."""
+    import csdr_tpu_torch as ct
+
+    return ct.cw_demodulator(CW_BW / rate, CW_PITCH / rate).blocks[0].taps
+
+
+def usb_taps():
+    """The -c 1 DeUSB 3000 band-pass at 2.56 MS/s: 1,826 complex taps."""
+    import csdr_tpu_torch as ct
+
+    return ct.ssb_demodulator("usb", 3000.0 / 2.56e6).blocks[0].taps
+
+
+def rel_err(torch, got, want) -> tuple[float, float]:
+    """(max |err| relative to the largest output, max |err|)."""
+    g, w = (torch.view_as_real(v) if v.is_complex() else v for v in (got, want))
+    d = (g.double() - w.double()).abs().max().item()
+    return d / w.double().abs().max().item(), d
+
+
+def fir_cases(torch, dev):
+    """3c/5c shapes: (name, kernel, plain, taps, rows, n, complex input)."""
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+
+    cw64, cw1, usb = cw_taps(2.56e6 / 64), cw_taps(2.56e6), usb_taps()
+    check((len(cw64), len(cw1), len(usb)) == (585, 3651, 1826),
+          f"taps {len(cw64)}, {len(cw1)}, {len(usb)}")
+    return [
+        ("fir_valid", "c64_complex_585", fv.fir_valid, fv.fir_valid_ref, cw64, 64, BLOCK // 64,
+         True),
+        ("fir_valid", "c64_real_585", fv.fir_valid, fv.fir_valid_ref, cw64, 64, BLOCK // 64,
+         False),
+        ("fir_valid", "c1_complex_3651", fv.fir_valid, fv.fir_valid_ref, cw1, 1, BLOCK, True),
+        ("fft_fir", "c1_complex_usb_1826", fx.fft_fir_valid, fx.fft_fir_valid_ref, usb, 1,
+         BLOCK, True),
+        ("fft_fir", "c1_real_real_3651", fx.fft_fir_valid, fx.fft_fir_valid_ref, cw1, 1, BLOCK,
+         False),
+    ]
+
+
+def rand_rows(torch, dev, rows: int, n: int, cplx: bool, seed: int):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, n, 2 if cplx else 1, device=dev, generator=g)
+    return torch.view_as_complex(x) if cplx else x[..., 0].contiguous()
+
+
+def phase_compare_fir(torch, dev, card):
+    """3c. K5 and K6 vs their plain versions over 3 state-chained blocks of
+    the streaming FIR (hist carried as fir_stream carries it)."""
+    from csdr_tpu_torch.ops.fir import conv_valid
+
+    result = {}
+    for kname, case, kernel, plain, taps, rows, n, cplx in fir_cases(torch, dev):
+        K = len(taps)
+        x = rand_rows(torch, dev, rows, 3 * n, cplx, SEED + K + rows)
+        dt = torch.complex64 if (cplx or np.iscomplexobj(taps)) else torch.float32
+        hk = hp = torch.zeros(rows, K - 1, dtype=dt, device=dev)
+        yk, yp, yf = [], [], []
+        for b in range(3):
+            xb = x[:, b * n:(b + 1) * n]
+            xk, xp = torch.cat([hk, xb], dim=-1), torch.cat([hp, xb], dim=-1)
+            yk.append(kernel(xk, taps))
+            yp.append(plain(xp, taps))
+            yf.append(conv_valid(xp, taps, "fft"))
+            hk, hp = xk[:, -(K - 1):].contiguous(), xp[:, -(K - 1):].contiguous()
+        yk, yp = torch.cat(yk, dim=-1), torch.cat(yp, dim=-1)
+        torch.cuda.synchronize()
+        check(yk.shape == (rows, 3 * n) and yk.dtype == yp.dtype, f"{case}: shape/dtype")
+        check(bool(torch.isfinite(torch.view_as_real(yk) if yk.is_complex() else yk).all()),
+              f"{case}: non-finite output")
+        rel, mx = rel_err(torch, yk, yp)
+        out = dict(phase="compare_fir", kernel=kname, case=case, rows=rows, n_per_block=n,
+                   blocks=3, taps=K, complex_in=cplx, vs_plain_rel=rel, vs_plain_max=mx)
+        # K5 against the fft strategy: the complex FIR bound (tests/test_fir.py:36)
+        bound, fbound = ((K5_REL_ERR, K5_REL_ERR) if kname == "fir_valid"
+                         else (K6_REL_ERR, K6_FFT_REL_ERR))
+        frel, _ = rel_err(torch, yk, torch.cat(yf, dim=-1))
+        out["vs_fft_strategy_rel"] = frel
+        emit(dict(out, **card))
+        check(rel < bound, f"{case}: kernel vs plain rel {rel} (bound {bound})")
+        check(frel < fbound, f"{case}: kernel vs the fft strategy rel {frel} (bound {fbound})")
+        result[case] = (mx, frel)
+        del x, yk, yp, yf
+    return result
+
+
+def keyed_cw_capture(torch, dev, nch: int, n: int, seed: int, noise: float = 0.01):
+    """cu8 (2n,) bytes: CW carriers keyed on and off at the centres of the
+    even channels of an nch-way split (channel k at (k − (nch−1)/2)/nch
+    cycles/sample), each with its own keying phase, plus noise; made on the
+    device in float64 from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    x = torch.zeros(n, dtype=torch.complex128, device=dev)
+    dit = 2.56e6 * CW_DIT_S
+    for k in range(0, nch, 2):
+        fc = (k - (nch - 1) / 2) / nch
+        key = (torch.remainder(torch.floor(t / dit) + k, 3) != 2).to(torch.float64)
+        ph = 2 * np.pi * torch.remainder(fc * t, 1.0) + float(rng.uniform(0, 2 * np.pi))
+        x += 0.08 * key * torch.polar(torch.ones_like(ph), ph)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x += noise * torch.view_as_complex(torch.randn(n, 2, device=dev, generator=g,
+                                                   dtype=torch.float64))
+    return to_cu8(torch, x.to(torch.complex64))
+
+
+def read_wavs(prefix: str, nch: int, frames: int) -> np.ndarray:
+    names = [f"{prefix}.wav"] if nch == 1 else [f"{prefix}_ch{k + 1}.wav" for k in range(nch)]
+    out = []
+    for f in names:
+        got = os.path.getsize(f)
+        check(got == 44 + 4 * frames, f"{f} has {got} bytes, want {44 + 4 * frames}")
+        out.append(np.fromfile(f, "<f4", offset=44))
+        os.unlink(f)
+    return np.stack(out)
+
+
+def pitch_check(audio: np.ndarray, rate: float) -> tuple[np.ndarray, np.ndarray]:
+    """(peak frequency in Hz per stream, audio power in dB per stream)."""
+    a = audio.astype(np.float64)
+    spec = np.abs(np.fft.rfft(a - a.mean(axis=1, keepdims=True), axis=1))
+    peak = (spec[:, 1:].argmax(axis=1) + 1) * rate / a.shape[1]
+    return peak, 10 * np.log10((a ** 2).mean(axis=1) + 1e-30)
+
+
+@contextlib.contextmanager
+def plain_k5():
+    """Run the flows inside with K5's plain version in the kernel's place."""
+    from csdr_tpu_torch.ops import fir as fir_ops
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+
+    fir_ops.fir_valid = fv.fir_valid_ref
+    try:
+        yield
+    finally:
+        fir_ops.fir_valid = fv.fir_valid
+
+
+def phase_main_path_fir(torch, ff, pf, dev, card, tmp):
+    """4c. The DeCW, DeAM and library K6 paths on a 2^25-sample capture."""
+    import csdr_tpu_torch as ct
+    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+
+    nch = 64
+    frames = CAPTURE // nch
+    chan_rate = 2.56e6 / nch
+    u8 = keyed_cw_capture(torch, dev, nch, CAPTURE, SEED + 400)
+    path = os.path.join(tmp, "keyed_cw.cu8")
+    u8.cpu().numpy().tofile(path)
+    common = ["-n", str(CAPTURE), "--device", "cuda", "--blocksize", str(BLOCK)]
+    out, rates = {}, {}
+
+    # -c 64 DeCW: eager (K5), pfb_fused (K4 + K5), and eager with K5's plain
+    # version in its place
+    cw = {}
+    for label, backend, want in (("eager", "eager", "fir_valid"),
+                                 ("pfb_fused", "pfb_fused", ("pfb_channelize_fused",
+                                                             "fir_valid")),
+                                 ("plain_k5", "eager", None)):
+        prefix = os.path.join(tmp, f"cw_{label}")
+        with plain_k5() if label == "plain_k5" else contextlib.nullcontext():
+            dt, counts = cli_run(torch, ff, pf, cli_main, [
+                "--filename", path, "-c", str(nch), "-o", prefix, "--demod",
+                f"DeCW {CW_BW:g} {CW_PITCH:g} WAV", "--backend", backend, *common])
+        check_counts(counts, want, f"CLI -c 64 DeCW {label}")
+        cw[label] = (read_wavs(prefix, nch, frames), dt, counts)
+    plain = cw["plain_k5"][0]
+    peaks, power = pitch_check(cw["eager"][0], chan_rate)
+    on_pitch = np.abs(peaks[0::2] - CW_PITCH) <= 2 * chan_rate / frames
+    margin = float(power[0::2].min() - power[1::2].max())
+    for label in ("eager", "pfb_fused"):
+        audio, dt, counts = cw[label]
+        check(bool(np.isfinite(audio).all()), f"CLI DeCW {label}: non-finite audio")
+        rel = float(np.abs(audio.astype(np.float64) - plain).max() / np.abs(plain).max())
+        emit(dict(phase="main_path_fir", flow="-c 64 DeCW", backend=label, wire="cu8",
+                  samples=CAPTURE, channels=nch, seconds=dt, msps=CAPTURE / dt / 1e6,
+                  launches=counts, vs_plain_k5_rel=rel, plain_k5_seconds=cw["plain_k5"][1],
+                  occupied_on_pitch=int(on_pitch.sum()), empty_margin_db=margin,
+                  taps=585, **card))
+        check(rel < K5_REL_ERR, f"CLI DeCW {label} vs plain K5: rel {rel}")
+        rates[("-c 64 DeCW", label)] = CAPTURE / dt / 1e6
+    check(bool(on_pitch.all()), f"DeCW channels off their pitch: {peaks[0::2].round(1)}")
+    check(margin >= CW_EMPTY_DB, f"DeCW empty channels only {margin:.1f} dB below")
+    out["fir_valid"] = dict(launches=cw["eager"][2]["fir_valid"],
+                            launches_pfb_fused=cw["pfb_fused"][2])
+    del cw, plain
+
+    # -c 1 --offset -b 48000 DeCW: front end + K5.  Tuned CW_TUNE Hz below
+    # channel 10's carrier: tuned exactly to DC, the flow's DC blocker would
+    # notch the carrier and leave only its keying sidebands
+    offset = (10 - (nch - 1) / 2) / nch * 2.56e6 - CW_TUNE
+    n48 = CAPTURE * 3 // 160
+    prefix = os.path.join(tmp, "cw1")
+    single = {}
+    for label in ("kernel", "plain_k5"):
+        with plain_k5() if label == "plain_k5" else contextlib.nullcontext():
+            dt, counts = cli_run(torch, ff, pf, cli_main, [
+                "--filename", path, "-c", "1", "--offset", repr(offset), "-b", "48000",
+                "-o", prefix, "--demod", f"DeCW {CW_BW:g} {CW_PITCH:g} WAV", "--device",
+                "cuda", "--blocksize", str(BLOCK), "-n", str(n48)])
+        check_counts(counts, "fir_valid" if label == "kernel" else None, f"CLI -c 1 DeCW {label}")
+        single[label] = (read_wavs(prefix, 1, n48), dt, counts)
+    audio = single["kernel"][0]
+    rel = float(np.abs(audio.astype(np.float64) - single["plain_k5"][0]).max()
+                / np.abs(single["plain_k5"][0]).max())
+    peak, _ = pitch_check(audio, 48000.0)
+    emit(dict(phase="main_path_fir", flow="-c 1 --offset -b 48000 DeCW", offset_hz=offset,
+              samples_in=CAPTURE, samples_out=n48, seconds=single["kernel"][1],
+              msps_in=CAPTURE / single["kernel"][1] / 1e6, launches=single["kernel"][2],
+              vs_plain_k5_rel=rel, peak_hz=float(peak[0]), taps=701, **card))
+    check(bool(np.isfinite(audio).all()), "CLI -c 1 DeCW: non-finite audio")
+    check(rel < K5_REL_ERR, f"CLI -c 1 DeCW vs plain K5: rel {rel}")
+    check(abs(peak[0] - CW_PITCH - CW_TUNE) <= 2 * 48000.0 / n48,
+          f"CLI -c 1 DeCW peak {peak[0]} Hz, want {CW_PITCH + CW_TUNE}")
+    rates[("-c 1 -b 48000 DeCW", "kernel")] = CAPTURE / single["kernel"][1] / 1e6
+    out["fir_valid_single"] = single["kernel"][2]["fir_valid"]
+
+    # -c 1 DeAM -a: no kernel; the CPU runs the same flow on the first 2^22
+    n_cpu = min(1 << 22, CAPTURE)
+    am = {}
+    for device, n, block in (("cuda", CAPTURE, BLOCK), ("cpu", n_cpu, n_cpu)):
+        prefix = os.path.join(tmp, f"am_{device}")
+        dt, counts = cli_run(torch, ff, pf, cli_main, [
+            "--filename", path, "-c", "1", "-o", prefix, "--demod", "DeAM WAV",
+            "-a", str(AM_T), "--device", device, "--blocksize", str(block), "-n", str(n)])
+        check_counts(counts, None, f"CLI -c 1 DeAM -a {device}")
+        am[device] = (read_wavs(prefix, 1, n), dt)
+    got, want = am["cuda"][0][:, :n_cpu], am["cpu"][0]
+    rel = float(np.abs(got.astype(np.float64) - want).max() / np.abs(want).max())
+    emit(dict(phase="main_path_fir", flow="-c 1 DeAM -a", threshold_db=AM_T, samples=CAPTURE,
+              seconds=am["cuda"][1], msps=CAPTURE / am["cuda"][1] / 1e6, launches={},
+              vs_cpu_rel=rel, cpu_samples=n_cpu, **card))
+    check(bool(np.isfinite(am["cuda"][0]).all()), "CLI DeAM: non-finite audio")
+    check(rel < AGC_REL_ERR, f"CLI DeAM card vs CPU: rel {rel}")
+    rates[("-c 1 DeAM -a", "eager")] = CAPTURE / am["cuda"][1] / 1e6
+    del am, got, want
+
+    # K6 through the library: u8 → IQ → FIRFilter(USB band-pass) → real
+    taps = usb_taps()
+    lib = {}
+    for strategy, want in (("pallas_fft", "fft_fir"), ("fft", None)):
+        g = ct.chain(ct.u8_to_iq(), ct.fir_filter(taps, True, strategy=strategy),
+                     ct.Lambda(lambda x: x.real.contiguous(), name="re"))
+        pipe = ct.Pipeline(g, block_size=BLOCK, device=dev)
+        sink = ct.CollectSink()
+        torch.cuda.synchronize()
+        reset_counts(ff, pf, fv, fx)
+        t0 = time.perf_counter()
+        total = pipe.run(ct.cu8_file_source(path, BLOCK), sink)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts(ff, pf, fv, fx)
+        check_counts(counts, want, f"library FIRFilter {strategy}")
+        check(total == CAPTURE, f"library FIRFilter {strategy}: {total} samples")
+        lib[strategy] = (sink.concat(), dt, counts)
+    got, want = lib["pallas_fft"][0], lib["fft"][0]
+    rel = float(np.abs(got.astype(np.float64) - want).max() / np.abs(want).max())
+    emit(dict(phase="main_path_fir", flow="library FIRFilter pallas_fft", samples=CAPTURE,
+              taps=len(taps), seconds=lib["pallas_fft"][1],
+              msps=CAPTURE / lib["pallas_fft"][1] / 1e6, fft_seconds=lib["fft"][1],
+              fft_msps=CAPTURE / lib["fft"][1] / 1e6, launches=lib["pallas_fft"][2],
+              vs_fft_strategy_rel=rel, **card))
+    check(got.shape == (CAPTURE,) and bool(np.isfinite(got).all()), "library K6: output")
+    check(rel < K6_FFT_REL_ERR, f"library K6 vs fft strategy: rel {rel}")
+    rates[("library USB band-pass", "pallas_fft")] = CAPTURE / lib["pallas_fft"][1] / 1e6
+    rates[("library USB band-pass", "fft")] = CAPTURE / lib["fft"][1] / 1e6
+    out["fft_fir"] = dict(launches=lib["pallas_fft"][2]["fft_fir"])
+    return out, rates, path
+
+
+def phase_timing_fir(torch, ff, pf, dev, card, tmp, cw_path):
+    """5c. K5 and K6 alone against their plain versions and the "fft"
+    strategy at the shapes of 3c, one block each, in turns (plain, kernel,
+    kernel, plain); then the -c 64 DeCW CLI backends in turns."""
+    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
+    from csdr_tpu_torch.ops.fir import conv_valid
+
+    medians = {}
+    for kname, case, kernel, plain, taps, rows, n, cplx in fir_cases(torch, dev):
+        K = len(taps)
+        xfull = rand_rows(torch, dev, rows, n + K - 1, cplx, SEED + 7 * K)
+        fns = {"kernel": lambda: kernel(xfull, taps), "plain": lambda: plain(xfull, taps),
+               "fft": lambda: conv_valid(xfull, taps, "fft")}
+        ms = {k: [] for k in fns}
+        for which in ("fft", "plain", "kernel", "kernel", "plain", "fft"):
+            ms[which] += time_steps(torch, fns[which])
+        for which, v in ms.items():
+            med = statistics.median(v)
+            q = statistics.quantiles(v, n=4)
+            medians[(case, which)] = med
+            emit(dict(phase="timing_fir", kernel=kname, case=case, impl=which, rows=rows, n=n,
+                      taps=K, complex_in=cplx, steps=len(v), median_ms=med, q1_ms=q[0],
+                      q3_ms=q[2], min_ms=min(v), msps=rows * n / (med * 1e-3) / 1e6, **card))
+        del xfull
+
+    common = ["--filename", cw_path, "-c", "64", "--demod", f"DeCW {CW_BW:g} {CW_PITCH:g} WAV",
+              "-n", str(CAPTURE), "--device", "cuda", "--blocksize", str(BLOCK)]
+    secs = {"eager": [], "pfb_fused": []}
+    order = ["eager", "pfb_fused", "pfb_fused", "eager"]
+    for b in order:
+        prefix = os.path.join(tmp, "rate_cw")
+        dt, counts = cli_run(torch, ff, pf, cli_main, common + ["-o", prefix, "--backend", b])
+        check_counts(counts, ("fir_valid",) if b == "eager" else
+                     ("fir_valid", "pfb_channelize_fused"), f"CLI DeCW rate {b}")
+        secs[b].append(dt)
+    rates = {b: CAPTURE / statistics.median(v) / 1e6 for b, v in secs.items()}
+    emit(dict(phase="cli_rates", flow="-c 64 DeCW", order=order, samples=CAPTURE,
+              seconds=secs, median_msps=rates, **card))
+    return medians, rates
+
+
 def main() -> int:
     import torch
 
@@ -673,6 +1058,7 @@ def main() -> int:
     # 3. kernel vs plain
     errs = phase_compare(torch, ct, ff, dev, card)
     errs.update(phase_compare_pfb(torch, ct, pf, dev, card))  # 3b
+    errs.update(phase_compare_fir(torch, dev, card))  # 3c
 
     # 4. main paths through the CLI
     with tempfile.TemporaryDirectory() as tmp:
@@ -682,27 +1068,47 @@ def main() -> int:
                                                  runs, bins)  # 4b
         del runs
         rates = phase_cli_rates(torch, ff, pf, card, tmp, capture, agc_path)  # 5b
+        for f in (capture, agc_path):
+            os.unlink(f)
+        fir_runs, fir_rates, cw_path = phase_main_path_fir(torch, ff, pf, dev, card, tmp)  # 4c
+        fir_med, cw_rates = phase_timing_fir(torch, ff, pf, dev, card, tmp, cw_path)  # 5c
 
     # 5. timings
     med = phase_timing(torch, ct, ff, dev, card)
     med.update(phase_timing_pfb(torch, ct, pf, dev, card))  # 5b
 
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": "flagship_fused",
+    flagship = {
         "route": "cuda",
         "source": "csdr_tpu_torch/csrc/flagship_fused.cu",
-        "replaces": "csdr_tpu/ops/pallas/flagship_fused.py:479",
-        "also_replaces": "csdr_tpu/ops/pallas/flagship_fused_wide.py:537",
         "launches": launches,
-        "max_abs_err": errs[(64, "u8")],
         "ms": med[("u8", "kernel")],
         "plain_ms": med[("u8", "twin")],
         "eager_ms": med[("u8", "eager")],
         "shape": f"cu8 ({2 * BLOCK},) uint8 -> (64, {BLOCK // 64}) float32",
         "pipeline_msps": {"fused": fused_msps, "eager": eager_msps},
         "pipeline_msps_in_turns": {b: rates[("DeNBFM", b)] for b in ("fused", "eager")},
-    }, {
+    }
+    emit({"kernels": [dict(
+        name="flagship_fused_wide",
+        replaces="csdr_tpu/ops/pallas/flagship_fused_wide.py:537",
+        max_abs_err=errs[(64, "u8")],
+        note="K1 (nch | 64) and K2 are one CUDA kernel; launches, ms, plain_ms and "
+             "max_abs_err read the -c 64 main path and the nch 64 cu8 runs",
+        **flagship,
+    ), dict(
+        name="flagship_fused",
+        replaces="csdr_tpu/ops/pallas/flagship_fused.py:479",
+        max_abs_err=errs[(64, "u8")],
+        note="the same kernel as flagship_fused_wide: launches, ms, plain_ms and "
+             "max_abs_err read the same -c 64 main path and nch 64 cu8 runs; "
+             "K2's any-nch path is timed and compared at nch 20 under nch20",
+        nch20={"ms": med[("u8_nch20", "kernel")], "plain_ms": med[("u8_nch20", "twin")],
+               "max_abs_err": max(errs[(20, "f32")], errs[(20, "u8")]),
+               "shape": f"cu8 ({2 * block_len(20, ff.DEFAULT_TILE_F)},) uint8 -> "
+                        f"(20, {block_len(20, ff.DEFAULT_TILE_F) // 20}) float32"},
+        **flagship,
+    ), {
         "name": "pfb_fm_fused",
         "route": "cuda",
         "source": "csdr_tpu_torch/csrc/pfb_fused.cu",
@@ -735,6 +1141,47 @@ def main() -> int:
         "pipeline_msps_in_turns": {f"{flow} {b}": rates[(flow, b)]
                                    for flow in ("DeNBFM -a", "-c 4 DeNo")
                                    for b in ("pfb_fused", "eager")},
+    }, {
+        "name": "fir_valid",
+        "route": "cuda",
+        "source": "csdr_tpu_torch/csrc/fir_valid.cu",
+        "replaces": "csdr_tpu/ops/pallas/fir_kernel.py:100",
+        "launches": fir_runs["fir_valid"]["launches"],
+        "launches_pfb_fused_run": fir_runs["fir_valid"]["launches_pfb_fused"],
+        "launches_single_channel_run": fir_runs["fir_valid_single"],
+        "max_abs_err": errs["c64_complex_585"][0],
+        "vs_fft_strategy_rel": errs["c64_complex_585"][1],
+        "ms": fir_med[("c64_complex_585", "kernel")],
+        "plain_ms": fir_med[("c64_complex_585", "plain")],
+        "fft_strategy_ms": fir_med[("c64_complex_585", "fft")],
+        "shape": f"(64, {BLOCK // 64 + 584}) complex64 x 585 real taps -> (64, {BLOCK // 64})",
+        "other_shapes": {c: {"ms": fir_med[(c, "kernel")], "plain_ms": fir_med[(c, "plain")],
+                             "fft_strategy_ms": fir_med[(c, "fft")], "max_abs_err": errs[c][0],
+                             "vs_fft_strategy_rel": errs[c][1]}
+                         for c in ("c64_real_585", "c1_complex_3651")},
+        "pipeline_msps": {f"{f} {b}": r for (f, b), r in fir_rates.items()
+                          if "DeCW" in f},
+        "pipeline_msps_in_turns": {f"-c 64 DeCW {b}": r for b, r in cw_rates.items()},
+    }, {
+        "name": "fft_fir",
+        "route": "cuda",
+        "source": "csdr_tpu_torch/csrc/fft_fir.cu",
+        "replaces": "csdr_tpu/ops/pallas/fftfir.py:137",
+        "launches": fir_runs["fft_fir"]["launches"],
+        "max_abs_err": errs["c1_complex_usb_1826"][0],
+        "vs_fft_strategy_rel": errs["c1_complex_usb_1826"][1],
+        "ms": fir_med[("c1_complex_usb_1826", "kernel")],
+        "plain_ms": fir_med[("c1_complex_usb_1826", "plain")],
+        "fft_strategy_ms": fir_med[("c1_complex_usb_1826", "fft")],
+        "shape": f"({BLOCK + 1825},) complex64 x 1826 complex taps -> ({BLOCK},) complex64",
+        "other_shapes": {"c1_real_real_3651": {
+            "ms": fir_med[("c1_real_real_3651", "kernel")],
+            "plain_ms": fir_med[("c1_real_real_3651", "plain")],
+            "fft_strategy_ms": fir_med[("c1_real_real_3651", "fft")],
+            "max_abs_err": errs["c1_real_real_3651"][0],
+            "vs_fft_strategy_rel": errs["c1_real_real_3651"][1]}},
+        "pipeline_msps": {f"{f} {b}": r for (f, b), r in fir_rates.items()
+                          if f.startswith("library")},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,4 @@
-"""csdr_tpu_torch — the channelized FM receiver of csdr_tpu on PyTorch and CUDA.
+"""csdr_tpu_torch — csdr_tpu's receivers on PyTorch and CUDA.
 
 A second package beside ``csdr_tpu`` (the JAX reference, which it never
 imports).  Blocks are static config plus two functions over explicit state,
@@ -8,10 +8,11 @@ imports).  Blocks are static config plus two functions over explicit state,
 
 composed with ``chain`` and streamed by ``Pipeline`` on an explicit
 ``torch.device``.  The fused DC blocker → NCO → PFB → DFT → FM demod chain
-(``csrc/flagship_fused.cu``) and the fused PFB FIR → DFT (→ FM demod) tail
-(``csrc/pfb_fused.cu``) are hand-written CUDA kernels, built with ``nvcc``
-at their first CUDA launch; on a CPU tensor their plain PyTorch versions
-run instead.
+(``csrc/flagship_fused.cu``), the fused PFB FIR → DFT (→ FM demod) tail
+(``csrc/pfb_fused.cu``), the long real-tap FIR (``csrc/fir_valid.cu``) and
+the overlap-save FFT FIR (``csrc/fft_fir.cu``) are hand-written CUDA
+kernels, built with ``nvcc`` at their first CUDA launch; on a CPU tensor
+their plain PyTorch versions run instead.
 """
 
 import torch as _torch
@@ -21,22 +22,29 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-from .core.block import Block, Chain, chain, PerChannel, MixChannels  # noqa: E402
+from .core.block import Block, Chain, chain, Lambda, PerChannel, MixChannels  # noqa: E402
 from .core.runtime import Pipeline, rechunk, take_n  # noqa: E402
 from .blocks import (  # noqa: E402
-    automatic_gain_control, dc_blocker, firpfbch_channelizer, fm_demodulator, u8_to_iq,
+    am_demodulator, automatic_gain_control, cw_demodulator, dc_blocker, fir_decimator,
+    fir_filter, fir_filter_c_kaiser, firpfbch_channelizer, fm_demodulator, mix_down, mix_up,
+    resampler, ssb_demodulator, u8_to_iq,
 )
-from .models.receivers import channelized_receiver, channelized_fm_receiver  # noqa: E402
+from .models.receivers import (  # noqa: E402
+    am_receiver, channelized_fm_receiver, channelized_receiver, front_end, nbfm_receiver,
+    raw_capture,
+)
 from .io.sources import cf32_file_source, cu8_file_source  # noqa: E402
 from .io.sinks import (  # noqa: E402
     RawFileSink, AudioFileSink, ChannelFileSinks, NullSink, CollectSink,
 )
 
 __all__ = [
-    "Block", "Chain", "chain", "PerChannel", "MixChannels",
+    "Block", "Chain", "chain", "Lambda", "PerChannel", "MixChannels",
     "Pipeline", "rechunk", "take_n",
-    "automatic_gain_control", "dc_blocker", "firpfbch_channelizer", "fm_demodulator",
-    "u8_to_iq",
+    "am_demodulator", "automatic_gain_control", "cw_demodulator", "dc_blocker",
+    "fir_decimator", "fir_filter", "fir_filter_c_kaiser", "firpfbch_channelizer",
+    "fm_demodulator", "mix_down", "mix_up", "resampler", "ssb_demodulator", "u8_to_iq",
+    "front_end", "nbfm_receiver", "am_receiver", "raw_capture",
     "channelized_receiver", "channelized_fm_receiver",
     "cf32_file_source", "cu8_file_source",
     "RawFileSink", "AudioFileSink", "ChannelFileSinks", "NullSink", "CollectSink",

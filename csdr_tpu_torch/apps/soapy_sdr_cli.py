@@ -1,22 +1,29 @@
-"""soapy-sdr — the channelized flows of the reference CLI on PyTorch.
+"""soapy-sdr — the file flows of the reference CLI on PyTorch.
 
 Counterpart of ``csdr_tpu/apps/soapy_sdr_cli.py``, reduced to the flows the
-port carries, all from a .cf32 or .cu8 capture split into N > 1 channels,
-one file per channel (``<output>_ch1`` .. ``<output>_chN``):
+port carries, from a .cf32 or .cu8 capture:
 
-  * ``--demod "DeNBFM kf WAV|F32"``: DC blocker → PFB → per-channel FM demod;
-  * ``-a T``: per-channel AGC with a T dB squelch before the demod;
-  * ``--demod DeNo``: the raw split, complex64 ``.cf32`` per channel (with or
-    without ``-a``).
+  * a front end: ``--offset`` (NCO mixer) and ``-b/--bandwidth`` (half-band
+    cascade + rational resampler), then ``-n`` samples at the front end's
+    output rate;
+  * ``-c 1``: ``dc_blocker >> [AGC] >> demod`` into ``<output>.wav|.f32``
+    (``.cf32`` for DeNo);
+  * ``-c N > 1``: DC blocker → PFB → per-channel ``[AGC >>] demod``, one
+    file per channel (``<output>_ch1`` .. ``<output>_chN``);
+  * ``--demod``: ``"DeNBFM kf WAV|F32"``, ``"DeAM WAV|F32"``,
+    ``"DeUSB|DeLSB bw_hz WAV|F32"``, ``"DeCW [bw_hz pitch_hz] WAV|F32"`` or
+    ``DeNo`` (raw complex64); ``-a T`` adds an AGC with a T dB squelch.
 
-``--backend eager`` runs the plain PyTorch graph; ``pfb_fused`` runs the
-channelizer's FIR and DFT in the K3 kernel (with the demod) or, for the AGC
-and DeNo flows, the K4 kernel; ``fused`` runs the whole DeNBFM chain in one
-kernel and has no AGC or raw output.  Every other flow, demod and option of
-the JAX CLI exits non-zero with "not yet ported in csdr_tpu_torch".
+``--backend`` picks the channelizer of ``-c N`` flows: ``eager`` runs the
+plain PyTorch graph; ``pfb_fused`` runs its FIR and DFT in the K3 kernel
+(DeNBFM without AGC, with the demod) or the K4 kernel (every other flow);
+``fused`` runs the whole DeNBFM chain in one kernel and nothing else.  Long
+real FIRs (the CW filter) take the K5 kernel on the card.  Every other
+flow, demod and option of the JAX CLI exits non-zero with "not yet ported in
+csdr_tpu_torch".
 
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -n 33554432 \\
-        -c 64 --demod "DeNBFM 0.6 F32" --backend fused --device cuda
+        -c 64 --demod "DeCW 500 700 WAV" --backend pfb_fused --device cuda
 """
 
 from __future__ import annotations
@@ -40,14 +47,17 @@ _NOT_PORTED = "not yet ported in csdr_tpu_torch"
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="soapy-sdr",
-        description="Channelized NBFM receiver and raw channel split on PyTorch "
-                    "(CUDA or CPU)")
+        description="Single-channel and channelized receivers on PyTorch (CUDA or CPU)")
     p.add_argument("--filename", metavar="NAME",
                    help="Input file: raw CF32 (.cf32) or rtl_sdr uint8 IQ (.cu8)")
     p.add_argument("-s", "--samplerate", type=float, default=2.56e6, metavar="DOUBLE",
-                   help="Sample rate in Hz (sets the WAV rate: samplerate / channels)")
+                   help="Sample rate in Hz")
+    p.add_argument("--offset", type=float, default=0.0, metavar="DOUBLE",
+                   help="Offset frequency in Hz (mixed to DC before everything else)")
+    p.add_argument("-b", "--bandwidth", type=float, default=0.0, metavar="DOUBLE",
+                   help="Output bandwidth in Hz (0 = samplerate = no resampling)")
     p.add_argument("-n", "--numsamples", type=int, default=1024, metavar="INT",
-                   help="Number of samples to process")
+                   help="Number of samples to process, counted after the front end")
     p.add_argument("-c", "--channels", type=int, default=1, metavar="INT",
                    help="Number of channels to split the signal into")
     p.add_argument("-o", "--output", default="output", metavar="FILENAME",
@@ -57,46 +67,57 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--verbose", action="store_true",
                    help="Print the flow's blocks and a throughput summary")
     p.add_argument("--demod", default="DeNo", metavar="DEMOD",
-                   help='Demodulation: "DeNBFM <kf> WAV|F32" or DeNo (raw CF32 channels)')
+                   help='Demodulation: "DeNBFM <kf> WAV|F32", "DeAM WAV|F32", '
+                        '"DeUSB|DeLSB <bw Hz> WAV|F32", "DeCW [<bw Hz> <pitch Hz>] '
+                        'WAV|F32" or DeNo (raw CF32)')
     p.add_argument("-a", "--agc", type=float, default=0.0, metavar="DOUBLE",
-                   help="Per-channel AGC squelch threshold in dB (0 = no AGC)")
+                   help="AGC with a squelch threshold in dB (0 = no AGC); per channel "
+                        "with -c N")
     p.add_argument("--backend", default="eager", choices=["eager", "pfb_fused", "fused"],
-                   help="eager = plain PyTorch graph; pfb_fused = channelizer (and "
-                        "demod) in the PFB CUDA kernels; fused = the whole DeNBFM "
-                        "chain in one CUDA kernel")
+                   help="Channelizer of -c N flows: eager = plain PyTorch graph; "
+                        "pfb_fused = FIR and DFT (and the DeNBFM demod) in the PFB CUDA "
+                        "kernels; fused = the whole DeNBFM chain in one CUDA kernel")
     p.add_argument("--device", default="cuda", choices=["cpu", "cuda"],
                    help="Device the graph runs on (cuda never falls back to cpu)")
     # options of the JAX CLI that the port refuses by name, not by argparse
     p.add_argument("-m", "--mix", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--offset", type=float, default=0.0, help=argparse.SUPPRESS)
-    p.add_argument("-b", "--bandwidth", type=float, default=0.0, help=argparse.SUPPRESS)
     return p
 
 
+_DEMODS = ("DeNBFM", "DeAM", "DeUSB", "DeLSB", "DeCW", "DeNo")
+
+
 def parse_demod(s: str):
-    """Parse the reference's Haskell-Read demod syntax; only ``DeNBFM`` and
-    ``DeNo`` are ported, everything else returns its kind alone."""
+    """Parse the reference's Haskell-Read demod syntax for the ported demods;
+    any other kind returns its name alone."""
     toks = s.replace("(", " ").replace(")", " ").split()
     if not toks:
         return ("DeNo",)
-    if toks[0] == "DeNBFM":
+    kind = toks[0]
+    if kind == "DeNBFM":
         return ("DeNBFM", float(toks[1]), toks[2].upper())
-    return (toks[0],)
+    if kind == "DeAM":
+        return ("DeAM", toks[1].upper())
+    if kind in ("DeUSB", "DeLSB"):
+        return (kind, float(toks[1]), toks[2].upper())
+    if kind == "DeCW":
+        if len(toks) == 2:
+            return ("DeCW", 500.0, 700.0, toks[1].upper())
+        return ("DeCW", float(toks[1]), float(toks[2]), toks[3].upper())
+    return (kind,)
 
 
 def _refusal(opts, demod) -> str | None:
     """Why the requested flow is outside the port, or None."""
-    if demod[0] not in ("DeNBFM", "DeNo"):
-        return f"--demod {demod[0]} is {_NOT_PORTED}; use \"DeNBFM <kf> WAV|F32\" or DeNo"
-    if demod[0] == "DeNBFM" and demod[2] not in ("WAV", "F32"):
-        return f"audio format {demod[2]} is {_NOT_PORTED}; use WAV or F32"
-    for flag, on in (("--mix", opts.mix), ("--mesh", opts.mesh),
-                     ("--offset", opts.offset), ("--bandwidth", opts.bandwidth)):
+    if demod[0] not in _DEMODS:
+        return (f"--demod {demod[0]} is {_NOT_PORTED}; use DeNBFM, DeAM, DeUSB, DeLSB, "
+                "DeCW or DeNo")
+    if demod[0] != "DeNo" and demod[-1] not in ("WAV", "F32"):
+        return f"audio format {demod[-1]} is {_NOT_PORTED}; use WAV or F32"
+    for flag, on in (("--mix", opts.mix), ("--mesh", opts.mesh)):
         if on:
             return f"{flag} is {_NOT_PORTED}"
-    if opts.channels < 2:
-        return f"single-channel flows (-c 1) are {_NOT_PORTED}; use -c N with N > 1"
     if not opts.filename:
         return f"SDR devices are {_NOT_PORTED}; use --filename"
     with open(opts.filename, "rb") as f:
@@ -105,21 +126,63 @@ def _refusal(opts, demod) -> str | None:
     return None
 
 
-def _graph(opts, demod, agc_t):
-    """The flow's graph, composed as the JAX CLI composes it: DeNBFM with no
-    AGC is ``channelized_fm_receiver``; the AGC and DeNo flows put
+def _demod_block(demod, chan_rate: float):
+    """The per-stream demod of the flow (None for DeNo); bandwidths and
+    pitches in Hz are normalized to the channel's rate."""
+    from .. import blocks as B
+
+    kind = demod[0]
+    if kind == "DeNBFM":
+        return B.fm_demodulator(demod[1])
+    if kind == "DeAM":
+        return B.am_demodulator()
+    if kind in ("DeUSB", "DeLSB"):
+        return B.ssb_demodulator("usb" if kind == "DeUSB" else "lsb", demod[1] / chan_rate)
+    if kind == "DeCW":
+        return B.cw_demodulator(demod[1] / chan_rate, demod[2] / chan_rate)
+    return None
+
+
+def _graph(opts, demod, agc_t, out_bw: float):
+    """The flow's main graph behind the front end, composed as the JAX CLI
+    composes it: ``dc_blocker >> [AGC] >> demod`` for -c 1; for -c N,
+    DeNBFM with no AGC is ``channelized_fm_receiver``, every other flow puts
     ``PerChannel([AGC >>] demod)`` behind the channelizer."""
     from ..models.receivers import channelized_fm_receiver, channelized_receiver
     from .. import blocks as B
 
     nch = opts.channels
-    if demod[0] == "DeNo":
+    per = _demod_block(demod, out_bw / nch)
+    if nch == 1:
+        agc = [B.automatic_gain_control(agc_t)] if agc_t is not None else []
+        return chain(B.dc_blocker(), *agc, *([per] if per is not None else []))
+    if demod[0] == "DeNBFM" and agc_t is None:
+        return channelized_fm_receiver(nch, kf=demod[1], backend=opts.backend)
+    if per is None:  # DeNo: the AGC alone per channel, as the JAX CLI builds it
         per = B.automatic_gain_control(agc_t) if agc_t is not None else None
         return channelized_receiver(nch, per, backend=opts.backend)
-    if agc_t is not None:
-        return channelized_receiver(nch, B.fm_demodulator(demod[1]), agc_threshold_db=agc_t,
-                                    backend=opts.backend)
-    return channelized_fm_receiver(nch, kf=demod[1], backend=opts.backend)
+    return channelized_receiver(nch, per, agc_threshold_db=agc_t, backend=opts.backend)
+
+
+def _sink(opts, demod, out_bw: float):
+    nch = opts.channels
+    if demod[0] == "DeNo":
+        make = lambda name: S.RawFileSink(f"{name}.cf32")
+    elif demod[-1] == "WAV":
+        rate = int(round(out_bw)) // nch
+        make = lambda name: S.AudioFileSink(name, rate)
+    else:
+        make = lambda name: S.RawFileSink(f"{name}.f32")
+    if nch == 1:
+        return make(opts.output)
+    return S.ChannelFileSinks(lambda i: make(f"{opts.output}_ch{i + 1}"), nch)
+
+
+def _announce(label: str, graph, device):
+    blocks = graph.blocks if isinstance(graph, Chain) else [graph]
+    print(f"{label} (rate {graph.rate}, granule {graph.granule}) on {device}:")
+    for b in blocks:
+        print(f"  {b!r}")
 
 
 def run_opts(opts) -> int:
@@ -129,49 +192,60 @@ def run_opts(opts) -> int:
         print(why, file=sys.stderr)
         return 2
     agc_t = opts.agc if opts.agc != 0.0 else None
-    if opts.backend == "fused" and (demod[0] == "DeNo" or agc_t is not None):
-        print("--backend fused runs the whole DeNBFM chain in one kernel, with no AGC "
-              "stage and no raw channel output; use --backend pfb_fused or eager",
-              file=sys.stderr)
+    nch = opts.channels
+    if nch < 1:
+        print(f"-c must be at least 1, got {nch}", file=sys.stderr)
+        return 2
+    if opts.backend == "fused" and (nch == 1 or demod[0] != "DeNBFM" or agc_t is not None):
+        print("--backend fused runs the whole channelized DeNBFM chain in one kernel, with "
+              "no AGC stage, no raw channel output and no other demod; use --backend "
+              "pfb_fused or eager", file=sys.stderr)
         return 2
     if opts.device == "cuda" and not torch.cuda.is_available():
         print("--device cuda: no CUDA device is available (use --device cpu)",
               file=sys.stderr)
         return 1
     device = torch.device(opts.device)
-    nch = opts.channels
     cu8 = opts.filename.endswith(".cu8")
+    out_bw = opts.bandwidth if opts.bandwidth else opts.samplerate
 
     from .. import blocks as B
+    from ..models.receivers import front_end
 
-    graph = _graph(opts, demod, agc_t)
-    if cu8 and opts.backend != "fused":
-        graph = chain(B.u8_to_iq(), graph)  # the fused kernel converts cu8 itself
-    if opts.verbose:
-        blocks = graph.blocks if isinstance(graph, Chain) else [graph]
-        print(f"Flow (rate {graph.rate}, granule {graph.granule}) on {device}:")
-        for b in blocks:
-            print(f"  {b!r}")
-
-    pipe = Pipeline(graph, block_size=opts.blocksize, device=device)
+    try:
+        graph = _graph(opts, demod, agc_t, out_bw)
+    except ValueError as e:  # a bandwidth or pitch outside the channel
+        print(e, file=sys.stderr)
+        return 2
     read = SRC.cu8_file_source if cu8 else SRC.cf32_file_source
-    src = read(opts.filename, pipe.block_size)
-    if demod[0] == "DeNo":
-        make_sink = lambda i: S.RawFileSink(f"{opts.output}_ch{i + 1}.cf32")
-    elif demod[2] == "WAV":
-        rate = int(round(opts.samplerate)) // nch
-        make_sink = lambda i: S.AudioFileSink(f"{opts.output}_ch{i + 1}", rate)
+    fe_stages = front_end(opts.samplerate, opts.offset, opts.bandwidth)
+    if fe_stages:
+        # the front end streams on its own pipeline and -n counts its output
+        fe = chain(*([B.u8_to_iq()] if cu8 else []), *fe_stages)
+        fe_pipe = Pipeline(fe, block_size=opts.blocksize, device=device)
+        if opts.verbose:
+            _announce("Front end", fe, device)
+        stream = fe_pipe.stream(read(opts.filename, fe_pipe.block_size))
     else:
-        make_sink = lambda i: S.RawFileSink(f"{opts.output}_ch{i + 1}.f32")
+        if cu8 and opts.backend != "fused":
+            graph = chain(B.u8_to_iq(), graph)  # the fused kernel converts cu8 itself
+        stream = None
+    pipe = Pipeline(graph, block_size=opts.blocksize, device=device)
+    if stream is None:
+        stream = read(opts.filename, pipe.block_size)
+    if opts.verbose:
+        _announce("Flow", graph, device)
+
     t0 = time.perf_counter()
-    with S.ChannelFileSinks(make_sink, nch) as sink:
-        total = pipe.run(src, sink, num_samples=opts.numsamples)
+    with _sink(opts, demod, out_bw) as sink:
+        total = pipe.run(stream, sink, num_samples=opts.numsamples)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     if opts.verbose and dt > 0:
-        print(f"Throughput: {total * nch} input samples in {dt:.3f} s "
-              f"({total * nch / dt / 1e6:.2f} MSPS in)")
+        n_in = total / graph.rate
+        print(f"Throughput: {int(n_in)} samples into the flow in {dt:.3f} s "
+              f"({n_in / dt / 1e6:.2f} MSPS)")
     print(f"Wrote {total} output samples per stream ({opts.backend}, {device})")
     return 0
 

@@ -1,13 +1,24 @@
-"""DSP blocks of the channelized FM slice — counterparts of the blocks of
-the same names in ``csdr_tpu/blocks/__init__.py``.
+"""DSP blocks — counterparts of the blocks of the same names in
+``csdr_tpu/blocks/__init__.py``.
 
 Reference export          → here
 ------------------------------------------------------------------
+resampler r as            → resampler(rate, as_db)
+mixUp f / mixDown f       → mix_up(f) / mix_down(f)
 fmDemodulator kf          → fm_demodulator(kf)
+amDemodulator             → am_demodulator()
+firDecimator m            → fir_decimator(m)
+automaticGainControl t    → automatic_gain_control(t)
 dcBlocker                 → dc_blocker()
 firpfbchChannelizer n     → firpfbch_channelizer(nch)
-automaticGainControl t    → automatic_gain_control(t)
+firFilterCKaiser n fc ... → fir_filter_c_kaiser(n, fc, as_db, mu)
+(explicit taps)           → fir_filter(taps, complex_input, strategy=…)
+(extensions)              → ssb_demodulator(side, bw), cw_demodulator(bw, pitch)
 (cu8 capture input)       → u8_to_iq()
+
+Every block works along the last axis, so inside ``PerChannel`` a
+(nch, n) panel runs every channel at once and the state gains a leading
+channel axis.
 """
 
 from __future__ import annotations
@@ -17,16 +28,23 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from ..core.block import Block, TailStateBlock
+from ..core.block import Block, Lambda, TailStateBlock, chain
 from ..ops import agc as agc_ops
 from ..ops import demod as demod_ops
+from ..ops import fir as fir_ops
 from ..ops import iir as iir_ops
 from ..ops import nco as nco_ops
 from ..ops import pfb as pfb_ops
+from ..ops import resamp as resamp_ops
+from ..utils import firdes
 
-__all__ = ["u8_to_iq", "fm_demodulator", "dc_blocker", "firpfbch_channelizer",
-           "automatic_gain_control", "U8ToIQ", "FMDemod", "DCBlocker", "PFBChannelizer",
-           "AGC"]
+__all__ = ["u8_to_iq", "mix_up", "mix_down", "fm_demodulator", "am_demodulator",
+           "ssb_demodulator", "cw_demodulator", "fir_filter", "fir_filter_c_kaiser",
+           "fir_decimator", "dc_blocker", "firpfbch_channelizer", "automatic_gain_control",
+           "resampler", "U8ToIQ", "Mixer", "FMDemod", "AMDemod", "FIRFilter", "FIRDecim",
+           "DCBlocker", "PFBChannelizer", "AGC", "HalfbandDecim", "RationalResampler"]
+
+_TWO_PI = 2.0 * np.pi
 
 
 class U8ToIQ(Block):
@@ -44,6 +62,30 @@ class U8ToIQ(Block):
 
 def u8_to_iq() -> Block:
     return U8ToIQ()
+
+
+class Mixer(Block):
+    """NCO frequency shift (reference mixUp/mixDown); ``omega`` in
+    radians/sample.  State: the phase, float32."""
+
+    def __init__(self, omega: float, up: bool):
+        self.omega = float(omega)
+        self.up = up
+        self.name = f"mix_{'up' if up else 'down'}({omega:.6g})"
+
+    def init(self, device: torch.device):
+        return torch.zeros((), dtype=torch.float32, device=device)
+
+    def apply(self, state, x):
+        return nco_ops.mix_stream(state, x, self.omega, self.up)
+
+
+def mix_up(omega: float) -> Block:
+    return Mixer(omega, up=True)
+
+
+def mix_down(omega: float) -> Block:
+    return Mixer(omega, up=False)
 
 
 class FMDemod(TailStateBlock):
@@ -66,6 +108,119 @@ class FMDemod(TailStateBlock):
 
 def fm_demodulator(kf: float) -> Block:
     return FMDemod(kf)
+
+
+class AMDemod(Block):
+    """AM envelope demodulator, mod index 0.8, DSB, carrier present
+    (reference amDemodulator)."""
+
+    def __init__(self, mod_index: float = 0.8, suppressed: bool = False):
+        self.mod_index = mod_index
+        self.suppressed = suppressed
+        self.name = "am_demod"
+
+    def apply(self, state, x):
+        return state, demod_ops.amdem(x, self.mod_index, self.suppressed)
+
+
+def am_demodulator(mod_index: float = 0.8, suppressed: bool = False) -> Block:
+    return AMDemod(mod_index, suppressed)
+
+
+def _real_part(name: str = "re") -> Block:
+    # a view of the complex block's storage; sinks and kernels want it dense
+    return Lambda(lambda x: x.real.contiguous(), name=name)
+
+
+def ssb_demodulator(side: str = "usb", bandwidth: float = 0.0125, as_db: float = 60.0,
+                    gain: float = 2.0, n: int | None = None) -> Block:
+    """Single-sideband demodulator: a one-sided complex band-pass (Kaiser
+    low-pass of cutoff B/2 shifted by ±B/2) and the real part; ``gain=2``
+    undoes the ½ of Re[A·e^{jωt}].  ``bandwidth`` is B normalized to the
+    sample rate."""
+    side = side.lower()
+    if side not in ("usb", "lsb"):
+        raise ValueError(f"ssb_demodulator side must be 'usb'/'lsb', got {side!r}")
+    if not (0.0 < bandwidth < 0.5):
+        raise ValueError(f"ssb bandwidth {bandwidth} not in (0, 0.5) of fs")
+    if n is None:
+        n = firdes.kaiser_filter_len(max(0.1 * bandwidth, 0.002), as_db)
+    h = firdes.kaiser_lowpass(n, bandwidth / 2.0, as_db) * gain
+    shift = bandwidth / 2.0 if side == "usb" else -bandwidth / 2.0
+    k = np.arange(n) - (n - 1) / 2.0
+    taps = (h * np.exp(2j * np.pi * shift * k)).astype(np.complex64)
+    bp = FIRFilter(taps, complex_input=True, name=f"ssb_{side}({bandwidth:.4g})")
+    return chain(bp, _real_part())
+
+
+def cw_demodulator(bandwidth: float = 0.002, pitch: float = 0.0029, as_db: float = 60.0) -> Block:
+    """CW (Morse) demodulator: a narrow Kaiser low-pass (±bandwidth/2) around
+    the carrier at DC, a BFO shift to the audible ``pitch``, and the real
+    part; both normalized to the sample rate."""
+    if not (0.0 < bandwidth < 0.5):
+        raise ValueError(f"cw bandwidth {bandwidth} not in (0, 0.5) of fs")
+    n = firdes.kaiser_filter_len(max(0.5 * bandwidth, 0.001), as_db)
+    lp = FIRFilter(firdes.kaiser_lowpass(n, bandwidth / 2.0, as_db),
+                   complex_input=True, name=f"cw_lp({bandwidth:.4g})")
+    return chain(lp, mix_up(_TWO_PI * pitch), _real_part())
+
+
+class FIRFilter(TailStateBlock):
+    """Same-rate streaming FIR from an explicit tap vector; ``strategy`` is
+    ``ops/fir.conv_valid``'s."""
+
+    def __init__(self, taps: np.ndarray, complex_input: bool, name: str = "fir",
+                 scale: float = 1.0, strategy: str = "auto"):
+        self.taps = np.asarray(taps) * scale
+        self.tail_len = len(self.taps) - 1
+        self.complex_input = complex_input
+        self.strategy = strategy
+        self.name = name
+
+    def init(self, device: torch.device):
+        cplx = self.complex_input or np.iscomplexobj(self.taps)
+        return torch.zeros((len(self.taps) - 1,),
+                           dtype=torch.complex64 if cplx else torch.float32, device=device)
+
+    def apply(self, state, x):
+        return fir_ops.fir_stream(self.taps, state, x, self.strategy)
+
+
+def fir_filter(taps, complex_input=True, **kw) -> FIRFilter:
+    return FIRFilter(taps, complex_input, **kw)
+
+
+def fir_filter_c_kaiser(n: int, fc: float, as_db: float = 60.0, mu: float = 0.0) -> FIRFilter:
+    """Complex FIR, Kaiser design, unity passband (reference firFilterCKaiser)."""
+    taps = firdes.kaiser_lowpass(n, fc, as_db, mu)
+    return FIRFilter(taps, complex_input=True, name=f"fir_kaiser({n},{fc:.4g})")
+
+
+class FIRDecim(TailStateBlock):
+    """Kaiser decimating FIR (reference firDecimator: semi-length 10, 60 dB)."""
+
+    def __init__(self, m: int, semilen: int = 10, as_db: float = 60.0,
+                 complex_input: bool = False):
+        self.m = m
+        self.taps = firdes.firdecim_kaiser(m, semilen, as_db)
+        self.tail_len = len(self.taps) - 1
+        self.complex_input = complex_input
+        self.rate = Fraction(1, m)
+        self.granule = m
+        self.name = f"fir_decim({m})"
+
+    def init(self, device: torch.device):
+        dt = torch.complex64 if self.complex_input else torch.float32
+        return torch.zeros((len(self.taps) - 1,), dtype=dt, device=device)
+
+    def apply(self, state, x):
+        return fir_ops.fir_decim_stream(self.taps, self.m, state, x)
+
+
+def fir_decimator(m: int, **kw) -> Block:
+    if m == 1:
+        return Lambda(lambda x: x, name="fir_decim(1)")
+    return FIRDecim(m, **kw)
 
 
 class DCBlocker(Block):
@@ -134,3 +289,61 @@ class AGC(Block):
 
 def automatic_gain_control(threshold_db: float) -> Block:
     return AGC(threshold_db)
+
+
+class RationalResampler(TailStateBlock):
+    """Polyphase P/Q resampler; its state is the (L−1)-sample input tail."""
+
+    def __init__(self, P: int, Q: int, as_db: float = 60.0, complex_input: bool = True):
+        self.P, self.Q, self.as_db = P, Q, as_db
+        self.tail_len = resamp_ops.rational_taps(P, Q, as_db).shape[1] - 1
+        self.complex_input = complex_input
+        self.rate = Fraction(P, Q)
+        self.granule = Q
+        self.name = f"resamp({P}/{Q})"
+
+    def init(self, device: torch.device):
+        dt = torch.complex64 if self.complex_input else torch.float32
+        return resamp_ops.rational_resample_init(self.P, self.Q, device, self.as_db, dt)
+
+    def apply(self, state, x):
+        return resamp_ops.rational_resample_stream(state, x, self.P, self.Q, self.as_db)
+
+
+class HalfbandDecim(TailStateBlock):
+    """2:1 half-band decimator, one stage of the multi-stage resampler."""
+
+    rate = Fraction(1, 2)
+    granule = 2
+
+    def __init__(self, as_db: float = 60.0, semilen: int = 12, complex_input: bool = True):
+        self.taps = firdes.halfband_kaiser(semilen, as_db) * 2.0
+        self.tail_len = len(self.taps) - 1
+        self.complex_input = complex_input
+        self.name = "halfband_decim"
+
+    def init(self, device: torch.device):
+        dt = torch.complex64 if self.complex_input else torch.float32
+        return torch.zeros((len(self.taps) - 1,), dtype=dt, device=device)
+
+    def apply(self, state, x):
+        return fir_ops.fir_decim_stream(self.taps, 2, state, x)
+
+
+def resampler(rate: float, as_db: float = 60.0, complex_input: bool = True) -> Block:
+    """Arbitrary-rate resampler (reference ``resampler r as``): half-band 2:1
+    stages bring the remaining ratio into (0.5, 1], a rational polyphase
+    stage finishes; the rate is realized exactly as a rational."""
+    if rate <= 0:
+        raise ValueError("rate must be positive")
+    stages: list[Block] = []
+    r = float(rate)
+    while r <= 0.5:
+        stages.append(HalfbandDecim(as_db, complex_input=complex_input))
+        r *= 2.0
+    frac = resamp_ops.rational_approx(r)
+    if frac != 1:
+        stages.append(RationalResampler(frac.numerator, frac.denominator, as_db, complex_input))
+    if not stages:
+        return Lambda(lambda x: x, name="resamp(1)")
+    return chain(*stages) if len(stages) > 1 else stages[0]

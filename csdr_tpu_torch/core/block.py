@@ -19,11 +19,11 @@ from __future__ import annotations
 
 import math
 from fractions import Fraction
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import torch
 
-__all__ = ["Block", "Chain", "chain", "TailStateBlock", "PerChannel", "MixChannels"]
+__all__ = ["Block", "Chain", "chain", "TailStateBlock", "Lambda", "PerChannel", "MixChannels"]
 
 
 class Block:
@@ -117,6 +117,18 @@ class TailStateBlock(Block):
     samples (FIR filters, FM demod, …)."""
 
     tail_len: int = 0
+
+
+class Lambda(Block):
+    """Stateless same-rate function of the whole block (reference
+    ``mapA``)."""
+
+    def __init__(self, fn: Callable, name: str = "lambda"):
+        self.fn = fn
+        self.name = name
+
+    def apply(self, state, x):
+        return state, self.fn(x)
 
 
 class PerChannel(Block):

@@ -1,7 +1,7 @@
 """Streaming runtime: the host feed/drain loop around a Block graph.
 
-Counterpart of ``csdr_tpu/core/runtime.py`` (``Pipeline``, ``rechunk``,
-``take_n``, ``append_flush``, ``_drain``).  What it keeps:
+Counterpart of ``csdr_tpu/core/runtime.py`` (``Pipeline`` with ``run`` and
+``stream``, ``rechunk``, ``take_n``, ``append_flush``).  What it keeps:
 
   * a static block size, a multiple of the graph's granule;
   * zero-padding of the last short block, with the output trimmed to the
@@ -117,47 +117,53 @@ class Pipeline:
         done.record(torch.cuda.current_stream(y.device))
         return host, done
 
+    def stream(self, source: Iterable[np.ndarray]) -> Iterator[np.ndarray]:
+        """Stream source → graph, yielding each block's host output trimmed
+        to its exact rational-rate count, one step late so host I/O overlaps
+        the next block.  The final short block is zero-padded to the static
+        block size.  No flush: ``run`` appends it, and a front-end pipeline
+        that feeds another one owes none."""
+        n = self.block_size
+        rate = self.block.rate_tree()
+        pending = None  # (host output, copy-done event, valid input rows)
+        for chunk in rechunk(source, n):
+            valid = len(chunk)
+            if valid < n:
+                chunk = np.pad(chunk, [(0, n - valid)] + [(0, 0)] * (chunk.ndim - 1))
+            host, done = self._to_host(self.process_block(chunk))
+            if pending is not None:
+                yield _finish(*pending, rate)
+            pending = (host, done, valid)
+        if pending is not None:
+            yield _finish(*pending, rate)
+
     def run(self, source: Iterable[np.ndarray], sink: Callable[[np.ndarray], None],
             num_samples: int | None = None) -> int:
-        """Stream source → graph → sink; returns the output samples per
-        stream.  The final short block is zero-padded to the static block
-        size and its output trimmed to the exact rational-rate count; the
-        graph's flush allowance of zeros follows the source."""
-        n = self.block_size
+        """Stream source (cut to ``num_samples``) → graph → sink, with the
+        graph's flush allowance of zeros after the source; returns the output
+        samples per stream."""
         it: Iterable[np.ndarray] = source
         if num_samples is not None:
             it = take_n(it, num_samples)
         nflush = self.block.flush_len()
         if nflush:
             it = append_flush(it, nflush)
-        rate = self.block.rate_tree()
         total_out = 0
-        pending = None  # (host output, copy-done event, valid input rows)
-        for chunk in rechunk(it, n):
-            valid = len(chunk)
-            if valid < n:
-                chunk = np.pad(chunk, [(0, n - valid)] + [(0, 0)] * (chunk.ndim - 1))
-            host, done = self._to_host(self.process_block(chunk))
-            if pending is not None:
-                total_out += _drain(*pending, rate, sink)
-            pending = (host, done, valid)
-        if pending is not None:
-            total_out += _drain(*pending, rate, sink)
+        for out in self.stream(it):
+            sink(out)
+            total_out += out.shape[-1]
         return total_out
 
 
-def _trim(a: np.ndarray, rate: Fraction, valid_in: int):
+def _trim(a: np.ndarray, rate: Fraction, valid_in: int) -> np.ndarray:
     """Trim an output to its rational-rate sample count, along the last axis
     for channelized (nch, n) outputs and the leading axis otherwise."""
     k = (valid_in * rate.numerator) // rate.denominator
-    return (a[..., :k] if a.ndim >= 2 else a[:k]), k
+    return a[..., :k] if a.ndim >= 2 else a[:k]
 
 
-def _drain(host: torch.Tensor, done, valid_in: int, rate: Fraction,
-           sink: Callable[[np.ndarray], None]) -> int:
-    """Wait for one output's copy, trim it and hand it to the sink."""
+def _finish(host: torch.Tensor, done, valid_in: int, rate: Fraction) -> np.ndarray:
+    """Wait for one output's copy and trim it."""
     if done is not None:
         done.synchronize()
-    out, k = _trim(host.numpy(), rate, valid_in)
-    sink(out)
-    return k
+    return _trim(host.numpy(), rate, valid_in)

@@ -1,5 +1,7 @@
-"""Receiver graphs — counterpart of ``csdr_tpu/models/receivers.py``
-(``channelized_receiver`` and ``channelized_fm_receiver``).
+"""Receiver graphs — counterpart of ``csdr_tpu/models/receivers.py``:
+the front end (offset mixer + resampler), the single-channel flows
+(``nbfm_receiver``, ``am_receiver``, ``raw_capture``) and the channelized
+ones (``channelized_receiver``, ``channelized_fm_receiver``).
 
 The flagship model is ``channelized_fm_receiver``: an nch-channel PFB split
 plus per-channel FM demod, the benchmark target of the JAX package
@@ -7,24 +9,53 @@ plus per-channel FM demod, the benchmark target of the JAX package
 
 from __future__ import annotations
 
+import numpy as np
+
 from ..core.block import Block, MixChannels, PerChannel, chain
 from .. import blocks as B
 
-__all__ = ["channelized_receiver", "channelized_fm_receiver"]
+__all__ = ["front_end", "nbfm_receiver", "am_receiver", "raw_capture",
+           "channelized_receiver", "channelized_fm_receiver"]
 
 
-def _front_end(offset_hz: float, bandwidth: float, sample_rate: float) -> list[Block]:
-    """The offset mixer and resampler are not ported yet (ROADMAP Queue A):
-    the front end exists only as the identity."""
+def front_end(sample_rate: float, offset_hz: float = 0.0, bandwidth: float = 0.0,
+              as_db: float = 60.0) -> list[Block]:
+    """Offset mixer + resampler, as the reference's front end: f =
+    2π·offset/fs, offset > 0 → mix_down(f), offset < 0 → mix_up(−f); the
+    resampling rate is bandwidth/sample_rate (0 = none)."""
+    stages: list[Block] = []
     if offset_hz:
-        raise NotImplementedError(
-            "offset_hz != 0 needs the offset mixer, not yet ported in csdr_tpu_torch "
-            "(ROADMAP Queue A: front end)")
+        f = 2.0 * np.pi * offset_hz / sample_rate
+        stages.append(B.mix_down(f) if f > 0 else B.mix_up(-f))
     if bandwidth and bandwidth != sample_rate:
-        raise NotImplementedError(
-            "bandwidth needs the rational resampler, not yet ported in csdr_tpu_torch "
-            "(ROADMAP Queue A: front end)")
-    return []
+        stages.append(B.resampler(bandwidth / sample_rate, as_db))
+    return stages
+
+
+def _agc(threshold_db: float | None) -> list[Block]:
+    # `is not None`: 0.0 dB is a legitimate squelch threshold, not "off"
+    return [B.automatic_gain_control(threshold_db)] if threshold_db is not None else []
+
+
+def nbfm_receiver(sample_rate: float, bandwidth: float, kf: float, offset_hz: float = 0.0,
+                  agc_threshold_db: float | None = None) -> Block:
+    """DeNBFM flow: front end >> dc_blocker >> [AGC] >> FM demod."""
+    return chain(*front_end(sample_rate, offset_hz, bandwidth), B.dc_blocker(),
+                 *_agc(agc_threshold_db), B.fm_demodulator(kf))
+
+
+def am_receiver(sample_rate: float, bandwidth: float, offset_hz: float = 0.0,
+                agc_threshold_db: float | None = None) -> Block:
+    """DeAM flow: front end >> dc_blocker >> [AGC] >> AM envelope."""
+    return chain(*front_end(sample_rate, offset_hz, bandwidth), B.dc_blocker(),
+                 *_agc(agc_threshold_db), B.am_demodulator())
+
+
+def raw_capture(sample_rate: float, bandwidth: float = 0.0, offset_hz: float = 0.0,
+                agc_threshold_db: float | None = None) -> Block:
+    """DeNo flow: front end >> dc_blocker >> [AGC], raw complex out."""
+    return chain(*front_end(sample_rate, offset_hz, bandwidth), B.dc_blocker(),
+                 *_agc(agc_threshold_db))
 
 
 def channelized_receiver(nch: int, per_channel: Block | None, mix: bool = False,
@@ -47,13 +78,13 @@ def channelized_receiver(nch: int, per_channel: Block | None, mix: bool = False,
     else:
         raise ValueError(f"backend must be 'eager' or 'pfb_fused', got {backend!r}")
     stages: list[Block] = [
-        *_front_end(offset_hz, bandwidth, sample_rate),
+        *front_end(sample_rate, offset_hz, bandwidth),
         B.dc_blocker(),
         channelizer,
     ]
     per = per_channel
     if per_channel is not None and agc_threshold_db is not None:
-        per = chain(B.automatic_gain_control(agc_threshold_db), per_channel)
+        per = chain(*_agc(agc_threshold_db), per_channel)
     if per is not None:
         stages.append(PerChannel(per, nch))
     if mix:
@@ -63,7 +94,8 @@ def channelized_receiver(nch: int, per_channel: Block | None, mix: bool = False,
 
 def channelized_fm_receiver(nch: int, kf: float = 0.6, audio_decim: int = 1,
                             mix: bool = False, backend: str = "eager", **kw) -> Block:
-    """The flagship model: nch-channel PFB channelize + per-channel FM demod.
+    """The flagship model: nch-channel PFB channelize + per-channel FM demod
+    (+ a per-channel FIR decimator for ``audio_decim > 1``).
 
     ``backend="eager"`` is the plain-torch graph ``dc_blocker >>
     firpfbch_channelizer >> PerChannel(fm_demodulator)`` (the JAX package's
@@ -74,13 +106,11 @@ def channelized_fm_receiver(nch: int, kf: float = 0.6, audio_decim: int = 1,
     ``"pallas_full"`` and ``"pallas_wide"``)."""
     if backend not in ("eager", "fused", "pfb_fused"):
         raise ValueError(f"backend must be 'eager', 'fused' or 'pfb_fused', got {backend!r}")
-    if audio_decim > 1:
-        raise NotImplementedError(
-            "audio_decim > 1 needs the FIR decimator, not yet ported in csdr_tpu_torch "
-            "(ROADMAP Queue A: FIR decimator)")
     if backend == "eager":
         kw.pop("tileF", None)  # fused-only knob
-        return channelized_receiver(nch, B.fm_demodulator(kf), mix=mix, **kw)
+        per = B.fm_demodulator(kf) if audio_decim == 1 else chain(
+            B.fm_demodulator(kf), B.fir_decimator(audio_decim))
+        return channelized_receiver(nch, per, mix=mix, **kw)
 
     from ..blocks.fused_blocks import FlagshipFused, PFBFusedFM
 
@@ -91,12 +121,14 @@ def channelized_fm_receiver(nch: int, kf: float = 0.6, audio_decim: int = 1,
             f"agc_threshold_db is not supported with the {backend} backend (AGC must "
             "run between channelizer and demod); use backend='eager', or "
             "channelized_receiver(..., backend='pfb_fused') for the K4 channelizer")
-    stages: list[Block] = [*_front_end(kw.get("offset_hz", 0.0), kw.get("bandwidth", 0.0),
-                                       kw.get("sample_rate", 2.56e6))]
+    stages: list[Block] = [*front_end(kw.get("sample_rate", 2.56e6), kw.get("offset_hz", 0.0),
+                                      kw.get("bandwidth", 0.0))]
     if backend == "fused":
         stages.append(FlagshipFused(nch, kf, tileF=kw.get("tileF")))
     else:
         stages += [B.dc_blocker(), PFBFusedFM(nch, kf, tileF=kw.get("tileF"))]
+    if audio_decim > 1:
+        stages.append(PerChannel(B.fir_decimator(audio_decim), nch))
     if mix:
         stages.append(MixChannels())
     return chain(*stages)

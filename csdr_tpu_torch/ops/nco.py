@@ -41,11 +41,12 @@ def _ramp_on(omega: float, n: int, device: torch.device) -> torch.Tensor:
 def mix_stream(phase: torch.Tensor, x: torch.Tensor, omega: float, up: bool):
     """Multiply a block by e^{±j(phase + ω·k)}; returns (new_phase, y).
 
-    ``phase`` is the carried 0-d float32 tensor, on ``x``'s device; ``up``
-    selects e^{+jθ} (mix up) or e^{−jθ} (mix down)."""
+    ``phase`` is the carried float32 tensor on ``x``'s device: 0-d, or one
+    phase per row of a batch (inside ``PerChannel``, (nch,) for (nch, n)
+    blocks); ``up`` selects e^{+jθ} (mix up) or e^{−jθ} (mix down)."""
     n = x.shape[-1]
     ramp = _ramp_on(float(omega), int(n), x.device)
-    theta = phase + ramp
+    theta = phase[..., None] + ramp
     rot = torch.polar(torch.ones_like(theta), theta if up else -theta)
     y = x * rot
     new_phase = torch.remainder(phase + np.float32(phase_increment(float(omega), int(n))),

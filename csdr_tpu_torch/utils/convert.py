@@ -25,10 +25,14 @@ def from_jax_chain_state(state, device: torch.device):
     For ``dc_blocker >> firpfbch_channelizer >> PerChannel(fm_demodulator)``
     that is ``(dc_blocker_init, (phase, pfb_analyze_init), stacked FMDemod
     state)``, and with the AGC ``PerChannel(chain(AGC, fm_demodulator))``
-    carries ``((ln_gain (nch,), prev_above (nch,) bool), FMDemod state)``;
-    the port's blocks carry the same leaves in the same nesting, so the
-    tuple structure maps one to one and each leaf keeps its shape and
-    dtype."""
+    carries ``((ln_gain (nch,), prev_above (nch,) bool), FMDemod state)``.
+    The FIR family and the front end carry plain leaves: ``FIRFilter``,
+    ``FIRDecim`` and ``HalfbandDecim`` their input hist (K − 1,),
+    ``RationalResampler`` its (L − 1,) tail, ``Mixer`` its float32 phase,
+    ``Lambda`` and ``AMDemod`` nothing (``()``); inside ``PerChannel`` each
+    leaf gains a leading channel axis.  The port's blocks carry the same
+    leaves in the same nesting, so the tuple structure maps one to one and
+    each leaf keeps its shape and dtype."""
     if isinstance(state, (tuple, list)):
         return tuple(from_jax_chain_state(s, device) for s in state)
     return _leaf(state, device)

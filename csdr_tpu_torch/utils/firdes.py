@@ -1,9 +1,11 @@
-"""FIR filter design (numpy, float64) for the channelizer slice.
+"""FIR filter design (numpy, float64).
 
 Copied from ``csdr_tpu/utils/firdes.py`` (the JAX package imports jax at
 package level, so the port cannot import its numpy code).  Only the designs
-the channelized FM receiver needs are here; ``tests/test_torch_design.py``
-holds them equal to the JAX package's arrays.
+the port's blocks use are here (the channelizer prototype, the Kaiser
+low-pass and length estimate, the decimator and half-band designs);
+``tests/test_torch_design.py`` and ``tests/test_torch_fir.py`` hold them
+equal to the JAX package's arrays.
 
 All cutoff frequencies ``fc`` are normalized to the sample rate (liquid's
 convention): fc = 0.25 means a quarter of fs.
@@ -13,7 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["kaiser_beta", "kaiser_lowpass", "pfb_kaiser_prototype"]
+__all__ = ["kaiser_beta", "kaiser_filter_len", "kaiser_lowpass", "firdecim_kaiser",
+           "pfb_kaiser_prototype", "halfband_kaiser"]
 
 
 def kaiser_beta(as_db: float) -> float:
@@ -27,6 +30,15 @@ def kaiser_beta(as_db: float) -> float:
     return 0.0
 
 
+def kaiser_filter_len(df: float, as_db: float) -> int:
+    """Kaiser's length estimate N ≈ (As − 7.95) / (14.26·Δf) for a transition
+    bandwidth ``df`` (normalized to fs) and a stop-band attenuation in dB."""
+    if df <= 0:
+        raise ValueError("transition bandwidth must be positive")
+    n = int(np.ceil((abs(as_db) - 7.95) / (14.26 * df)))
+    return max(n, 3)
+
+
 def kaiser_lowpass(n: int, fc: float, as_db: float = 60.0, mu: float = 0.0) -> np.ndarray:
     """Kaiser-windowed-sinc lowpass of length ``n`` with ~unity passband
     gain, h = 2·fc·sinc(2·fc·t)·w; ``mu`` is a fractional sample delay."""
@@ -36,6 +48,15 @@ def kaiser_lowpass(n: int, fc: float, as_db: float = 60.0, mu: float = 0.0) -> n
     h = 2.0 * fc * np.sinc(2.0 * fc * t)
     w = np.kaiser(n, kaiser_beta(as_db))
     return h * w
+
+
+def firdecim_kaiser(m: int, semilen: int, as_db: float = 60.0) -> np.ndarray:
+    """Decimate-by-``m`` anti-alias FIR (reference
+    ``firdecim_rrrf_create_kaiser(m, 10, 60)``): length 2·m·semilen + 1,
+    cutoff 0.5/m, unity passband gain."""
+    n = 2 * m * semilen + 1
+    h = kaiser_lowpass(n, 0.5 / m, as_db)
+    return h / h.sum()
 
 
 def pfb_kaiser_prototype(nch: int, taps_per_branch_semilen: int, as_db: float = 80.0) -> np.ndarray:
@@ -48,3 +69,16 @@ def pfb_kaiser_prototype(nch: int, taps_per_branch_semilen: int, as_db: float = 
     h = kaiser_lowpass(n, 0.5 / nch, as_db)
     h = h[:-1]
     return h * (nch / h.sum())
+
+
+def halfband_kaiser(semilen: int, as_db: float = 60.0) -> np.ndarray:
+    """Half-band low-pass (fc = 0.25) of length 4·semilen + 1, Kaiser window;
+    every second tap but the centre is exactly zero."""
+    n = 4 * semilen + 1
+    t = np.arange(n, dtype=np.float64) - (n - 1) / 2.0
+    h = 0.5 * np.sinc(0.5 * t)
+    h *= np.kaiser(n, kaiser_beta(as_db))
+    center = (n - 1) // 2
+    idx = np.arange(n)
+    h[(idx != center) & ((idx - center) % 2 == 0)] = 0.0
+    return h / h.sum() * 0.5

@@ -1,10 +1,15 @@
-"""The port's soapy-sdr CLI (channelized NBFM, AGC and raw-split flows) on
-the CPU, and the package's independence from JAX.
+"""The port's soapy-sdr CLI on the CPU — the channelized NBFM, AGC and
+raw-split flows, the single-channel and per-channel FIR demod flows
+(DeCW, DeUSB/DeLSB, DeAM) with --offset and -b, held against the JAX CLI on
+the same capture — and the package's independence from JAX.
 
 pfb_fused against eager: 2e-3 max from frame 1 for DeNBFM
 (tests/test_pallas_fused.py:55); for the K4 flows, whose plain version on
 the CPU is the eager channelizer's arithmetic, 2e-5 max-rel
-(tests/test_golden.py)."""
+(tests/test_golden.py).  Against the JAX CLI, relative to the largest
+output: 2e-5 (tests/test_golden.py) where both run the same float32
+arithmetic, 2e-3 where a long filter runs through FFTs of other
+segmentations (tests/test_fir.py:36)."""
 
 import os
 import subprocess
@@ -14,6 +19,9 @@ import textwrap
 import numpy as np
 import pytest
 import torch
+from scipy.io import wavfile
+
+from csdr_tpu.apps.soapy_sdr_cli import main as jax_main
 
 from csdr_tpu_torch.apps.soapy_sdr_cli import main
 
@@ -69,9 +77,10 @@ def test_fused_and_eager_cli_outputs_agree(captures, tmp_path):
     assert np.max(np.abs(outs["fused"][:, 1:] - outs["eager"][:, 1:])) < 1.2e-3
 
 
-@pytest.mark.parametrize("extra", [["--mix"], ["--mesh", "2x1"], ["--demod", "DeAM WAV"],
-                                   ["--offset", "1000"], ["--demod", "DeWBFM 8 WAV"],
-                                   ["--demod", "DeNBFM 0.6 AU"], ["-c", "1"], ["--no-file"]])
+@pytest.mark.parametrize("extra", [["--mix"], ["--mesh", "2x1"], ["--demod", "DeFMS 8 WAV"],
+                                   ["--demod", "DeNBFMSync 10"], ["--demod", "DeWBFM 8 WAV"],
+                                   ["--demod", "DeNBFM 0.6 AU"], ["--demod", "DeAIS"],
+                                   ["--no-file"]])
 def test_unported_options_exit_nonzero(captures, tmp_path, extra, capsys):
     args = ["--filename", captures["cf32"], "-c", str(NCH), "-o", str(tmp_path / "x"),
             "--demod", "DeNBFM 0.6 F32", "--device", "cpu"]
@@ -152,13 +161,83 @@ def test_raw_split_writes_cf32_channels(captures, tmp_path, ext, agc):
         assert abs(np.median(np.abs(want[:, N // nch // 2:])) - 1.0) < 0.2
 
 
-@pytest.mark.parametrize("extra", [["-a", "-60"], ["--demod", "DeNo"]])
+@pytest.mark.parametrize("extra", [["-a", "-60"], ["--demod", "DeNo"],
+                                   ["--demod", "DeCW 500 700 WAV"], ["-c", "1"]])
 def test_fused_backend_refuses_agc_and_raw_flows(captures, tmp_path, extra, capsys):
     args = ["--filename", captures["cf32"], "-c", str(NCH), "-o", str(tmp_path / "x"),
             "--demod", "DeNBFM 0.6 F32", "--backend", "fused", "--device", "cpu"] + extra
     assert main(args) != 0
     assert "--backend pfb_fused" in capsys.readouterr().err
     assert not any(f.startswith("x_ch") for f in os.listdir(tmp_path))
+
+
+@pytest.fixture(scope="module")
+def keyed_capture(tmp_path_factory):
+    """Keyed CW carriers (just off the even channel centres of an 8-way
+    split) and an FM carrier near 30 kHz, over noise; .cf32 and .cu8."""
+    d = tmp_path_factory.mktemp("keyed")
+    rng = np.random.default_rng(5)
+    n = 8 * 1024 * 6 + 24
+    t = np.arange(n)
+    key = np.mod(t // 900, 3) != 2
+    x = 0.02 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+    for k in range(0, 8, 2):
+        x = x + 0.3 * key * np.exp(2j * np.pi * np.mod(((k - 3.5) / 8 + 4e-4) * t, 1.0))
+    x = x + 0.3 * np.exp(1j * (2 * np.pi * np.mod(0.0117 * t, 1.0)
+                               + 2 * np.sin(2 * np.pi * 7e-4 * t)))
+    x = x.astype(np.complex64)
+    x.tofile(d / "cap.cf32")
+    q = np.clip(np.round(np.stack([x.real, x.imag], 1) * 60 + 127.5), 0, 255)
+    q.astype(np.uint8).tofile(d / "cap.cu8")
+    return {"cf32": str(d / "cap.cf32"), "cu8": str(d / "cap.cu8"), "n": n}
+
+
+def _outputs(prefix, nch, ext):
+    names = [f"{prefix}.{ext}"] if nch == 1 else [f"{prefix}_ch{i}.{ext}"
+                                                   for i in range(1, nch + 1)]
+    if ext == "wav":
+        return np.stack([wavfile.read(f)[1] for f in names])
+    return np.stack([np.fromfile(f, np.complex64 if ext == "cf32" else np.float32)
+                     for f in names])
+
+
+# (argv, input, -n, output extension, bound, first output compared)
+FLOWS = {
+    "cw1": (["-c", "1", "--demod", "DeCW 500 700 WAV"], "cu8", None, "wav", 2e-3, 0),
+    "am1_agc": (["-c", "1", "--demod", "DeAM WAV", "-a", "-60"], "cf32", None, "wav", 2e-5, 0),
+    "usb1_offset": (["-c", "1", "--demod", "DeUSB 3000 WAV", "--offset", "25600"], "cf32",
+                    None, "wav", 2e-3, 0),
+    # the demod's first outputs see the resampler's near-zero start-up, where
+    # atan2's branch is float32 rounding: compared from output 8
+    "nbfm1_resampled": (["-c", "1", "--demod", "DeNBFM 0.6 WAV", "-b", "48000",
+                         "--offset", "30000"], "cf32", 900, "wav", 2e-5, 8),
+    "raw1_resampled": (["-c", "1", "--demod", "DeNo", "-b", "48000", "--offset", "30000"],
+                       "cu8", 900, "cf32", 2e-5, 0),
+    "cw8_agc": (["-c", "8", "--demod", "DeCW 500 700 F32", "-a", "-60"], "cu8", None, "f32",
+                2e-3, 0),
+    "lsb8": (["-c", "8", "--demod", "DeLSB 2000 WAV"], "cf32", None, "wav", 2e-3, 0),
+    "am8_resampled": (["-c", "8", "--demod", "DeAM WAV", "-b", "1280000"], "cf32", 24000,
+                      "wav", 2e-5, 0),
+}
+
+
+@pytest.mark.parametrize("flow", list(FLOWS))
+def test_flow_matches_jax_cli(keyed_capture, tmp_path, flow):
+    argv, src, n, ext, bound, first = FLOWS[flow]
+    n = n or keyed_capture["n"]
+    nch = int(argv[1])
+    common = ["--filename", keyed_capture[src], "-n", str(n), "--blocksize", "4096"]
+    # the JAX CLI's "F32" audio is an AU file (ROADMAP Queue C): it writes WAV
+    jargv = [a.replace("F32", "WAV") for a in argv]
+    assert jax_main(common + jargv + ["-o", str(tmp_path / "j")]) == 0
+    want = _outputs(str(tmp_path / "j"), nch, "wav" if ext == "f32" else ext)
+    for backend in (["eager"] if nch == 1 else ["eager", "pfb_fused"]):
+        out = str(tmp_path / backend)
+        assert main(common + argv + ["-o", out, "--backend", backend, "--device", "cpu"]) == 0
+        got = _outputs(out, nch, ext)
+        assert got.shape == want.shape, (backend, got.shape, want.shape)
+        err = np.max(np.abs(got[:, first:].astype(np.complex128) - want[:, first:]))
+        assert err / np.max(np.abs(want)) < bound, (backend, err)
 
 
 def test_cuda_device_without_a_card_is_an_error(captures, tmp_path):
@@ -178,6 +257,8 @@ def test_package_imports_without_jax():
         import csdr_tpu_torch.apps.soapy_sdr_cli, csdr_tpu_torch.utils.convert
         import csdr_tpu_torch.blocks.fused_blocks, csdr_tpu_torch.ops.cuda._build
         import csdr_tpu_torch.ops.cuda.pfb_fused, csdr_tpu_torch.ops.agc
+        import csdr_tpu_torch.ops.fir, csdr_tpu_torch.ops.resamp
+        import csdr_tpu_torch.ops.cuda.fir_valid, csdr_tpu_torch.ops.cuda.fft_fir
         bad = [m for m in sys.modules if m == "jax" and sys.modules[m] is not None
                or m.startswith(("jax.", "jaxlib")) or m == "csdr_tpu"
                or m.startswith("csdr_tpu.")]

@@ -12,6 +12,9 @@ channel so no channel magnitude sits near zero, where atan2 would amplify
 float32 rounding by 1/|d|.  The PFB kernels K3/K4 (``pfb_fused``): 2e-3
 max (tests/test_pallas_fused.py:55, tests/test_pfb_channelize_fused.py:39)
 and 4e-5 RMS (tests/test_flagship_fused_wide.py:67, the same arithmetic).
+The FIR kernels, relative to the largest output: K5 (``fir_valid``) 2e-3
+(tests/test_pallas_fir.py:21,32), K6 (``fft_fir``) 2e-4
+(tests/test_fftfir.py:36,51).
 """
 
 import numpy as np
@@ -19,6 +22,9 @@ import pytest
 import torch
 
 import csdr_tpu_torch as ct
+from csdr_tpu_torch.ops import fir as fir_ops
+from csdr_tpu_torch.ops.cuda import fft_fir as k6
+from csdr_tpu_torch.ops.cuda import fir_valid as k5
 from csdr_tpu_torch.ops.cuda import flagship_fused as ff
 from csdr_tpu_torch.ops.cuda import pfb_fused as pf
 from csdr_tpu_torch.ops.nco import mix_stream
@@ -148,3 +154,68 @@ def test_pfb_fused_receivers_match_eager(dev, nch):
         assert yf.shape == ye.shape == (nch, 3 * n // nch)
         mx, rms = _err(yf[:, 1:], ye[:, 1:])
         assert mx < 2e-3 and rms < 4e-5, (name, mx, rms)
+
+
+def _rel(a, b):
+    a, b = (torch.view_as_real(v) if v.is_complex() else v for v in (a, b))
+    return ((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
+
+
+def _rows(dev, shape, cplx, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(*shape, 2 if cplx else 1, generator=g)
+    x = torch.view_as_complex(x) if cplx else x[..., 0]
+    return x.contiguous().to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,K,cplx", [(64, 1 << 13, 585, True), (1, 40_000, 3651, True),
+                                           (3, 10_000, 1, False), (2, 5000, 1200, False)])
+def test_fir_valid_kernel_matches_plain(dev, rows, n, K, cplx):
+    """K5 against its plain version: batched rows, one tap, a tap count
+    across shared-memory chunks, real and complex."""
+    h = np.random.default_rng(K).normal(size=K)
+    x = _rows(dev, (rows, n + K - 1), cplx, seed=K)
+    before = k5.launches
+    got = k5.fir_valid(x, h)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    want = k5.fir_valid_ref(x, h)
+    assert got.shape == want.shape == (rows, n) and got.dtype == x.dtype
+    assert _rel(got, want) < 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,cplx,ctaps", [(1, False, False), (401, False, False),
+                                          (2048, True, True), (1826, True, True),
+                                          (300, False, True)])
+def test_fft_fir_kernel_matches_plain(dev, K, cplx, ctaps):
+    """K6 against its plain version over several segments, every
+    input/taps type pair."""
+    rng = np.random.default_rng(K)
+    taps = rng.normal(size=K) / np.sqrt(K)
+    if ctaps:
+        taps = taps * np.exp(2j * np.pi * 0.19 * np.arange(K))
+    x = _rows(dev, (2, 70_000 + K - 1), cplx, seed=K + 1)
+    before = k6.launches
+    got = k6.fft_fir_valid(x, taps)
+    torch.cuda.synchronize()
+    assert k6.launches == before + 1
+    want = k6.fft_fir_valid_ref(x, taps)
+    assert got.shape == want.shape == (2, 70_000) and got.dtype == want.dtype
+    assert _rel(got, want) < 2e-4
+
+
+@pytest.mark.cuda
+def test_auto_strategy_launches_fir_valid_on_the_card(dev):
+    """conv_valid("auto") sends the CW filter (585 real taps) to K5."""
+    taps = ct.cw_demodulator(500 / 40000, 700 / 40000).blocks[0].taps
+    x = _rows(dev, (4, 1 << 12), True, seed=3)
+    fir = ct.fir_filter(taps, True)
+    state = fir.init(dev).expand(4, -1).contiguous()
+    before = k5.launches
+    _, y = fir.apply(state, x)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    _, want = fir_ops.fir_stream(taps, state, x, "fft")
+    assert _rel(y, want) < 2e-3

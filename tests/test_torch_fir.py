@@ -1,0 +1,259 @@
+"""The port's FIR family (ops/fir.py) and the plain versions of its kernels
+K5 (ops/cuda/fir_valid.py) and K6 (ops/cuda/fft_fir.py) against the JAX
+package, on numpy-seeded inputs.
+
+Tolerances, each with its source, relative to the largest output:
+  * conv_valid per strategy: 1e-3 real, 2e-3 complex (tests/test_fir.py:25,36);
+  * K5's plain version vs pallas_fir_valid(interpret=True): 2e-3
+    (tests/test_pallas_fir.py:21,32);
+  * K6's plain version vs fft_fir_valid(interpret=True): 2e-4
+    (tests/test_fftfir.py:36,51);
+  * the streaming FIRs: 1e-3 (fir_stream) and 2e-3 (decim, interp)
+    (tests/test_fir.py:49,71,90); batched rows equal row by row within
+    float32 rounding, 1e-6 (the batched conv1d and FFT sum in another order).
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from csdr_tpu.ops import fir as jfir
+from csdr_tpu.ops.pallas.fftfir import fft_fir_valid as jax_fft_fir_valid
+from csdr_tpu.ops.pallas.fir_kernel import pallas_fir_valid
+from csdr_tpu.utils import firdes as jfirdes
+
+from csdr_tpu_torch.ops import fir as tfir
+from csdr_tpu_torch.ops.cuda import fft_fir as k6
+from csdr_tpu_torch.ops.cuda import fir_valid as k5
+from csdr_tpu_torch.utils import firdes as tfirdes
+
+torch.set_num_threads(1)
+
+
+def _rel(got, want):
+    got = np.asarray(got).astype(np.complex128)
+    want = np.asarray(want).astype(np.complex128)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-12)
+
+
+def _signal(rng, n, cplx):
+    x = rng.normal(size=n).astype(np.float32)
+    if cplx:
+        x = (x + 1j * rng.normal(size=n)).astype(np.complex64)
+    return x
+
+
+def test_fir_designs_equal():
+    for df, as_db in [(0.001, 60.0), (0.00625, 60.0), (0.02, 60.0), (0.1, 80.0), (5.0, 60.0)]:
+        assert tfirdes.kaiser_filter_len(df, as_db) == jfirdes.kaiser_filter_len(df, as_db)
+    for m in (2, 4, 5):
+        np.testing.assert_array_equal(tfirdes.firdecim_kaiser(m, 10, 60.0),
+                                      jfirdes.firdecim_kaiser(m, 10, 60.0))
+    np.testing.assert_array_equal(tfirdes.halfband_kaiser(12, 60.0),
+                                  jfirdes.halfband_kaiser(12, 60.0))
+    with pytest.raises(ValueError):
+        tfirdes.kaiser_filter_len(0.0, 60.0)
+
+
+@pytest.mark.parametrize("K,strategy,cplx", [(7, "slices", False), (33, "slices", False),
+                                             (33, "fft", False), (257, "fft", False),
+                                             (41, "slices", True), (41, "fft", True)])
+def test_conv_valid_matches_jax(K, strategy, cplx):
+    rng = np.random.default_rng(K)
+    h = rng.normal(size=K) + (1j * rng.normal(size=K) if cplx else 0)
+    xfull = _signal(rng, 3000 + K - 1, cplx)
+    want = np.asarray(jfir.conv_valid(jnp.asarray(xfull), h, strategy))
+    got = tfir.conv_valid(torch.from_numpy(xfull), h, strategy)
+    assert got.dtype == (torch.complex64 if cplx else torch.float32)
+    assert _rel(got, want) < (2e-3 if cplx else 1e-3)
+
+
+def test_real_input_complex_taps_give_complex_output():
+    """The SSB chain relies on it in both strategies."""
+    rng = np.random.default_rng(5)
+    h = rng.normal(size=80) * np.exp(2j * np.pi * 0.1 * np.arange(80))
+    xfull = _signal(rng, 2000 + 79, False)
+    for strategy in ("fft", "pallas_fft"):
+        want = np.asarray(jfir.conv_valid(jnp.asarray(xfull), h, "fft"))
+        got = tfir.conv_valid(torch.from_numpy(xfull), h, strategy)
+        assert got.dtype == torch.complex64
+        assert _rel(got, want) < 2e-3
+
+
+@pytest.mark.parametrize("K,n,cplx", [(63, 4000, False), (401, 10000, False),
+                                      (1000, 8192, False), (200, 5000, True)])
+def test_k5_plain_matches_pallas_interpret(K, n, cplx):
+    rng = np.random.default_rng(K)
+    h = rng.normal(size=K)
+    xfull = _signal(rng, n + K - 1, cplx)
+    want = np.asarray(pallas_fir_valid(jnp.asarray(xfull), h, interpret=True))
+    got = k5.fir_valid(torch.from_numpy(xfull), h)
+    assert got.dtype == torch.from_numpy(xfull).dtype
+    assert _rel(got, want) < 2e-3
+    assert _rel(tfir.conv_valid(torch.from_numpy(xfull), h, "pallas_mxu"), want) < 2e-3
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_k5_batched_rows_equal_row_by_row(cplx):
+    rng = np.random.default_rng(7)
+    h = rng.normal(size=300)
+    xfull = torch.from_numpy(_signal(rng, 3 * 1299, cplx).reshape(3, 1299))
+    rows = k5.fir_valid(xfull, h)
+    assert rows.shape == (3, 1000)
+    for b in range(3):
+        assert _rel(rows[b], k5.fir_valid(xfull[b], h)) < 1e-6
+
+
+@pytest.mark.parametrize("K,cplx", [(1, False), (401, False), (2048, False),
+                                    (1, True), (401, True), (2048, True)])
+def test_k6_plain_matches_pallas_interpret(K, cplx):
+    """real/real and complex/complex; n spans several 16384-sample segments."""
+    rng = np.random.default_rng(K + cplx)
+    taps = rng.normal(size=K) / np.sqrt(K)
+    if cplx:
+        taps = taps * np.exp(2j * np.pi * 0.19 * np.arange(K))
+    xfull = _signal(rng, 40_000 + K - 1, cplx)
+    want = np.asarray(jax_fft_fir_valid(jnp.asarray(xfull), taps, interpret=True))
+    got = k6.fft_fir_valid(torch.from_numpy(xfull), taps)
+    assert got.dtype == (torch.complex64 if cplx else torch.float32)
+    assert _rel(got, want) < 2e-4
+
+
+def test_k6_refuses_as_jax_does():
+    with pytest.raises(ValueError, match="shorter than"):
+        k6.fft_fir_valid(torch.zeros(20000), np.zeros(16384))
+    with pytest.raises(ValueError, match="longer than taps"):
+        k6.fft_fir_valid(torch.zeros(63), np.ones(64, np.float32))
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    x = torch.empty(1000, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        k5.fir_valid(x, np.ones(10))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        k6.fft_fir_valid(x, np.ones(10))
+    with pytest.raises(ValueError, match="real taps"):
+        tfir.conv_valid(torch.zeros(1000), np.ones(300) + 1j, "pallas_mxu")
+
+
+def test_k6_tables_through_the_kernel_schedule():
+    """The kernel's host tables (twiddles, H in base-4 digit-reversed order
+    with 1/S folded in) driven through the radix-4 stage schedule of
+    csrc/fft_fir.cu, transcribed in numpy: one segment's positions
+    [K − 1, S) equal the plain version's."""
+    rng = np.random.default_rng(11)
+    S, K = k6.S, 1826
+    taps = rng.normal(size=K) * np.exp(2j * np.pi * 0.05 * np.arange(K))
+    xfull = _signal(rng, S + K - 1, True)
+    tw = k6._twiddles_on(torch.device("cpu")).numpy().astype(np.complex128)
+    H = k6._kernel_spectrum_on(taps.tobytes(), taps.dtype.str, torch.device("cpu")).numpy()
+    s = xfull[:S].astype(np.complex128)
+    b = np.arange(S // 4)
+    for lq in range(12, -1, -2):  # forward DIF, L = 4Q from S down to 4
+        Q, step = 1 << lq, S >> (lq + 2)
+        j = b & (Q - 1)
+        i = ((b >> lq) << (lq + 2)) + j
+        a = [s[i + m * Q] for m in range(4)]
+        b0, b1, b2, b3 = a[0] + a[2], a[0] - a[2], a[1] + a[3], 1j * (a[1] - a[3])
+        s[i], s[i + Q] = b0 + b2, (b1 - b3) * tw[j * step]
+        s[i + 2 * Q], s[i + 3 * Q] = (b0 - b2) * tw[2 * j * step], (b1 + b3) * tw[3 * j * step]
+    s *= H
+    for lq in range(0, 13, 2):  # inverse: each stage undone, L from 4 up to S
+        Q, step = 1 << lq, S >> (lq + 2)
+        j = b & (Q - 1)
+        i = ((b >> lq) << (lq + 2)) + j
+        a = [s[i + m * Q] * np.conj(tw[m * j * step]) for m in range(4)]
+        b0, b1, b2, b3 = a[0] + a[2], a[0] - a[2], a[1] + a[3], 1j * (a[1] - a[3])
+        s[i], s[i + Q], s[i + 2 * Q], s[i + 3 * Q] = b0 + b2, b1 + b3, b0 - b2, b1 - b3
+    want = k6.fft_fir_valid_ref(torch.from_numpy(xfull), taps).numpy()[:S - (K - 1)]
+    assert _rel(s[K - 1:], want) < 2e-4
+
+
+def test_fir_stream_blocks_match_jax():
+    rng = np.random.default_rng(2)
+    h = rng.normal(size=301)
+    x = _signal(rng, 8192, True)
+    jh, th = jnp.zeros(300, jnp.complex64), torch.zeros(300, dtype=torch.complex64)
+    for blk in np.split(x, 4):
+        jh, jy = jfir.fir_stream(h, jh, jnp.asarray(blk))
+        th, ty = tfir.fir_stream(h, th, torch.from_numpy(blk))
+        assert _rel(ty, jy) < 1e-3
+    assert _rel(th, jh) == 0.0
+
+
+@pytest.mark.parametrize("M,K,strategy", [(4, 41, "poly"), (4, 41, "fft"), (8, 161, "poly"),
+                                          (20, 401, "fft"), (5, 13, "poly")])
+def test_fir_decim_stream_matches_jax(M, K, strategy):
+    rng = np.random.default_rng(3)
+    h = rng.normal(size=K)
+    x = _signal(rng, 480 * M * 2, False)
+    jh, th = jnp.zeros(K - 1, jnp.float32), torch.zeros(K - 1)
+    for blk in np.split(x, 2):
+        jh, jy = jfir.fir_decim_stream(h, M, jh, jnp.asarray(blk), strategy)
+        th, ty = tfir.fir_decim_stream(h, M, th, torch.from_numpy(blk), strategy)
+        assert ty.shape == (len(blk) // M,)
+        assert _rel(ty, jy) < 2e-3
+
+
+def test_fir_interp_stream_matches_jax():
+    rng = np.random.default_rng(4)
+    P, K = 3, 22
+    h = rng.normal(size=K)
+    x = _signal(rng, 1024, True)
+    Lsub = -(-K // P)
+    jh, th = jnp.zeros(Lsub - 1, jnp.complex64), torch.zeros(Lsub - 1, dtype=torch.complex64)
+    for blk in np.split(x, 4):
+        jh, jy = jfir.fir_interp_stream(h, P, jh, jnp.asarray(blk))
+        th, ty = tfir.fir_interp_stream(h, P, th, torch.from_numpy(blk))
+        assert ty.shape == (P * len(blk),)
+        assert _rel(ty, jy) < 2e-3
+
+
+@pytest.mark.parametrize("op", ["slices", "fft", "pallas_fft", "pallas_mxu", "decim_poly",
+                                "decim_fft", "interp"])
+def test_batched_rows_equal_row_by_row(op):
+    """Inside PerChannel the FIR gets (nch, n) blocks and (nch, ·) hist:
+    two streamed blocks of 3 rows equal each row streamed alone."""
+    rng = np.random.default_rng(6)
+    h = rng.normal(size=300 if op == "pallas_mxu" else 90)
+    x = torch.from_numpy(_signal(rng, 3 * 2 * 1200, True).reshape(3, 2, 1200))
+
+    def run(xs, lead):
+        if op == "interp":
+            hist, step = torch.zeros(*lead, 29, dtype=torch.complex64), \
+                lambda hb, xb: tfir.fir_interp_stream(h, 3, hb, xb)
+        elif op.startswith("decim"):
+            hist, step = torch.zeros(*lead, len(h) - 1, dtype=torch.complex64), \
+                lambda hb, xb: tfir.fir_decim_stream(h, 4, hb, xb, op.split("_")[1])
+        else:
+            hist, step = torch.zeros(*lead, len(h) - 1, dtype=torch.complex64), \
+                lambda hb, xb: tfir.fir_stream(h, hb, xb, op)
+        ys = []
+        for xb in xs:
+            hist, y = step(hist, xb)
+            ys.append(y)
+        return torch.cat(ys, dim=-1)
+
+    batched = run([x[:, 0], x[:, 1]], (3,))
+    for b in range(3):
+        assert _rel(batched[b], run([x[b, 0], x[b, 1]], ())) < 1e-6
+
+
+def test_auto_strategy_routing():
+    """Short → slices; long real on the card → K5; long complex or on the
+    CPU → fft; 64 < nz ≤ 256 stays fft (tests/test_fir.py:92-107)."""
+    cpu = torch.zeros(1)
+    card = types.SimpleNamespace(device=torch.device("cuda"))
+    assert tfir._auto_strategy(np.ones(32), cpu) == "slices"
+    assert tfir._auto_strategy(np.ones(401), cpu) == "fft"
+    assert tfir._auto_strategy(np.ones(401), card) == "pallas_mxu"
+    assert tfir._auto_strategy(np.ones(401) + 1j, card) == "fft"
+    assert tfir._auto_strategy(np.ones(128), card) == "fft"
+    half = np.zeros(600)
+    half[::4] = 1.0  # 150 non-zeros of 600: the count, not the length, decides
+    assert tfir._auto_strategy(half, card) == "fft"
