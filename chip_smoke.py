@@ -10,13 +10,16 @@ line is printed:
   2. build: nvcc compiles csdr_tpu_torch/csrc/*.cu for sm_90a;
   3. kernel vs plain: the fused CUDA kernel against its plain PyTorch twin
      and the eager graph, over 3 consecutive blocks of the main path's size,
-     at nch 64 and 20, for complex64, interleaved cu8 and cu8 planes;
+     at nch 64, 20 and 32, for complex64, interleaved cu8 and cu8 planes;
   4. main path: the soapy-sdr CLI (channelized NBFM, 64 channels) over a
      2^25-sample cu8 capture, once fused and once eager; the kernel's launch
      count must move in the fused run, the two runs must agree, and every
      channel must demodulate its own FM tone;
   5. timings: CUDA-event medians of state-chained 2^23-sample steps, kernel
-     against plain versions, and the CLI runs' end-to-end rate.
+     against plain versions, and the CLI runs' end-to-end rate; the peak
+     device memory of one K1 step; a torch.profiler window over each
+     kernel's step that counts its CUDA launches per step and splits its
+     device time by kernel.
 
 and for the PFB kernels K3 (pfb_fm_fused) and K4 (pfb_channelize_fused):
 
@@ -56,7 +59,13 @@ and for the FIR kernels K5 (fir_valid) and K6 (fft_fir):
       backends in turns).
 
 Prints one JSON object per result, then the nvidia-smi line, the kernels
-line and, last, {"ok": true, "device": {...}}.  Nothing here imports JAX.
+line and, last, {"ok": true, "device": {...}}.  Each kernels entry carries
+bound_ms: the larger of the bytes the function must move (each input read
+once, each output written once) over 3.35 TB/s and its operations over the
+67 TFLOP/s FP32 peak (H100 SXM data sheet), counted from this run's shapes
+(bound_by says which), and library_ms: one PyTorch call computing the same
+function (a conv1d for the FIRs, TF32 off), or null where there is none.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -176,7 +185,7 @@ def ptxas_summary(lib) -> dict:
     log = lib.with_name(lib.name.replace("libcsdr_kernels-", "nvcc-").replace(".so", ".log"))
     out, name = {}, None
     for ln in log.read_text().splitlines():
-        m = re.search(r"Compiling entry function .*?(dc_pass|channel_pass|carry_scan|pfb_tile|"
+        m = re.search(r"Compiling entry function .*?(dc_chunk|channel_tile|carry_scan|pfb_tile|"
                       r"fir_valid_tile|fft_fir_segment)"
                       r"(?:I((?:L[a-z]\d+E)+)E|I((?:f|6float2|S\d*_)+)E)?", ln)
         if m:
@@ -196,9 +205,11 @@ def block_len(nch: int, tileF: int) -> int:
 
 
 def phase_compare(torch, ct, ff, dev, card):
-    """Kernel vs twin (every frame) and vs the eager graph (frames >= 1)."""
+    """Kernel vs twin (every frame) and vs the eager graph (frames >= 1), at
+    nch 64 (64 = 16 × 4: four lanes per frame), 20 (direct DFT) and 32
+    (16 × 2)."""
     result = {}
-    for nch in (64, 20):
+    for nch in (64, 20, 32):
         n = block_len(nch, ff.DEFAULT_TILE_F)
         x = occupied_band(torch, dev, nch, 3 * n, SEED + nch)
         u8 = to_cu8(torch, x)
@@ -652,6 +663,17 @@ def phase_timing(torch, ct, ff, dev, card):
 
         box.update(k=ff.flagship_fused_init(nch, dev), t=ff.flagship_fused_init(nch, dev),
                    e=graphs[fmt].init(dev))
+        run_kernel()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run_kernel()
+        torch.cuda.synchronize()
+        medians[(fmt, "step_peak_mib")] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        emit(dict(phase="step_memory", input=fmt, nch=nch, n=BLOCK,
+                  step_peak_mib=medians[(fmt, "step_peak_mib")],
+                  note="device memory one kernel step allocates beyond its input and state",
+                  **card))
         ms = {"kernel": [], "twin": [], "eager": []}
         for name, fn in (("eager", run_eager), ("twin", run_twin), ("kernel", run_kernel),
                          ("kernel", run_kernel), ("twin", run_twin), ("eager", run_eager)):
@@ -1023,6 +1045,198 @@ def phase_timing_fir(torch, ff, pf, dev, card, tmp, cw_path):
     return medians, rates
 
 
+HBM_BPS, FP32_FLOPS = 3.35e12, 67e12   # H100 SXM data sheet
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over HBM, operations over
+    the FP32 peak, whichever is larger."""
+    t_b, t_o = nbytes / HBM_BPS, flops / FP32_FLOPS
+    return dict(bound_ms=max(t_b, t_o) * 1e3, bound_by="bytes" if t_b >= t_o else "operations",
+                bound_bytes=nbytes, bound_flops=flops)
+
+
+def fft_flops(N: int) -> float:
+    """Operations of one N-point complex FFT, 5·N·log2 N."""
+    return 5.0 * N * np.log2(N)
+
+
+def flagship_bound(n: int, nch: int, cu8: bool, L: int = 14) -> dict:
+    """K1/K2 per step: 2 B (cu8) or 8 B in per sample, 4 B of audio out per
+    frame-channel; per sample the branch FIR (L+1 complex-by-real MACs, 4
+    FLOP each), an nch-point FFT (5·log2 nch), the DC blocker (8), the NCO
+    rotation (6), the u8 map (4, cu8 only) and the demod's conjugate
+    product and atan2 (26)."""
+    per = 4 * (L + 1) + 5 * np.log2(nch) + 8 + 6 + (4 if cu8 else 0) + 26
+    return bound((2 if cu8 else 8) * n + 4 * n, per * n)
+
+
+def pfb_bound(n: int, nch: int, demod: bool, L: int = 14) -> dict:
+    """K3 (demod) / K4 per step: panels (F + L, nch) complex in, audio or
+    complex channels out; FIR, FFT and (K3) the demod per sample."""
+    F = n // nch
+    per = 4 * (L + 1) + 5 * np.log2(nch) + (26 if demod else 0)
+    return bound(8 * (F + L) * nch + (4 if demod else 8) * n, per * n)
+
+
+def overlap_save_flops(rows: int, n: int, K: int, cplx: bool, ctaps: bool) -> float:
+    """Operations of a valid FIR by overlap-save at K6's segment size: per
+    transform a forward and an inverse 16384-point FFT and the spectrum
+    product, one transform per segment (per pair of segments, real × real)."""
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+
+    _, nseg = fx.segments(n, K)
+    pair = not cplx and not ctaps
+    transforms = rows * (-(-nseg // 2) if pair else nseg)
+    return transforms * (2 * fft_flops(fx.S) + 6 * fx.S)
+
+
+def fir_bound(rows: int, n: int, K: int, cplx: bool, ctaps: bool) -> dict:
+    """K5: each row read once and written once; the least operations the
+    function needs, the direct FIR's MACs or overlap-save's FFTs, whichever
+    is fewer, so the bound holds whichever algorithm computes it."""
+    dt = 8 if cplx else 4
+    mac = 4 if (cplx and not ctaps) else 2 if not cplx else 8
+    return bound(rows * (dt * (n + K - 1) + dt * n) + 4 * K,
+                 min(rows * n * K * mac, overlap_save_flops(rows, n, K, cplx, ctaps)))
+
+
+def fft_fir_bound(rows: int, n: int, K: int, cplx: bool, ctaps: bool) -> dict:
+    """K6: rows read and written once; overlap-save's operations."""
+    din, dout = (8 if cplx else 4), (8 if (cplx or ctaps) else 4)
+    return bound(rows * (din * (n + K - 1) + dout * n) + (8 if ctaps else 4) * K,
+                 overlap_save_flops(rows, n, K, cplx, ctaps))
+
+
+def conv1d_call(torch, xfull, taps):
+    """One torch.nn.functional.conv1d computing the same valid FIR (real or
+    complex rows and taps as real channels); TF32 off, so FP32 like the
+    kernels."""
+    import torch.nn.functional as Fn
+
+    h = np.asarray(taps)
+    cplx_x, cplx_h = xfull.is_complex(), np.iscomplexobj(h)
+    hr = torch.from_numpy(np.ascontiguousarray(h.real[::-1]).astype(np.float32)).to(xfull.device)
+    if not cplx_h:
+        w = hr.view(1, 1, -1)
+        if cplx_x:
+            x = torch.view_as_real(xfull).movedim(-1, -2).reshape(-1, 1, xfull.shape[-1])
+            return lambda: Fn.conv1d(x, w)
+        x = xfull.reshape(-1, 1, xfull.shape[-1])
+        return lambda: Fn.conv1d(x, w)
+    hi = torch.from_numpy(np.ascontiguousarray(h.imag[::-1]).astype(np.float32)).to(xfull.device)
+    w = torch.stack([torch.stack([hr, -hi]), torch.stack([hi, hr])])     # (2 out, 2 in, K)
+    x = (torch.view_as_real(xfull).movedim(-1, -2) if cplx_x
+         else torch.stack([xfull, torch.zeros_like(xfull)], dim=-2))
+    x = x.reshape(-1, 2, xfull.shape[-1])
+    return lambda: Fn.conv1d(x, w)
+
+
+def phase_library(torch, dev, card):
+    """library_ms for K5 and K6: one conv1d call at each kernel's main
+    shape, checked against the kernel's plain version."""
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name, taps, rows, n, cplx, plain in (
+                ("fir_valid", cw_taps(2.56e6 / 64), 64, BLOCK // 64, True, fv.fir_valid_ref),
+                ("fft_fir", usb_taps(), 1, BLOCK, True, fx.fft_fir_valid_ref)):
+            xfull = rand_rows(torch, dev, rows, n + len(taps) - 1, cplx, SEED + 11)
+            call = conv1d_call(torch, xfull, taps)
+            y = call()
+            want = plain(xfull, taps)
+            got = y.reshape(rows, 2, n).movedim(-2, -1).contiguous()
+            rel, _ = rel_err(torch, torch.view_as_complex(got), want)
+            check(rel < 2e-3, f"library conv1d for {name}: rel {rel}")
+            v = time_steps(torch, call, steps=5, warmup=1)
+            out[name] = statistics.median(v)
+            emit(dict(phase="library", kernel=name, call="torch.nn.functional.conv1d",
+                      rows=rows, n=n, taps=len(taps), median_ms=out[name], min_ms=min(v),
+                      vs_plain_rel=rel, tf32=False, **card))
+            del xfull, y, want, got
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return out
+
+
+def phase_profile(torch, dev, card):
+    """CUDA launches per step and device time by kernel, from torch.profiler
+    over 5 steps of each kernel at its main shape: name → (launches per
+    step, device ms per step).  Fails where the profiler records no device
+    kernels or a step makes other than its launches: 3 for K1/K2 (DC chunk,
+    carry scan, channel tile), 1 for the others."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+    from csdr_tpu_torch.ops.cuda import flagship_fused as ff
+    from csdr_tpu_torch.ops.cuda import pfb_fused as pf
+
+    x = occupied_band(torch, dev, 64, BLOCK, SEED + 3)
+    u8 = to_cu8(torch, x)
+    n20 = block_len(20, ff.DEFAULT_TILE_F)
+    u8_20 = to_cu8(torch, occupied_band(torch, dev, 20, n20, SEED + 4))
+    box = {"k": ff.flagship_fused_init(64, dev), "k20": ff.flagship_fused_init(20, dev)}
+
+    def k1():
+        box["k"], _ = ff.flagship_fused_step(box["k"], u8, nch=64, kf=KF)
+
+    def k2():
+        box["k20"], _ = ff.flagship_fused_step(box["k20"], u8_20, nch=20, kf=KF)
+
+    taps, W = pf.pfb_design(64, 7, 80.0, dev)
+    v3 = block_panels(torch, pf, x, 64)
+    v4 = v3[1:].contiguous()
+    del x
+    usb, cw1, cw64 = usb_taps(), cw_taps(2.56e6), cw_taps(2.56e6 / 64)
+    xu = rand_rows(torch, dev, 1, BLOCK + len(usb) - 1, True, SEED + 12)
+    xr = rand_rows(torch, dev, 1, BLOCK + len(cw1) - 1, False, SEED + 13)
+    x5 = rand_rows(torch, dev, 64, BLOCK // 64 + len(cw64) - 1, True, SEED + 14)
+    steps = {
+        "flagship_fused": k1,
+        "flagship_fused_nch20": k2,
+        "pfb_fm_fused": lambda: pf.pfb_fm_fused(v3, taps, W, nch=64, L=14, kf=KF),
+        "pfb_channelize_fused": lambda: pf.pfb_channelize_fused(v4, taps, W, nch=64, L=14),
+        "fir_valid": lambda: fv.fir_valid(x5, cw64),
+        "fft_fir": lambda: fx.fft_fir_valid(xu, usb),
+        "fft_fir_real_real": lambda: fx.fft_fir_valid(xr, cw1),
+    }
+    want = {name: 3 if name.startswith("flagship") else 1 for name in steps}
+    out = {}
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        kern = {}
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "cuda_time_total", 0)
+            if dev_us and ev.count and ("ProfilerStep" not in ev.key) and (
+                    getattr(ev, "device_type", None) is None
+                    or str(ev.device_type).endswith("CUDA")) and not ev.key.startswith("aten::"):
+                kern[ev.key] = dict(count=ev.count, device_us=dev_us)
+        launches = sum(v["count"] for v in kern.values())
+        out[name] = (launches / 5 if launches else None,
+                     sum(v["device_us"] for v in kern.values()) / 5e3 if launches else None)
+        emit(dict(phase="profile", kernel=name, steps=5,
+                  launches_per_step=out[name][0], device_ms_per_step=out[name][1],
+                  device_us_per_step={k: v["device_us"] / 5 for k, v in kern.items()},
+                  note=None if launches else "the profiler recorded no device kernels",
+                  **card))
+        check(launches > 0, f"profile of {name}: the profiler recorded no device kernels")
+        check(out[name][0] == want[name],
+              f"profile of {name}: {out[name][0]} launches per step, want {want[name]}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1076,6 +1290,8 @@ def main() -> int:
     # 5. timings
     med = phase_timing(torch, ct, ff, dev, card)
     med.update(phase_timing_pfb(torch, ct, pf, dev, card))  # 5b
+    lib_ms = phase_library(torch, dev, card)
+    per_step = phase_profile(torch, dev, card)
 
     print(smi, flush=True)
     flagship = {
@@ -1088,6 +1304,11 @@ def main() -> int:
         "shape": f"cu8 ({2 * BLOCK},) uint8 -> (64, {BLOCK // 64}) float32",
         "pipeline_msps": {"fused": fused_msps, "eager": eager_msps},
         "pipeline_msps_in_turns": {b: rates[("DeNBFM", b)] for b in ("fused", "eager")},
+        "launches_per_step": per_step["flagship_fused"][0],
+        "device_ms": per_step["flagship_fused"][1],
+        "step_peak_mib": med[("u8", "step_peak_mib")],
+        "library_ms": None,
+        **flagship_bound(BLOCK, 64, True),
     }
     emit({"kernels": [dict(
         name="flagship_fused_wide",
@@ -1105,6 +1326,9 @@ def main() -> int:
              "K2's any-nch path is timed and compared at nch 20 under nch20",
         nch20={"ms": med[("u8_nch20", "kernel")], "plain_ms": med[("u8_nch20", "twin")],
                "max_abs_err": max(errs[(20, "f32")], errs[(20, "u8")]),
+               "launches_per_step": per_step["flagship_fused_nch20"][0],
+               "device_ms": per_step["flagship_fused_nch20"][1],
+               **flagship_bound(block_len(20, ff.DEFAULT_TILE_F), 20, True),
                "shape": f"cu8 ({2 * block_len(20, ff.DEFAULT_TILE_F)},) uint8 -> "
                         f"(20, {block_len(20, ff.DEFAULT_TILE_F) // 20}) float32"},
         **flagship,
@@ -1122,6 +1346,10 @@ def main() -> int:
         "shape": f"({BLOCK // 64 + 14}, 64) complex64 -> (64, {BLOCK // 64}) float32",
         "pipeline_msps": {"pfb_fused": pfb_runs["pfb_fm_fused"]["msps"]},
         "pipeline_msps_in_turns": {"pfb_fused": rates[("DeNBFM", "pfb_fused")]},
+        "launches_per_step": per_step["pfb_fm_fused"][0],
+        "device_ms": per_step["pfb_fm_fused"][1],
+        "library_ms": None,
+        **pfb_bound(BLOCK, 64, True),
     }, {
         "name": "pfb_channelize_fused",
         "route": "cuda",
@@ -1141,6 +1369,10 @@ def main() -> int:
         "pipeline_msps_in_turns": {f"{flow} {b}": rates[(flow, b)]
                                    for flow in ("DeNBFM -a", "-c 4 DeNo")
                                    for b in ("pfb_fused", "eager")},
+        "launches_per_step": per_step["pfb_channelize_fused"][0],
+        "device_ms": per_step["pfb_channelize_fused"][1],
+        "library_ms": None,
+        **pfb_bound(BLOCK, 64, False),
     }, {
         "name": "fir_valid",
         "route": "cuda",
@@ -1162,6 +1394,10 @@ def main() -> int:
         "pipeline_msps": {f"{f} {b}": r for (f, b), r in fir_rates.items()
                           if "DeCW" in f},
         "pipeline_msps_in_turns": {f"-c 64 DeCW {b}": r for b, r in cw_rates.items()},
+        "launches_per_step": per_step["fir_valid"][0],
+        "device_ms": per_step["fir_valid"][1],
+        "library_ms": lib_ms["fir_valid"],
+        **fir_bound(64, BLOCK // 64, 585, True, False),
     }, {
         "name": "fft_fir",
         "route": "cuda",
@@ -1179,9 +1415,16 @@ def main() -> int:
             "plain_ms": fir_med[("c1_real_real_3651", "plain")],
             "fft_strategy_ms": fir_med[("c1_real_real_3651", "fft")],
             "max_abs_err": errs["c1_real_real_3651"][0],
-            "vs_fft_strategy_rel": errs["c1_real_real_3651"][1]}},
+            "vs_fft_strategy_rel": errs["c1_real_real_3651"][1],
+            "launches_per_step": per_step["fft_fir_real_real"][0],
+            "device_ms": per_step["fft_fir_real_real"][1],
+            **fft_fir_bound(1, BLOCK, 3651, False, False)}},
         "pipeline_msps": {f"{f} {b}": r for (f, b), r in fir_rates.items()
                           if f.startswith("library")},
+        "launches_per_step": per_step["fft_fir"][0],
+        "device_ms": per_step["fft_fir"][1],
+        "library_ms": lib_ms["fft_fir"],
+        **fft_fir_bound(1, BLOCK, 1826, True, True),
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

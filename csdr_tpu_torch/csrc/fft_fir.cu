@@ -9,136 +9,232 @@
 // end is zero.  Real input with real taps gives real output, anything else
 // complex.
 //
-// What bounds it on this card.  Per segment two 16384-point complex FFTs
-// (7 radix-4 stages each, ~1.1 MFLOP per FFT) and 128 KB + 128 KB of device
-// traffic at most; per 2^23 input samples with the 1,826-tap SSB band-pass
-// that is ~577 segments, ~1.3 GFLOP and ~130 MB: ~20 us of FLOPs at the
-// FP32 peak against ~40 us of HBM.  What is left is shared-memory traffic
-// (each stage reads and writes the whole segment) and the barrier between
-// stages, so the design keeps the segment resident and touches device memory
-// only to load it, to read H and the twiddles, and to write it back.
+// What bounds it on this card.  Per 2^23 complex samples with the 1,826-tap
+// SSB band-pass the function must read 64 MB and write 64 MB: ~40 us of HBM
+// at 3.35 TB/s; its ~577 segment FFT pairs are ~1.3 GFLOP, ~20 us at the
+// 67 TFLOP/s FP32 peak.  Real x real halves both.  A transform that walks
+// the segment through shared memory stage by stage is bound instead by
+// shared-memory round trips and barriers, so this design keeps the points in
+// registers and touches shared memory only to exchange them between passes.
 //
-// Design.  The Pallas kernel factors the DFT into 128 x 128 matmuls because
-// the MXU is its fast path; here one block of 1024 threads owns one
-// (segment, row) and runs the FFTs in shared memory (the segment as float2,
-// 128 KB, so the launch raises the dynamic shared-memory limit).  The
-// forward transform is an in-place radix-4 decimation in frequency: natural
-// order in, base-4 digit-reversed order out.  H is stored in that same
-// digit-reversed order (with 1/S folded in), so the spectrum product needs
-// no reordering, and the inverse runs the forward stages' exact inverses in
-// reverse order (conjugated twiddles, then the conjugate radix-4 butterfly),
-// digit-reversed in, natural order out.  Twiddles e^{-2 pi i k / S} and H
-// come from float64 tables cast to float32 (the wrapper makes them), not
-// from __sinf/__cosf.  No cuFFT.
+// Design.  One block of 512 threads owns one segment (or, real x real,
+// a pair of segments) of one row.  The S = 16 x 16 x 16 x 4-point DIF
+// transform runs as four register passes of 1024 radix-16 butterflies (two
+// per thread, 16 points in registers each); between them the threads
+// exchange the segment through shared memory (3 exchanges per transform):
+//   pass 1  butterfly r < 1024: DFT16 over x[r + 1024 m], straight from
+//           global memory (coalesced), times W_16384^{r k}, to r + 1024 k;
+//   pass 2  each 1024-block, r < 64:  DFT16 over stride 64, W_1024^{r k};
+//   pass 3  each 64-block,   r < 4:   DFT16 over stride 4,  W_64^{r k};
+//   pass 4  each thread's 16 consecutive points as four DFT4s.
+// Position k1·1024 + k2·64 + k3·4 + k4 then holds X[k1 + 16 k2 + 256 k3 +
+// 4096 k4]; H (the taps' DFT / S) is stored by the wrapper in that order,
+// laid out [j][u] for point j of butterfly u so its loads coalesce.  The
+// product happens in registers, the inverse undoes pass 4 in the same
+// registers and then passes 3, 2, 1 (conjugate twiddles, conjugate DFT16),
+// and pass 1's inverse stores straight to the output.  The exchange buffer
+// is padded by one float2 per 16 (p + p/16), so no pass conflicts on banks.
+// Twiddles: W^r and W^{4r} from sincospif (full precision; never
+// __sinf/__cosf), the other powers by at most three products; the DFT16's
+// own constants are compile-time.  Real x real: segments 2i and 2i+1 ride in
+// the real and imaginary parts of one complex transform (real taps keep them
+// apart), halving the FFTs; an odd count pairs the last with zeros.  No cuFFT.
 
 #include <cuda_runtime.h>
 
+#include "fft_reg.cuh"
+
 namespace {
 
-constexpr int kS = 16384;          // segment length, 4^7
-constexpr int kThreads = 1024;     // threads per segment block
-constexpr int kBfly = kS / 4;      // radix-4 butterflies per stage
+using namespace csdr;
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
-}
-__device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {  // a * conj(b)
-  return make_float2(fmaf(a.x, b.x, a.y * b.y), fmaf(a.y, b.x, -a.x * b.y));
-}
-__device__ __forceinline__ float2 add(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
-__device__ __forceinline__ float2 sub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
-__device__ __forceinline__ float2 mul_i(float2 a) { return make_float2(-a.y, a.x); }  // a * i
+constexpr int kS = 16384;                 // segment length
+constexpr int kThreads = 512;             // threads per block (128 registers each)
+constexpr int kBfly = kS / 16;            // radix-16 butterflies per pass
+constexpr int kPer = kBfly / kThreads;    // butterflies per thread per pass
+constexpr int kPadded = kS + kS / 16;     // exchange buffer, one pad per 16
 
-__device__ __forceinline__ float2 load_in(const float* xr, long long idx, long long lx) {
-  return make_float2(idx < lx ? xr[idx] : 0.f, 0.f);
-}
-__device__ __forceinline__ float2 load_in(const float2* xr, long long idx, long long lx) {
-  return idx < lx ? xr[idx] : make_float2(0.f, 0.f);
-}
-__device__ __forceinline__ void store_out(float* yr, long long o, float2 v) { yr[o] = v.x; }
-__device__ __forceinline__ void store_out(float2* yr, long long o, float2 v) { yr[o] = v; }
+enum Mode { kComplexIn = 0, kRealInComplexOut = 1, kRealPair = 2 };
 
-// x: rows of lx = n + K - 1 samples; tw: e^{-2 pi i k / S}, k < S; H: the
-// taps' S-point DFT / S in digit-reversed order; y: rows of n samples.
-template <typename TI, typename TO>
+__device__ __forceinline__ int pad(int p) { return p + (p >> 4); }
+
+// v[i] *= W_N^{∓r·k(i)} with W_N = e^{-2πi/N}, N = 2/scale; k(i) = rev4(i)
+// when OUT_REV (a DFT's outputs), else i.  W^r and W^{4r} come from
+// sincospif, the rest by products.
+template <bool INV, bool OUT_REV>
+__device__ __forceinline__ void twiddle(float2 (&v)[16], int r, float scale) {
+  float s, c;
+  sincospif(-(float)r * scale, &s, &c);
+  const float2 w1 = make_float2(c, INV ? -s : s);
+  sincospif(-(float)(4 * r) * scale, &s, &c);
+  const float2 w4 = make_float2(c, INV ? -s : s);
+  const float2 w2 = cmul(w1, w1), w3 = cmul(w2, w1);
+  float2 base = make_float2(1.f, 0.f);
+#pragma unroll
+  for (int hi = 0; hi < 4; ++hi) {  // k = 4·hi + lo
+#pragma unroll
+    for (int lo = 0; lo < 4; ++lo) {
+      const int k = 4 * hi + lo;
+      if (k == 0) continue;
+      const float2 w = lo == 0 ? base : lo == 1 ? cmul(base, w1) : lo == 2 ? cmul(base, w2)
+                                                                        : cmul(base, w3);
+      const int i = OUT_REV ? rev4(k) : k;
+      v[i] = cmul(v[i], w);
+    }
+    base = hi == 0 ? w4 : cmul(base, w4);
+  }
+}
+
+// Forward passes 2 and 3 over shared memory, in place: butterfly u of a
+// pass with sub-length N (1024 or 64) and stride N/16.
+template <int N>
+__device__ __forceinline__ void fwd_pass(float2* s, int u) {
+  constexpr int st = N / 16;
+  const int base = (u / st) * N, r = u % st;
+  float2 v[16];
+#pragma unroll
+  for (int m = 0; m < 16; ++m) v[m] = s[pad(base + r + st * m)];
+  dft_reg<16, false>(v);
+  twiddle<false, true>(v, r, 2.f / N);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) s[pad(base + r + st * k)] = v[rev4(k)];
+}
+
+template <int N>
+__device__ __forceinline__ void inv_pass(float2* s, int u) {
+  constexpr int st = N / 16;
+  const int base = (u / st) * N, r = u % st;
+  float2 v[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) v[k] = s[pad(base + r + st * k)];
+  twiddle<true, false>(v, r, 2.f / N);
+  dft_reg<16, true>(v);
+#pragma unroll
+  for (int m = 0; m < 16; ++m) s[pad(base + r + st * m)] = v[rev4(m)];
+}
+
+__device__ __forceinline__ float2 load_pt(const float2* xr, long long i, long long lx) {
+  return i < lx ? xr[i] : make_float2(0.f, 0.f);
+}
+__device__ __forceinline__ float load_pt(const float* xr, long long i, long long lx) {
+  return i < lx ? xr[i] : 0.f;
+}
+
+// x: rows of lx = n + K - 1 samples; Ht: the taps' S-point DFT / S in the
+// transform's output order, as [j][u]; y: rows of n samples.  A block owns
+// segment blockIdx.x (MODE kRealPair: segments 2·blockIdx.x and +1).
+template <int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
-    fft_fir_segment(const TI* __restrict__ x, const float2* __restrict__ tw,
-                    const float2* __restrict__ H, long long n, long long lx, int K, int hop,
-                    TO* __restrict__ y) {
+    fft_fir_segment(const void* __restrict__ xv, const float2* __restrict__ Ht, long long n,
+                    long long lx, int K, int hop, int nseg, void* __restrict__ yv) {
   extern __shared__ float2 s[];
   const int tid = threadIdx.x;
   const long long row = blockIdx.y;
-  const long long start = (long long)blockIdx.x * hop;
-  const TI* xr = x + row * lx;
+  const int seg = MODE == kRealPair ? 2 * blockIdx.x : blockIdx.x;
+  const long long start = (long long)seg * hop;
+  const long long start2 = start + hop;  // kRealPair: the imaginary segment
+  const bool has2 = MODE == kRealPair && seg + 1 < nseg;
 
-  for (int i = tid; i < kS; i += kThreads) s[i] = load_in(xr, start + i, lx);
+  // pass 1: global → registers → shared
+#pragma unroll
+  for (int g = 0; g < kPer; ++g) {
+    const int r = tid + g * kThreads;
+    float2 v[16];
+    if (MODE == kComplexIn) {
+      const float2* xr = static_cast<const float2*>(xv) + row * lx;
+#pragma unroll
+      for (int m = 0; m < 16; ++m) v[m] = load_pt(xr, start + r + 1024 * m, lx);
+    } else {
+      const float* xr = static_cast<const float*>(xv) + row * lx;
+#pragma unroll
+      for (int m = 0; m < 16; ++m) {
+        v[m].x = load_pt(xr, start + r + 1024 * m, lx);
+        v[m].y = has2 ? load_pt(xr, start2 + r + 1024 * m, lx) : 0.f;
+      }
+    }
+    dft_reg<16, false>(v);
+    twiddle<false, true>(v, r, 2.f / kS);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) s[pad(r + 1024 * k)] = v[rev4(k)];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < kPer; ++g) fwd_pass<1024>(s, tid + g * kThreads);
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < kPer; ++g) fwd_pass<64>(s, tid + g * kThreads);
   __syncthreads();
 
-  // forward: radix-4 DIF, sub-transform length L = 4Q from S down to 4;
-  // butterfly (g, j) takes a_m = s[g·L + j + m·Q] and writes
-  // y_m · W_L^{jm}, y_m = sum_l a_l · (-i)^{lm}
-  for (int lq = 12; lq >= 0; lq -= 2) {
-    const int Q = 1 << lq;
-    const int step = kS >> (lq + 2);  // S / L: W_L^{jm} = tw[j·m·step]
-    for (int b = tid; b < kBfly; b += kThreads) {
-      const int j = b & (Q - 1);
-      const int i = ((b >> lq) << (lq + 2)) + j;
-      const float2 a0 = s[i], a1 = s[i + Q], a2 = s[i + 2 * Q], a3 = s[i + 3 * Q];
-      const float2 b0 = add(a0, a2), b1 = sub(a0, a2);
-      const float2 b2 = add(a1, a3), b3 = mul_i(sub(a1, a3));
-      s[i] = add(b0, b2);
-      s[i + Q] = cmul(sub(b1, b3), __ldg(&tw[j * step]));
-      s[i + 2 * Q] = cmul(sub(b0, b2), __ldg(&tw[2 * j * step]));
-      s[i + 3 * Q] = cmul(add(b1, b3), __ldg(&tw[3 * j * step]));
+  // pass 4, the spectrum product and pass 4's inverse, in registers
+#pragma unroll
+  for (int g = 0; g < kPer; ++g) {
+    const int u = tid + g * kThreads;
+    float2 v[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = s[pad(16 * u + j)];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float2 a[4] = {v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]};
+      dft_reg<4, false>(a);  // a[rev2(k)] = X[k]
+      v[4 * q] = a[0]; v[4 * q + 1] = a[2]; v[4 * q + 2] = a[1]; v[4 * q + 3] = a[3];
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = cmul(v[j], __ldg(&Ht[j * kBfly + u]));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float2 a[4] = {v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]};
+      dft_reg<4, true>(a);
+      v[4 * q] = a[0]; v[4 * q + 1] = a[2]; v[4 * q + 2] = a[1]; v[4 * q + 3] = a[3];
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) s[pad(16 * u + j)] = v[j];
   }
-
-  // the spectrum product, both in digit-reversed order
-  for (int i = tid; i < kS; i += kThreads) s[i] = cmul(s[i], __ldg(&H[i]));
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < kPer; ++g) inv_pass<64>(s, tid + g * kThreads);
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < kPer; ++g) inv_pass<1024>(s, tid + g * kThreads);
   __syncthreads();
 
-  // inverse: each forward stage undone in reverse order, L from 4 up to S:
-  // a_m = s[...] · conj(W_L^{jm}), then y_m = sum_l a_l · (+i)^{lm}
-  for (int lq = 0; lq <= 12; lq += 2) {
-    const int Q = 1 << lq;
-    const int step = kS >> (lq + 2);
-    for (int b = tid; b < kBfly; b += kThreads) {
-      const int j = b & (Q - 1);
-      const int i = ((b >> lq) << (lq + 2)) + j;
-      const float2 a0 = s[i];
-      const float2 a1 = cmul_conj(s[i + Q], __ldg(&tw[j * step]));
-      const float2 a2 = cmul_conj(s[i + 2 * Q], __ldg(&tw[2 * j * step]));
-      const float2 a3 = cmul_conj(s[i + 3 * Q], __ldg(&tw[3 * j * step]));
-      const float2 b0 = add(a0, a2), b1 = sub(a0, a2);
-      const float2 b2 = add(a1, a3), b3 = mul_i(sub(a1, a3));
-      s[i] = add(b0, b2);
-      s[i + Q] = add(b1, b3);
-      s[i + 2 * Q] = sub(b0, b2);
-      s[i + 3 * Q] = sub(b1, b3);
+  // pass 1's inverse: shared → registers → global; overlap-save keeps
+  // positions [K - 1, S), outputs start .. start + hop
+#pragma unroll
+  for (int g = 0; g < kPer; ++g) {
+    const int r = tid + g * kThreads;
+    float2 v[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = s[pad(r + 1024 * k)];
+    twiddle<true, false>(v, r, 2.f / kS);
+    dft_reg<16, true>(v);
+#pragma unroll
+    for (int m = 0; m < 16; ++m) {
+      const int i = r + 1024 * m;
+      if (i < K - 1) continue;
+      const long long o = start + (i - (K - 1));
+      const float2 val = v[rev4(m)];
+      if (MODE == kRealPair) {
+        float* yr = static_cast<float*>(yv) + row * n;
+        if (o < n) yr[o] = val.x;
+        if (has2 && o + hop < n) yr[o + hop] = val.y;
+      } else if (o < n) {
+        (static_cast<float2*>(yv) + row * n)[o] = val;
+      }
     }
-    __syncthreads();
-  }
-
-  // overlap-save: positions [K - 1, S) are outputs start .. start + hop
-  TO* yr = y + row * n;
-  for (int i = K - 1 + tid; i < kS; i += kThreads) {
-    const long long o = start + (i - (K - 1));
-    if (o < n) store_out(yr, o, s[i]);
   }
 }
 
-template <typename TI, typename TO>
-cudaError_t launch(const void* x, const void* tw, const void* H, long long n, long long lx,
-                   int K, int hop, int nseg, int rows, void* y, cudaStream_t st) {
-  const size_t smem = kS * sizeof(float2);
+template <int MODE>
+cudaError_t launch(const void* x, const void* Ht, long long n, long long lx, int K, int hop,
+                   int nseg, int rows, void* y, cudaStream_t st) {
+  const size_t smem = kPadded * sizeof(float2);
   const cudaError_t e =
-      cudaFuncSetAttribute(reinterpret_cast<const void*>(&fft_fir_segment<TI, TO>),
+      cudaFuncSetAttribute(reinterpret_cast<const void*>(&fft_fir_segment<MODE>),
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  fft_fir_segment<TI, TO><<<dim3((unsigned)nseg, (unsigned)rows), kThreads, smem, st>>>(
-      static_cast<const TI*>(x), static_cast<const float2*>(tw),
-      static_cast<const float2*>(H), n, lx, K, hop, static_cast<TO*>(y));
+  const int blocks = MODE == kRealPair ? (nseg + 1) / 2 : nseg;
+  fft_fir_segment<MODE><<<dim3((unsigned)blocks, (unsigned)rows), kThreads, smem, st>>>(
+      x, static_cast<const float2*>(Ht), n, lx, K, hop, nseg, y);
   return cudaGetLastError();
 }
 
@@ -147,12 +243,12 @@ cudaError_t launch(const void* x, const void* tw, const void* H, long long n, lo
 // One launch over `rows` rows and `nseg` segments on `stream`; returns
 // cudaGetLastError().  complex_in: x is float2 rows, else float;
 // complex_out: y is float2 rows, else float (only with real input and real
-// taps).  hop = 16384 - (K - 1), nseg = ceil(n / hop).
-extern "C" int csdr_fft_fir(int complex_in, int complex_out, const void* x, const void* tw,
-                            const void* H, long long n, long long lx, int K, int hop, int nseg,
-                            int rows, void* y, void* stream) {
+// taps, which pairs segments).  hop = 16384 - (K - 1), nseg = ceil(n / hop).
+extern "C" int csdr_fft_fir(int complex_in, int complex_out, const void* x, const void* Ht,
+                            long long n, long long lx, int K, int hop, int nseg, int rows,
+                            void* y, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (complex_in) return launch<float2, float2>(x, tw, H, n, lx, K, hop, nseg, rows, y, st);
-  if (complex_out) return launch<float, float2>(x, tw, H, n, lx, K, hop, nseg, rows, y, st);
-  return launch<float, float>(x, tw, H, n, lx, K, hop, nseg, rows, y, st);
+  if (complex_in) return launch<kComplexIn>(x, Ht, n, lx, K, hop, nseg, rows, y, st);
+  if (complex_out) return launch<kRealInComplexOut>(x, Ht, n, lx, K, hop, nseg, rows, y, st);
+  return launch<kRealPair>(x, Ht, n, lx, K, hop, nseg, rows, y, st);
 }

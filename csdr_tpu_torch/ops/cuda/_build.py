@@ -47,12 +47,13 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the sources if no library for their hash exists; return its
-    path.  The compiler's report (``-Xptxas -v``: registers, shared memory,
-    spills per kernel) is kept beside it as ``nvcc-<hash>.log``."""
+    """Compile the sources if no library for their hash (headers included)
+    exists; return its path.  The compiler's report (``-Xptxas -v``:
+    registers, shared memory, spills per kernel) is kept beside it as
+    ``nvcc-<hash>.log``."""
     srcs = _sources()
     h = hashlib.sha256()
-    for p in srcs:
+    for p in srcs + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS).encode())

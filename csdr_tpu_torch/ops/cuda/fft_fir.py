@@ -11,10 +11,11 @@ complex64.
 On a CUDA tensor ``fft_fir_valid`` launches the hand-written kernel of
 ``csrc/fft_fir.cu`` or raises; only a tensor on the CPU takes the plain
 version ``fft_fir_valid_ref`` (the same overlap-save with ``torch.fft``).
-``launches`` counts the calls that launched the kernel.  The kernel's
-twiddles and H (the taps' S-point DFT / S, in the base-4 digit-reversed
-order its in-place radix-4 transform produces) are made in float64 on the
-host and cached per device.
+``launches`` counts the calls that launched the kernel.  The kernel's H
+(the taps' S-point DFT / S, in the order its 16 × 16 × 16 × 4 register
+passes leave the spectrum, ``transform_order``) is made in float64 on the
+host and cached per device; real input with real taps runs two segments
+per transform, one in each of the real and imaginary parts.
 """
 
 from __future__ import annotations
@@ -81,30 +82,22 @@ def fft_fir_valid_ref(xfull: torch.Tensor, taps) -> torch.Tensor:
     return y.real.contiguous()
 
 
-def _digit_reversal(n_digits: int) -> np.ndarray:
-    """p[d] = d with its n_digits base-4 digits reversed."""
-    d = np.arange(4 ** n_digits)
-    r = np.zeros_like(d)
-    for _ in range(n_digits):
-        r = r * 4 + d % 4
-        d = d // 4
-    return r
-
-
-@functools.lru_cache(maxsize=8)
-def _twiddles_on(device: torch.device) -> torch.Tensor:
-    """e^{−2πik/S}, k < S, float64-made, as complex64 on ``device``."""
-    tw = np.exp(-2j * np.pi * np.arange(S) / S).astype(np.complex64)
-    return torch.from_numpy(tw).to(device)
+def transform_order() -> np.ndarray:
+    """The order in which the kernel's forward transform leaves the
+    spectrum, as the kernel reads H: entry j·1024 + u (point j of butterfly
+    u, position p = 16u + j) is bin k1 + 16·k2 + 256·k3 + 4096·k4 for
+    p = k1·1024 + k2·64 + k3·4 + k4 (passes 16 × 16 × 16 × 4)."""
+    p = (16 * np.arange(S // 16)[None, :] + np.arange(16)[:, None]).reshape(-1)
+    return (p >> 10) + 16 * ((p >> 6) & 15) + 256 * ((p >> 2) & 15) + 4096 * (p & 3)
 
 
 @functools.lru_cache(maxsize=64)
 def _kernel_spectrum_on(key: bytes, dtype: str, device: torch.device) -> torch.Tensor:
-    """The kernel's H: the taps' S-point DFT / S in digit-reversed order,
+    """The kernel's H: the taps' S-point DFT / S in ``transform_order``,
     complex64 (both steps exact on the float32 DFT), made once per taps and
     device (a blocking copy synchronises the stream)."""
     H = fft_response_on(key, dtype, S, False, device)
-    return H[torch.from_numpy(_digit_reversal(7)).to(device)] / S
+    return (H[torch.from_numpy(transform_order()).to(device)] / S).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,7 +106,7 @@ def _kernel_fn():
 
     fn = load_library().csdr_fft_fir
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [I, I, P, P, P, LL, LL, I, I, I, I, P, P]
+    fn.argtypes = [I, I, P, P, LL, LL, I, I, I, I, P, P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -136,11 +129,10 @@ def fft_fir_valid(xfull: torch.Tensor, taps) -> torch.Tensor:
         return out
     hop, nseg = segments(n, K)
     H = _kernel_spectrum_on(taps.tobytes(), taps.dtype.str, xfull.device)
-    tw = _twiddles_on(xfull.device)
     with torch.cuda.device(xfull.device):
         stream = torch.cuda.current_stream(xfull.device).cuda_stream
         err = _kernel_fn()(int(xfull.is_complex()), int(complex_out), xfull.data_ptr(),
-                           tw.data_ptr(), H.data_ptr(), n, xfull.shape[-1], K, hop, nseg, rows,
+                           H.data_ptr(), n, xfull.shape[-1], K, hop, nseg, rows,
                            out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fft_fir_valid kernel launch failed: CUDA error {err}")

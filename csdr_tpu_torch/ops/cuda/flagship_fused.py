@@ -37,6 +37,8 @@ __all__ = ["flagship_fused_init", "flagship_fused_step", "flagship_fused_ref",
 DEFAULT_TILE_F = 32
 _TWO_PI = 2.0 * np.pi
 _SCAN_THREADS = 1024   # csrc/flagship_fused.cu kScanThreads
+_CHANNEL_THREADS = 256  # csrc/flagship_fused.cu kChannelThreads
+_BLOCK_SAMPLES = 2048   # samples a channel block takes when it groups tiles
 _SMEM_LIMIT = 232448   # bytes of shared memory a Hopper block may use
 _MODES = {"complex": 0, "u8": 1, "u8_planes": 2}
 
@@ -147,8 +149,20 @@ def _dc_split(C: int) -> tuple[int, int]:
     return spt, C // spt
 
 
-def _channel_smem(nch: int, L: int, tileF: int) -> int:
-    return ((tileF + L + 1) * (nch + 1) + (tileF + 1) * nch + nch) * 8 + (L + 1) * nch * 4
+def block_frames(nch: int, tileF: int, F: int) -> int:
+    """Frames per channel-tile block: q·tileF for the largest q that divides
+    F/tileF with q·tileF·nch <= 2048 samples (q = 1 at nch 64)."""
+    tiles = F // tileF
+    q = max(1, _BLOCK_SAMPLES // (tileF * nch))
+    while tiles % q:
+        q -= 1
+    return q * tileF
+
+
+def _replay_split(nch: int, L: int, tileF: int) -> int:
+    """Samples per thread of the channel tile's DC replay over its frames
+    and halo."""
+    return -(-(tileF + L + 1) * nch // _CHANNEL_THREADS)
 
 
 @functools.lru_cache(maxsize=64)
@@ -156,39 +170,51 @@ def _constants(nch: int, m: int, as_db: float, tileF: int, dc_alpha: float, n: i
                device: torch.device):
     """Device-resident design constants of one (configuration, block
     length, device): taps, twiddles, the NCO ramp and powers of r, the
-    latter made in float64 on the host."""
+    latter made in float64 on the host.  o_h is the offset of every tile's
+    halo start inside its chunk."""
     r = 1.0 - dc_alpha
     C = tileF * nch
     spt, nthr = _dc_split(C)
+    tb = block_frames(nch, tileF, n // nch)
+    spt2 = _replay_split(nch, 2 * m, tb)
+    o_h = -(2 * m + 1) * nch % C
     n_chunks = n // C
     mpt = -(-n_chunks // _SCAN_THREADS)
     tw = np.exp(-2j * np.pi * np.arange(nch) / nch).astype(np.complex64)
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return dict(
-        spt=spt, m=mpt, rC=float(np.float32(r ** C)),
+        spt=spt, m=mpt, rC=float(np.float32(r ** C)), tb=tb, spt2=spt2, o_h=o_h,
+        r=float(np.float32(r)), g=float(np.float32((1.0 + r) / 2.0)),
+        phase_inc=float(np.float32(phase_increment(float(pfb_offset(nch)), int(n)))),
+        r_loc=float(np.float32(r ** (o_h % spt))), r_oh=float(np.float32(r ** o_h)),
         taps=put(permuted_tap_panel(nch, m, as_db)),
         twiddle=put(tw),
         ramp2=put(phase_ramp(float(pfb_offset(nch)), 2 * nch)),
         pow_thr=put(np.power(r, spt * np.arange(nthr + 1, dtype=np.float64)).astype(np.float32)),
         pow_blk=put(np.power(r, float(C) * mpt * np.arange(_SCAN_THREADS + 1,
                                                            dtype=np.float64)).astype(np.float32)),
+        pow_rep=put(np.power(r, spt2 * np.arange(_CHANNEL_THREADS + 1,
+                                                 dtype=np.float64)).astype(np.float32)),
     )
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
+def _library():
+    """The built library with the flagship entry points typed."""
     from ._build import load_library
 
     lib = load_library()
-    lib.csdr_scan_threads.restype = ctypes.c_int
-    if lib.csdr_scan_threads() != _SCAN_THREADS:
-        raise RuntimeError("csrc/flagship_fused.cu kScanThreads differs from _SCAN_THREADS")
+    lib.csdr_scan_threads.restype = lib.csdr_channel_threads.restype = ctypes.c_int
+    if (lib.csdr_scan_threads(), lib.csdr_channel_threads()) != (_SCAN_THREADS,
+                                                                  _CHANNEL_THREADS):
+        raise RuntimeError("csrc/flagship_fused.cu thread counts differ from the wrapper's")
+    lib.csdr_channel_smem.restype = ctypes.c_longlong
+    lib.csdr_channel_smem.argtypes = [ctypes.c_int] * 3
     fn = lib.csdr_flagship_fused
     P, I, LL, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    fn.argtypes = ([I, P, P, LL, I, I, I, I, I, Fl, Fl, Fl, Fl, Fl]
-                   + [P] * 18)
+    fn.argtypes = [I, P, P, LL] + [I] * 9 + [Fl] * 7 + [P] * 19
     fn.restype = ctypes.c_int
-    return fn
+    return lib
 
 
 def _check_state(state, nch: int, L: int, device: torch.device):
@@ -210,7 +236,7 @@ def flagship_fused_step(state, x, *, nch: int, m: int = 7, as_db: float = 80.0,
     ``x`` is complex64 (n,), uint8 (2n,) interleaved rtl_sdr cu8, or a
     (re, im) pair of uint8 (n,) planes; cu8 is converted inside the kernel
     as v·(1/127.5) − 1.  n must be a multiple of nch·tileF.  On CUDA the
-    four launches of ``csrc/flagship_fused.cu`` run on the current stream;
+    three launches of ``csrc/flagship_fused.cu`` run on the current stream;
     on the CPU the plain twin runs."""
     global launches
     mode, x0, x1, n = _classify(x)
@@ -234,10 +260,12 @@ def flagship_fused_step(state, x, *, nch: int, m: int = 7, as_db: float = 80.0,
         raise ValueError(f"flagship_fused_step runs on cuda or cpu tensors, got {device}")
     if mode == "u8" and x0.data_ptr() % 2:
         raise ValueError("interleaved u8 input must start on an even byte (uchar2 loads)")
-    smem = _channel_smem(nch, L, tileF)
+    lib = _library()
+    tb = block_frames(nch, tileF, n // nch)
+    smem = lib.csdr_channel_smem(nch, L, tb)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"nch={nch}, tileF={tileF} needs {smem} B of shared memory "
-                         f"per block (limit {_SMEM_LIMIT}); use a smaller tileF")
+        raise ValueError(f"nch={nch}, tileF={tileF} needs {smem} B of shared memory per "
+                         f"block of {tb} frames (limit {_SMEM_LIMIT}); use a smaller tileF")
     spt, _ = _dc_split(nch * tileF)
     n_chunks = n // (nch * tileF)
     if n_chunks >= 2 ** 31:  # one CUDA block per chunk and per tile
@@ -245,29 +273,29 @@ def flagship_fused_step(state, x, *, nch: int, m: int = 7, as_db: float = 80.0,
 
     c = _constants(nch, m, float(as_db), tileF, float(dc_alpha), n, device)
     F = n // nch
-    r = 1.0 - dc_alpha
-    g = (1.0 + r) / 2.0
+    # few allocations: the step's host time is a good part of its wall time
+    cstate = torch.empty((L + 1) * nch + 2, dtype=torch.complex64, device=device)
     new_state = dict(phase=torch.empty((), dtype=torch.float32, device=device),
-                     hist=torch.empty((L + 1, nch), dtype=torch.complex64, device=device),
-                     x_last=torch.empty((), dtype=torch.complex64, device=device),
-                     y_dc_last=torch.empty((), dtype=torch.complex64, device=device))
-    chunk_end = torch.empty(n_chunks, dtype=torch.complex64, device=device)
-    chunk_in = torch.empty(n_chunks, dtype=torch.complex64, device=device)
-    shifted = torch.empty(n, dtype=torch.complex64, device=device)
+                     hist=cstate[:-2].view(L + 1, nch), x_last=cstate[-2], y_dc_last=cstate[-1])
+    chunk_end, chunk_in, partial = torch.empty((3, n_chunks), dtype=torch.complex64,
+                                               device=device)
     audio = torch.empty((nch, F), dtype=torch.float32, device=device)
     ptr = lambda t: None if t is None else t.data_ptr()
+    # 16-byte loads in the DC chunk pass: every chunk starts 16-aligned
+    vec = int(nch * tileF % 16 == 0 and all(p is None or p.data_ptr() % 16 == 0
+                                             for p in (x0, x1)))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel_fn()(
-            _MODES[mode], ptr(x0), ptr(x1), n, nch, L, tileF, spt, c["m"],
-            float(np.float32(r)), float(np.float32(g)), c["rC"],
-            float(np.float32(1.0 / (_TWO_PI * kf))),
-            float(np.float32(phase_increment(float(pfb_offset(nch)), int(n)))),
+        err = lib.csdr_flagship_fused(
+            _MODES[mode], ptr(x0), ptr(x1), n, nch, L, tileF, tb, spt, c["m"], c["spt2"],
+            c["o_h"],
+            vec, c["r"], c["g"], c["rC"], c["r_loc"], c["r_oh"],
+            float(np.float32(1.0 / (_TWO_PI * kf))), c["phase_inc"],
             ptr(c["taps"]), ptr(c["twiddle"]), ptr(c["ramp2"]), ptr(c["pow_thr"]),
-            ptr(c["pow_blk"]), ptr(state["phase"]), ptr(state["hist"]),
+            ptr(c["pow_blk"]), ptr(c["pow_rep"]), ptr(state["phase"]), ptr(state["hist"]),
             ptr(state["x_last"]), ptr(state["y_dc_last"]), ptr(new_state["phase"]),
             ptr(new_state["hist"]), ptr(new_state["x_last"]), ptr(new_state["y_dc_last"]),
-            ptr(chunk_end), ptr(chunk_in), ptr(shifted), ptr(audio), stream)
+            ptr(chunk_end), ptr(chunk_in), ptr(partial), ptr(audio), stream)
     if err != 0:
         raise RuntimeError(f"flagship_fused kernel launch failed: CUDA error {err}")
     launches += 1

@@ -53,7 +53,8 @@ def occupied_band(nch, n, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nch,fmt", [(64, "f32"), (20, "f32"), (64, "u8"), (20, "u8_planes")])
+@pytest.mark.parametrize("nch,fmt", [(64, "f32"), (20, "f32"), (64, "u8"), (20, "u8_planes"),
+                                     (8, "f32"), (32, "u8")])
 def test_kernel_matches_twin(dev, nch, fmt):
     x = occupied_band(nch, nch * 32 * 48 * 3, seed=nch)
     if fmt != "f32":
@@ -83,6 +84,11 @@ def test_launch_refuses_bad_input_on_card(dev):
     with pytest.raises(ValueError):  # state on another device
         ff.flagship_fused_step(ff.flagship_fused_init(64, torch.device("cpu")),
                                torch.zeros(64 * 32, dtype=torch.complex64, device=dev), nch=64)
+    nch = 650  # the channel block's shared memory exceeds the limit
+    with pytest.raises(ValueError, match="shared memory"):
+        ff.flagship_fused_step(ff.flagship_fused_init(nch, dev),
+                               torch.zeros(nch * 8 * 3, dtype=torch.complex64, device=dev),
+                               nch=nch, tileF=8)
 
 
 def _err(a, b):
@@ -186,23 +192,27 @@ def test_fir_valid_kernel_matches_plain(dev, rows, n, K, cplx):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,cplx,ctaps", [(1, False, False), (401, False, False),
-                                          (2048, True, True), (1826, True, True),
-                                          (300, False, True)])
-def test_fft_fir_kernel_matches_plain(dev, K, cplx, ctaps):
+@pytest.mark.parametrize("K,cplx,ctaps,rows,n", [(1, False, False, 2, 70_000),
+                                                 (401, False, False, 2, 70_000),
+                                                 (2048, True, True, 2, 70_000),
+                                                 (1826, True, True, 2, 70_000),
+                                                 (300, False, True, 2, 70_000),
+                                                 (3651, False, False, 3, 30_468)])
+def test_fft_fir_kernel_matches_plain(dev, K, cplx, ctaps, rows, n):
     """K6 against its plain version over several segments, every
-    input/taps type pair."""
+    input/taps type pair; real × real pairs segments, and 3 rows of 30,468
+    outputs at 3,651 taps are 3 segments each (the last pair half empty)."""
     rng = np.random.default_rng(K)
     taps = rng.normal(size=K) / np.sqrt(K)
     if ctaps:
         taps = taps * np.exp(2j * np.pi * 0.19 * np.arange(K))
-    x = _rows(dev, (2, 70_000 + K - 1), cplx, seed=K + 1)
+    x = _rows(dev, (rows, n + K - 1), cplx, seed=K + 1)
     before = k6.launches
     got = k6.fft_fir_valid(x, taps)
     torch.cuda.synchronize()
     assert k6.launches == before + 1
     want = k6.fft_fir_valid_ref(x, taps)
-    assert got.shape == want.shape == (2, 70_000) and got.dtype == want.dtype
+    assert got.shape == want.shape == (rows, n) and got.dtype == want.dtype
     assert _rel(got, want) < 2e-4
 
 

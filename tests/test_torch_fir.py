@@ -141,37 +141,122 @@ def test_kernel_wrappers_refuse_other_devices():
         tfir.conv_valid(torch.zeros(1000), np.ones(300) + 1j, "pallas_mxu")
 
 
-def test_k6_tables_through_the_kernel_schedule():
-    """The kernel's host tables (twiddles, H in base-4 digit-reversed order
-    with 1/S folded in) driven through the radix-4 stage schedule of
-    csrc/fft_fir.cu, transcribed in numpy: one segment's positions
-    [K − 1, S) equal the plain version's."""
-    rng = np.random.default_rng(11)
-    S, K = k6.S, 1826
-    taps = rng.normal(size=K) * np.exp(2j * np.pi * 0.05 * np.arange(K))
-    xfull = _signal(rng, S + K - 1, True)
-    tw = k6._twiddles_on(torch.device("cpu")).numpy().astype(np.complex128)
-    H = k6._kernel_spectrum_on(taps.tobytes(), taps.dtype.str, torch.device("cpu")).numpy()
-    s = xfull[:S].astype(np.complex128)
-    b = np.arange(S // 4)
-    for lq in range(12, -1, -2):  # forward DIF, L = 4Q from S down to 4
-        Q, step = 1 << lq, S >> (lq + 2)
-        j = b & (Q - 1)
-        i = ((b >> lq) << (lq + 2)) + j
-        a = [s[i + m * Q] for m in range(4)]
-        b0, b1, b2, b3 = a[0] + a[2], a[0] - a[2], a[1] + a[3], 1j * (a[1] - a[3])
-        s[i], s[i + Q] = b0 + b2, (b1 - b3) * tw[j * step]
-        s[i + 2 * Q], s[i + 3 * Q] = (b0 - b2) * tw[2 * j * step], (b1 + b3) * tw[3 * j * step]
-    s *= H
-    for lq in range(0, 13, 2):  # inverse: each stage undone, L from 4 up to S
-        Q, step = 1 << lq, S >> (lq + 2)
-        j = b & (Q - 1)
-        i = ((b >> lq) << (lq + 2)) + j
-        a = [s[i + m * Q] * np.conj(tw[m * j * step]) for m in range(4)]
-        b0, b1, b2, b3 = a[0] + a[2], a[0] - a[2], a[1] + a[3], 1j * (a[1] - a[3])
-        s[i], s[i + Q], s[i + 2 * Q], s[i + 3 * Q] = b0 + b2, b1 + b3, b0 - b2, b1 - b3
-    want = k6.fft_fir_valid_ref(torch.from_numpy(xfull), taps).numpy()[:S - (K - 1)]
-    assert _rel(s[K - 1:], want) < 2e-4
+REV4 = np.array([int(f"{k:04b}"[::-1], 2) for k in range(16)])
+
+
+def _dft_reg(v, inv):
+    """csrc/fft_reg.cuh dft_reg over axis 0: radix-2 DIF, natural order in,
+    bit-reversed order out."""
+    v = v.copy()
+    P = v.shape[0]
+    half = P // 2
+    while half >= 1:
+        for g in range(0, P, 2 * half):
+            for j in range(half):
+                a, b = v[g + j].copy(), v[g + j + half].copy()
+                e = j * (16 // (2 * half))
+                v[g + j], v[g + j + half] = a + b, (a - b) * np.exp((1 if inv else -1) * 2j
+                                                                     * np.pi * e / 16)
+        half //= 2
+    return v
+
+
+def _twiddle(v, r, N, inv, out_rev):
+    """csrc/fft_fir.cu twiddle: v[i] *= W_N^{∓r·k(i)}, k(i) = rev4(i) on a
+    DFT's outputs."""
+    k = np.arange(16)
+    w = np.exp((1 if inv else -1) * 2j * np.pi * np.outer(k, r) / N)
+    idx = REV4 if out_rev else k
+    v[idx] = v[idx] * w
+
+
+def _dft4_blocks(v, inv):
+    """Pass 4 (or its inverse): four DFT4s over each thread's 16 points."""
+    for q in range(4):
+        a = _dft_reg(v[4 * q:4 * q + 4], inv)
+        v[4 * q:4 * q + 4] = a[[0, 2, 1, 3]]
+
+
+def _k6_schedule(xrow, taps):
+    """One row through the pass schedule of csrc/fft_fir.cu in numpy, with
+    the wrapper's H table: 1024 butterflies of 16 points per pass, real
+    input with real taps paired into one complex transform."""
+    S, K = k6.S, len(taps)
+    n = len(xrow) - (K - 1)
+    hop, nseg = k6.segments(n, K)
+    pair = not np.iscomplexobj(xrow) and not np.iscomplexobj(taps)
+    Ht = k6._kernel_spectrum_on(taps.tobytes(), taps.dtype.str, torch.device("cpu")).numpy()
+    Ht = Ht.astype(np.complex128).reshape(16, S // 16)
+    x = np.concatenate([xrow, np.zeros(2 * S + hop * nseg, xrow.dtype)]).astype(np.complex128)
+    y = np.zeros(n, np.float64 if pair else np.complex128)
+    u, m = np.arange(S // 16), np.arange(16)[:, None]
+    for seg in range(0, nseg, 2 if pair else 1):
+        start = seg * hop
+        has2 = pair and seg + 1 < nseg
+        v = x[start + u + 1024 * m]
+        if has2:
+            v = v + 1j * x[start + hop + u + 1024 * m]
+        s = np.zeros(S, np.complex128)
+        v = _dft_reg(v, False)
+        _twiddle(v, u, S, False, True)
+        s[u + 1024 * m] = v[REV4]
+        for N in (1024, 64):
+            st = N // 16
+            pos = (u // st) * N + u % st + st * m
+            v = _dft_reg(s[pos], False)
+            _twiddle(v, u % st, N, False, True)
+            s[pos] = v[REV4]
+        v = s[16 * u + m]
+        _dft4_blocks(v, False)
+        v *= Ht
+        _dft4_blocks(v, True)
+        s[16 * u + m] = v
+        for N in (64, 1024):
+            st = N // 16
+            pos = (u // st) * N + u % st + st * m
+            v = s[pos]
+            _twiddle(v, u % st, N, True, False)
+            s[pos] = _dft_reg(v, True)[REV4]
+        v = s[u + 1024 * m]
+        _twiddle(v, u, S, True, False)
+        z = _dft_reg(v, True)[REV4].reshape(-1)   # position u + 1024·m
+        i = (u + 1024 * m).reshape(-1)
+        keep = i >= K - 1
+        o = start + i[keep] - (K - 1)
+        zk = z[keep]
+        ok = o < n
+        y[o[ok]] = zk[ok].real if pair else zk[ok]
+        if has2:
+            ok2 = o + hop < n
+            y[o[ok2] + hop] = zk[ok2].imag
+    return y
+
+
+def test_k6_transform_order_is_a_permutation():
+    order = k6.transform_order()
+    assert sorted(order.tolist()) == list(range(k6.S))
+    pads = {p + (p >> 4) for p in range(k6.S)}   # the exchange buffer's padding
+    assert len(pads) == k6.S and max(pads) < k6.S + k6.S // 16
+
+
+@pytest.mark.parametrize("case,K,nseg", [("complex_taps", 1826, 2), ("real_pair_odd", 3651, 3),
+                                         ("real_in_complex_taps", 300, 1)])
+def test_k6_tables_through_the_kernel_schedule(case, K, nseg):
+    """The kernel's H table driven through the register-pass schedule of
+    csrc/fft_fir.cu, transcribed in numpy, equals the plain version: complex
+    input and taps; real × real with an odd segment count (the last pair
+    half empty); real input with complex taps."""
+    rng = np.random.default_rng(K)
+    taps = rng.normal(size=K) / np.sqrt(K)
+    if case != "real_pair_odd":
+        taps = taps * np.exp(2j * np.pi * 0.05 * np.arange(K))
+    hop = k6.S - (K - 1)
+    n = (nseg - 1) * hop + hop // 2
+    xfull = _signal(rng, n + K - 1, case == "complex_taps")
+    assert k6.segments(n, K) == (hop, nseg)
+    got = _k6_schedule(xfull, taps)
+    want = k6.fft_fir_valid_ref(torch.from_numpy(xfull), taps).numpy()
+    assert _rel(got, want) < 2e-4
 
 
 def test_fir_stream_blocks_match_jax():

@@ -146,6 +146,156 @@ def test_fused_block_in_pipeline_takes_cu8_rows():
     assert np.max(np.abs(outs["fused"][:, 1:] - outs["eager"][:, 1:])) < 1.2e-3
 
 
+def _rev(k, P):
+    """k with its log2(P) bits reversed."""
+    return int(f"{k:0{P.bit_length() - 1}b}"[::-1], 2) if P > 1 else 0
+
+
+def _dft_reg(v):
+    """csrc/fft_reg.cuh dft_reg over axis 0: radix-2 DIF, natural
+    order in, bit-reversed order out."""
+    v = v.copy()
+    P = v.shape[0]
+    half = P // 2
+    while half >= 1:
+        for g in range(0, P, 2 * half):
+            for j in range(half):
+                a, b = v[g + j].copy(), v[g + j + half].copy()
+                e = j * (16 // (2 * half))
+                v[g + j], v[g + j + half] = a + b, (a - b) * np.exp(-2j * np.pi * e / 16)
+        half //= 2
+    return v
+
+
+def _lanes_dft(U, tw, nch):
+    """The channel tile's DFT for nch = P·G a power of two: lane l of a
+    frame runs a P-point DFT over branches l + G·m in registers, times
+    tw[l·k1], then a radix-G pass across the G lanes (the xor shuffles
+    transcribed); lane l then holds bins k1 + P·k2, k2 = rev(l)."""
+    G = {32: 2, 64: 4}.get(nch, 1)
+    P = nch // G
+    lane = [_dft_reg(U[:, l::G].T.astype(np.complex128)) for l in range(G)]  # (P, frames)
+    for l in range(1, G):
+        for k1 in range(P):
+            lane[l][_rev(k1, P)] *= tw[l * k1]
+    if G == 4:  # xor 2, then lane 3 × −i
+        lane = [lane[l] + lane[l ^ 2] if not l & 2 else lane[l ^ 2] - lane[l] for l in range(4)]
+        lane[3] = lane[3] * -1j
+    if G >= 2:  # xor 1
+        lane = [lane[l] + lane[l ^ 1] if not l & 1 else lane[l ^ 1] - lane[l] for l in range(G)]
+    D = np.zeros((U.shape[0], nch), np.complex128)
+    for l in range(G):
+        k2 = _rev(l, G)
+        for k1 in range(P):
+            D[:, k1 + P * k2] = lane[l][_rev(k1, P)]
+    return D
+
+
+@pytest.mark.parametrize("nch", [8, 16, 32, 64])
+def test_channel_fft_schedule_matches_dft(nch):
+    """The register/shuffle FFT schedule of csrc/flagship_fused.cu
+    channel_tile, with the wrapper's twiddle table, equals the DFT matrix
+    the plain twin multiplies by (_forward_dft), to float32 rounding."""
+    rng = np.random.default_rng(nch)
+    U = (rng.normal(size=(33, nch)) + 1j * rng.normal(size=(33, nch))).astype(np.complex64)
+    tw = ff._constants(nch, 7, 80.0, 32, 0.0005, nch * 32, CPU)["twiddle"].numpy()
+    got = _lanes_dft(U, tw.astype(np.complex128), nch)
+    want = U.astype(np.complex128) @ ff._forward_dft(nch).astype(np.complex128)
+    assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 1e-6
+
+
+def _decay_scan(vals, pw):
+    """The inclusive decay scan of csrc decay_scan: sc[t] = Σ_{j≤t} pw[t−j]·w[j]."""
+    sc = vals.copy()
+    d = 1
+    while d < len(sc):
+        prev = sc.copy()
+        sc[d:] += pw[d] * prev[:-d]
+        d *= 2
+    return sc
+
+
+def _kernel_dc(x, nch, tileF, m, x_last, y_last, alpha=0.0005):
+    """The DC blocker as the three launches compute it, in numpy: dc_chunk's
+    zero-carry chunk ends and halo-start partials, the chunk carries, then
+    each channel block's replay of its own frames (tb of them, a run of
+    tiles) and halo from r^{o_h}·chunk_in[c] + partial[c] (y_dc_last for the
+    first blocks).
+    Returns (y over the block, as tile 0.. last write it, y_last)."""
+    n, C, L = len(x), tileF * nch, 2 * m
+    c = ff._constants(nch, m, 80.0, tileF, alpha, n, CPU)
+    r = 1.0 - alpha
+    g = (1.0 + r) / 2.0
+    spt, spt2, o_h = c["spt"], c["spt2"], c["o_h"]
+    pow_thr, pow_rep = c["pow_thr"].numpy().astype(np.float64), c["pow_rep"].numpy()
+    xp_all = np.concatenate([[x_last], x])             # xp_all[i] = x[i − 1]
+
+    def run(b, e, y):
+        """y after samples b .. e−1 from carry y; every value."""
+        out = np.zeros(e - b, np.complex128)
+        for i in range(b, e):
+            y = r * y + g * (x[i] - xp_all[i])
+            out[i - b] = y
+        return out
+
+    n_chunks = n // C
+    ends, partial = np.zeros(n_chunks, complex), np.zeros(n_chunks, complex)
+    th, loc = divmod(o_h, spt)
+    for k in range(n_chunks):
+        w = np.array([run(k * C + t * spt, k * C + (t + 1) * spt, 0.0)[-1]
+                      for t in range(C // spt)])
+        sc = _decay_scan(w, pow_thr)
+        ends[k] = sc[-1]
+        rec = run(k * C + th * spt, k * C + th * spt + loc, 0.0)[-1] if loc else 0.0
+        partial[k] = rec + (c["r_loc"] * sc[th - 1] if th else 0.0)
+    chunk_in = np.zeros(n_chunks, complex)
+    G = y_last
+    for k in range(n_chunks):
+        chunk_in[k] = G
+        G = c["rC"] * G + ends[k]
+    y = np.zeros(n, complex)
+    B = c["tb"] * nch
+    for k in range(n // B):
+        s_h = k * B - (L + 1) * nch
+        s_r, e = max(s_h, 0), (k + 1) * B
+        y0 = y_last if s_h <= 0 else c["r_oh"] * chunk_in[s_h // C] + partial[s_h // C]
+        R = e - s_r
+        bs = [min(t * spt2, R) for t in range(256)]
+        w = np.array([run(s_r + b, s_r + b + min(spt2, R - b), 0.0)[-1] if R > b else 0.0
+                      for b in bs])
+        sc = _decay_scan(w, pow_rep)
+        for t, b in enumerate(bs):
+            if R > b:
+                carry = pow_rep[t] * y0 + (sc[t - 1] if t else 0.0)
+                seg = run(s_r + b, s_r + b + min(spt2, R - b), carry)
+                if s_r + b >= s_h:   # the tile's values, halo included, must agree
+                    done = y[s_r + b:s_r + b + len(seg)]
+                    assert np.all((done == 0) | (np.abs(done - seg) < 1e-5))
+                y[s_r + b:s_r + b + len(seg)] = seg
+    return y, G
+
+
+@pytest.mark.parametrize("nch,tileF,tiles", [(8, 8, 6), (20, 16, 6), (64, 32, 2), (64, 8, 5)])
+def test_dc_replay_matches_dc_blocker_stream(nch, tileF, tiles):
+    """The halo-start partial and the per-block replay, over 3 chained
+    blocks, equal the DC blocker the plain twin runs (dc_blocker_stream);
+    nch 8 and 20 group the tiles three and six to a channel block, nch 64 ×
+    tileF 8 over 5 tiles (one tile a block) puts a halo start two chunks
+    back."""
+    rng = np.random.default_rng(nch + tileF)
+    n = nch * tileF * tiles
+    x = (0.3 + rng.normal(size=3 * n) + 1j * rng.normal(size=3 * n)).astype(np.complex64)
+    xl, yl = np.complex64(0.5 - 0.25j), np.complex64(0.1 + 0.2j)
+    st = (torch.tensor([xl]), torch.tensor([yl]))
+    for b in range(3):
+        blk = x[b * n:(b + 1) * n]
+        got, g_last = _kernel_dc(blk.astype(np.complex128), nch, tileF, 7, complex(xl), complex(yl))
+        st, want = ff.dc_blocker_stream(st, torch.from_numpy(blk), 0.0005)
+        assert np.max(np.abs(got - want.numpy())) < 2e-5
+        assert abs(g_last - complex(st[1][0])) < 2e-5
+        xl, yl = blk[-1], np.complex64(g_last)
+
+
 @pytest.mark.parametrize("bad", ["shape", "dtype", "nch", "tileF", "state"])
 def test_wrapper_rejects_bad_input(bad):
     nch, tileF = 8, 16
