@@ -1,0 +1,188 @@
+#!/usr/bin/env python3
+"""Time the port's main-path steps of several checkouts on one CUDA card,
+in turns, with one yardstick.
+
+    python3 chip_compare.py ROOT [ROOT ...] [--turns 2] [--out FILE]
+
+Each ROOT is a directory holding a ``csdr_tpu_torch`` package: a checkout,
+or ``git archive <commit> csdr_tpu_torch`` unpacked into a directory that
+.gitignore lists.  The roots run forward, then backward (A, B, B, A for two
+roots and two turns), each turn in a process of its own that imports that
+root's package and builds its kernels there.  Every turn times the same
+steps on the same seeded inputs with ``chip_smoke.py``'s ``time_steps``
+(CUDA events, the steps queued behind a spin of the card) and
+``profile_kernels`` (torch.profiler device time), both loaded from this
+script's own directory:
+
+  kernels alone, one 2^23-sample block: K1/K2 (cu8, nch 64), K3 and K4 on
+  the block's panels, K5 at (64, 2^17) complex x 585 taps;
+  paths, one 2^23-sample block per state-chained step: the pfb_fused and
+  eager DeNBFM receivers (f32, chip_smoke.py 5b's path), and the graphs the
+  CLI builds, cu8 in, for -c 64 -a -48 DeNBFM (pfb_fused), -c 64 DeCW
+  (eager and pfb_fused), and the USB band-pass through
+  FIRFilter(strategy="pallas_fft").
+
+Writes one JSON line per (root, turn, step) to FILE (default
+build/compare/compare.jsonl) and prints, per step, each root's median step ms
+and device µs over its turns, then the nvidia-smi line.  Needs one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _smoke():
+    """chip_smoke.py of this directory, loaded by path (a root may hold its
+    own)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cli_graph(ct, argv: list[str]):
+    """The main graph the CLI builds for ``argv``, behind u8 → IQ."""
+    from csdr_tpu_torch.apps import soapy_sdr_cli as cli
+
+    opts = cli.build_parser().parse_args(["--filename", "in.cu8", *argv])
+    demod = cli.parse_demod(opts.demod)
+    agc_t = opts.agc if opts.agc != 0.0 else None
+    return ct.chain(ct.u8_to_iq(),
+                    cli._graph(opts, demod, agc_t, opts.bandwidth or opts.samplerate))
+
+
+def worker(root: str, turn: int) -> None:
+    """Time every step with ``root``'s package; one JSON line per step."""
+    sys.path.insert(0, root)
+    import torch
+
+    import csdr_tpu_torch as ct
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+    from csdr_tpu_torch.ops.cuda import flagship_fused as ff
+    from csdr_tpu_torch.ops.cuda import pfb_fused as pf
+
+    package = os.path.dirname(os.path.abspath(ct.__file__))
+    if os.path.dirname(package) != os.path.abspath(root):
+        raise SystemExit(f"imported {package}, not the package of {root}")
+    sm = _smoke()
+    dev = torch.device("cuda")
+    B = sm.BLOCK
+    x = sm.occupied_band(torch, dev, 64, B, sm.SEED + 1)
+    u8 = sm.to_cu8(torch, x)
+    taps, W = pf.pfb_design(64, 7, 80.0, dev)
+    v3 = sm.block_panels(torch, pf, x, 64)
+    v4 = v3[1:].contiguous()
+    cw64 = sm.cw_taps(2.56e6 / 64)
+    x5 = sm.rand_rows(torch, dev, 64, B // 64 + len(cw64) - 1, True, sm.SEED + 14)
+    cw = sm.keyed_cw_capture(torch, dev, 64, B, sm.SEED + 5).view(B, 2)
+    graphs = {
+        "pfb_fused DeNBFM f32": (ct.channelized_fm_receiver(64, kf=sm.KF,
+                                                            backend="pfb_fused"), x),
+        "eager DeNBFM f32": (ct.channelized_fm_receiver(64, kf=sm.KF, backend="eager"), x),
+        "-c 64 -a -48 DeNBFM pfb_fused cu8": (_cli_graph(ct, [
+            "-c", "64", "-a", "-48", "--demod", "DeNBFM 0.6 F32",
+            "--backend", "pfb_fused"]), u8.view(B, 2)),
+        "-c 64 DeCW eager cu8": (_cli_graph(ct, [
+            "-c", "64", "--demod", "DeCW 500 700 WAV", "--backend", "eager"]), cw),
+        "-c 64 DeCW pfb_fused cu8": (_cli_graph(ct, [
+            "-c", "64", "--demod", "DeCW 500 700 WAV", "--backend", "pfb_fused"]), cw),
+        "library USB band-pass pallas_fft cu8": (ct.chain(
+            ct.u8_to_iq(), ct.fir_filter(sm.usb_taps(), True, strategy="pallas_fft"),
+            ct.Lambda(lambda v: v.real.contiguous(), name="re")), u8.view(B, 2)),
+    }
+    box = {"k1": ff.flagship_fused_init(64, dev)}
+    box.update({name: g.init(dev) for name, (g, _) in graphs.items()})
+
+    def k1():
+        box["k1"], _ = ff.flagship_fused_step(box["k1"], u8, nch=64, kf=sm.KF)
+
+    def path(name):
+        g, xin = graphs[name]
+
+        def run():
+            box[name], _ = g.apply(box[name], xin)
+        return run
+
+    steps = {
+        "K1 flagship_fused cu8 nch 64": k1,
+        "K3 pfb_fm_fused": lambda: pf.pfb_fm_fused(v3, taps, W, nch=64, L=14, kf=sm.KF),
+        "K4 pfb_channelize_fused": lambda: pf.pfb_channelize_fused(v4, taps, W, nch=64, L=14),
+        "K5 fir_valid (64, 2^17) complex x 585": lambda: fv.fir_valid(x5, cw64),
+        **{name: path(name) for name in graphs},
+    }
+    for name, fn in steps.items():
+        ms = sm.time_steps(torch, fn)
+        kern = sm.profile_kernels(torch, fn, 5)
+        top = sorted(kern.items(), key=lambda kv: -kv[1]["device_us"])[:5]
+        print(json.dumps(dict(
+            root=root, turn=turn, step=name, steps=len(ms), median_ms=statistics.median(ms),
+            min_ms=min(ms), device_us=sum(v["device_us"] for v in kern.values()) / 5,
+            launches=sum(v["count"] for v in kern.values()) / 5,
+            top_kernels_us={k: v["device_us"] / 5 for k, v in top})), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("roots", nargs="*")
+    ap.add_argument("--turns", type=int, default=2)
+    ap.add_argument("--out", default=os.path.join(HERE, "build", "compare", "compare.jsonl"))
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--turn", type=int, default=0, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        worker(args.worker, args.turn)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_compare: no CUDA card", file=sys.stderr)
+        return 1
+    roots = [os.path.abspath(r) for r in args.roots]
+    if not roots or not all(os.path.isdir(os.path.join(r, "csdr_tpu_torch")) for r in roots):
+        print("chip_compare: every ROOT must hold a csdr_tpu_torch package", file=sys.stderr)
+        return 1
+    order = [r for t in range(args.turns) for r in (roots if t % 2 == 0 else roots[::-1])]
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    rows = []
+    with open(args.out, "w") as f:
+        for turn, root in enumerate(order):
+            run = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root,
+                                  "--turn", str(turn)], capture_output=True, text=True,
+                                 timeout=900)
+            if run.returncode != 0:
+                print(run.stderr[-4000:], file=sys.stderr)
+                print(f"chip_compare: the turn of {root} failed ({run.returncode})",
+                      file=sys.stderr)
+                return 1
+            for line in run.stdout.splitlines():
+                if line.startswith("{"):
+                    f.write(line + "\n")
+                    rows.append(json.loads(line))
+    for step in dict.fromkeys(r["step"] for r in rows):
+        print(json.dumps({"step": step, **{
+            os.path.relpath(root, HERE): dict(
+                median_ms=statistics.median(r["median_ms"] for r in rows
+                                            if r["step"] == step and r["root"] == root),
+                device_us=statistics.median(r["device_us"] for r in rows
+                                            if r["step"] == step and r["root"] == root),
+                turns_ms=[r["median_ms"] for r in rows
+                          if r["step"] == step and r["root"] == root])
+            for root in roots}}))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,13 +14,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["build", "load_library", "CSRC", "BUILD_DIR"]
+__all__ = ["build", "load_library", "source_ints", "CSRC", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "csdr_tpu_torch"
@@ -28,6 +29,20 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+
+
+def source_ints(source: str, *names: str) -> tuple[int, ...]:
+    """The values of ``constexpr int <name> = <integer>;`` in ``csrc/<source>``,
+    so a wrapper that lays out a kernel's operands reads the kernel's own
+    constants (no toolchain needed); raises if one is missing."""
+    text = (CSRC / source).read_text()
+    out = []
+    for name in names:
+        m = re.search(rf"^constexpr int {name} = (\d+);", text, re.M)
+        if m is None:
+            raise RuntimeError(f"csrc/{source} defines no integer constant {name}")
+        out.append(int(m.group(1)))
+    return tuple(out)
 
 
 def _sources() -> list[Path]:

@@ -40,8 +40,9 @@ __all__ = ["pfb_fm_fused", "pfb_channelize_fused", "pfb_fm_fused_ref",
 
 DEFAULT_TILE_F = 64
 _TWO_PI = 2.0 * np.pi
-_ROWS = 4              # csrc/pfb_fused.cu kRows
 _SMEM_LIMIT = 232448   # bytes of shared memory a Hopper block may use
+_TILE_SAMPLES = 4096   # kernel tiles: at most this many samples ...
+_TILE_FRAMES = 512     # ... and frames
 
 launches = {"pfb_fm_fused": 0, "pfb_channelize_fused": 0}
 
@@ -82,24 +83,31 @@ def pfb_channelize_fused_ref(vfull, taps, W, *, nch: int, L: int):
     return (_branch_fir(vfull, taps, F) @ W).T.contiguous()
 
 
-def _smem_bytes(demod: bool, nch: int, ncho: int, L: int, tileF: int) -> int:
-    # csrc/pfb_fused.cu Layout::smem
-    E = tileF + L - 1 + demod
-    nout = tileF + demod
-    groups = -(-nout // _ROWS)
-    region0 = max(E * nch, nout * (ncho + 1))
-    return (region0 + groups * _ROWS * nch + nch * ncho) * 8 + L * nch * 4
+def kernel_tile(F: int, tileF: int, nch: int) -> int:
+    """The kernel's frames per tile, a divisor or multiple of tileF that
+    divides F: tileF halved (while even and above 16) until a tile spans at
+    most _TILE_SAMPLES samples, or doubled while it still divides F and
+    stays within _TILE_SAMPLES samples and _TILE_FRAMES frames."""
+    TF = tileF
+    while TF * nch > _TILE_SAMPLES and TF % 2 == 0 and TF > 16:
+        TF //= 2
+    while F % (2 * TF) == 0 and 2 * TF * nch <= _TILE_SAMPLES and 2 * TF <= _TILE_FRAMES:
+        TF *= 2
+    return TF
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     from ._build import load_library
 
-    fn = load_library().csdr_pfb_fused
+    lib = load_library()
+    fn = lib.csdr_pfb_fused
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [I, P, P, P, ctypes.c_longlong, I, I, I, I, ctypes.c_float, P, P]
     fn.restype = ctypes.c_int
-    return fn
+    lib.csdr_pfb_smem.argtypes = [I, I, I, I, I]
+    lib.csdr_pfb_smem.restype = ctypes.c_longlong
+    return fn, lib.csdr_pfb_smem
 
 
 def _check(name: str, vfull, taps, W, nch: int, L: int, tileF: int, demod: bool) -> int:
@@ -136,15 +144,17 @@ def _launch(name: str, demod: bool, vfull, taps, W, nch: int, L: int, tileF: int
     if device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {device}")
     ncho = W.shape[1]
-    smem = _smem_bytes(demod, nch, ncho, L, tileF)
+    F = out.shape[1]
+    TF = kernel_tile(F, tileF, nch)
+    fn, smem_of = _kernel_fn()
+    smem = smem_of(int(demod), nch, ncho, L, TF)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{name}: nch={nch}, ncho={ncho}, tileF={tileF} needs {smem} B of "
                          f"shared memory per block (limit {_SMEM_LIMIT}); use a smaller tileF")
-    F = out.shape[1]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel_fn()(int(demod), vfull.data_ptr(), taps.data_ptr(), W.data_ptr(), F,
-                           nch, ncho, L, tileF, inv_kf, out.data_ptr(), stream)
+        err = fn(int(demod), vfull.data_ptr(), taps.data_ptr(), W.data_ptr(), F, nch, ncho, L,
+                 TF, inv_kf, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches[name] += 1

@@ -22,11 +22,14 @@ import torch
 import jax.numpy as jnp
 
 from csdr_tpu.ops import fir as jfir
+from csdr_tpu.ops.pallas.bf16x3 import split_bf16_np
 from csdr_tpu.ops.pallas.fftfir import fft_fir_valid as jax_fft_fir_valid
 from csdr_tpu.ops.pallas.fir_kernel import pallas_fir_valid
 from csdr_tpu.utils import firdes as jfirdes
 
+import csdr_tpu_torch as ct
 from csdr_tpu_torch.ops import fir as tfir
+from csdr_tpu_torch.ops.cuda import bf16x3
 from csdr_tpu_torch.ops.cuda import fft_fir as k6
 from csdr_tpu_torch.ops.cuda import fir_valid as k5
 from csdr_tpu_torch.utils import firdes as tfirdes
@@ -342,3 +345,151 @@ def test_auto_strategy_routing():
     half = np.zeros(600)
     half[::4] = 1.0  # 150 non-zeros of 600: the count, not the length, decides
     assert tfir._auto_strategy(half, card) == "fft"
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-3, 3e4])
+def test_bf16_split_matches_the_jax_packages(scale):
+    """The port's bit-operation bf16 rounding (nearest even) gives the same
+    hi and lo planes as split_bf16_np (ml_dtypes), ties included."""
+    rng = np.random.default_rng(int(scale * 10) + 1)
+    a = (rng.normal(size=4096) * scale).astype(np.float32)
+    # exact ties: the bits below bf16's last place are 0x8000
+    ties = (a[:64].view(np.uint32) & np.uint32(0xFFFF0000)) | np.uint32(0x8000)
+    a = np.concatenate([a, ties.view(np.float32), np.float32([0.0, -0.0])])
+    hi, lo = bf16x3.split_bf16(a)
+    jhi, jlo = split_bf16_np(a)
+    np.testing.assert_array_equal(hi, jhi.view(np.uint16))
+    np.testing.assert_array_equal(lo, jlo.view(np.uint16))
+    back = bf16x3.bf16_value(hi).astype(np.float64) + bf16x3.bf16_value(lo)
+    assert np.max(np.abs(back - a) / (np.abs(a) + 1e-30)) < 2.0 ** -16
+
+
+def _words(words):
+    """uint32 words → (low, high) float64 bf16 values."""
+    w = np.asarray(words, np.uint32)
+    return (bf16x3.bf16_value(w & 0xFFFF).astype(np.float64),
+            bf16x3.bf16_value(w >> 16).astype(np.float64))
+
+
+def _sw128(R, c):
+    """Element (row R, column c) of a 64-column bf16 window in the 128-byte
+    swizzle: its 16-byte chunk c // 8 sits at chunk (c // 8) ^ (R % 8)."""
+    return R * 64 + (((c // 8) ^ R) % 8) * 8 + c % 8
+
+
+GID, TIG = np.arange(32) >> 2, np.arange(32) & 3
+
+
+def _k5_schedule(xfull, taps, products=("lo·hi", "hi·lo", "hi·hi")):
+    """csrc/fir_valid.cu transcribed in numpy, float64 sums of the bf16
+    operands: work items of RUN outputs (64 frames of FRAME = 64), tap
+    chunks of CHUNK_STEPS k-steps; the window split into hi/lo and stored in
+    the 128-byte swizzle; per k-step, each warp's A registers from the
+    wrapper's pair tables and B read as wgmma reads it (k-block kk // 4
+    from window row kk // 4, k-step kk % 4 at column 16·(kk % 4), frame f
+    in row f + kk // 4); 3 products per plane (A·B, or fewer in
+    ``products``); outputs from d[4i + e]."""
+    K = len(taps)
+    rows, lx = xfull.shape
+    n = lx - (K - 1)
+    KS = k5.k_steps(K)
+    th, tl = k5.tap_tables(np.asarray(taps, np.float32))
+    planes = [xfull.real, xfull.imag] if np.iscomplexobj(xfull) else [xfull]
+    y = np.zeros((len(planes), rows, n))
+    frames = k5.RUN // k5.FRAME
+    f = np.arange(frames)
+    for row in range(rows):
+        for i0 in range(0, n, k5.RUN):
+            acc = np.zeros((len(planes), k5.FRAME, frames))        # d[j, f]
+            for kk0 in range(0, KS, k5.CHUNK_STEPS):
+                ksc = min(k5.CHUNK_STEPS, KS - kk0)
+                nrow = frames + -(-ksc // 4)
+                base = i0 + 16 * kk0
+                tap_h = th[16 * kk0:16 * (kk0 + ksc) + k5.TAP_PAD]
+                tap_l = tl[16 * kk0:16 * (kk0 + ksc) + k5.TAP_PAD]
+                smem = []
+                for pl in planes:
+                    raw = np.zeros(nrow * 64, np.float32)
+                    seg = pl[row, base:base + nrow * 64]
+                    raw[:len(seg)] = seg
+                    e = np.arange(nrow * 64)
+                    parts = []
+                    for bits in bf16x3.split_bf16(raw):
+                        part = np.zeros(nrow * 64, np.uint16)
+                        part[_sw128(e // 64, e % 64)] = bits
+                        parts.append(bf16x3.bf16_value(part).astype(np.float64))
+                    smem.append(parts)
+                for kk in range(ksc):
+                    A = []
+                    for tab in (tap_h, tap_l):
+                        a = np.zeros((k5.FRAME, 16))
+                        for w in range(4):
+                            q = k5.TAP_PAD + 16 * kk + 2 * TIG - GID - 16 * w
+                            for dr, dq, dc in ((0, 0, 0), (8, -8, 0), (0, 8, 8), (8, 0, 8)):
+                                lo_v, hi_v = _words(tab[q + dq])
+                                a[16 * w + GID + dr, 2 * TIG + dc] = lo_v
+                                a[16 * w + GID + dr, 2 * TIG + dc + 1] = hi_v
+                        A.append(a)
+                    R = f[None, :] + kk // 4                          # (1, frames)
+                    c = 16 * (kk % 4) + np.arange(16)[:, None]       # (16, 1)
+                    for p, parts in enumerate(smem):
+                        Bh, Bl = (part[_sw128(R, c)] for part in parts)
+                        terms = {"lo·hi": (A[1], Bh), "hi·lo": (A[0], Bl), "hi·hi": (A[0], Bh)}
+                        for name in products:
+                            acc[p] += terms[name][0] @ terms[name][1]
+            o = i0 + k5.FRAME * f[None, :] + np.arange(k5.FRAME)[:, None]
+            keep = o < n
+            for p in range(len(planes)):
+                y[p, row, o[keep]] = acc[p][keep]
+    return y[0] + 1j * y[1] if len(planes) == 2 else y[0]
+
+
+@pytest.mark.parametrize("K,n,cplx", [(1, 5099, False), (257, 5099, True), (585, 4103, True),
+                                      (585, 5099, False), (701, 4200, False),
+                                      (3651, 4107, True)])
+def test_k5_tensor_core_schedule(K, n, cplx):
+    """The tap tables and window indexing of csrc/fir_valid.cu, transcribed
+    in numpy, against a float64 direct FIR on 2 rows: n spans a ragged
+    second run (not a multiple of RUN or of the 64-output frame), C = K + 63
+    is padded to whole k-steps, and 3,651 taps cross tap-chunk edges.  The
+    bf16x3 products stay below 1e-4 of the largest output."""
+    rng = np.random.default_rng(K + n)
+    h = rng.normal(size=K) / np.sqrt(K)
+    xfull = np.stack([_signal(rng, n + K - 1, cplx) for _ in range(2)])
+    got = _k5_schedule(xfull, h)
+    x64 = xfull.astype(np.complex128 if cplx else np.float64)
+    g = np.asarray(h, np.float32).astype(np.float64)[::-1]
+    want = np.stack([np.correlate(r, g, "valid") if not cplx
+                     else np.correlate(r.real, g, "valid") + 1j * np.correlate(r.imag, g, "valid")
+                     for r in x64])
+    assert got.shape == want.shape == (2, n)
+    assert _rel(got, want) < 1e-4
+    assert _rel(got, k5.fir_valid_ref(torch.from_numpy(xfull), h).numpy()) < 1e-4
+
+
+def test_k5_tap_tables():
+    """Word Q of each table packs g[Q − 64] (low) and g[Q − 63] (high),
+    g the reversed taps, zero outside [0, K); hi + lo ≈ g."""
+    h = np.random.default_rng(1).normal(size=37).astype(np.float32)
+    th, tl = k5.tap_tables(h)
+    assert th.shape == tl.shape == (16 * k5.k_steps(37) + k5.TAP_PAD,)
+    g = np.zeros(len(th) + 1)
+    g[k5.TAP_PAD:k5.TAP_PAD + 37] = h[::-1]
+    for lohi in (0, 1):
+        v = _words(th)[lohi] + _words(tl)[lohi]
+        np.testing.assert_allclose(v, g[lohi:lohi + len(th)], rtol=2.0 ** -16, atol=0)
+
+
+@pytest.mark.parametrize("products", [("hi·lo", "hi·hi"), ("lo·hi", "hi·hi"), ("hi·hi",)])
+def test_k5_bound_catches_a_dropped_product(products):
+    """The K5 bound of the card tests and chip_smoke.py (1e-4 relative to the
+    largest output) fails the schedule with a bf16x3 product left out, or
+    plain bf16, on the main path's shape: 585 taps over complex rows."""
+    K, n = 585, 4103
+    rng = np.random.default_rng(K + n)
+    h = ct.cw_demodulator(500 / 40000, 700 / 40000).blocks[0].taps
+    assert len(h) == K
+    xfull = np.stack([_signal(rng, n + K - 1, True)])
+    want = k5.fir_valid_ref(torch.from_numpy(xfull), h).numpy()
+    assert _rel(_k5_schedule(xfull, h), want) < 1e-4
+    assert _rel(_k5_schedule(xfull, h, products), want) > 1e-4

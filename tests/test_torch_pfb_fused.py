@@ -28,7 +28,11 @@ from csdr_tpu.ops.pfb import pfb_dft_matrix, pfb_taps
 
 import csdr_tpu_torch as ct
 from csdr_tpu_torch.blocks.fused_blocks import PFBFusedChannelizer, PFBFusedFM
+from csdr_tpu_torch.ops.cuda import bf16x3
 from csdr_tpu_torch.ops.cuda import pfb_fused as pf
+from csdr_tpu_torch.ops.cuda._build import source_ints
+from csdr_tpu_torch.ops.nco import mix_stream
+from csdr_tpu_torch.ops.pfb import pfb_offset
 from csdr_tpu_torch.utils.convert import from_jax_pfb_fm_state
 
 torch.set_num_threads(1)
@@ -210,3 +214,154 @@ def test_wrappers_reject_bad_input(bad, demod):
     with pytest.raises(ValueError):
         fn(vfull, taps, W, **kw)
     assert pf.launches == before
+
+
+GID, TIG = np.arange(32) >> 2, np.arange(32) & 3
+K_RUN, K_M = source_ints("pfb_fused.cu", "kRun", "kM")   # FIR rows per thread, GEMM rows
+
+
+def _split_words(re, im):
+    """Complex values → (hi, lo) words, re in the low halves."""
+    hr, lr = bf16x3.split_bf16(re)
+    hi_, li = bf16x3.split_bf16(im)
+    return bf16x3.pack_pairs(hr, hi_), bf16x3.pack_pairs(lr, li)
+
+
+def _words(w):
+    w = np.asarray(w, np.uint32)
+    return (bf16x3.bf16_value(w & 0xFFFF).astype(np.float64),
+            bf16x3.bf16_value(w >> 16).astype(np.float64))
+
+
+def _pfb_schedule(vfull, taps, W, L, demod, blocks, tileF=64, kf=0.6):
+    """csrc/pfb_fused.cu transcribed in numpy: ``blocks`` persistent blocks,
+    each walking a contiguous run of kernel_tile-frame tiles; the branch FIR
+    with its register window (in a block's first tile, K3's FIR row −1, the
+    frame before the tile, into U row TF and one FP32 row of D; later tiles
+    carry the previous tile's last D row); W split into B and stored, then
+    read, K-major in the 128-byte swizzle; U's words read through the A
+    fragments (re/im interleaved along K and N, 2nch and 2ncho padded to
+    whole k-steps and 32-column groups, rows to whole 64-row blocks); D =
+    three bf16 products in float64; the demod or D, channel-major."""
+    nch, ncho = W.shape
+    H = L - 1 + demod
+    F = vfull.shape[0] - H
+    TF = pf.kernel_tile(F, tileF, nch)
+    E = TF + H
+    Kp, NG = -(-nch // 8) * 8, -(-2 * ncho // 32)
+    KS, KB, NP = Kp // 8, -(-2 * Kp // 64), 32 * NG
+    # B as the kernel stores it: row n (a column of D) K-major in 128-byte
+    # swizzled k-blocks, word (n, p) = (B[2p][n], B[2p + 1][n]); then read
+    # back element by element as wgmma reads it
+    Wp = np.zeros((Kp, NP // 2), np.complex64)
+    Wp[:nch, :ncho] = W
+    n, p = np.meshgrid(np.arange(NP), np.arange(Kp), indexing="ij")
+    w = Wp[p, n >> 1]
+    v0 = np.where(n & 1, w.imag, w.real).astype(np.float32)
+    v1 = np.where(n & 1, w.real, -w.imag).astype(np.float32)
+    c = 2 * p
+    at = (c // 64) * NP * 64 + n * 64 + ((((c % 64) // 8) ^ n) % 8) * 8 + c % 8  # element index
+    B = []
+    for hi_lo in zip(bf16x3.split_bf16(v0), bf16x3.split_bf16(v1)):
+        store = np.zeros(KB * NP * 64, np.uint16)
+        store[at], store[at + 1] = hi_lo
+        cc, nn = np.meshgrid(np.arange(2 * Kp), np.arange(NP), indexing="ij")
+        read = (cc // 64) * NP * 64 + nn * 64 + ((((cc % 64) // 8) ^ nn) % 8) * 8 + cc % 8
+        B.append(bf16x3.bf16_value(store[read]).astype(np.float64))   # (2Kp, NP)
+    out = np.zeros((ncho, F), np.float64 if demod else np.complex128)
+    T = F // TF
+    per, rem = divmod(T, blocks)
+    for blk in range(blocks):
+        first = blk * per + min(blk, rem)
+        carry = None
+        for i in range(per + (blk < rem)):
+            f0 = (first + i) * TF
+            extra = int(demod and i == 0)
+            MT = K_M // 16 * -(-TF // K_M)                      # whole K_M-row blocks
+            S = vfull[f0:f0 + E]
+            Uh = np.zeros((MT * 16 + 16, Kp), np.uint32)         # + K3's U row TF
+            Ul = np.zeros((MT * 16 + 16, Kp), np.uint32)
+            for run in range(-(-(TF + extra) // K_RUN)):
+                rho0 = run * K_RUN - extra
+                zero = np.zeros(nch, np.complex64)
+                # the register window: rows ρ0 + q + H, shifted one row per tap
+                win = [S[rho0 + q + H] if rho0 + q + H < E else zero for q in range(K_RUN)]
+                acc = [zero] * K_RUN
+                for J in range(L):
+                    if J:
+                        win = [S[rho0 + H - J]] + win[:-1]
+                    acc = [a + taps[J] * w for a, w in zip(acc, win)]
+                for q in range(K_RUN):
+                    rho = rho0 + q
+                    if rho < TF:
+                        r = TF if rho < 0 else rho
+                        Uh[r, :nch], Ul[r, :nch] = _split_words(acc[q].real, acc[q].imag)
+            A = []
+            for U in (Uh[:MT * 16], Ul[:MT * 16]):
+                a = np.zeros((MT * 16, 2 * Kp))
+                for mt in range(MT):
+                    for kk in range(KS):
+                        r, p = mt * 16 + GID, 8 * kk + TIG
+                        for dr, dp in ((0, 0), (8, 0), (0, 4), (8, 4)):
+                            lo_v, hi_v = _words(U[r + dr, p + dp])
+                            a[r + dr, 2 * (p + dp)], a[r + dr, 2 * (p + dp) + 1] = lo_v, hi_v
+                A.append(a)
+            Dr = A[1] @ B[0] + A[0] @ B[1] + A[0] @ B[0]
+            D = (Dr[:, 0::2] + 1j * Dr[:, 1::2])[:, :ncho]
+            if demod:
+                if extra:   # U row TF (hi + lo) times W, in FP32 on the CUDA cores
+                    u = [sum(_words(U[TF, :nch])[i] for U in (Uh, Ul)) for i in (0, 1)]
+                    before = (u[0] + 1j * u[1]) @ W.astype(np.complex128)
+                else:
+                    before = carry
+                prev = np.concatenate([before[None], D[:TF - 1]])
+                out[:, f0:f0 + TF] = (np.angle(D[:TF] * prev.conj()) / (2 * np.pi * kf)).T
+                carry = D[TF - 1]
+            else:
+                out[:, f0:f0 + TF] = D[:TF].T
+    return out
+
+
+@pytest.mark.parametrize("nch,F,cols,blocks", [(4, 1024, None, 1), (20, 192, None, 2),
+                                               (64, 128, None, 1), (64, 128, (32, 64), 1),
+                                               (64, 320, None, 2)])
+@pytest.mark.parametrize("demod", [True, False])
+def test_tensor_core_schedule(nch, F, cols, blocks, demod):
+    """The tiling, register-window FIR and real-GEMM packing of
+    csrc/pfb_fused.cu, transcribed in numpy, against the plain versions
+    (< 2e-3, tests/test_pallas_fused.py:55) and, for K3, against the JAX
+    kernel in interpret mode (same bf16x3 split: < 1e-4).  nch 4 (one
+    k-step, one n-tile, 512-frame tiles), 20 (2nch and 2ncho padded), 64
+    and the ncho = 32 column shard; every block walks 1–3 tiles, so K3 both
+    computes the frame before a tile and carries it from the previous one."""
+    H = L - 1 + demod
+    rng_x = occupied_band(nch, (F + H) * nch, seed=nch + F)
+    _, xs = mix_stream(torch.zeros(()), torch.from_numpy(rng_x), pfb_offset(nch), up=False)
+    vfull = xs.reshape(F + H, nch).flip(1).contiguous()
+    c = slice(*cols) if cols else slice(0, nch)
+    taps, W = pf.pfb_design(nch, M, 80.0, CPU)
+    W = W[:, c].contiguous()
+    assert F // pf.kernel_tile(F, 64, nch) >= 2
+    got = _pfb_schedule(vfull.numpy(), taps.numpy(), W.numpy(), L, demod, blocks)
+    ref = (pf.pfb_fm_fused_ref(vfull, taps, W, nch=nch, L=L) if demod
+           else pf.pfb_channelize_fused_ref(vfull, taps, W, nch=nch, L=L)).numpy()
+    assert got.shape == ref.shape == (W.shape[1], F)
+    assert np.max(np.abs(got - ref)) < 2e-3
+    if demod:
+        v = vfull.numpy()
+        want = jpf.pfb_fm_fused(*jax_operands(v, nch, c), nch=nch, L=L, tileF=64, kf=0.6,
+                                interpret=True)
+        assert np.max(np.abs(got - np.asarray(want).T)) < 1e-4
+
+
+def test_kernel_tile():
+    """Tiles shrink from tileF to at most 4,096 samples (not below 16
+    frames), or grow while they divide F and stay within 4,096 samples and
+    512 frames; either way they divide F."""
+    assert pf.kernel_tile(1 << 17, 64, 64) == 64
+    assert pf.kernel_tile(1 << 17, 128, 64) == 64
+    assert pf.kernel_tile(1 << 21, 64, 4) == 512
+    assert pf.kernel_tile(64 * 6553, 64, 20) == 64
+    assert pf.kernel_tile(128 * 3, 32, 20) == 128
+    assert pf.kernel_tile(48, 16, 8) == 16
+    assert pf.kernel_tile(64, 64, 650) == 16
