@@ -21,7 +21,9 @@ line is printed:
      end-to-end rate; the peak
      device memory of one K1 step; a torch.profiler window over each
      kernel's step that counts its CUDA launches per step and splits its
-     device time by kernel.
+     device time by kernel (run right after 3, before any other profiler
+     window: later in the process the tracer dropped kernel records; a
+     session that lost one is run again).
 
 and for the PFB kernels K3 (pfb_fm_fused) and K4 (pfb_channelize_fused):
 
@@ -43,7 +45,8 @@ and for the FIR kernels K5 (fir_valid) and K6 (fft_fir):
 
   3c. kernel vs plain: 3 state-chained blocks through the streaming FIR
       (its hist carried), K5 at (64, 2^17) complex x 585 taps, (64, 2^17)
-      real x 585 and (1, 2^23) complex x 3,651 taps; K6 at (1, 2^23)
+      real x 585, (1, 2^23) complex x 3,651 taps and, at 6b's shape, one
+      real row of 1,046,400 samples x the 333-tap RDS data filter; K6 at (1, 2^23)
       complex x the 1,826-tap USB band-pass, real x real 3,651 taps and,
       for the K5/K6 crossover, K5's two complex shapes (64, 2^17) x 585
       and (1, 2^23) x 3,651; and K6 against the "fft" strategy;
@@ -60,6 +63,28 @@ and for the FIR kernels K5 (fir_valid) and K6 (fft_fir):
   5c. timings: K5 and K6 against their plain versions and the "fft"
       strategy at the shapes of 3c (K5 and K6 at the same two shapes: the
       crossover), and the 4c flows' rates (the DeCW backends in turns).
+
+and for the broadcast-FM flows, the mixed sink and checkpoints (no new
+kernel; each flow's run is timed with every kernel count set to 0 before
+it, then run again under torch.profiler, in a process of its own, for its
+device-idle share; a session that traced fewer device kernels than launch
+calls lost records and is run again, and after three the share is null):
+
+  6a. BASELINE config 1: -s 2560000 -b 200000 DeWBFM 8 over a cu8 capture
+      of a 1 kHz FM tone at DC: exactly n/8 frames at 25 kHz, the tone at
+      >= 40 dB SNR against its de-emphasised message, the card's WAV
+      against the port's own --device cpu run on the first 2^22 samples;
+  6b. DeFMS 8 --rds on a stereo MPX (19 kHz pilot, L and R tones, RDS
+      groups): L/R separation > 20 dB both ways, PS and PI decoded, K5
+      (the 333-tap RDS data filter) launched at least once per block;
+  6c. BASELINE config 4: -c 16 -m DeNBFM 0.3 under eager, pfb_fused (K3)
+      and fused (K1), and -c 16 -m -a (K4); each mixed WAV equals the sum
+      of the same flow's per-channel files, and the per-channel runs hold
+      K3's and K1's bounds against eager;
+  6d. checkpoint: the fused (K1) and eager -c 64 DeNBFM paths through the
+      library, run whole and run as a first half, save_pipeline, a new
+      Pipeline, resume_pipeline and skip_n: the resumed output equals the
+      whole run's second half bit for bit.
 
 Prints one JSON object per result, then the nvidia-smi line, the kernels
 line and, last, {"ok": true, "device": {...}}.  Each kernels entry carries
@@ -112,6 +137,18 @@ CW_EMPTY_DB = 20.0       # an empty channel's audio stays this far below
 CW_DIT_S = 0.06          # keying unit of the CW carriers, seconds
 CW_TUNE = 100.0          # Hz the -c 1 flow tunes below its carrier
 AM_T = -70.0             # squelch of the DeAM -a run, far below the noise floor
+FM_BW = 200000.0         # -b of the broadcast flows: the quad rate
+WBFM_TONE = 1000.0       # Hz, the config 1 station's message
+# the tone's modulation index is the 12th zero of J0, so the FM signal has no
+# carrier line at DC for the flow's DC blocker to notch out
+WBFM_BETA = 36.91709835366404
+SNR_DB = 40.0            # tests/test_baseline_configs.py:59
+CPU_REL_ERR = 1e-4       # the card's broadcast WAV against the CPU's
+FMS_L, FMS_R = 1000.0, 2500.0    # Hz, the left and right tones of the MPX
+SEP_DB = 20.0            # tests/test_symsync_stereo.py:246
+RDS_PI, RDS_PS = 0xC5D7, "PORTTEST"
+MIX_NCH = 16             # BASELINE config 4
+MIX_REL_ERR = 1e-5       # a mixed WAV against the sum of its per-channel files
 
 
 def fail(msg: str):
@@ -774,7 +811,14 @@ def fir_cases(torch, dev):
     cw64, cw1, usb = cw_taps(2.56e6 / 64), cw_taps(2.56e6), usb_taps()
     check((len(cw64), len(cw1), len(usb)) == (585, 3651, 1826),
           f"taps {len(cw64)}, {len(cw1)}, {len(usb)}")
+    g, fms_block = fms_graph()
+    rds_taps = g.blocks[-1].b2.blocks[0].h_data
+    check((len(rds_taps), fms_block) == (333, 1046400),
+          f"RDS data filter: {len(rds_taps)} taps, {fms_block} samples per block")
     return [
+        # 6b's RDS data filter: one real row per DeFMS --rds block
+        ("fir_valid", "c1_real_rds_333", fv.fir_valid, fv.fir_valid_ref, rds_taps, 1, fms_block,
+         False),
         ("fir_valid", "c64_complex_585", fv.fir_valid, fv.fir_valid_ref, cw64, 64, BLOCK // 64,
          True),
         ("fir_valid", "c64_real_585", fv.fir_valid, fv.fir_valid_ref, cw64, 64, BLOCK // 64,
@@ -1065,6 +1109,285 @@ def phase_timing_fir(torch, ff, pf, dev, card, tmp, cw_path):
     return medians, rates
 
 
+def cli_flow(torch, ff, pf, cli_main, argv: list[str], samples: int, want, what: str) -> dict:
+    """One CLI flow: a run timed on the host clock with every kernel count
+    set to 0 just before it and read just after (its kernels in ``want``
+    launched, no other), then the same run under torch.profiler for the
+    device-idle share (``idle_share``)."""
+    dt, counts = cli_run(torch, ff, pf, cli_main, argv)
+    check_counts(counts, want, what)
+    return dict(seconds=dt, msps=samples / dt / 1e6, launches=counts,
+                **idle_share({"cli": argv}))
+
+
+def read_wav(path: str, channels: int, frames: int, rate: int) -> np.ndarray:
+    """A float32 WAV of the port's writer as (channels, frames); checks its
+    size and sample rate, and deletes it."""
+    got = os.path.getsize(path)
+    check(got == 44 + 4 * channels * frames,
+          f"{path} has {got} bytes, want {44 + 4 * channels * frames}")
+    with open(path, "rb") as f:
+        head = f.read(44)
+    sr = int(np.frombuffer(head[24:28], "<u4")[0])
+    check(sr == rate, f"{path}: sample rate {sr}, want {rate}")
+    a = np.fromfile(path, "<f4", offset=44).reshape(frames, channels).T
+    os.unlink(path)
+    return a
+
+
+def tone_fit(a: np.ndarray, f: float, rate: float) -> tuple[float, float]:
+    """(amplitude, SNR in dB) of the tone f in a: the least-squares fit of
+    a sine, a cosine and a constant, the rest counted as error."""
+    k = np.arange(len(a), dtype=np.float64)
+    M = np.stack([np.sin(2 * np.pi * f / rate * k), np.cos(2 * np.pi * f / rate * k),
+                  np.ones_like(k)], 1)
+    coef, *_ = np.linalg.lstsq(M, a.astype(np.float64), rcond=None)
+    amp = float(np.hypot(coef[0], coef[1]))
+    err = a - M @ coef
+    return amp, float(10 * np.log10(amp ** 2 / 2 / np.mean(err ** 2)))
+
+
+def phase_wbfm(torch, ff, pf, dev, card, tmp) -> dict:
+    """6a. BASELINE config 1 through the CLI: a 1 kHz FM tone at DC of a
+    2.56 MS/s cu8 capture, resampled to 200 kHz, WBFM-demodulated,
+    de-emphasised and decimated by 8 into a mono WAV."""
+    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
+    from csdr_tpu_torch.utils import iirdes
+    import scipy.signal as sig
+
+    fs, decim = 2.56e6, 8
+    A = WBFM_BETA * WBFM_TONE / (0.6 * FM_BW)  # message amplitude: the demod's kf is 0.6
+    w = 2 * np.pi * WBFM_TONE / fs
+    t = torch.arange(CAPTURE, dtype=torch.float64, device=dev)
+    # phase = 2π·0.6·(FM_BW/fs)·Σ A·sin(w·k), integrated in closed form
+    ph = 2 * np.pi * 0.6 * (FM_BW / fs) * A * (1 - torch.cos(w * t)) / w + 0.3
+    path = os.path.join(tmp, "wbfm.cu8")
+    to_cu8(torch, torch.polar(torch.ones_like(ph), ph).to(torch.complex64)).cpu().numpy().tofile(
+        path)
+    del t, ph
+    n = CAPTURE * 5 // 64  # 200 kHz samples after the front end
+    rate = int(FM_BW) // decim
+    prefix = os.path.join(tmp, "wbfm")
+    argv = lambda n, device: ["--filename", path, "-s", "2560000", "-b", str(int(FM_BW)),  # noqa: E731
+                              "-n", str(n), "--demod", f"DeWBFM {decim} WAV", "-o", prefix,
+                              "--device", device]
+    flow = cli_flow(torch, ff, pf, cli_main, argv(n, "cuda"), CAPTURE, None, "CLI DeWBFM")
+    audio = read_wav(prefix + ".wav", 1, n // decim, rate)[0]
+    check(bool(np.isfinite(audio).all()), "CLI DeWBFM: non-finite audio")
+    # the de-emphasised message is the tone scaled by the de-emphasis gain
+    _, h = sig.sosfreqz(iirdes.butter_sos(2, 5000.0 / FM_BW), [WBFM_TONE], fs=FM_BW)
+    want_amp = A * abs(h[0])
+    amp, snr = tone_fit(audio[rate // 10:], WBFM_TONE, rate)
+    # the same flow on the CPU over the first 2^22 capture samples
+    n_cpu = min(1 << 22, CAPTURE) * 5 // 64
+    dt_cpu, _ = cli_run(torch, ff, pf, cli_main, argv(n_cpu, "cpu"))
+    cpu = read_wav(prefix + ".wav", 1, n_cpu // decim, rate)[0]
+    rel = float(np.abs(audio[:len(cpu)].astype(np.float64) - cpu).max() / np.abs(cpu).max())
+    emit(dict(phase="wbfm", flow="-s 2560000 -b 200000 DeWBFM 8 WAV", wire="cu8",
+              samples=CAPTURE, frames=len(audio), rate=rate, tone_hz=WBFM_TONE,
+              snr_db=snr, amplitude=amp, deemph_amplitude=want_amp, vs_cpu_rel=rel,
+              cpu_samples=n_cpu * 64 // 5, cpu_seconds=dt_cpu, **flow, **card))
+    check(snr >= SNR_DB, f"CLI DeWBFM: tone SNR {snr:.1f} dB")
+    check(abs(amp / want_amp - 1) < 0.01, f"CLI DeWBFM: tone amplitude {amp}, want {want_amp}")
+    check(rel < CPU_REL_ERR, f"CLI DeWBFM card vs CPU: rel {rel}")
+    os.unlink(path)
+    return flow
+
+
+def stereo_capture(torch, dev, n: int, seed: int):
+    """cu8 (2n,) at 2.56 MS/s: an FM broadcast (60 kHz per unit of MPX) of
+    L = FMS_L and R = FMS_R tones, the 19 kHz pilot, and RDS groups 0A
+    carrying RDS_PS and RDS_PI on the pilot's third harmonic."""
+    from csdr_tpu_torch.models import rds
+
+    fs = 2.56e6
+    rng = np.random.default_rng(seed)
+    groups = [rds.make_group_0a(RDS_PI, s, RDS_PS[2 * s:2 * s + 2]) for s in range(4)]
+    tx = torch.from_numpy(rds.bits_from_groups(groups).astype(np.float64)).to(dev)
+    t = torch.arange(n, dtype=torch.float64, device=dev) / fs
+    pil = 2 * np.pi * torch.remainder(19000.0 * t, 1.0) + float(rng.uniform(0, 2 * np.pi))
+    left = 0.6 * torch.sin(2 * np.pi * torch.remainder(FMS_L * t, 1.0))
+    right = 0.6 * torch.sin(2 * np.pi * torch.remainder(FMS_R * t, 1.0))
+    bit = tx[torch.remainder(torch.floor(t * rds.RDS_BAUD).long(), len(tx))]
+    half = torch.remainder(torch.floor(t * 2 * rds.RDS_BAUD), 2)
+    level = (2 * bit - 1) * (1 - 2 * half)  # biphase
+    mpx = (0.45 * (left + right) + 0.1 * torch.cos(pil)
+           + 0.45 * (left - right) * torch.cos(2 * pil) + 0.05 * level * torch.cos(3 * pil))
+    del t, pil, left, right, bit, half, level
+    ph = torch.cumsum(mpx * (2 * np.pi * 60000.0 / fs), 0)
+    return to_cu8(torch, torch.polar(torch.ones_like(ph), ph).to(torch.complex64))
+
+
+def fms_graph(decim: int = 8):
+    """The graph of the CLI's DeFMS --rds behind its front end, and the
+    samples per block its Pipeline runs at the CLI's default block size."""
+    import csdr_tpu_torch as ct
+    from csdr_tpu_torch.apps.soapy_sdr_cli import build_parser
+    from csdr_tpu_torch.models.rds import rds_receiver
+    from csdr_tpu_torch.models.stereo import stereo_fm_decoder
+
+    g = ct.chain(ct.dc_blocker(), ct.fm_demodulator(0.8),
+                 ct.Tee(stereo_fm_decoder(FM_BW, decim), rds_receiver(FM_BW)))
+    return g, (build_parser().get_default("blocksize") // g.granule) * g.granule
+
+
+def phase_stereo_rds(torch, ff, pf, dev, card, tmp) -> dict:
+    """6b. DeFMS 8 --rds: one Pipeline, the composite into a Tee of the
+    stereo decoder and the RDS receiver, whose data filter runs on K5 (held
+    against its plain version at this shape in 3c)."""
+    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
+
+    decim = 8
+    path = os.path.join(tmp, "stereo.cu8")
+    stereo_capture(torch, dev, CAPTURE, SEED + 500).cpu().numpy().tofile(path)
+    n = CAPTURE * 5 // 64
+    rate = int(FM_BW) // decim
+    prefix = os.path.join(tmp, "stereo")
+    argv = ["--filename", path, "-b", str(int(FM_BW)), "-n", str(n), "--demod",
+            f"DeFMS {decim} WAV", "--rds", "-o", prefix, "--device", "cuda"]
+    flow = cli_flow(torch, ff, pf, cli_main, argv, CAPTURE, "fir_valid", "CLI DeFMS --rds")
+    # the CLI's graph behind the front end, for its block count and flush
+    g, block = fms_graph(decim)
+    total = n + g.flush_len()
+    blocks = -(-total // block)
+    frames = total // decim
+    audio = read_wav(prefix + ".wav", 2, frames, rate)
+    with open(prefix + ".rds.txt") as f:
+        report = dict(ln.split(": ", 1) for ln in f.read().splitlines() if ": " in ln)
+    check(bool(np.isfinite(audio).all()), "CLI DeFMS: non-finite audio")
+    sep = []
+    for ch, (fw, fo) in enumerate(((FMS_L, FMS_R), (FMS_R, FMS_L))):
+        y = audio[ch, rate // 10:].astype(np.float64)
+        spec = np.abs(np.fft.rfft(y * np.hanning(len(y)))) ** 2
+        f = np.fft.rfftfreq(len(y), 1.0 / rate)
+        band = lambda f0: spec[(f > f0 - 100) & (f < f0 + 100)].max()  # noqa: E731
+        sep.append(float(10 * np.log10(band(fw) / band(fo))))
+    emit(dict(phase="stereo_rds", flow="-b 200000 DeFMS 8 WAV --rds", wire="cu8",
+              samples=CAPTURE, frames=frames, rate=rate, separation_db=sep, rds=report,
+              blocks=blocks, fir_valid_per_block=flow["launches"]["fir_valid"] / blocks,
+              **flow, **card))
+    check(min(sep) > SEP_DB, f"CLI DeFMS: L/R separation {sep} dB")
+    check(report.get("PI") == f"{RDS_PI:04X}" and report.get("PS") == RDS_PS,
+          f"CLI DeFMS --rds: decoded {report}")
+    check(flow["launches"]["fir_valid"] >= blocks,
+          f"CLI DeFMS --rds: K5 launched {flow['launches']['fir_valid']} times in {blocks} blocks")
+    os.unlink(path)
+    return flow
+
+
+def phase_mix(torch, ff, pf, dev, card, tmp) -> dict:
+    """6c. BASELINE config 4: -c 16 -m DeNBFM 0.3 on every backend, and with
+    -a (K4); each mixed WAV against the sum of the same flow's per-channel
+    files, the per-channel runs against eager."""
+    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
+
+    nch = MIX_NCH
+    frames, rate = CAPTURE // nch, 2560000 // nch
+    j = 5 + 3 * (np.arange(nch) % 7)
+    path = os.path.join(tmp, "mix.cu8")
+    to_cu8(torch, occupied_band(torch, dev, nch, CAPTURE, SEED + 600,
+                                tones=j / 1024.0 / nch)).cpu().numpy().tofile(path)
+    runs = {
+        "eager": ([], None),
+        "pfb_fused": ([], "pfb_fm_fused"),
+        "fused": ([], "flagship_fused"),
+        "pfb_fused -a": (["-a", str(AGC_T)], "pfb_channelize_fused"),
+        "eager -a": (["-a", str(AGC_T)], None),
+    }
+    out, split = {}, {}
+    for label, (extra, want) in runs.items():
+        backend = label.split()[0]
+        common = ["--filename", path, "-n", str(CAPTURE), "-c", str(nch), "--demod",
+                  "DeNBFM 0.3 WAV", "--backend", backend, "--device", "cuda", "--blocksize",
+                  str(BLOCK), *extra]
+        prefix = os.path.join(tmp, "mix")
+        # the per-channel run first: it also warms the backend's first use
+        # of nch 16, so the timed -m run below is a warm one
+        _, counts = cli_run(torch, ff, pf, cli_main, common + ["-o", prefix])
+        check_counts(counts, want, f"CLI -c {nch} {label}")
+        per = read_wavs(prefix, nch, frames).astype(np.float64)
+        flow = cli_flow(torch, ff, pf, cli_main, common + ["-m", "-o", prefix], CAPTURE, want,
+                        f"CLI -c {nch} -m {label}")
+        mixed = read_wav(prefix + ".wav", 1, frames, rate)[0].astype(np.float64)
+        check(bool(np.isfinite(mixed).all()), f"CLI -m {label}: non-finite audio")
+        if label == "eager -a":
+            out[label] = dict(flow, mixed=mixed)
+            continue
+        total = per.sum(axis=0)
+        rel = float(np.abs(mixed - total).max() / np.abs(total).max())
+        check(rel < MIX_REL_ERR, f"CLI -m {label}: mixed vs the per-channel sum, rel {rel}")
+        split[label] = per
+        out[label] = dict(flow, mixed=mixed, vs_channel_sum_rel=rel)
+    for label, bound in (("pfb_fused", PFB_MAX_ERR), ("fused", MAX_ERR)):
+        mx, rms = errors_np(split[label][:, 1:], split["eager"][:, 1:])
+        out[label].update(per_channel_vs_eager_max=mx, per_channel_vs_eager_rms=rms)
+        check(mx < bound and rms < RMS_ERR, f"CLI -c {nch} {label} vs eager: max {mx} rms {rms}")
+    agc_rel = float(np.abs(out["pfb_fused -a"]["mixed"] - out["eager -a"]["mixed"]).max()
+                    / np.abs(out["eager -a"]["mixed"]).max())
+    out["pfb_fused -a"]["mixed_vs_eager_rel"] = agc_rel
+    check(agc_rel < AGC_REL_ERR, f"CLI -m -a pfb_fused vs eager: rel {agc_rel}")
+    for label, r in out.items():
+        r.pop("mixed")
+        emit(dict(phase="mix", flow=f"-c {nch} -m DeNBFM 0.3 WAV", backend=label, wire="cu8",
+                  samples=CAPTURE, frames=frames, rate=rate, **r, **card))
+    os.unlink(path)
+    return out
+
+
+def checkpoint_pipeline(ct, backend: str, dev):
+    """6d's library path: -c 64 DeNBFM on cu8 blocks of BLOCK samples."""
+    g = ct.channelized_fm_receiver(64, kf=KF, backend=backend)
+    return ct.Pipeline(g if backend == "fused" else ct.chain(ct.u8_to_iq(), g),
+                       block_size=BLOCK, device=dev)
+
+
+def phase_checkpoint(torch, ct, ff, pf, dev, card, capture) -> dict:
+    """6d. Checkpoint and resume through the library, -c 64 DeNBFM, fused
+    (K1) and eager, on phase 4's capture: the whole run, then the first
+    half, save_pipeline, a new Pipeline, resume_pipeline and skip_n.  The
+    resumed output must equal the whole run's second half bit for bit."""
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+
+    nch, half = 64, CAPTURE // 2
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "resume.npz")
+        for backend, want in (("fused", "flagship_fused"), ("eager", None)):
+            make = lambda: checkpoint_pipeline(ct, backend, dev)  # noqa: E731
+            src = lambda: ct.cu8_file_source(capture, BLOCK)  # noqa: E731
+            whole = ct.CollectSink()
+            torch.cuda.synchronize()
+            reset_counts(ff, pf, fv, fx)
+            t0 = time.perf_counter()
+            total = make().run(src(), whole)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = read_counts(ff, pf, fv, fx)
+            check_counts(counts, want, f"library -c 64 {backend}")
+            idle = idle_share({"checkpoint": backend, "capture": capture})
+            first = ct.CollectSink()
+            p1 = make()
+            p1.run(ct.take_n(src(), half), first)
+            ct.save_pipeline(ck, p1, position=half)
+            p2 = make()
+            pos = ct.resume_pipeline(ck, p2)
+            rest = ct.CollectSink()
+            p2.run(ct.skip_n(src(), pos), rest)
+            want_all = whole.concat()
+            got = np.concatenate([first.concat(), rest.concat()], axis=-1)
+            check(total == CAPTURE // nch and got.shape == want_all.shape == (nch, total),
+                  f"checkpoint {backend}: shapes {got.shape} {want_all.shape}")
+            same = bool(np.array_equal(rest.concat(), want_all[:, pos // nch:]))
+            mx = float(np.abs(got.astype(np.float64) - want_all).max())
+            out[backend] = dict(seconds=dt, msps=CAPTURE / dt / 1e6, launches=counts, **idle,
+                                position=pos, bit_identical=same, resumed_vs_whole_max=mx)
+            emit(dict(phase="checkpoint", path=f"-c 64 DeNBFM {backend}", wire="cu8",
+                      samples=CAPTURE, **out[backend], **card))
+            check(same, f"checkpoint {backend}: resumed run differs by {mx}")
+    return out
+
+
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12   # H100 SXM data sheet
 
 
@@ -1183,18 +1506,40 @@ def phase_library(torch, dev, card):
     return out
 
 
-def profile_kernels(torch, fn, steps: int) -> dict:
-    """Device kernels of ``steps`` calls of ``fn()`` (after one unprofiled
-    call), from torch.profiler: kernel name → dict(count, device_us), both
-    summed over the steps."""
+def traced(torch, fn):
+    """torch.profiler around one call of ``fn()``; returns (profiler, fn's
+    wall seconds)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def profile_kernels(torch, fn, steps: int, want: int | None = None, tries: int = 5) -> dict:
+    """Device kernels of ``steps`` calls of ``fn()`` (after one unprofiled
+    call), from torch.profiler: kernel name → dict(count, device_us), both
+    summed over the steps.  The tracer now and then loses a kernel record,
+    even in a process's first session: a session that traced fewer device
+    kernels than launch calls, or other than ``want`` per step, is run
+    again, up to ``tries`` times."""
+    fn()
+    for _ in range(tries):
+        prof, _ = traced(torch, lambda: [fn() for _ in range(steps)])
+        kern = device_kernels(prof)
+        n = sum(v["count"] for v in kern.values())
+        if n == launch_calls(prof) and (want is None or n == want * steps):
+            break
+    return kern
+
+
+def device_kernels(prof) -> dict:
+    """Kernel name → dict(count, device_us) of a torch.profiler run: the
+    events with device time, less operator rows and copies."""
     kern = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total", None)
@@ -1202,9 +1547,65 @@ def profile_kernels(torch, fn, steps: int) -> dict:
             dev_us = getattr(ev, "cuda_time_total", 0)
         if dev_us and ev.count and ("ProfilerStep" not in ev.key) and (
                 getattr(ev, "device_type", None) is None
-                or str(ev.device_type).endswith("CUDA")) and not ev.key.startswith("aten::"):
+                or str(ev.device_type).endswith("CUDA")) and not ev.key.startswith(
+                    ("aten::", "Memcpy", "Memset")):
             kern[ev.key] = dict(count=ev.count, device_us=dev_us)
     return kern
+
+
+def launch_calls(prof) -> int:
+    """Kernel launches the host made in a torch.profiler run: the CUDA
+    runtime's and driver's launch calls in its trace."""
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.key.startswith(("cudaLaunch", "cuLaunch")))
+
+
+def idle_share(spec: dict) -> dict:
+    """Device idle share of one run of a flow, 1 − (device kernel time ÷
+    wall time) under torch.profiler (PERF.md §2), measured by
+    ``idle_child`` in a process of its own: later profiler sessions of a
+    long process dropped kernel records, which read as idle.  ``spec`` is
+    {"cli": argv} or {"checkpoint": backend, "capture": path}."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--idle-share",
+                        json.dumps(spec)], capture_output=True, text=True, timeout=600, cwd=HERE)
+    check(r.returncode == 0, f"idle share of {spec}: exit code {r.returncode}: "
+                             f"{r.stderr.strip()[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def idle_child(spec: dict, tries: int = 3) -> int:
+    """The process behind ``idle_share``: one unprofiled run of the flow,
+    then profiled runs until one whose trace holds a device kernel for
+    every launch call (at most ``tries``).  Prints {"device_idle_share",
+    "idle_session"}; the share is null where every session lost records."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    import csdr_tpu_torch as ct
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    if "cli" in spec:
+        from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
+
+        def fn():
+            check(cli_main(spec["cli"]) == 0, f"idle share: CLI {spec['cli']}")
+    else:
+        def fn():
+            checkpoint_pipeline(ct, spec["checkpoint"], dev).run(
+                ct.cu8_file_source(spec["capture"], BLOCK), ct.NullSink())
+    fn()
+    for t in range(1, tries + 1):
+        prof, wall = traced(torch, fn)
+        kern = device_kernels(prof)
+        n_dev, n_host = sum(v["count"] for v in kern.values()), launch_calls(prof)
+        if n_dev == n_host:
+            break
+    busy_s = sum(v["device_us"] for v in kern.values()) * 1e-6
+    emit(dict(device_idle_share=1.0 - busy_s / wall if n_dev == n_host else None,
+              idle_session=dict(device_kernels=n_dev, launch_calls=n_host, sessions=t,
+                                wall_s=wall)))
+    return 0
 
 
 def phase_profile(torch, dev, card):
@@ -1238,19 +1639,21 @@ def phase_profile(torch, dev, card):
     xu = rand_rows(torch, dev, 1, BLOCK + len(usb) - 1, True, SEED + 12)
     xr = rand_rows(torch, dev, 1, BLOCK + len(cw1) - 1, False, SEED + 13)
     x5 = rand_rows(torch, dev, 64, BLOCK // 64 + len(cw64) - 1, True, SEED + 14)
+    x3 = rand_rows(torch, dev, 1, BLOCK + len(cw1) - 1, True, SEED + 15)
     steps = {
         "flagship_fused": k1,
         "flagship_fused_nch20": k2,
         "pfb_fm_fused": lambda: pf.pfb_fm_fused(v3, taps, W, nch=64, L=14, kf=KF),
         "pfb_channelize_fused": lambda: pf.pfb_channelize_fused(v4, taps, W, nch=64, L=14),
         "fir_valid": lambda: fv.fir_valid(x5, cw64),
+        "fir_valid_3651": lambda: fv.fir_valid(x3, cw1),
         "fft_fir": lambda: fx.fft_fir_valid(xu, usb),
         "fft_fir_real_real": lambda: fx.fft_fir_valid(xr, cw1),
     }
     want = {name: 3 if name.startswith("flagship") else 1 for name in steps}
     out = {}
     for name, fn in steps.items():
-        kern = profile_kernels(torch, fn, 5)
+        kern = profile_kernels(torch, fn, 5, want[name])
         launches = sum(v["count"] for v in kern.values())
         out[name] = (launches / 5 if launches else None,
                      sum(v["device_us"] for v in kern.values()) / 5e3 if launches else None)
@@ -1301,6 +1704,9 @@ def main() -> int:
     errs = phase_compare(torch, ct, ff, dev, card)
     errs.update(phase_compare_pfb(torch, ct, pf, dev, card))  # 3b
     errs.update(phase_compare_fir(torch, dev, card))  # 3c
+    # the profile comes before any other profiler window: later in the
+    # process the tracer dropped kernel records (PERF.md §7)
+    per_step = phase_profile(torch, dev, card)
 
     # 4. main paths through the CLI
     with tempfile.TemporaryDirectory() as tmp:
@@ -1310,16 +1716,28 @@ def main() -> int:
                                                  runs, bins)  # 4b
         del runs
         rates = phase_cli_rates(torch, ff, pf, card, tmp, capture, agc_path)  # 5b
+        ckpt = phase_checkpoint(torch, ct, ff, pf, dev, card, capture)  # 6d
         for f in (capture, agc_path):
             os.unlink(f)
         fir_runs, fir_rates, cw_path = phase_main_path_fir(torch, ff, pf, dev, card, tmp)  # 4c
         fir_med, cw_rates = phase_timing_fir(torch, ff, pf, dev, card, tmp, cw_path)  # 5c
+        os.unlink(cw_path)
+        wbfm = phase_wbfm(torch, ff, pf, dev, card, tmp)  # 6a
+        fms = phase_stereo_rds(torch, ff, pf, dev, card, tmp)  # 6b
+        mix = phase_mix(torch, ff, pf, dev, card, tmp)  # 6c
+        emit(dict(phase="broadcast_and_mix_flows", msps={
+            "DeWBFM": wbfm["msps"], "DeFMS --rds": fms["msps"],
+            **{f"-c {MIX_NCH} -m {k}": v["msps"] for k, v in mix.items()},
+            **{f"checkpoint {k}": v["msps"] for k, v in ckpt.items()}},
+            device_idle_share={
+            "DeWBFM": wbfm["device_idle_share"], "DeFMS --rds": fms["device_idle_share"],
+            **{f"-c {MIX_NCH} -m {k}": v["device_idle_share"] for k, v in mix.items()},
+            **{f"checkpoint {k}": v["device_idle_share"] for k, v in ckpt.items()}}, **card))
 
     # 5. timings
     med = phase_timing(torch, ct, ff, dev, card)
     med.update(phase_timing_pfb(torch, ct, pf, dev, card))  # 5b
     lib_ms = phase_library(torch, dev, card)
-    per_step = phase_profile(torch, dev, card)
 
     print(smi, flush=True)
     flagship = {
@@ -1334,6 +1752,8 @@ def main() -> int:
         "pipeline_msps_in_turns": {b: rates[("DeNBFM", b)] for b in ("fused", "eager")},
         "launches_per_step": per_step["flagship_fused"][0],
         "device_ms": per_step["flagship_fused"][1],
+        "launches_mix_run": mix["fused"]["launches"]["flagship_fused"],
+        "launches_checkpoint_run": ckpt["fused"]["launches"]["flagship_fused"],
         "step_peak_mib": med[("u8", "step_peak_mib")],
         "library_ms": None,
         **flagship_bound(BLOCK, 64, True),
@@ -1366,6 +1786,7 @@ def main() -> int:
         "source": "csdr_tpu_torch/csrc/pfb_fused.cu",
         "replaces": "csdr_tpu/ops/pallas/pfb_fused.py:149",
         "launches": pfb_runs["pfb_fm_fused"]["launches"],
+        "launches_mix_run": mix["pfb_fused"]["launches"]["pfb_fm_fused"],
         "max_abs_err": errs[("pfb_fm_fused", 64)],
         "ms": med[("pfb_fm_fused", "kernel")],
         "plain_ms": med[("pfb_fm_fused", "plain")],
@@ -1386,6 +1807,7 @@ def main() -> int:
         "replaces": "csdr_tpu/ops/pallas/pfb_fused.py:188",
         "launches": pfb_runs["pfb_channelize_fused"]["launches"],
         "launches_raw_split": pfb_runs["raw_split"]["launches"],
+        "launches_mix_agc_run": mix["pfb_fused -a"]["launches"]["pfb_channelize_fused"],
         "max_abs_err": errs[("pfb_channelize_fused", 64)],
         "ms": med[("pfb_channelize_fused", "kernel")],
         "plain_ms": med[("pfb_channelize_fused", "plain")],
@@ -1411,6 +1833,7 @@ def main() -> int:
         "launches": fir_runs["fir_valid"]["launches"],
         "launches_pfb_fused_run": fir_runs["fir_valid"]["launches_pfb_fused"],
         "launches_single_channel_run": fir_runs["fir_valid_single"],
+        "launches_rds_run": fms["launches"]["fir_valid"],
         "max_abs_err": errs["c64_complex_585"][0],
         "vs_fft_strategy_rel": errs["c64_complex_585"][1],
         "ms": fir_med[("c64_complex_585", "kernel")],
@@ -1419,8 +1842,15 @@ def main() -> int:
         "shape": f"(64, {BLOCK // 64 + 584}) complex64 x 585 real taps -> (64, {BLOCK // 64})",
         "other_shapes": {c: {"ms": fir_med[(c, "kernel")], "plain_ms": fir_med[(c, "plain")],
                              "fft_strategy_ms": fir_med[(c, "fft")], "max_abs_err": errs[c][0],
-                             "vs_fft_strategy_rel": errs[c][1]}
-                         for c in ("c64_real_585", "c1_complex_3651")},
+                             "vs_fft_strategy_rel": errs[c][1], **extra}
+                         for c, extra in (
+                             ("c64_real_585", fir_bound(64, BLOCK // 64, 585, False, False)),
+                             ("c1_complex_3651", dict(
+                                 launches_per_step=per_step["fir_valid_3651"][0],
+                                 device_ms=per_step["fir_valid_3651"][1],
+                                 **fir_bound(1, BLOCK, 3651, True, False))),
+                             ("c1_real_rds_333", fir_bound(1, fms_graph()[1], 333, False,
+                                                           False)))},
         "pipeline_msps": {f"{f} {b}": r for (f, b), r in fir_rates.items()
                           if "DeCW" in f},
         "pipeline_msps_in_turns": {f"-c 64 DeCW {b}": r for b, r in cw_rates.items()},
@@ -1470,4 +1900,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--idle-share"]:
+        sys.exit(idle_child(json.loads(sys.argv[2])))
     sys.exit(main())

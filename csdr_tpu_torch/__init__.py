@@ -12,7 +12,8 @@ composed with ``chain`` and streamed by ``Pipeline`` on an explicit
 (``csrc/pfb_fused.cu``), the long real-tap FIR (``csrc/fir_valid.cu``) and
 the overlap-save FFT FIR (``csrc/fft_fir.cu``) are hand-written CUDA
 kernels, built with ``nvcc`` at their first CUDA launch; on a CPU tensor
-their plain PyTorch versions run instead.
+their plain PyTorch versions run instead.  ``core/checkpoint.py`` saves a
+Pipeline's state mid-stream and resumes it bit for bit.
 """
 
 import torch as _torch
@@ -22,32 +23,39 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-from .core.block import Block, Chain, chain, Lambda, PerChannel, MixChannels  # noqa: E402
-from .core.runtime import Pipeline, rechunk, take_n  # noqa: E402
+from .core.block import (  # noqa: E402
+    Block, Chain, chain, Delay, Lambda, PerChannel, MixChannels, Tee,
+)
+from .core.runtime import Pipeline, rechunk, skip_n, take_n  # noqa: E402
+from .core.checkpoint import resume_pipeline, save_pipeline  # noqa: E402
 from .blocks import (  # noqa: E402
     am_demodulator, automatic_gain_control, cw_demodulator, dc_blocker, fir_decimator,
-    fir_filter, fir_filter_c_kaiser, firpfbch_channelizer, fm_demodulator, mix_down, mix_up,
-    resampler, ssb_demodulator, u8_to_iq,
+    fir_filter, fir_filter_c_kaiser, firpfbch_channelizer, fm_demodulator, iir_cfilter,
+    iir_filter, mix_down, mix_up, resampler, ssb_demodulator, u8_to_iq, wbfm_demodulator,
 )
 from .models.receivers import (  # noqa: E402
     am_receiver, channelized_fm_receiver, channelized_receiver, front_end, nbfm_receiver,
-    raw_capture,
+    raw_capture, wbfm_receiver,
 )
+from .models.stereo import stereo_fm_decoder  # noqa: E402
+from .models.rds import rds_receiver  # noqa: E402
 from .io.sources import cf32_file_source, cu8_file_source  # noqa: E402
 from .io.sinks import (  # noqa: E402
-    RawFileSink, AudioFileSink, ChannelFileSinks, NullSink, CollectSink,
+    RawFileSink, AudioFileSink, BranchSinks, ChannelFileSinks, NullSink, CollectSink,
 )
 
 __all__ = [
-    "Block", "Chain", "chain", "Lambda", "PerChannel", "MixChannels",
-    "Pipeline", "rechunk", "take_n",
+    "Block", "Chain", "chain", "Delay", "Lambda", "PerChannel", "MixChannels", "Tee",
+    "Pipeline", "rechunk", "skip_n", "take_n", "save_pipeline", "resume_pipeline",
     "am_demodulator", "automatic_gain_control", "cw_demodulator", "dc_blocker",
     "fir_decimator", "fir_filter", "fir_filter_c_kaiser", "firpfbch_channelizer",
-    "fm_demodulator", "mix_down", "mix_up", "resampler", "ssb_demodulator", "u8_to_iq",
-    "front_end", "nbfm_receiver", "am_receiver", "raw_capture",
-    "channelized_receiver", "channelized_fm_receiver",
+    "fm_demodulator", "iir_cfilter", "iir_filter", "mix_down", "mix_up", "resampler",
+    "ssb_demodulator", "u8_to_iq", "wbfm_demodulator",
+    "front_end", "wbfm_receiver", "nbfm_receiver", "am_receiver", "raw_capture",
+    "channelized_receiver", "channelized_fm_receiver", "stereo_fm_decoder", "rds_receiver",
     "cf32_file_source", "cu8_file_source",
-    "RawFileSink", "AudioFileSink", "ChannelFileSinks", "NullSink", "CollectSink",
+    "RawFileSink", "AudioFileSink", "BranchSinks", "ChannelFileSinks", "NullSink",
+    "CollectSink",
 ]
 
 __version__ = "0.1.0"

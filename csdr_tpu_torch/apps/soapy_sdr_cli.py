@@ -9,21 +9,27 @@ port carries, from a .cf32 or .cu8 capture:
   * ``-c 1``: ``dc_blocker >> [AGC] >> demod`` into ``<output>.wav|.f32``
     (``.cf32`` for DeNo);
   * ``-c N > 1``: DC blocker → PFB → per-channel ``[AGC >>] demod``, one
-    file per channel (``<output>_ch1`` .. ``<output>_chN``);
-  * ``--demod``: ``"DeNBFM kf WAV|F32"``, ``"DeAM WAV|F32"``,
+    file per channel (``<output>_ch1`` .. ``<output>_chN``), or with
+    ``-m/--mix`` the channels summed into one ``<output>`` file;
+  * ``--demod``: ``"DeNBFM kf WAV|F32"``, ``"DeWBFM decim WAV|F32"``,
+    ``"DeFMS decim WAV|F32"`` (stereo, ``-c 1`` only; ``--rds`` adds the RDS
+    decode to ``<output>.rds.txt``), ``"DeAM WAV|F32"``,
     ``"DeUSB|DeLSB bw_hz WAV|F32"``, ``"DeCW [bw_hz pitch_hz] WAV|F32"`` or
     ``DeNo`` (raw complex64); ``-a T`` adds an AGC with a T dB squelch.
+    Audio runs at int(bandwidth) // decim // nch Hz.
 
 ``--backend`` picks the channelizer of ``-c N`` flows: ``eager`` runs the
 plain PyTorch graph; ``pfb_fused`` runs its FIR and DFT in the K3 kernel
 (DeNBFM without AGC, with the demod) or the K4 kernel (every other flow);
 ``fused`` runs the whole DeNBFM chain in one kernel and nothing else.  Long
-real FIRs (the CW filter) take the K5 kernel on the card.  Every other
-flow, demod and option of the JAX CLI exits non-zero with "not yet ported in
-csdr_tpu_torch".
+real FIRs (the CW filter, the RDS data filter) take the K5 kernel on the
+card.  Every other flow, demod and option of the JAX CLI exits non-zero
+with "not yet ported in csdr_tpu_torch".
 
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -n 33554432 \\
         -c 64 --demod "DeCW 500 700 WAV" --backend pfb_fused --device cuda
+    python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -s 2560000 \\
+        -b 200000 -n 2621440 --demod "DeFMS 8 WAV" --rds --device cuda
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import argparse
 import sys
 import time
 
+import numpy as np
 import torch
 
 from ..core.block import Chain, chain
@@ -66,10 +73,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Device block size in samples")
     p.add_argument("-v", "--verbose", action="store_true",
                    help="Print the flow's blocks and a throughput summary")
+    p.add_argument("-m", "--mix", action="store_true",
+                   help="Mix the channels into one output instead of per-channel files")
     p.add_argument("--demod", default="DeNo", metavar="DEMOD",
-                   help='Demodulation: "DeNBFM <kf> WAV|F32", "DeAM WAV|F32", '
+                   help='Demodulation: "DeNBFM <kf> WAV|F32", "DeWBFM <decim> WAV|F32", '
+                        '"DeFMS <decim> WAV|F32" (stereo), "DeAM WAV|F32", '
                         '"DeUSB|DeLSB <bw Hz> WAV|F32", "DeCW [<bw Hz> <pitch Hz>] '
                         'WAV|F32" or DeNo (raw CF32)')
+    p.add_argument("--rds", action="store_true",
+                   help="With --demod 'DeFMS ...': also decode the 57 kHz RDS subcarrier "
+                        "(PS/RadioText/PI) to <output>.rds.txt")
     p.add_argument("-a", "--agc", type=float, default=0.0, metavar="DOUBLE",
                    help="AGC with a squelch threshold in dB (0 = no AGC); per channel "
                         "with -c N")
@@ -79,13 +92,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels; fused = the whole DeNBFM chain in one CUDA kernel")
     p.add_argument("--device", default="cuda", choices=["cpu", "cuda"],
                    help="Device the graph runs on (cuda never falls back to cpu)")
-    # options of the JAX CLI that the port refuses by name, not by argparse
-    p.add_argument("-m", "--mix", action="store_true", help=argparse.SUPPRESS)
+    # an option of the JAX CLI that the port refuses by name, not by argparse
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     return p
 
 
-_DEMODS = ("DeNBFM", "DeAM", "DeUSB", "DeLSB", "DeCW", "DeNo")
+_DEMODS = ("DeNBFM", "DeWBFM", "DeFMS", "DeAM", "DeUSB", "DeLSB", "DeCW", "DeNo")
 
 
 def parse_demod(s: str):
@@ -97,6 +109,8 @@ def parse_demod(s: str):
     kind = toks[0]
     if kind == "DeNBFM":
         return ("DeNBFM", float(toks[1]), toks[2].upper())
+    if kind in ("DeWBFM", "DeFMS"):
+        return (kind, int(toks[1]), toks[2].upper())
     if kind == "DeAM":
         return ("DeAM", toks[1].upper())
     if kind in ("DeUSB", "DeLSB"):
@@ -111,13 +125,12 @@ def parse_demod(s: str):
 def _refusal(opts, demod) -> str | None:
     """Why the requested flow is outside the port, or None."""
     if demod[0] not in _DEMODS:
-        return (f"--demod {demod[0]} is {_NOT_PORTED}; use DeNBFM, DeAM, DeUSB, DeLSB, "
-                "DeCW or DeNo")
+        return (f"--demod {demod[0]} is {_NOT_PORTED}; use DeNBFM, DeWBFM, DeFMS, DeAM, "
+                "DeUSB, DeLSB, DeCW or DeNo")
     if demod[0] != "DeNo" and demod[-1] not in ("WAV", "F32"):
         return f"audio format {demod[-1]} is {_NOT_PORTED}; use WAV or F32"
-    for flag, on in (("--mix", opts.mix), ("--mesh", opts.mesh)):
-        if on:
-            return f"{flag} is {_NOT_PORTED}"
+    if opts.mesh:
+        return f"--mesh is {_NOT_PORTED}"
     if not opts.filename:
         return f"SDR devices are {_NOT_PORTED}; use --filename"
     with open(opts.filename, "rb") as f:
@@ -126,14 +139,19 @@ def _refusal(opts, demod) -> str | None:
     return None
 
 
-def _demod_block(demod, chan_rate: float):
+def _demod_block(demod, out_bw: float, nch: int):
     """The per-stream demod of the flow (None for DeNo); bandwidths and
-    pitches in Hz are normalized to the channel's rate."""
+    pitches in Hz are normalized to the channel's rate.  DeWBFM designs its
+    de-emphasis for the rate ahead of the split, out_bw, as the JAX CLI
+    does."""
     from .. import blocks as B
 
     kind = demod[0]
+    chan_rate = out_bw / nch
     if kind == "DeNBFM":
         return B.fm_demodulator(demod[1])
+    if kind == "DeWBFM":
+        return B.wbfm_demodulator(out_bw, demod[1])
     if kind == "DeAM":
         return B.am_demodulator()
     if kind in ("DeUSB", "DeLSB"):
@@ -145,37 +163,67 @@ def _demod_block(demod, chan_rate: float):
 
 def _graph(opts, demod, agc_t, out_bw: float):
     """The flow's main graph behind the front end, composed as the JAX CLI
-    composes it: ``dc_blocker >> [AGC] >> demod`` for -c 1; for -c N,
-    DeNBFM with no AGC is ``channelized_fm_receiver``, every other flow puts
-    ``PerChannel([AGC >>] demod)`` behind the channelizer."""
+    composes it: ``dc_blocker >> [AGC] >> demod`` for -c 1 (DeFMS:
+    ``fm_demodulator(0.8) >> stereo_fm_decoder``, with ``--rds`` a ``Tee`` of
+    it and ``rds_receiver``); for -c N, DeNBFM with no AGC is
+    ``channelized_fm_receiver``, every other flow puts ``PerChannel([AGC >>]
+    demod)`` behind the channelizer; ``-m`` sums the channels."""
     from ..models.receivers import channelized_fm_receiver, channelized_receiver
     from .. import blocks as B
 
     nch = opts.channels
-    per = _demod_block(demod, out_bw / nch)
+    agc = [B.automatic_gain_control(agc_t)] if agc_t is not None else []
+    if demod[0] == "DeFMS":
+        from ..core.block import Tee
+        from ..models.rds import rds_receiver
+        from ..models.stereo import stereo_fm_decoder
+
+        stereo = stereo_fm_decoder(out_bw, demod[1])
+        tail = Tee(stereo, rds_receiver(out_bw)) if opts.rds else stereo
+        return chain(B.dc_blocker(), *agc, B.fm_demodulator(0.8), tail)
+    per = _demod_block(demod, out_bw, nch)
     if nch == 1:
-        agc = [B.automatic_gain_control(agc_t)] if agc_t is not None else []
         return chain(B.dc_blocker(), *agc, *([per] if per is not None else []))
     if demod[0] == "DeNBFM" and agc_t is None:
-        return channelized_fm_receiver(nch, kf=demod[1], backend=opts.backend)
+        return channelized_fm_receiver(nch, kf=demod[1], mix=opts.mix, backend=opts.backend)
     if per is None:  # DeNo: the AGC alone per channel, as the JAX CLI builds it
-        per = B.automatic_gain_control(agc_t) if agc_t is not None else None
-        return channelized_receiver(nch, per, backend=opts.backend)
-    return channelized_receiver(nch, per, agc_threshold_db=agc_t, backend=opts.backend)
+        per = agc[0] if agc else None
+        return channelized_receiver(nch, per, mix=opts.mix, backend=opts.backend)
+    return channelized_receiver(nch, per, mix=opts.mix, agc_threshold_db=agc_t,
+                                backend=opts.backend)
 
 
 def _sink(opts, demod, out_bw: float):
+    """The flow's sink: per-channel files for -c N, one file for -c 1 or
+    ``-m``; DeFMS writes a 2-channel WAV, and with ``--rds`` routes the bit
+    branch to a CollectSink (returned second, else None)."""
     nch = opts.channels
+    decim = demod[1] if demod[0] in ("DeWBFM", "DeFMS") else 1
+    rate = int(round(out_bw)) // decim // nch
     if demod[0] == "DeNo":
         make = lambda name: S.RawFileSink(f"{name}.cf32")
     elif demod[-1] == "WAV":
-        rate = int(round(out_bw)) // nch
-        make = lambda name: S.AudioFileSink(name, rate)
+        make = lambda name: S.AudioFileSink(name, rate, 2 if demod[0] == "DeFMS" else 1)
     else:
         make = lambda name: S.RawFileSink(f"{name}.f32")
-    if nch == 1:
-        return make(opts.output)
-    return S.ChannelFileSinks(lambda i: make(f"{opts.output}_ch{i + 1}"), nch)
+    if demod[0] == "DeFMS" and opts.rds:
+        bits = S.CollectSink()
+        return S.BranchSinks(make(opts.output), bits), bits
+    if nch == 1 or opts.mix:
+        return make(opts.output), None
+    return S.ChannelFileSinks(lambda i: make(f"{opts.output}_ch{i + 1}"), nch), None
+
+
+def _report_rds(opts, bits: np.ndarray):
+    """Decode the RDS bit stream, print the station and write
+    ``<output>.rds.txt``."""
+    from ..models.rds import decode_groups
+
+    info = decode_groups(bits)
+    pi = f"{info['pi']:04X}" if info["pi"] is not None else "----"
+    print(f"RDS: PI={pi} PS={info['ps']!r} RT={info['rt']!r} ({info['groups']} groups)")
+    with open(opts.output + ".rds.txt", "w") as f:
+        f.write(f"PI: {pi}\nPS: {info['ps']}\nRT: {info['rt']}\ngroups: {info['groups']}\n")
 
 
 def _announce(label: str, graph, device):
@@ -196,6 +244,9 @@ def run_opts(opts) -> int:
     if nch < 1:
         print(f"-c must be at least 1, got {nch}", file=sys.stderr)
         return 2
+    if demod[0] == "DeFMS" and nch != 1:
+        print("DeFMS does not support channel splitting", file=sys.stderr)
+        return 1
     if opts.backend == "fused" and (nch == 1 or demod[0] != "DeNBFM" or agc_t is not None):
         print("--backend fused runs the whole channelized DeNBFM chain in one kernel, with "
               "no AGC stage, no raw channel output and no other demod; use --backend "
@@ -237,7 +288,8 @@ def run_opts(opts) -> int:
         _announce("Flow", graph, device)
 
     t0 = time.perf_counter()
-    with _sink(opts, demod, out_bw) as sink:
+    sink, bits = _sink(opts, demod, out_bw)
+    with sink:
         total = pipe.run(stream, sink, num_samples=opts.numsamples)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -247,6 +299,8 @@ def run_opts(opts) -> int:
         print(f"Throughput: {int(n_in)} samples into the flow in {dt:.3f} s "
               f"({n_in / dt / 1e6:.2f} MSPS)")
     print(f"Wrote {total} output samples per stream ({opts.backend}, {device})")
+    if bits is not None:
+        _report_rds(opts, bits.concat())
     return 0
 
 

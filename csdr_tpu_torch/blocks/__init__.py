@@ -12,6 +12,8 @@ automaticGainControl t    → automatic_gain_control(t)
 dcBlocker                 → dc_blocker()
 firpfbchChannelizer n     → firpfbch_channelizer(nch)
 firFilterCKaiser n fc ... → fir_filter_c_kaiser(n, fc, as_db, mu)
+iirFilter / iirCFilter    → iir_filter / iir_cfilter(order, fc, f0, ap, as_db, ftype)
+wbFMDemodulator q d       → wbfm_demodulator(quad_rate, decim)
 (explicit taps)           → fir_filter(taps, complex_input, strategy=…)
 (extensions)              → ssb_demodulator(side, bw), cw_demodulator(bw, pitch)
 (cu8 capture input)       → u8_to_iq()
@@ -36,13 +38,14 @@ from ..ops import iir as iir_ops
 from ..ops import nco as nco_ops
 from ..ops import pfb as pfb_ops
 from ..ops import resamp as resamp_ops
-from ..utils import firdes
+from ..utils import firdes, iirdes
 
 __all__ = ["u8_to_iq", "mix_up", "mix_down", "fm_demodulator", "am_demodulator",
            "ssb_demodulator", "cw_demodulator", "fir_filter", "fir_filter_c_kaiser",
            "fir_decimator", "dc_blocker", "firpfbch_channelizer", "automatic_gain_control",
-           "resampler", "U8ToIQ", "Mixer", "FMDemod", "AMDemod", "FIRFilter", "FIRDecim",
-           "DCBlocker", "PFBChannelizer", "AGC", "HalfbandDecim", "RationalResampler"]
+           "resampler", "iir_filter", "iir_cfilter", "wbfm_demodulator", "U8ToIQ", "Mixer",
+           "FMDemod", "AMDemod", "FIRFilter", "FIRDecim", "DCBlocker", "IIRFilter",
+           "PFBChannelizer", "AGC", "HalfbandDecim", "RationalResampler"]
 
 _TWO_PI = 2.0 * np.pi
 
@@ -242,6 +245,41 @@ def dc_blocker(alpha: float = 0.0005, complex_input: bool = True) -> Block:
     return DCBlocker(alpha, complex_input)
 
 
+class IIRFilter(Block):
+    """IIR prototype filter (reference iirFilter/iirCFilter): ``ftype``
+    selects butter/cheby1/cheby2/ellip/bessel, ``f0`` ≠ 0 a band-pass
+    centred there, ``ap``/``as_db`` the ripple and attenuation where the
+    family uses them.  Runs as parallel one-pole partial fractions
+    (``ops/iir.py``)."""
+
+    def __init__(self, order: int, fc: float, complex_input: bool,
+                 ftype: str = "butter", f0: float = 0.0, ap: float = 1.0,
+                 as_db: float = 40.0):
+        self.order, self.fc = order, fc
+        self.complex_input = complex_input
+        sos = iirdes.prototype_sos(ftype, order, fc, f0, ap, as_db)
+        self.casc = iirdes.sos_to_onepole(sos, not complex_input)
+        self.name = f"iir_{ftype}({order},{fc:.4g}" + (f",f0={f0:.4g})" if f0 else ")")
+
+    def init(self, device: torch.device):
+        return iir_ops.onepole_cascade_init(self.casc, self.complex_input, device)
+
+    def apply(self, state, x):
+        return iir_ops.onepole_cascade_stream(self.casc, state, x)
+
+
+def iir_filter(order: int, fc: float, f0: float = 0.0, ap: float = 10.0,
+               as_db: float = 10.0, ftype: str = "butter") -> Block:
+    """Real IIR (reference iirFilter); Butterworth ignores ap/as_db."""
+    return IIRFilter(order, fc, complex_input=False, ftype=ftype, f0=f0, ap=ap, as_db=as_db)
+
+
+def iir_cfilter(order: int, fc: float, f0: float = 0.0, ap: float = 10.0,
+                as_db: float = 10.0, ftype: str = "butter") -> Block:
+    """Complex IIR (reference iirCFilter)."""
+    return IIRFilter(order, fc, complex_input=True, ftype=ftype, f0=f0, ap=ap, as_db=as_db)
+
+
 class PFBChannelizer(Block):
     """Polyphase filterbank channelizer with the reference's NCO pre-shift:
     (n,) complex → (nch, n/nch); channel k centred at 2π(k − (nch−1)/2)/nch."""
@@ -347,3 +385,10 @@ def resampler(rate: float, as_db: float = 60.0, complex_input: bool = True) -> B
     if not stages:
         return Lambda(lambda x: x, name="resamp(1)")
     return chain(*stages) if len(stages) > 1 else stages[0]
+
+
+def wbfm_demodulator(quad_rate: float, decim: int) -> Block:
+    """Wideband FM (reference wbFMDemodulator): FM demod (kf 0.6) → order-2
+    Butterworth de-emphasis at 5 kHz/quad_rate → Kaiser decimator."""
+    deemph = iir_filter(2, 5000.0 / quad_rate)
+    return chain(fm_demodulator(0.6), deemph, fir_decimator(decim))

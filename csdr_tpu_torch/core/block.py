@@ -10,6 +10,9 @@ a rational ``rate`` (output samples per input sample) and a ``granule``
 (its input length must be a multiple of it); a chain computes the minimal
 input granule that satisfies every stage, so the runtime can pick a static
 block size and trim the last, zero-padded block to the exact rational count.
+``Tee`` runs two blocks on one input and outputs a tuple whose branches may
+run at different rational rates; ``rate_tree`` reports a rate per output
+leaf, and the runtime trims each leaf by its own.
 
 The JAX package's sharding protocol is not ported here (ROADMAP Queue A,
 multi-GPU).
@@ -23,7 +26,8 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-__all__ = ["Block", "Chain", "chain", "TailStateBlock", "Lambda", "PerChannel", "MixChannels"]
+__all__ = ["Block", "Chain", "chain", "TailStateBlock", "Lambda", "PerChannel", "MixChannels",
+           "Tee", "Delay"]
 
 
 class Block:
@@ -41,8 +45,9 @@ class Block:
         raise NotImplementedError
 
     def rate_tree(self):
-        """Per-output-leaf rational rates; every block of this slice has a
-        single output, so this is ``rate``."""
+        """Per-output-leaf rational rates: a Fraction that every leaf shares
+        (the common case, Delay's same-rate pair included) or a tuple of them
+        mirroring the output (a multi-rate Tee)."""
         return self.rate
 
     def flush_len(self) -> int:
@@ -107,6 +112,34 @@ class Chain(Block):
             prefix *= b.rate
         return int(math.ceil(total))
 
+    def rate_tree(self):
+        # A block with its own output structure (Tee) defines the tree, scaled
+        # by the rate accumulated on its single-stream input; any other block
+        # after a tuple collapses the structure (only same-rate tuples
+        # combine elementwise), so its input rate is the first leaf's.
+        tree = Fraction(1)
+        for b in self.blocks:
+            bt = b.rate_tree()
+            if not isinstance(bt, Fraction):
+                lead = tree if isinstance(tree, Fraction) else _leaves(tree)[0]
+                tree = _map_tree(lambda r: lead * r, bt)
+            elif isinstance(tree, Fraction):
+                tree = tree * bt
+            else:
+                tree = _leaves(tree)[0] * bt
+        return tree
+
+
+def _leaves(tree) -> list:
+    return [leaf for part in tree for leaf in _leaves(part)] if isinstance(tree, tuple) else [tree]
+
+
+def _map_tree(fn, tree):
+    """Apply ``fn`` to every leaf of a tuple/list tree; returns tuples."""
+    if isinstance(tree, (tuple, list)):
+        return tuple(_map_tree(fn, t) for t in tree)
+    return fn(tree)
+
 
 def chain(*blocks: Block) -> Chain:
     return Chain(blocks)
@@ -158,6 +191,8 @@ def _stack_tree(states: list):
     first = states[0]
     if isinstance(first, torch.Tensor):
         return torch.stack(states)
+    if isinstance(first, dict):
+        return {k: _stack_tree([s[k] for s in states]) for k in first}
     return type(first)(_stack_tree(list(parts)) for parts in zip(*states))
 
 
@@ -169,3 +204,63 @@ class MixChannels(Block):
 
     def apply(self, state, x):
         return state, x.sum(dim=0)
+
+
+class Tee(Block):
+    """Run two blocks on the same input and output the pair (reference
+    ``tee``, without the list zip).  The branches may run at different
+    rational rates: ``rate_tree`` reports one rate per branch and the
+    runtime trims each output leaf by its own; ``rate`` is branch 1's (the
+    primary output, which the runtime counts)."""
+
+    def __init__(self, b1: Block, b2: Block, name: str = "tee"):
+        self.b1, self.b2 = b1, b2
+        self.rate = b1.rate
+        g = b1.granule * b2.granule // math.gcd(b1.granule, b2.granule)
+        # a full block must give whole outputs on both branches
+        for r in (b1.rate, b2.rate):
+            g = g * r.denominator // math.gcd(g, r.denominator)
+        self.granule = g
+        self.name = name
+
+    def init(self, device: torch.device):
+        return (self.b1.init(device), self.b2.init(device))
+
+    def apply(self, state, x):
+        s1, y1 = self.b1.apply(state[0], x)
+        s2, y2 = self.b2.apply(state[1], x)
+        return (s1, s2), (y1, y2)
+
+    def flush_len(self) -> int:
+        # one zero fill feeds both branches; the larger allowance wins, and
+        # the other branch's extra output is trimmed by its own rate
+        return max(self.b1.flush_len(), self.b2.flush_len())
+
+    def rate_tree(self):
+        return (self.b1.rate_tree(), self.b2.rate_tree())
+
+
+class Delay(TailStateBlock):
+    """Pair the stream with an n-sample delayed copy: output (x, delayed x)
+    (reference ``delay``).  State: the last n samples.  At the end of the
+    stream the runtime feeds ``flush_len() = n`` zeros, so the delayed copy
+    completes while the live branch carries zeros; each branch keeps its
+    sample order (the reference's fold hands the leftover to the live
+    branch instead)."""
+
+    def __init__(self, n: int, dtype: torch.dtype = torch.float32, name: str = "delay"):
+        self.n = n
+        self.tail_len = n
+        self.dtype = dtype
+        self.name = f"{name}({n})"
+
+    def init(self, device: torch.device):
+        return torch.zeros((self.n,), dtype=self.dtype, device=device)
+
+    def apply(self, state, x):
+        full = torch.cat([state, x], dim=-1)
+        n = x.shape[-1]
+        return full[..., n:].clone(), (x, full[..., :n])
+
+    def flush_len(self) -> int:
+        return self.n

@@ -1,21 +1,25 @@
 """Streaming runtime: the host feed/drain loop around a Block graph.
 
 Counterpart of ``csdr_tpu/core/runtime.py`` (``Pipeline`` with ``run`` and
-``stream``, ``rechunk``, ``take_n``, ``append_flush``).  What it keeps:
+``stream``, ``rechunk``, ``take_n``, ``skip_n``, ``append_flush``).  What it
+keeps:
 
   * a static block size, a multiple of the graph's granule;
-  * zero-padding of the last short block, with the output trimmed to the
-    exact rational-rate sample count;
+  * zero-padding of the last short block, with each output leaf trimmed to
+    its exact rational-rate sample count (a Tee's branches each by their
+    own rate, ``Block.rate_tree``);
   * the end-of-stream flush allowance (``Block.flush_len``);
-  * draining one step late, so host I/O overlaps device compute.
+  * draining one step late, so host I/O overlaps device compute;
+  * periodic checkpoints (``core/checkpoint.py``), written only once the
+    output of every input sample they cover is in the sink.
 
 What it drops: the JAX package's complex-free jit boundary (``CEnc``,
 ``encode_tree``) and the jit itself — PyTorch runs eagerly, and its CUDA
 transfers carry complex64 as is.
 
 Host→device copies go from pinned buffers with ``non_blocking=True``; each
-block's output comes back the same way into a fresh pinned buffer, and is
-handed to the sink one step later, after the next block was queued.
+block's output leaves come back the same way into fresh pinned buffers, and
+are handed to the sink one step later, after the next block was queued.
 """
 
 from __future__ import annotations
@@ -26,9 +30,9 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
-from .block import Block
+from .block import Block, _map_tree
 
-__all__ = ["Pipeline", "rechunk", "take_n", "append_flush", "DEFAULT_BLOCK"]
+__all__ = ["Pipeline", "rechunk", "take_n", "skip_n", "append_flush", "DEFAULT_BLOCK"]
 
 DEFAULT_BLOCK = 1 << 20
 
@@ -80,6 +84,20 @@ def take_n(chunks: Iterable[np.ndarray], n: int) -> Iterator[np.ndarray]:
         yield c
 
 
+def skip_n(chunks: Iterable[np.ndarray], n: int) -> Iterator[np.ndarray]:
+    """Drop the first n samples (rows) of a chunk stream: the source seek of
+    a resume, with n the position ``resume_pipeline`` returns."""
+    dropped = 0
+    it = iter(chunks)
+    for c in it:
+        if dropped + len(c) <= n:
+            dropped += len(c)
+            continue
+        yield np.asarray(c)[n - dropped:]
+        break
+    yield from it
+
+
 class Pipeline:
     """Streaming executor for a Block graph on one explicit device."""
 
@@ -101,31 +119,39 @@ class Pipeline:
         # the pinned allocator keeps the buffer until the async copy is done
         return stage.to(self.device, non_blocking=True) if cuda else stage
 
-    def process_block(self, x: np.ndarray) -> torch.Tensor:
-        """One graph step on a host block; returns the output on the device."""
+    def process_block(self, x: np.ndarray):
+        """One graph step on a host block; returns the output (a tensor, or a
+        tuple of them) on the device."""
         self.state, y = self.block.apply(self.state, self._to_device(x))
         return y
 
-    def _to_host(self, y: torch.Tensor):
-        """Queue the device→host copy of one output; returns (host tensor,
-        event that marks the copy done)."""
-        if y.device.type != "cuda":
+    def _to_host(self, y):
+        """Queue the device→host copy of every output leaf; returns (host
+        tree, event that marks the copies done)."""
+        if self.device.type != "cuda":
             return y, None
-        host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-        host.copy_(y, non_blocking=True)
+
+        def copy(leaf: torch.Tensor) -> torch.Tensor:
+            host = torch.empty(leaf.shape, dtype=leaf.dtype, pin_memory=True)
+            host.copy_(leaf, non_blocking=True)
+            return host
+
+        host = _map_tree(copy, y)
         done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(y.device))
+        done.record(torch.cuda.current_stream(self.device))
         return host, done
 
-    def stream(self, source: Iterable[np.ndarray]) -> Iterator[np.ndarray]:
-        """Stream source → graph, yielding each block's host output trimmed
-        to its exact rational-rate count, one step late so host I/O overlaps
-        the next block.  The final short block is zero-padded to the static
-        block size.  No flush: ``run`` appends it, and a front-end pipeline
-        that feeds another one owes none."""
+    def _steps(self, source: Iterable[np.ndarray], checkpoint_every: int = 0):
+        """The feed/drain loop: yields (count, host output) per block, count
+        being the first output leaf's trimmed sample count, one step late.
+        With ``checkpoint_every`` (input samples) it also yields
+        (None, position) once every output of the ``position`` input samples
+        consumed so far was yielded and before the next block is queued:
+        the one moment the state and the drained output agree."""
         n = self.block_size
         rate = self.block.rate_tree()
         pending = None  # (host output, copy-done event, valid input rows)
+        total_in = last_ckpt = 0
         for chunk in rechunk(source, n):
             valid = len(chunk)
             if valid < n:
@@ -134,36 +160,70 @@ class Pipeline:
             if pending is not None:
                 yield _finish(*pending, rate)
             pending = (host, done, valid)
+            total_in += valid
+            if checkpoint_every and total_in - last_ckpt >= checkpoint_every:
+                yield _finish(*pending, rate)
+                pending = None
+                yield None, total_in
+                last_ckpt = total_in
         if pending is not None:
             yield _finish(*pending, rate)
 
-    def run(self, source: Iterable[np.ndarray], sink: Callable[[np.ndarray], None],
-            num_samples: int | None = None) -> int:
+    def stream(self, source: Iterable[np.ndarray]) -> Iterator:
+        """Stream source → graph, yielding each block's host output (numpy,
+        or a tuple of them) trimmed leaf by leaf to its rational-rate count,
+        one step late so host I/O overlaps the next block.  The final short
+        block is zero-padded to the static block size.  No flush: ``run``
+        appends it, and a front-end pipeline that feeds another owes none."""
+        for _, out in self._steps(source):
+            yield out
+
+    def run(self, source: Iterable[np.ndarray], sink: Callable, num_samples: int | None = None,
+            checkpoint_path: str | None = None, checkpoint_every: int = 0) -> int:
         """Stream source (cut to ``num_samples``) → graph → sink, with the
-        graph's flush allowance of zeros after the source; returns the output
-        samples per stream."""
+        graph's flush allowance of zeros after the source; returns the
+        output samples of the first output leaf.
+
+        ``checkpoint_path`` with ``checkpoint_every`` (input samples): save a
+        resumable checkpoint (``core/checkpoint.save_pipeline``) each time
+        that many more input samples were consumed.  The pending block is
+        drained into the sink first, so a checkpoint's position never runs
+        ahead of the output already in the sink."""
         it: Iterable[np.ndarray] = source
         if num_samples is not None:
             it = take_n(it, num_samples)
         nflush = self.block.flush_len()
         if nflush:
             it = append_flush(it, nflush)
+        every = checkpoint_every if checkpoint_path else 0
         total_out = 0
-        for out in self.stream(it):
+        for k, out in self._steps(it, every):
+            if k is None:
+                from . import checkpoint
+
+                checkpoint.save_pipeline(checkpoint_path, self, position=out)
+                continue
             sink(out)
-            total_out += out.shape[-1]
+            total_out += k
         return total_out
 
 
-def _trim(a: np.ndarray, rate: Fraction, valid_in: int) -> np.ndarray:
-    """Trim an output to its rational-rate sample count, along the last axis
-    for channelized (nch, n) outputs and the leading axis otherwise."""
-    k = (valid_in * rate.numerator) // rate.denominator
-    return a[..., :k] if a.ndim >= 2 else a[:k]
+def _trim_tree(tree, rate, valid_in: int):
+    """Trim every output leaf to its rational-rate sample count, along the
+    last axis for channelized (nch, n) and stereo (2, n) leaves and the
+    leading axis otherwise.  ``rate`` is a Fraction (shared by every leaf)
+    or a tuple mirroring the output (a multi-rate Tee).  Returns (trimmed,
+    the first leaf's count)."""
+    if isinstance(rate, Fraction):
+        k = (valid_in * rate.numerator) // rate.denominator
+        return _map_tree(lambda a: a[..., :k] if a.ndim >= 2 else a[:k], tree), k
+    trimmed, counts = zip(*(_trim_tree(t, r, valid_in) for t, r in zip(tree, rate)))
+    return tuple(trimmed), counts[0]
 
 
-def _finish(host: torch.Tensor, done, valid_in: int, rate: Fraction) -> np.ndarray:
-    """Wait for one output's copy and trim it."""
+def _finish(host, done, valid_in: int, rate):
+    """Wait for one output's copies and trim it; returns (count, output)."""
     if done is not None:
         done.synchronize()
-    return _trim(host.numpy(), rate, valid_in)
+    out, k = _trim_tree(_map_tree(lambda t: t.numpy(), host), rate, valid_in)
+    return k, out

@@ -2,9 +2,9 @@
 ``close()`` finalizes headers.
 
 Copied from ``csdr_tpu/io/sinks.py`` (``RawFileSink``, ``AudioFileSink``,
-``ChannelFileSinks``, ``CollectSink``, ``NullSink``), numpy only: the slice
-emits one array per block, so the JAX package's pytree walks become plain
-array code."""
+``ChannelFileSinks``, ``BranchSinks``, ``CollectSink``, ``NullSink``), numpy
+only: a graph emits one array per block, or a tuple of them from a ``Tee``,
+which ``BranchSinks`` routes one branch per sink."""
 
 from __future__ import annotations
 
@@ -12,7 +12,8 @@ import numpy as np
 
 from . import wav as wavio
 
-__all__ = ["RawFileSink", "AudioFileSink", "ChannelFileSinks", "NullSink", "CollectSink"]
+__all__ = ["RawFileSink", "AudioFileSink", "ChannelFileSinks", "BranchSinks", "NullSink",
+           "CollectSink"]
 
 
 class SinkBase:
@@ -74,6 +75,26 @@ class ChannelFileSinks(SinkBase):
         arr = np.asarray(data)
         for i, s in enumerate(self.sinks):
             s(arr[i])
+
+    def close(self):
+        for s in self.sinks:
+            s.close()
+
+
+class BranchSinks(SinkBase):
+    """Route a tuple-output graph (a ``Tee``, multi-rate ones included) to
+    one sink per branch: element i of every output tuple goes to
+    ``sinks[i]``, so each branch keeps its own rate and file."""
+
+    def __init__(self, *sinks):
+        self.sinks = sinks
+
+    def __call__(self, data):
+        if not isinstance(data, tuple) or len(data) != len(self.sinks):
+            raise TypeError(f"BranchSinks expects a {len(self.sinks)}-tuple per block, "
+                            f"got {type(data).__name__}")
+        for s, d in zip(self.sinks, data):
+            s(d)
 
     def close(self):
         for s in self.sinks:

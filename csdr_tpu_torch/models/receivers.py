@@ -1,7 +1,7 @@
 """Receiver graphs — counterpart of ``csdr_tpu/models/receivers.py``:
 the front end (offset mixer + resampler), the single-channel flows
-(``nbfm_receiver``, ``am_receiver``, ``raw_capture``) and the channelized
-ones (``channelized_receiver``, ``channelized_fm_receiver``).
+(``wbfm_receiver``, ``nbfm_receiver``, ``am_receiver``, ``raw_capture``) and
+the channelized ones (``channelized_receiver``, ``channelized_fm_receiver``).
 
 The flagship model is ``channelized_fm_receiver``: an nch-channel PFB split
 plus per-channel FM demod, the benchmark target of the JAX package
@@ -14,7 +14,7 @@ import numpy as np
 from ..core.block import Block, MixChannels, PerChannel, chain
 from .. import blocks as B
 
-__all__ = ["front_end", "nbfm_receiver", "am_receiver", "raw_capture",
+__all__ = ["front_end", "wbfm_receiver", "nbfm_receiver", "am_receiver", "raw_capture",
            "channelized_receiver", "channelized_fm_receiver"]
 
 
@@ -35,6 +35,15 @@ def front_end(sample_rate: float, offset_hz: float = 0.0, bandwidth: float = 0.0
 def _agc(threshold_db: float | None) -> list[Block]:
     # `is not None`: 0.0 dB is a legitimate squelch threshold, not "off"
     return [B.automatic_gain_control(threshold_db)] if threshold_db is not None else []
+
+
+def wbfm_receiver(sample_rate: float, bandwidth: float, decim: int, offset_hz: float = 0.0,
+                  agc_threshold_db: float | None = None) -> Block:
+    """DeWBFM flow: front end >> dc_blocker >> [AGC] >> WBFM demod, mono
+    audio at (bandwidth or sample_rate)/decim."""
+    quad_rate = bandwidth or sample_rate
+    return chain(*front_end(sample_rate, offset_hz, bandwidth), B.dc_blocker(),
+                 *_agc(agc_threshold_db), B.wbfm_demodulator(quad_rate, decim))
 
 
 def nbfm_receiver(sample_rate: float, bandwidth: float, kf: float, offset_hz: float = 0.0,

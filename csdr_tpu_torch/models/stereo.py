@@ -1,0 +1,136 @@
+"""FM stereo (pilot-tone) decoder.
+
+Counterpart of ``csdr_tpu/models/stereo.py`` (reference stereoFMDecoder:
+pilot 19 kHz, pilot FIR half-band 800 Hz of length quad_rate/1350, audio
+FIRs 15 kHz, order-2 de-emphasis at 5 kHz, stereo gain 2, group-delay
+compensation).  The pilot is isolated by its band-pass, so its analytic
+phase is known in closed form and the 38 kHz subcarrier is (pilot/|pilot|)²
+for every sample at once; then the matrix L+R ± (L−R), de-emphasis,
+decimation.
+
+Input: the FM-demodulated composite (real, quad_rate), as the reference's
+DeFMS flow makes it with fmDemodulator 0.8.  Output: (2, n/decim), row 0
+left, row 1 right.  One stream (not inside ``PerChannel``).
+
+The JAX package's serial per-sample PLL (``pll_mode="scan"``) is not
+ported; asking for it raises.
+"""
+
+from __future__ import annotations
+
+from fractions import Fraction
+
+import numpy as np
+import torch
+
+from ..core.block import Block
+from ..ops import fir as fir_ops
+from ..ops import iir as iir_ops
+from ..ops.nco import _ramp_on, phase_increment
+from ..utils import firdes, iirdes
+
+__all__ = ["StereoFMDecoder", "stereo_fm_decoder", "pilot_subcarrier"]
+
+_TWO_PI = 2.0 * np.pi
+
+
+def pilot_subcarrier(omega19: float, gdelay: float, phase19: torch.Tensor, c: torch.Tensor,
+                     h_pilot: np.ndarray, pilot_hist: torch.Tensor):
+    """The pilot's mix-down and low-pass on one block, and its normalized
+    analytic phasor u at the group-delayed time base, e^{j(ω19(n−gd)+θp)}.
+    Returns (new pilot_hist, new phase19, u); shared by the stereo and RDS
+    decoders."""
+    n = c.shape[-1]
+    theta = phase19 + _ramp_on(float(omega19), int(n), c.device)
+    m19 = c.to(torch.complex64) * torch.polar(torch.ones_like(theta), -theta)
+    pilot_hist, pilot_bb = fir_ops.fir_stream(h_pilot, pilot_hist, m19)
+    new_phase = torch.remainder(phase19 + np.float32(phase_increment(omega19, n)),
+                                np.float32(_TWO_PI))
+    gd_phase = np.float32(np.mod(omega19 * gdelay, _TWO_PI))
+    rot = theta - gd_phase
+    p_a = pilot_bb * torch.polar(torch.ones_like(rot), rot)
+    return pilot_hist, new_phase, p_a / (p_a.abs() + 1e-12)
+
+
+class StereoFMDecoder(Block):
+    def __init__(self, quad_rate: float, decim: int, pilot_hz: float = 19000.0,
+                 pilot_fir_halfband_hz: float = 800.0, audio_cutoff_hz: float = 15000.0,
+                 deemph_order: int = 2, deemph_cutoff_hz: float = 5000.0,
+                 stereo_gain: float = 2.0, pll_mode: str = "closed_form"):
+        if pll_mode != "closed_form":
+            raise NotImplementedError(
+                f"StereoFMDecoder pll_mode={pll_mode!r} is not yet ported in csdr_tpu_torch; "
+                "use the closed-form default")
+        self.quad_rate = quad_rate
+        self.decim = decim
+        self.omega19 = _TWO_PI * pilot_hz / quad_rate
+        nfir = int(round(quad_rate / 1350.0))
+        self.h_pilot = firdes.kaiser_lowpass(nfir, pilot_fir_halfband_hz / quad_rate, 60.0)
+        self.h_audio = firdes.kaiser_lowpass(nfir, audio_cutoff_hz / quad_rate, 60.0)
+        self.gdelay = int(round(firdes.group_delay(self.h_pilot, 100.0 / quad_rate)))
+        self.stereo_gain = stereo_gain
+        self.deemph = iirdes.sos_to_onepole(
+            iirdes.butter_sos(deemph_order, deemph_cutoff_hz / quad_rate), real_io=True)
+        self.h_decim = firdes.firdecim_kaiser(decim, 10, 60.0) if decim > 1 else None
+        self.rate = Fraction(1, decim)
+        self.granule = decim
+        self.name = f"stereo_fm({quad_rate:.0f},{decim})"
+
+    def init(self, device: torch.device):
+        z = lambda n, dt: torch.zeros((n,), dtype=dt, device=device)  # noqa: E731
+        Ka = len(self.h_audio)
+        st = dict(
+            phase19=torch.zeros((), dtype=torch.float32, device=device),
+            pilot_hist=z(len(self.h_pilot) - 1, torch.complex64),
+            delay_buf=z(self.gdelay, torch.float32),
+            lpr_hist=z(Ka - 1, torch.float32),
+            lmr_hist=z(Ka - 1, torch.complex64),
+            deemph_l=iir_ops.onepole_cascade_init(self.deemph, False, device),
+            deemph_r=iir_ops.onepole_cascade_init(self.deemph, False, device),
+            # the JAX package's scan-PLL carry (theta, freq): kept so states
+            # convert one to one; the closed-form path leaves it unchanged
+            pll=(torch.zeros((), dtype=torch.float32, device=device),
+                 torch.zeros((), dtype=torch.float32, device=device)),
+        )
+        if self.h_decim is not None:
+            st["decim_l"] = z(len(self.h_decim) - 1, torch.float32)
+            st["decim_r"] = z(len(self.h_decim) - 1, torch.float32)
+        return st
+
+    def flush_len(self) -> int:
+        # the group-delay line withholds gdelay composite samples from the
+        # audio paths; rounded up to the decimator so the last frame comes out
+        return -(-self.gdelay // self.decim) * self.decim
+
+    def apply(self, state, c):
+        n = c.shape[-1]
+        s = dict(state)
+        s["pilot_hist"], s["phase19"], u = pilot_subcarrier(
+            self.omega19, self.gdelay, s["phase19"], c, self.h_pilot, s["pilot_hist"])
+        sub38 = u * u  # e^{j(2ω19(n−gd)+2θp)}: the regenerated 38 kHz subcarrier
+
+        # the composite delayed by the pilot filter's group delay
+        full = torch.cat([s["delay_buf"], c], dim=-1)
+        cd, s["delay_buf"] = full[..., :n], full[..., n:].clone()
+
+        # L−R: mix down by the subcarrier, 15 kHz low-pass, × stereo gain
+        lmr_in = cd.to(torch.complex64) * sub38.conj()
+        s["lmr_hist"], lmr_bb = fir_ops.fir_stream(self.h_audio, s["lmr_hist"], lmr_in)
+        lmr = np.float32(self.stereo_gain) * lmr_bb.real
+        # L+R: 15 kHz low-pass of the delayed composite
+        s["lpr_hist"], lpr = fir_ops.fir_stream(self.h_audio, s["lpr_hist"], cd)
+
+        s["deemph_l"], left = iir_ops.onepole_cascade_stream(self.deemph, s["deemph_l"],
+                                                             lpr + lmr)
+        s["deemph_r"], right = iir_ops.onepole_cascade_stream(self.deemph, s["deemph_r"],
+                                                              lpr - lmr)
+        if self.h_decim is not None:
+            s["decim_l"], left = fir_ops.fir_decim_stream(self.h_decim, self.decim,
+                                                          s["decim_l"], left)
+            s["decim_r"], right = fir_ops.fir_decim_stream(self.h_decim, self.decim,
+                                                           s["decim_r"], right)
+        return s, torch.stack([left, right])
+
+
+def stereo_fm_decoder(quad_rate: float, decim: int, **kw) -> Block:
+    return StereoFMDecoder(quad_rate, decim, **kw)

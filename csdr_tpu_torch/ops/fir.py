@@ -16,6 +16,8 @@ filter's hist), along the last axis with any leading batch axes: inside
   * ``"pallas_mxu"``: K5, the long real-tap kernel (``ops/cuda/fir_valid.py``);
   * ``"pallas_fft"``: K6, the overlap-save kernel at S = 16384
                       (``ops/cuda/fft_fir.py``);
+  * ``"pallas_fft_interpret"``: K6's plain version on any device, the same
+                      function the JAX name computes in interpret mode;
   * ``"auto"``:       slices up to 64 non-zero taps; above 256, real taps on
                       a CUDA tensor take K5; everything else fft.
 
@@ -28,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .cuda.fft_fir import fft_fir_valid, fft_response_on
+from .cuda.fft_fir import fft_fir_valid, fft_fir_valid_ref, fft_response_on
 from .cuda.fir_valid import fir_valid
 
 __all__ = ["conv_valid", "fir_stream", "fir_decim_stream", "fir_interp_stream"]
@@ -107,6 +109,8 @@ def conv_valid(xfull: torch.Tensor, taps, strategy: str = "auto") -> torch.Tenso
         return fir_valid(xfull.contiguous(), taps)
     if strategy == "pallas_fft":
         return fft_fir_valid(xfull.contiguous(), taps)
+    if strategy == "pallas_fft_interpret":
+        return fft_fir_valid_ref(xfull, taps)
     raise ValueError(f"unknown strategy {strategy!r}")
 
 

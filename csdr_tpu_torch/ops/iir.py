@@ -1,8 +1,14 @@
-"""DC blocker, y[n] = r·y[n−1] + g·(x[n] − x[n−1]), r = 1−α, g = (1+r)/2.
+"""IIR filters as parallel one-pole recurrences, and the DC blocker.
 
-Counterpart of ``csdr_tpu/ops/iir.py`` (``dc_blocker_init`` and
-``dc_blocker_stream`` only), solved with the blocked recurrence in
-``ops/linrec.py``.
+Counterpart of ``csdr_tpu/ops/iir.py``, solved with the blocked recurrence
+in ``ops/linrec.py``.  An IIR prototype is decomposed
+(``utils/iirdes.sos_to_onepole``) into stages of a 3-tap FIR numerator and
+one or two one-pole partial fractions, each solved over the whole block at
+once.  Everything works along the last axis: inside ``PerChannel`` a
+(nch, n) panel filters every row, and the state gains a leading channel
+axis.
+
+The DC blocker is y[n] = r·y[n−1] + g·(x[n] − x[n−1]), r = 1−α, g = (1+r)/2.
 """
 
 from __future__ import annotations
@@ -10,9 +16,73 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.iirdes import OnePoleCascade
+from .fir import fir_stream
 from .linrec import linrec
 
-__all__ = ["dc_blocker_init", "dc_blocker_stream"]
+__all__ = ["onepole_cascade_init", "onepole_cascade_stream", "dc_blocker_init",
+           "dc_blocker_stream"]
+
+
+def onepole_cascade_init(casc: OnePoleCascade, complex_input: bool, device: torch.device):
+    """Per stage (FIR history (2,) of the input's dtype, pole carries (2,)
+    complex64), zeros."""
+    xdt = torch.complex64 if complex_input else torch.float32
+    return tuple((torch.zeros((2,), dtype=xdt, device=device),
+                  torch.zeros((2,), dtype=torch.complex64, device=device))
+                 for _ in range(casc.poles.shape[0]))
+
+
+def _last(u: torch.Tensor) -> torch.Tensor:
+    return u[..., -1].to(torch.complex64)
+
+
+def onepole_cascade_stream(casc: OnePoleCascade, state, x: torch.Tensor):
+    """Apply the cascade to one block; returns (new_state, y).  Real input
+    evaluates a conjugate pole pair as y = 2·Re(r·u) and carries the
+    conjugate; two distinct real poles (odd-order band-pass sections) run as
+    two real recurrences; complex input evaluates both poles."""
+    complex_input = x.is_complex()
+    new_state = []
+    for s in range(casc.poles.shape[0]):
+        fir_hist, carries = state[s]
+        p0, p1 = casc.poles[s]
+        r0, r1 = casc.residues[s]
+        c0, c1 = carries[..., 0], carries[..., 1]
+        fir_hist, v = fir_stream(casc.fir[s], fir_hist, x)
+        if p1 == 0.0:
+            if p0 == 0.0:  # no pole: the numerator alone
+                y = v * (complex(np.complex64(r0)) if complex_input
+                         else float(np.float32(r0.real)))
+                new_carries = carries
+            else:  # one real or complex pole
+                cplx_pole = abs(p0.imag) > 0
+                u = linrec(v, complex(p0) if cplx_pole else float(p0.real), c0)
+                y = u * (complex(np.complex64(r0)) if complex_input or cplx_pole
+                         else float(np.float32(r0.real)))
+                if y.is_complex() and not complex_input:
+                    y = y.real
+                new_carries = torch.stack([_last(u), c1], dim=-1)
+        elif complex_input:
+            u0 = linrec(v, complex(p0), c0)
+            u1 = linrec(v, complex(p1), c1)
+            y = complex(np.complex64(r0)) * u0 + complex(np.complex64(r1)) * u1
+            new_carries = torch.stack([_last(u0), _last(u1)], dim=-1)
+        elif abs(np.conj(p0) - p1) < 1e-9 and abs(p0.imag) > 0:
+            # a conjugate pair on real input: y = 2·Re(r0·u0)
+            u0 = linrec(v.to(torch.complex64), complex(p0), c0)
+            y = 2.0 * (complex(np.complex64(r0)) * u0).real
+            new_carries = torch.stack([_last(u0), _last(u0).conj()], dim=-1)
+        else:
+            # two distinct real poles in one section (scipy pairs real poles,
+            # e.g. in odd-order band-pass designs)
+            u0 = linrec(v, float(p0.real), c0.real)
+            u1 = linrec(v, float(p1.real), c1.real)
+            y = float(np.float32(r0.real)) * u0 + float(np.float32(r1.real)) * u1
+            new_carries = torch.stack([_last(u0), _last(u1)], dim=-1)
+        new_state.append((fir_hist, new_carries))
+        x = y.to(torch.complex64 if complex_input else torch.float32)
+    return tuple(new_state), x
 
 
 def dc_blocker_init(device: torch.device, complex_input: bool = True):

@@ -16,7 +16,10 @@ __all__ = ["from_jax_chain_state", "from_jax_flagship_state", "from_jax_pfb_fm_s
 
 
 def _leaf(a, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(device)
+    a = np.array(a)
+    if a.dtype == np.uint32:
+        a = a.astype(np.uint8)  # RDSBitSlicer's previous raw bit, 0 or 1
+    return torch.from_numpy(a).to(device)
 
 
 def from_jax_chain_state(state, device: torch.device):
@@ -30,9 +33,20 @@ def from_jax_chain_state(state, device: torch.device):
     ``FIRDecim`` and ``HalfbandDecim`` their input hist (K − 1,),
     ``RationalResampler`` its (L − 1,) tail, ``Mixer`` its float32 phase,
     ``Lambda`` and ``AMDemod`` nothing (``()``); inside ``PerChannel`` each
-    leaf gains a leading channel axis.  The port's blocks carry the same
-    leaves in the same nesting, so the tuple structure maps one to one and
-    each leaf keeps its shape and dtype."""
+    leaf gains a leading channel axis.
+
+    The IIR family (``IIRFilter``, the WBFM de-emphasis) carries per stage
+    ``(fir_hist (2,), carries (2,) complex64)``; ``Delay`` its (n,) buffer;
+    ``Tee`` the pair of its branches' states.  ``StereoFMDecoder`` and
+    ``RDSBaseband`` carry dicts (phase19, pilot_hist, delay_buf, the FIR
+    histories, the de-emphasis cascades, the scan-PLL carry ``pll``), which
+    map key for key; ``RDSBitSlicer`` carries (MF hist (15,), previous raw
+    bit), the bit uint32 in the JAX package and uint8 here, the one leaf
+    whose dtype changes.  The port's blocks carry the same leaves in the
+    same nesting, so the structure maps one to one and every other leaf
+    keeps its shape and dtype."""
+    if isinstance(state, dict):
+        return {k: from_jax_chain_state(v, device) for k, v in state.items()}
     if isinstance(state, (tuple, list)):
         return tuple(from_jax_chain_state(s, device) for s in state)
     return _leaf(state, device)

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["kaiser_beta", "kaiser_filter_len", "kaiser_lowpass", "firdecim_kaiser",
-           "pfb_kaiser_prototype", "halfband_kaiser"]
+           "pfb_kaiser_prototype", "halfband_kaiser", "group_delay"]
 
 
 def kaiser_beta(as_db: float) -> float:
@@ -82,3 +82,17 @@ def halfband_kaiser(semilen: int, as_db: float = 60.0) -> np.ndarray:
     idx = np.arange(n)
     h[(idx != center) & ((idx - center) % 2 == 0)] = 0.0
     return h / h.sum() * 0.5
+
+
+def group_delay(h: np.ndarray, f: float = 0.0) -> float:
+    """Group delay of the FIR ``h`` at normalized frequency ``f``
+    (cycles/sample); the stereo and RDS decoders compensate the pilot
+    filter's delay with it."""
+    n = len(h)
+    k = np.arange(n, dtype=np.float64)
+    e = np.exp(-1j * 2.0 * np.pi * f * k)
+    H = np.sum(h * e)
+    dH = np.sum(-1j * k * h * e)
+    if abs(H) < 1e-12:
+        return (n - 1) / 2.0
+    return float(np.real(1j * dH / H))

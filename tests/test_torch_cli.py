@@ -1,7 +1,9 @@
 """The port's soapy-sdr CLI on the CPU — the channelized NBFM, AGC and
 raw-split flows, the single-channel and per-channel FIR demod flows
-(DeCW, DeUSB/DeLSB, DeAM) with --offset and -b, held against the JAX CLI on
-the same capture — and the package's independence from JAX.
+(DeCW, DeUSB/DeLSB, DeAM) with --offset and -b, the mixed sink (-m), and
+the broadcast flows (DeWBFM, DeFMS with --rds), held against the JAX CLI on
+the same capture — the "pallas_fft_interpret" FIR strategy against the JAX
+function of that name, and the package's independence from JAX.
 
 pfb_fused against eager: 2e-3 max from frame 1 for DeNBFM
 (tests/test_pallas_fused.py:55); for the K4 flows, whose plain version on
@@ -77,10 +79,10 @@ def test_fused_and_eager_cli_outputs_agree(captures, tmp_path):
     assert np.max(np.abs(outs["fused"][:, 1:] - outs["eager"][:, 1:])) < 1.2e-3
 
 
-@pytest.mark.parametrize("extra", [["--mix"], ["--mesh", "2x1"], ["--demod", "DeFMS 8 WAV"],
-                                   ["--demod", "DeNBFMSync 10"], ["--demod", "DeWBFM 8 WAV"],
-                                   ["--demod", "DeNBFM 0.6 AU"], ["--demod", "DeAIS"],
-                                   ["--no-file"]])
+@pytest.mark.parametrize("extra", [["--demod", "DeRTTY 45.45"], ["--mesh", "2x1"],
+                                   ["--demod", "DePOCSAG 1200"], ["--demod", "DeNBFMSync 10"],
+                                   ["--demod", "DeADSB"], ["--demod", "DeNBFM 0.6 AU"],
+                                   ["--demod", "DeAIS"], ["--no-file"]])
 def test_unported_options_exit_nonzero(captures, tmp_path, extra, capsys):
     args = ["--filename", captures["cf32"], "-c", str(NCH), "-o", str(tmp_path / "x"),
             "--demod", "DeNBFM 0.6 F32", "--device", "cpu"]
@@ -240,6 +242,147 @@ def test_flow_matches_jax_cli(keyed_capture, tmp_path, flow):
         assert err / np.max(np.abs(want)) < bound, (backend, err)
 
 
+@pytest.fixture(scope="module")
+def occupied_capture(tmp_path_factory):
+    """An FM carrier on every channel centre of a 16-way split, each with
+    its own tone, plus noise: no channel's magnitude nears zero, where
+    atan2 would amplify float32 rounding."""
+    d = tmp_path_factory.mktemp("occupied")
+    nch, n = 16, 16 * 1024 * 3 + 40
+    rng = np.random.default_rng(12)
+    t = np.arange(n)
+    x = 0.01 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+    for k in range(nch):
+        ph = (2 * np.pi * np.mod((k - (nch - 1) / 2) / nch * t, 1.0)
+              + 2.0 * np.sin(2 * np.pi * 0.0003 * (1 + k % 5) * t) + rng.uniform(0, 2 * np.pi))
+        x = x + 0.15 * np.exp(1j * ph)
+    x.astype(np.complex64).tofile(d / "occ.cf32")
+    return {"path": str(d / "occ.cf32"), "n": n}
+
+
+@pytest.mark.parametrize("extra", [["--demod", "DeNBFM 0.3 WAV"],
+                                   ["--demod", "DeNBFM 0.3 F32", "-a", "-60"]])
+def test_mix_flow_matches_jax_cli(occupied_capture, tmp_path, extra):
+    """BASELINE config 4, -c 16 -m: the channels summed into one file, under
+    eager and pfb_fused against the JAX CLI at 2e-5 relative
+    (tests/test_golden.py), and equal to the sum of the same flow's
+    per-channel files.  K3's demod history starts at zeros, so frame 0
+    differs by design where pfb_fused runs DeNBFM without AGC."""
+    nch = 16
+    common = ["--filename", occupied_capture["path"], "-n", str(occupied_capture["n"]),
+              "-c", str(nch), "--blocksize", "8192"]
+    jargv = [a.replace("F32", "WAV") for a in extra]
+    assert jax_main(common + ["-m", "-o", str(tmp_path / "j")] + jargv) == 0
+    want = _outputs(str(tmp_path / "j"), 1, "wav")[0]
+    ext = "f32" if "F32" in extra[1] else "wav"
+    for backend in ("eager", "pfb_fused"):
+        out = str(tmp_path / backend)
+        argv = common + extra + ["--backend", backend, "--device", "cpu"]
+        assert main(argv + ["-m", "-o", out]) == 0
+        got = _outputs(out, 1, ext)[0]
+        assert got.shape == want.shape == (occupied_capture["n"] // nch,)
+        first = 1 if backend == "pfb_fused" and "-a" not in extra else 0
+        err = np.max(np.abs(got[first:].astype(np.float64) - want[first:]))
+        assert err / np.max(np.abs(want)) < 2e-5, (backend, err)
+        assert main(argv + ["-o", out + "_split"]) == 0
+        parts = _outputs(out + "_split", nch, ext).astype(np.float64).sum(axis=0)
+        assert np.max(np.abs(got - parts)) / np.max(np.abs(parts)) < 1e-5
+
+
+@pytest.fixture(scope="module")
+def broadcast_capture(tmp_path_factory):
+    """A stereo FM broadcast at 400 kS/s, 0.5 s: L and R tones, the 19 kHz
+    pilot and RDS groups (PS "CSDR-TPU", PI 0x52D4), 75 kHz deviation."""
+    from csdr_tpu_torch.models import rds
+
+    d = tmp_path_factory.mktemp("broadcast")
+    fs = 400000.0
+    n = int(fs * 0.5)
+    t = np.arange(n) / fs
+    L, R = 0.6 * np.sin(2 * np.pi * 800 * t), 0.6 * np.sin(2 * np.pi * 2500 * t)
+    pil = 2 * np.pi * 19000 * t + 0.7
+    tx = rds.bits_from_groups([rds.make_group_0a(0x52D4, s, "CSDR-TPU"[2 * s:2 * s + 2])
+                               for s in range(4)])
+    bit = tx[np.floor(t * rds.RDS_BAUD).astype(np.int64) % len(tx)]
+    half = np.floor(t * 2 * rds.RDS_BAUD).astype(np.int64) % 2
+    lvl = (bit * 2.0 - 1.0) * np.where(half == 0, 1.0, -1.0)
+    mpx = (0.45 * (L + R) + 0.1 * np.cos(pil) + 0.45 * (L - R) * np.cos(2 * pil)
+           + 0.05 * lvl * np.cos(3 * pil))
+    iq = np.exp(2j * np.pi * 75000 / fs * np.cumsum(mpx))
+    iq += 0.01 * np.random.default_rng(11).normal(size=(n, 2)) @ np.array([1, 1j])
+    iq.astype(np.complex64).tofile(d / "fm.cf32")
+    return {"path": str(d / "fm.cf32"), "n": n // 2}
+
+
+# (argv, output channels, compared from output)
+BROADCAST = {
+    "wbfm1": (["-c", "1", "--demod", "DeWBFM 8 WAV"], 1, 0),
+    "wbfm4": (["-c", "4", "--demod", "DeWBFM 8 WAV"], 4, 0),
+    "fms4_rds": (["-c", "1", "--demod", "DeFMS 4 WAV", "--rds"], 1, 0),
+}
+
+
+@pytest.mark.parametrize("flow", list(BROADCAST))
+def test_broadcast_flow_matches_jax_cli(broadcast_capture, tmp_path, flow):
+    """-s 400000 -b 200000: the front end, then DeWBFM (-c 1, and -c 4 under
+    eager and pfb_fused) or DeFMS --rds, against the JAX CLI at 2e-5
+    relative (tests/test_golden.py); the RDS report equal word for word."""
+    argv, nch, first = BROADCAST[flow]
+    common = ["--filename", broadcast_capture["path"], "-s", "400000", "-b", "200000",
+              "-n", str(broadcast_capture["n"]), "--blocksize", "16000"]
+    assert jax_main(common + argv + ["-o", str(tmp_path / "j")]) == 0
+    want = _outputs(str(tmp_path / "j"), nch, "wav")
+    for backend in (["eager"] if nch == 1 else ["eager", "pfb_fused"]):
+        out = str(tmp_path / backend)
+        assert main(common + argv + ["-o", out, "--backend", backend, "--device", "cpu"]) == 0
+        got = _outputs(out, nch, "wav")
+        assert got.shape == want.shape, (backend, got.shape, want.shape)
+        err = np.max(np.abs(got[..., first:].astype(np.float64) - want[..., first:]))
+        assert err / np.max(np.abs(want)) < 2e-5, (backend, err)
+        if "--rds" in argv:
+            assert got.shape[-1] == 2  # interleaved L/R frames
+            report = open(out + ".rds.txt").read()
+            assert report == open(str(tmp_path / "j") + ".rds.txt").read()
+            assert "PS: CSDR-TPU" in report and "PI: 52D4" in report, report
+
+
+def test_defms_refuses_channel_splitting(broadcast_capture, tmp_path, capsys):
+    assert main(["--filename", broadcast_capture["path"], "-c", "4", "--demod", "DeFMS 4 WAV",
+                 "-o", str(tmp_path / "x"), "--device", "cpu"]) != 0
+    assert "channel splitting" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("shape", ["real", "complex"])
+def test_pallas_fft_interpret_strategy_matches_jax(shape):
+    """conv_valid and FIRFilter accept "pallas_fft_interpret" and compute
+    what the JAX conv_valid of that name does (K6 in interpret mode), at
+    tests/test_fftfir.py:36's 2e-4 relative."""
+    import jax.numpy as jnp
+    from csdr_tpu.ops.fir import conv_valid as jax_conv_valid
+
+    from csdr_tpu_torch.ops.fir import conv_valid
+    from csdr_tpu_torch.blocks import FIRFilter
+
+    rng = np.random.default_rng(4)
+    K, n = 401, 20000
+    if shape == "real":
+        taps = rng.normal(size=K) / np.sqrt(K)
+        xfull = rng.normal(size=n + K - 1).astype(np.float32)
+    else:
+        taps = np.hanning(K) * np.exp(2j * np.pi * 0.19 * np.arange(K)) / 40
+        xfull = (rng.normal(size=n + K - 1) + 1j * rng.normal(size=n + K - 1)).astype(
+            np.complex64)
+    want = np.asarray(jax_conv_valid(jnp.asarray(xfull), taps, "pallas_fft_interpret"))
+    got = conv_valid(torch.from_numpy(xfull), taps, "pallas_fft_interpret").numpy()
+    scale = np.max(np.abs(want))
+    assert got.shape == want.shape and np.max(np.abs(got - want)) / scale < 2e-4
+    blk = FIRFilter(taps, complex_input=shape == "complex", strategy="pallas_fft_interpret")
+    _, y = blk.apply(blk.init(torch.device("cpu")), torch.from_numpy(xfull[K - 1:]))
+    y_jax = np.asarray(jax_conv_valid(jnp.asarray(np.concatenate(
+        [np.zeros(K - 1, xfull.dtype), xfull[K - 1:]])), taps, "pallas_fft_interpret"))
+    assert np.max(np.abs(y.numpy() - y_jax)) / np.max(np.abs(y_jax)) < 2e-4
+
+
 def test_cuda_device_without_a_card_is_an_error(captures, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -259,6 +402,8 @@ def test_package_imports_without_jax():
         import csdr_tpu_torch.ops.cuda.pfb_fused, csdr_tpu_torch.ops.agc
         import csdr_tpu_torch.ops.fir, csdr_tpu_torch.ops.resamp
         import csdr_tpu_torch.ops.cuda.fir_valid, csdr_tpu_torch.ops.cuda.fft_fir
+        import csdr_tpu_torch.models.stereo, csdr_tpu_torch.models.rds
+        import csdr_tpu_torch.core.checkpoint, csdr_tpu_torch.utils.iirdes
         bad = [m for m in sys.modules if m == "jax" and sys.modules[m] is not None
                or m.startswith(("jax.", "jaxlib")) or m == "csdr_tpu"
                or m.startswith("csdr_tpu.")]
