@@ -86,6 +86,25 @@ calls lost records and is run again, and after three the share is null):
       Pipeline, resume_pipeline and skip_n: the resumed output equals the
       whole run's second half bit for bit.
 
+and for the multi-device mesh (csdr_tpu_torch/parallel, NCCL, one rank per
+card, world = min(cards, 4); at one card the ranks' exchanges are trivial
+and ShardedFlagship runs with force_full):
+
+  7a. ShardedFlagship (K1 on every rank) over phase 4's capture through
+      ShardedPipeline, against the serial K1 (share of |d| > 0.01 < 0.005,
+      99th percentile < 1e-4, carried state < 2e-5); the sharded step's
+      time against the serial K1 step's; K1's launches and the NCCL
+      kernels' device time per step from one profiler window;
+  7b. ShardedChannelizedFM on mesh (W, 1) and, at 4 cards, (2, 2): eager,
+      K3 and K4 with -a, against the eager single-device graphs (2e-3,
+      5e-3 from frame 1, 5e-3);
+  7c. the CLI's -c 64 --mesh Wx1 --backend fused in a process of its own,
+      its rate and each rank's K1 launches, every channel's file against
+      phase 4's fused run.
+  Every rank's kernel counts are set to 0 before each run and read after
+  it.  ``python3 chip_smoke.py --mesh-only`` runs identity, build, phase 4
+  and phase 7 alone.
+
 Prints one JSON object per result, then the nvidia-smi line, the kernels
 line and, last, {"ok": true, "device": {...}}.  Each kernels entry carries
 bound_ms: the larger of the bytes the function must move (each input read
@@ -533,6 +552,31 @@ def tone_peaks(audio: np.ndarray) -> np.ndarray:
     return spec[:, 1:].argmax(axis=1) + 1
 
 
+def write_agc_capture(torch, ct, dev, card, tmp) -> str:
+    """The half-empty 64-channel cu8 capture of the AGC flows: even channels
+    occupied, odd ones empty, each AGC_MARGIN dB or more from the squelch."""
+    nch = 64
+    j = 5 + 3 * (np.arange(nch) % 7)
+    x = occupied_band(torch, dev, nch, CAPTURE, SEED + 300, tones=j / 1024.0 / nch,
+                      channels=range(0, nch, 2), noise=0.002)
+    u8 = to_cu8(torch, x)
+    del x
+    # every channel keeps AGC_MARGIN dB from the threshold, reckoned at the
+    # channelizer's output (rssi ≈ 20·log10|d| once the loop has settled)
+    g = ct.chain(ct.u8_to_iq(), ct.dc_blocker(), ct.firpfbch_channelizer(nch))
+    _, d = g.apply(g.init(dev), u8[:2 * BLOCK].view(BLOCK, 2))
+    settled = d[:, d.shape[1] // 8:]  # past the DC blocker's and the PFB's transients
+    level = (20 * torch.log10(settled.abs().pow(2).mean(dim=1).sqrt())).cpu().numpy()
+    agc_path = os.path.join(tmp, "half_empty.cu8")
+    u8.cpu().numpy().tofile(agc_path)
+    del u8, d, settled
+    emit(dict(phase="agc_capture", threshold_db=AGC_T, occupied_min_db=float(level[0::2].min()),
+              empty_max_db=float(level[1::2].max()), **card))
+    check(level[0::2].min() > AGC_T + AGC_MARGIN and level[1::2].max() < AGC_T - AGC_MARGIN,
+          f"half-empty capture too close to the squelch: {level.round(1).tolist()}")
+    return agc_path
+
+
 def phase_main_path_pfb(torch, ct, ff, pf, dev, card, tmp, capture, runs, want_bins):
     """4b. The K3 and K4 flows through the CLI at 64 channels."""
     from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
@@ -563,24 +607,7 @@ def phase_main_path_pfb(torch, ct, ff, pf, dev, card, tmp, capture, runs, want_b
     out["pfb_fm_fused"] = dict(launches=counts["pfb_fm_fused"], msps=CAPTURE / dt / 1e6)
 
     # K4 with AGC + squelch: even channels occupied, odd ones empty
-    j = 5 + 3 * (np.arange(nch) % 7)
-    x = occupied_band(torch, dev, nch, CAPTURE, SEED + 300, tones=j / 1024.0 / nch,
-                      channels=range(0, nch, 2), noise=0.002)
-    u8 = to_cu8(torch, x)
-    del x
-    # every channel keeps AGC_MARGIN dB from the threshold, reckoned at the
-    # channelizer's output (rssi ≈ 20·log10|d| once the loop has settled)
-    g = ct.chain(ct.u8_to_iq(), ct.dc_blocker(), ct.firpfbch_channelizer(nch))
-    _, d = g.apply(g.init(dev), u8[:2 * BLOCK].view(BLOCK, 2))
-    settled = d[:, d.shape[1] // 8:]  # past the DC blocker's and the PFB's transients
-    level = (20 * torch.log10(settled.abs().pow(2).mean(dim=1).sqrt())).cpu().numpy()
-    agc_path = os.path.join(tmp, "half_empty.cu8")
-    u8.cpu().numpy().tofile(agc_path)
-    del u8, d, settled
-    emit(dict(phase="agc_capture", threshold_db=AGC_T, occupied_min_db=float(level[0::2].min()),
-              empty_max_db=float(level[1::2].max()), **card))
-    check(level[0::2].min() > AGC_T + AGC_MARGIN and level[1::2].max() < AGC_T - AGC_MARGIN,
-          f"half-empty capture too close to the squelch: {level.round(1).tolist()}")
+    agc_path = write_agc_capture(torch, ct, dev, card, tmp)
     agc = {}
     for backend in ("pfb_fused", "eager"):
         prefix = os.path.join(tmp, f"agc_{backend}")
@@ -1388,6 +1415,243 @@ def phase_checkpoint(torch, ct, ff, pf, dev, card, capture) -> dict:
     return out
 
 
+MESH_MAX = 4                 # ranks of the mesh phase: min(cards, MESH_MAX)
+MESH_BLOCKS = 2              # blocks of each ShardedChannelizedFM run
+
+
+def mesh_rank(device, capture: str, agc_path: str, world: int) -> dict:
+    """One NCCL rank of phase 7 (``parallel.spawn`` runs it on every card;
+    every collective below is called by every rank in the same order).
+
+    7a. ShardedFlagship on mesh (world, 1), force_full at one rank: the
+        main-path capture through ShardedPipeline with every kernel count set
+        to 0 just before and read just after; rank 0 holds the audio and
+        the carried state against the serial K1 (FlagshipFused) on the same
+        card; the sharded step's time (time_steps, every rank stepping)
+        against the serial K1 step's, and one torch.profiler window over 5
+        sharded steps on rank 0 for K1's launches and the NCCL kernels'
+        device time per step.
+    7b. ShardedChannelizedFM on mesh (world, 1) and, at 4 ranks, (2, 2):
+        eager, use_fused (K3) and use_fused with -a (K4), MESH_BLOCKS
+        blocks each, held on rank 0 against the eager single-device graphs."""
+    import torch
+    import torch.distributed as dist
+
+    import csdr_tpu_torch as ct
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+    from csdr_tpu_torch.ops.cuda import flagship_fused as ff
+    from csdr_tpu_torch.ops.cuda import pfb_fused as pf
+    from csdr_tpu_torch.parallel import (ShardedChannelizedFM, ShardedFlagship,
+                                         ShardedPipeline, build_mesh)
+
+    rank, nch = dist.get_rank(), 64
+    out = dict(rank=rank, device=str(device))
+
+    def sharded_run(sh, path, n):
+        """The sharded receiver over the first n samples of a capture
+        through ShardedPipeline.stream; rank 0 returns the audio; every rank
+        its kernel counts of the run and the seconds to each block's end."""
+        sink = ct.CollectSink() if rank == 0 else None
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_counts(ff, pf, fv, fx)
+        t0 = time.perf_counter()
+        pipe = ShardedPipeline(sh)
+        ends = []
+        for out in pipe.stream(ct.cu8_file_source(path, BLOCK) if rank == 0 else None, n):
+            if out is not None:
+                sink(out)
+            ends.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts(ff, pf, fv, fx)
+        audio = sink.concat() if sink else None
+        return audio, pipe.state, counts, 0 if audio is None else audio.shape[1], secs, ends
+
+    # 7a. ShardedFlagship over the main-path capture
+    mesh = build_mesh(world, 1, device.type)
+    sf = ShardedFlagship(mesh, nch=nch, block_size=BLOCK, kf=KF, force_full=world == 1)
+    audio, state, counts, total, secs, ends = sharded_run(sf, capture, CAPTURE)
+    # the same run again: the first pays for each new communicator and
+    # allocation, the second shows the streaming rate
+    warm = sharded_run(sf, capture, CAPTURE)
+    flag = dict(mesh=[world, 1], force_full=world == 1, launches=counts, seconds=secs,
+                msps=CAPTURE / secs / 1e6, block_end_seconds=ends, warm_seconds=warm[4],
+                warm_msps=CAPTURE / warm[4] / 1e6, warm_block_end_seconds=warm[5])
+    if rank == 0:
+        from csdr_tpu_torch.blocks.fused_blocks import FlagshipFused
+
+        pipe = ct.Pipeline(FlagshipFused(nch, KF), block_size=BLOCK, device=device)
+        serial = ct.CollectSink()
+        pipe.run(ct.cu8_file_source(capture, BLOCK), serial)
+        want = serial.concat()
+        d = np.abs(audio.astype(np.float64) - want)
+        flag.update(total=total, shape=list(audio.shape), finite=bool(np.isfinite(audio).all()),
+                    share_over_0_01=float(np.mean(d > 0.01)), q99=float(np.quantile(d, 0.99)),
+                    max_abs_err=float(d.max()),
+                    state_err={k: float((state[k] - pipe.state[k]).abs().max())
+                               for k in ("hist", "x_last", "y_dc_last", "phase")})
+        del audio, want, d, serial, pipe
+    # step times: every rank steps its segment of one device-resident block
+    x = occupied_band(torch, device, nch, BLOCK, SEED + 1)
+    seg = to_cu8(torch, x).view(BLOCK, 2)[rank * (BLOCK // world):][:BLOCK // world].contiguous()
+    box = {"s": sf.init()}
+
+    def step():
+        box["s"], _ = sf.step(box["s"], seg)
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    flag["sharded_step_ms"] = statistics.median(time_steps(torch, step))
+    dist.barrier()
+    if rank == 0:
+        u8 = to_cu8(torch, x)
+        kbox = {"k": ff.flagship_fused_init(nch, device)}
+
+        def serial_step():
+            kbox["k"], _ = ff.flagship_fused_step(kbox["k"], u8, nch=nch, kf=KF)
+
+        flag["serial_step_ms"] = statistics.median(time_steps(torch, serial_step))
+        del u8
+    dist.barrier()
+    # one profiler window over 5 sharded steps on rank 0 (no retry: every
+    # rank must make the same number of steps)
+    step()
+    torch.cuda.synchronize()
+    dist.barrier()
+    if rank == 0:
+        prof, _ = traced(torch, lambda: [step() for _ in range(5)])
+        kern = device_kernels(prof)
+        nccl = {k: v for k, v in kern.items() if "nccl" in k.lower()}
+        k1 = {k: v for k, v in kern.items()
+              if any(n in k for n in ("dc_chunk", "carry_scan", "channel_tile"))}
+        flag.update(profile_steps=5, launch_calls=launch_calls(prof),
+                    device_kernels=sum(v["count"] for v in kern.values()),
+                    device_ms_per_step=sum(v["device_us"] for v in kern.values()) / 5e3,
+                    k1_launches_per_step=sum(v["count"] for v in k1.values()) / 5,
+                    k1_device_ms_per_step=sum(v["device_us"] for v in k1.values()) / 5e3,
+                    nccl_device_ms_per_step=sum(v["device_us"] for v in nccl.values()) / 5e3,
+                    nccl_kernels_per_step={k: v["count"] / 5 for k, v in nccl.items()})
+    else:
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+    del x, seg, box
+    out["flagship"] = flag
+
+    # 7b. ShardedChannelizedFM, eager / K3 / K4 + AGC
+    n = MESH_BLOCKS * BLOCK
+    refs = {}
+    if rank == 0:
+        u8_iq = ct.u8_to_iq()
+        for label, graph, path in (
+                ("plain", ct.channelized_fm_receiver(nch, kf=KF, backend="eager"), capture),
+                ("agc", ct.channelized_receiver(nch, ct.fm_demodulator(KF),
+                                                agc_threshold_db=AGC_T), agc_path)):
+            sink = ct.CollectSink()
+            ct.Pipeline(ct.chain(u8_iq, graph), block_size=BLOCK, device=device).run(
+                ct.take_n(ct.cu8_file_source(path, BLOCK), n), sink)
+            refs[label] = sink.concat()
+    shapes = [(world, 1)] + ([(2, world // 2)] if world == 4 else [])
+    out["channelized"] = []
+    for shape in shapes:
+        cmesh = build_mesh(*shape, device.type)
+        for label, kw, path, ref, bound, f0 in (
+                ("eager", {}, capture, "plain", 2e-3, 0),
+                ("pfb_fused", {"use_fused": True}, capture, "plain", 5e-3, 1),
+                ("pfb_fused -a", {"use_fused": True, "agc_threshold_db": AGC_T}, agc_path,
+                 "agc", 5e-3, 0)):
+            sh = ShardedChannelizedFM(cmesh, nch=nch, block_size=BLOCK, kf=KF, **kw)
+            audio, _, counts, total, secs, _ = sharded_run(sh, path, n)
+            r = dict(mesh=list(shape), backend=label, launches=counts, blocks=MESH_BLOCKS,
+                     seconds=secs, bound=bound, from_frame=f0)
+            if rank == 0:
+                want = refs[ref]
+                r.update(total=total, shape=list(audio.shape),
+                         finite=bool(np.isfinite(audio).all()),
+                         vs_eager_rel=float(np.abs(audio[:, f0:].astype(np.float64)
+                                                   - want[:, f0:]).max()
+                                            / np.abs(want).max()))
+                if ref == "agc":
+                    r["empty_all_zero"] = bool(not audio[1::2].any())
+            out["channelized"].append(r)
+    dist.barrier()
+    return out
+
+
+def phase_mesh(torch, card, tmp, capture, agc_path, fused_cli) -> dict:
+    """7. The multi-device mesh on NCCL, world = min(cards, MESH_MAX): the
+    library paths of 7a/7b in ``mesh_rank`` (every rank's kernel counts from
+    0), then 7c, the CLI's -c 64 --mesh Wx1 --backend fused in a process of
+    its own (it starts its own ranks; -v prints its rate and each rank's
+    kernel launches), each channel's file against phase 4's fused run."""
+    from csdr_tpu_torch.parallel import spawn
+
+    world = min(torch.cuda.device_count(), MESH_MAX)
+    nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+    ranks = spawn(mesh_rank, world, "cuda", args=(capture, agc_path, world), timeout=600.0)
+    r0 = ranks[0]
+    flag = r0["flagship"]
+    emit(dict(phase="mesh", part="flagship", world=world, nccl=nccl,
+              launches_per_rank=[r["flagship"]["launches"] for r in ranks],
+              **{k: v for k, v in flag.items() if k != "launches"}, **card))
+    check(flag["finite"] and flag["shape"] == [64, CAPTURE // 64] and flag["total"] == CAPTURE // 64,
+          f"mesh flagship: shape {flag['shape']}, total {flag['total']}")
+    check(flag["share_over_0_01"] < 0.005 and flag["q99"] < 1e-4,
+          f"mesh flagship vs serial K1: share {flag['share_over_0_01']}, q99 {flag['q99']}")
+    check(max(flag["state_err"].values()) < 2e-5, f"mesh flagship state: {flag['state_err']}")
+    for r in ranks:
+        check_counts(r["flagship"]["launches"], "flagship_fused",
+                     f"mesh flagship run on rank {r['rank']}")
+    check(flag["k1_launches_per_step"] == 3 and flag["launch_calls"] == flag["device_kernels"],
+          f"mesh flagship profile: {flag['k1_launches_per_step']} K1 launches per step, "
+          f"{flag['launch_calls']} launch calls, {flag['device_kernels']} device kernels")
+    want_k = {"eager": None, "pfb_fused": "pfb_fm_fused", "pfb_fused -a": "pfb_channelize_fused"}
+    channelized = []
+    for i, c in enumerate(r0["channelized"]):
+        per_rank = [r["channelized"][i]["launches"] for r in ranks]
+        emit(dict(phase="mesh", part="channelized", world=world,
+                  launches_per_rank=per_rank, **{k: v for k, v in c.items() if k != "launches"},
+                  **card))
+        what = f"mesh {c['mesh']} {c['backend']}"
+        check(c["finite"] and c["shape"] == [64, MESH_BLOCKS * BLOCK // 64], f"{what}: output")
+        check(c["vs_eager_rel"] < c["bound"], f"{what}: rel {c['vs_eager_rel']} vs eager")
+        if "empty_all_zero" in c:
+            check(c["empty_all_zero"], f"{what}: an empty channel passed the squelch")
+        for counts in per_rank:
+            check_counts(counts, want_k[c["backend"]], what)
+        channelized.append(dict(c, launches_per_rank=per_rank))
+
+    # 7c. the CLI
+    prefix = os.path.join(tmp, "mesh")
+    argv = [sys.executable, "-m", "csdr_tpu_torch.apps.soapy_sdr_cli", "--filename", capture,
+            "-n", str(CAPTURE), "-c", "64", "--mesh", f"{world}x1", "--backend", "fused",
+            "--demod", f"DeNBFM {KF} F32", "--device", "cuda", "--blocksize", str(BLOCK),
+            "-v", "-o", prefix]
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, capture_output=True, text=True, timeout=600, cwd=HERE)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"CLI --mesh: exit code {r.returncode}: {r.stderr.strip()[-2000:]}")
+    m = re.search(r"\(([\d.]+) MSPS\)", r.stdout)
+    cli_counts = [json.loads(c) for c in re.findall(r"Kernel launches on rank \d+: (\{[^}]*\})",
+                                                    r.stdout)]
+    check(m is not None and len(cli_counts) == world, f"CLI --mesh output: {r.stdout[-2000:]}")
+    for counts in cli_counts:
+        check_counts(counts, "flagship_fused", "CLI --mesh")
+    audio = read_channels(prefix, "f32", np.float32, 64, CAPTURE // 64 * 4).astype(np.float64)
+    d = np.abs(audio - fused_cli)
+    cli = dict(msps=float(m.group(1)), wall_seconds=wall, launches_per_rank=cli_counts,
+               vs_serial_cli_max=float(d.max()), share_over_0_01=float(np.mean(d > 0.01)),
+               q99=float(np.quantile(d, 0.99)), bit_equal=bool(np.array_equal(audio, fused_cli)))
+    emit(dict(phase="mesh", part="cli", world=world, flow=f"-c 64 --mesh {world}x1 --backend fused",
+              samples=CAPTURE, **cli, **card))
+    check(cli["share_over_0_01"] < 0.005 and cli["q99"] < 1e-4,
+          f"CLI --mesh vs the serial CLI: share {cli['share_over_0_01']}, q99 {cli['q99']}")
+    return dict(world=world, nccl=nccl, flagship=flag, channelized=channelized, cli=cli,
+                flagship_launches_per_rank=[r["flagship"]["launches"] for r in ranks])
+
+
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12   # H100 SXM data sheet
 
 
@@ -1539,7 +1803,8 @@ def profile_kernels(torch, fn, steps: int, want: int | None = None, tries: int =
 
 def device_kernels(prof) -> dict:
     """Kernel name → dict(count, device_us) of a torch.profiler run: the
-    events with device time, less operator rows and copies."""
+    events with device time, less operator rows, copies and the ranges
+    ProcessGroupNCCL records around its kernels ("nccl:broadcast", …)."""
     kern = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total", None)
@@ -1548,7 +1813,7 @@ def device_kernels(prof) -> dict:
         if dev_us and ev.count and ("ProfilerStep" not in ev.key) and (
                 getattr(ev, "device_type", None) is None
                 or str(ev.device_type).endswith("CUDA")) and not ev.key.startswith(
-                    ("aten::", "Memcpy", "Memset")):
+                    ("aten::", "Memcpy", "Memset", "nccl:")):
             kern[ev.key] = dict(count=ev.count, device_us=dev_us)
     return kern
 
@@ -1668,7 +1933,10 @@ def phase_profile(torch, dev, card):
     return out
 
 
-def main() -> int:
+def main(mesh_only: bool = False) -> int:
+    """Every phase; with ``mesh_only`` (``--mesh-only``) identity, build,
+    phase 4's CLI runs (the serial reference) and phase 7 alone, for a
+    call on several cards."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1700,6 +1968,15 @@ def main() -> int:
     ptxas = ptxas_summary(lib)
     emit(dict(phase="build", seconds=build_s, library=os.path.relpath(lib, HERE), ptxas=ptxas))
 
+    if mesh_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            _, _, _, runs, capture, _ = phase_main_path(torch, ff, pf, dev, card, tmp)
+            agc_path = write_agc_capture(torch, ct, dev, card, tmp)
+            mesh = phase_mesh(torch, card, tmp, capture, agc_path, runs["fused"])
+        print(smi, flush=True)
+        emit({"mesh_only": True, "world": mesh["world"], "ok": True})
+        return 0
+
     # 3. kernel vs plain
     errs = phase_compare(torch, ct, ff, dev, card)
     errs.update(phase_compare_pfb(torch, ct, pf, dev, card))  # 3b
@@ -1714,6 +1991,7 @@ def main() -> int:
             torch, ff, pf, dev, card, tmp)
         pfb_runs, agc_path = phase_main_path_pfb(torch, ct, ff, pf, dev, card, tmp, capture,
                                                  runs, bins)  # 4b
+        mesh = phase_mesh(torch, card, tmp, capture, agc_path, runs["fused"])  # 7
         del runs
         rates = phase_cli_rates(torch, ff, pf, card, tmp, capture, agc_path)  # 5b
         ckpt = phase_checkpoint(torch, ct, ff, pf, dev, card, capture)  # 6d
@@ -1754,6 +2032,14 @@ def main() -> int:
         "device_ms": per_step["flagship_fused"][1],
         "launches_mix_run": mix["fused"]["launches"]["flagship_fused"],
         "launches_checkpoint_run": ckpt["fused"]["launches"]["flagship_fused"],
+        "launches_mesh_run_per_rank": [c["flagship_fused"]
+                                       for c in mesh["flagship_launches_per_rank"]],
+        "launches_mesh_cli_per_rank": [c["flagship_fused"]
+                                       for c in mesh["cli"]["launches_per_rank"]],
+        "mesh": {"world": mesh["world"], "sharded_step_ms": mesh["flagship"]["sharded_step_ms"],
+                 "serial_step_ms": mesh["flagship"]["serial_step_ms"],
+                 "nccl_device_ms_per_step": mesh["flagship"]["nccl_device_ms_per_step"],
+                 "q99_vs_serial": mesh["flagship"]["q99"], "cli_msps": mesh["cli"]["msps"]},
         "step_peak_mib": med[("u8", "step_peak_mib")],
         "library_ms": None,
         **flagship_bound(BLOCK, 64, True),
@@ -1787,6 +2073,9 @@ def main() -> int:
         "replaces": "csdr_tpu/ops/pallas/pfb_fused.py:149",
         "launches": pfb_runs["pfb_fm_fused"]["launches"],
         "launches_mix_run": mix["pfb_fused"]["launches"]["pfb_fm_fused"],
+        "launches_mesh_runs_per_rank": {
+            f"{c['mesh'][0]}x{c['mesh'][1]}": [n["pfb_fm_fused"] for n in c["launches_per_rank"]]
+            for c in mesh["channelized"] if c["backend"] == "pfb_fused"},
         "max_abs_err": errs[("pfb_fm_fused", 64)],
         "ms": med[("pfb_fm_fused", "kernel")],
         "plain_ms": med[("pfb_fm_fused", "plain")],
@@ -1808,6 +2097,10 @@ def main() -> int:
         "launches": pfb_runs["pfb_channelize_fused"]["launches"],
         "launches_raw_split": pfb_runs["raw_split"]["launches"],
         "launches_mix_agc_run": mix["pfb_fused -a"]["launches"]["pfb_channelize_fused"],
+        "launches_mesh_runs_per_rank": {
+            f"{c['mesh'][0]}x{c['mesh'][1]}": [n["pfb_channelize_fused"]
+                                               for n in c["launches_per_rank"]]
+            for c in mesh["channelized"] if c["backend"] == "pfb_fused -a"},
         "max_abs_err": errs[("pfb_channelize_fused", 64)],
         "ms": med[("pfb_channelize_fused", "kernel")],
         "plain_ms": med[("pfb_channelize_fused", "plain")],
@@ -1902,4 +2195,4 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--idle-share"]:
         sys.exit(idle_child(json.loads(sys.argv[2])))
-    sys.exit(main())
+    sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh-only"]))

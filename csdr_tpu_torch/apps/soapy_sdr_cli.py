@@ -23,18 +23,33 @@ plain PyTorch graph; ``pfb_fused`` runs its FIR and DFT in the K3 kernel
 (DeNBFM without AGC, with the demod) or the K4 kernel (every other flow);
 ``fused`` runs the whole DeNBFM chain in one kernel and nothing else.  Long
 real FIRs (the CW filter, the RDS data filter) take the K5 kernel on the
-card.  Every other flow, demod and option of the JAX CLI exits non-zero
-with "not yet ported in csdr_tpu_torch".
+card.
+
+``--mesh TxC`` runs ``-c N --demod "DeNBFM kf WAV|F32"`` ([``-a T``]) over
+T time × C channel ranks, one process per device (``csdr_tpu_torch/
+parallel``): ``--backend fused`` is the time-sharded flagship kernel
+(``ShardedFlagship``, C = 1, no AGC, nch | 64); ``pfb_fused`` and ``eager``
+are ``ShardedChannelizedFM`` with and without K3/K4.  Under torchrun the
+CLI joins the group it finds (one rank per GPU); otherwise it starts its
+own T·C local ranks.  ``--device cpu`` runs gloo ranks.
+
+Every other flow, demod and option of the JAX CLI exits non-zero with "not
+yet ported in csdr_tpu_torch".
 
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -n 33554432 \\
         -c 64 --demod "DeCW 500 700 WAV" --backend pfb_fused --device cuda
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -s 2560000 \\
         -b 200000 -n 2621440 --demod "DeFMS 8 WAV" --rds --device cuda
+    python -m torch.distributed.run --nproc-per-node 4 -m csdr_tpu_torch.apps.soapy_sdr_cli \\
+        --filename cap.cu8 -n 33554432 -c 64 --mesh 4x1 --backend fused \\
+        --demod "DeNBFM 0.6 F32"
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 import time
 
@@ -92,8 +107,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels; fused = the whole DeNBFM chain in one CUDA kernel")
     p.add_argument("--device", default="cuda", choices=["cpu", "cuda"],
                    help="Device the graph runs on (cuda never falls back to cpu)")
-    # an option of the JAX CLI that the port refuses by name, not by argparse
-    p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--mesh", default=None, metavar="TxC",
+                   help="Run -c N --demod 'DeNBFM ...' on a device mesh of T time × C "
+                        "channel ranks, e.g. '4x1' (one process per device)")
     return p
 
 
@@ -129,8 +145,9 @@ def _refusal(opts, demod) -> str | None:
                 "DeUSB, DeLSB, DeCW or DeNo")
     if demod[0] != "DeNo" and demod[-1] not in ("WAV", "F32"):
         return f"audio format {demod[-1]} is {_NOT_PORTED}; use WAV or F32"
-    if opts.mesh:
-        return f"--mesh is {_NOT_PORTED}"
+    if opts.mesh and (demod[0] != "DeNBFM" or opts.channels < 2 or opts.mix):
+        return (f"--mesh for this flow is {_NOT_PORTED} (the generic sharded chain, "
+                "ShardedChain); --mesh runs -c N (> 1) --demod 'DeNBFM kf WAV|F32' without -m")
     if not opts.filename:
         return f"SDR devices are {_NOT_PORTED}; use --filename"
     with open(opts.filename, "rb") as f:
@@ -252,6 +269,8 @@ def run_opts(opts) -> int:
               "no AGC stage, no raw channel output and no other demod; use --backend "
               "pfb_fused or eager", file=sys.stderr)
         return 2
+    if opts.mesh:
+        return _run_mesh(opts, demod, agc_t)
     if opts.device == "cuda" and not torch.cuda.is_available():
         print("--device cuda: no CUDA device is available (use --device cpu)",
               file=sys.stderr)
@@ -302,6 +321,129 @@ def run_opts(opts) -> int:
     if bits is not None:
         _report_rds(opts, bits.concat())
     return 0
+
+
+def _mesh_dims(mesh: str) -> tuple[int, int]:
+    t, _, c = mesh.lower().partition("x")
+    dt, dc = int(t), int(c or 1)
+    if dt < 1 or dc < 1:
+        raise ValueError(mesh)
+    return dt, dc
+
+
+def _run_mesh(opts, demod, agc_t) -> int:
+    """-c N DeNBFM over a ('time', 'ch') mesh: under torchrun this process
+    is one rank of the group it finds, otherwise it starts T·C local ranks
+    (``parallel.spawn``) and waits for them."""
+    from ..parallel.mesh import check_devices, init_distributed, spawn
+
+    try:
+        dt, dc = _mesh_dims(opts.mesh)
+    except ValueError:
+        print(f"--mesh takes TxC, e.g. 4x1, got {opts.mesh!r}", file=sys.stderr)
+        return 2
+    nch, world = opts.channels, dt * dc
+    if opts.backend == "fused" and (dc != 1 or 64 % nch):
+        print(f"--backend fused shards the flagship kernel over time only and needs nch | 64: "
+              f"use --mesh {dt}x1 with -c dividing 64, or --backend pfb_fused or eager for "
+              "a channel axis", file=sys.stderr)
+        return 2
+    if nch % dc:
+        print(f"-c {nch} does not split over {dc} channel ranks", file=sys.stderr)
+        return 2
+    try:
+        check_devices(world, opts.device)
+    except ValueError as e:
+        print(f"mesh {opts.mesh}: {e}", file=sys.stderr)
+        return 1
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if int(os.environ["WORLD_SIZE"]) != world:
+            print(f"mesh {opts.mesh} needs {world} ranks, torchrun started "
+                  f"{os.environ['WORLD_SIZE']}", file=sys.stderr)
+            return 2
+        device = init_distributed(device_type=opts.device)
+        try:
+            _mesh_rank(device, opts, demod, agc_t)
+        finally:
+            torch.distributed.destroy_process_group()
+        return 0
+    try:
+        spawn(_mesh_rank, world, opts.device, args=(opts, demod, agc_t), timeout=3600.0)
+    except (RuntimeError, TimeoutError) as e:
+        print(f"--mesh {opts.mesh}: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _mesh_rank(device: torch.device, opts, demod, agc_t) -> int:
+    """One rank of the --mesh flow; rank 0 reads the capture (through the
+    front end, on its own device) and writes the per-channel files."""
+    from ..ops.cuda import flagship_fused as ff
+    from ..ops.cuda import pfb_fused as pf
+    from ..parallel import ShardedChannelizedFM, ShardedFlagship, ShardedPipeline, build_mesh
+
+    dt, dc = _mesh_dims(opts.mesh)
+    nch, kf = opts.channels, demod[1]
+    rank = torch.distributed.get_rank()
+    mesh = build_mesh(dt, dc, device.type)
+    if opts.backend == "fused":
+        # the largest tile up to the kernel's default whose mesh granule fits
+        # the block size (halved down to 16 frames, so a segment covers the
+        # (L+1)-frame halo)
+        tileF = ff.DEFAULT_TILE_F
+        while tileF > 16 and dt * nch * tileF > opts.blocksize:
+            tileF //= 2
+        gran = dt * nch * tileF
+        sh = ShardedFlagship(mesh, nch=nch, block_size=max(opts.blocksize // gran, 1) * gran,
+                             kf=kf, tileF=tileF)
+    else:
+        # at least 64 frames per time rank; whole K3/K4 tiles under pfb_fused
+        frames = max(opts.blocksize // (dt * nch), 64)
+        fused = opts.backend == "pfb_fused"
+        if fused:
+            frames -= frames % pf.DEFAULT_TILE_F
+        sh = ShardedChannelizedFM(mesh=mesh, nch=nch, block_size=frames * dt * nch, kf=kf,
+                                  agc_threshold_db=agc_t, use_fused=fused)
+    runner = ShardedPipeline(sh)
+    source = sink = None
+    if rank == 0:
+        from .. import blocks as B
+        from ..models.receivers import front_end
+
+        out_bw = opts.bandwidth if opts.bandwidth else opts.samplerate
+        cu8 = opts.filename.endswith(".cu8")
+        read = SRC.cu8_file_source if cu8 else SRC.cf32_file_source
+        source = read(opts.filename, sh.block_size)
+        fe_stages = front_end(opts.samplerate, opts.offset, opts.bandwidth)
+        if fe_stages:
+            fe = chain(*([B.u8_to_iq()] if cu8 else []), *fe_stages)
+            source = Pipeline(fe, block_size=opts.blocksize, device=device).stream(source)
+        sink, _ = _sink(opts, demod, out_bw)
+        if opts.verbose:
+            print(f"Mesh {dt}x{dc} ({opts.backend}, {device.type}): {type(sh).__name__}, "
+                  f"block {sh.block_size}, {sh.block_size // dt} samples per time rank")
+    t0 = time.perf_counter()
+    if sink is None:
+        total = runner.run(None, None)
+    else:
+        with sink:
+            total = runner.run(source, sink, num_samples=opts.numsamples)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    secs = time.perf_counter() - t0
+    if rank == 0:
+        if opts.verbose and secs > 0:
+            n_in = total * nch
+            print(f"Throughput: {n_in} samples into the flow in {secs:.3f} s "
+                  f"({n_in / secs / 1e6:.2f} MSPS)")
+        print(f"Wrote {total} output samples per channel over mesh {dt}x{dc} "
+              f"({opts.backend}, {device.type})")
+    if opts.verbose:
+        counts = dict(pf.launches, flagship_fused=ff.launches)
+        # one write, so that concurrent ranks' lines do not interleave
+        sys.stdout.write(f"Kernel launches on rank {rank}: {json.dumps(counts)}\n")
+        sys.stdout.flush()
+    return total
 
 
 def main(argv=None) -> int:

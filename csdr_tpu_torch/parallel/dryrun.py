@@ -1,0 +1,63 @@
+"""One sharded step of each receiver on an n-rank mesh, shapes asserted.
+
+Counterpart of the channelized and flagship parts of
+``__graft_entry__.dryrun_multichip``: one ``ShardedChannelizedFM`` step
+with the audio decimator, then two ``ShardedFlagship`` steps on cu8 input
+(the second takes the first's carried state).
+
+    python -m csdr_tpu_torch.parallel.dryrun 4 cpu
+"""
+
+from __future__ import annotations
+
+import sys
+
+import torch
+
+from .mesh import build_mesh, make_mesh, spawn
+
+__all__ = ["dryrun_multichip"]
+
+
+def _rank(device: torch.device, n: int) -> tuple:
+    from .channelized import ShardedChannelizedFM
+    from .flagship import ShardedFlagship
+
+    mesh = make_mesh(n, device.type)
+    dt, dc = mesh.shape
+    nch = max(8, dc * 4)
+    # 80 frames per time rank: the smallest multiple of audio_decim that
+    # covers the audio decimator's 40-frame halo
+    block = dt * nch * 80
+    sh = ShardedChannelizedFM(mesh=mesh, nch=nch, block_size=block, audio_decim=2)
+    x = torch.ones(block // dt, dtype=torch.complex64, device=device)
+    _, y = sh.step(sh.init(), x)
+    if y.shape != (nch // dc, block // dt // nch // 2):
+        raise RuntimeError(f"channelized step: audio of shape {tuple(y.shape)}")
+
+    # the flagship kernel over a pure time axis of all n ranks, cu8 rows
+    tmesh = build_mesh(n, 1, device.type)
+    fnch, ftile = 64, 32
+    fblock = n * fnch * ftile
+    sf = ShardedFlagship(tmesh, nch=fnch, block_size=fblock, tileF=ftile)
+    fx = torch.tensor([137, 120], dtype=torch.uint8, device=device).repeat(fblock // n, 1)
+    state, fy = sf.step(sf.init(), fx)
+    state, fy = sf.step(state, fx)      # the carried-state hand-off
+    if fy.shape != (fnch, fblock // n // fnch):
+        raise RuntimeError(f"flagship step: audio of shape {tuple(fy.shape)}")
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return (dt, dc), tuple(y.shape), tuple(fy.shape)
+
+
+def dryrun_multichip(n: int, device_type: str = "cuda") -> list:
+    """Run the dry run on n local ranks (NCCL on ``"cuda"``, one card each;
+    gloo on ``"cpu"``); returns each rank's (mesh shape, channelized
+    output shape, flagship output shape)."""
+    return spawn(_rank, n, device_type, args=(n,), timeout=600.0)
+
+
+if __name__ == "__main__":
+    n = int(sys.argv[1]) if len(sys.argv) > 1 else 4
+    out = dryrun_multichip(n, sys.argv[2] if len(sys.argv) > 2 else "cuda")
+    print(f"dryrun_multichip({n}) ok: {out[0]}")

@@ -1,0 +1,144 @@
+"""Streaming runner of a sharded receiver: host feed → sharded step →
+sinks, over every rank of the mesh.
+
+Counterpart of ``csdr_tpu/parallel/runner.py`` (``ShardedPipeline``) on
+``torch.distributed``.  Every rank constructs the runner and calls ``run``
+(or iterates ``stream``) together.  Rank 0 alone reads the source: it
+re-blocks it (``rechunk``, ``take_n``), zero-pads the last short block,
+stages each block in pinned memory and scatters its time segments over
+the 'time' group in the source's own wire type (cu8 as uint8 (n, 2) rows,
+complex64 as float32 (n, 2) planes); each ch group broadcasts its segment
+from its first rank.  Every rank steps; each rank's (nch/dc, F/dt) output
+is gathered to rank 0, which trims it to the block's rational-rate sample
+count (``core/runtime._trim_tree``) and alone owns the sinks.
+
+Neither sharded receiver has an end-of-stream flush allowance, so the
+runner appends none.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, Iterator
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..core.runtime import _trim_tree, rechunk, take_n
+
+__all__ = ["ShardedPipeline"]
+
+_WIRE = {0: torch.float32, 1: torch.uint8}   # header code → wire dtype
+
+
+class ShardedPipeline:
+    """Feed/drain loop around a sharded step (``ShardedFlagship`` or
+    ``ShardedChannelizedFM``): anything with ``ctx``, ``init()``,
+    ``step(state, x)``, ``block_size``, ``rate`` and ``device``."""
+
+    def __init__(self, sharded):
+        self.sh = sharded
+        self.ctx = sharded.ctx
+        self.block_size = sharded.block_size
+        self.rate = sharded.rate
+        self.device = sharded.device
+        self.rank = dist.get_rank()
+        self.state = sharded.init()
+
+    def _host_blocks(self, source: Iterable[np.ndarray], num_samples: int | None):
+        """Rank 0: (block padded to block_size, valid samples) per block."""
+        it: Iterable[np.ndarray] = source
+        if num_samples is not None:
+            it = take_n(it, num_samples)
+        n = self.block_size
+        for chunk in rechunk(it, n):
+            valid = len(chunk)
+            if valid < n:
+                chunk = np.pad(chunk, [(0, n - valid)] + [(0, 0)] * (chunk.ndim - 1))
+            yield chunk, valid
+
+    def _stage(self, chunk: np.ndarray) -> tuple[torch.Tensor, int]:
+        """Rank 0: a host block as its (n, 2) wire tensor on the device and
+        the wire's header code."""
+        if np.iscomplexobj(chunk):
+            wire, code = np.ascontiguousarray(chunk, np.complex64).view(np.float32), 0
+        elif chunk.dtype == np.uint8 and chunk.ndim == 2:
+            wire, code = chunk, 1
+        else:
+            raise TypeError(f"source blocks must be complex or cu8 (n, 2) uint8 rows, got "
+                            f"{chunk.dtype} {chunk.shape}")
+        wire = wire.reshape(self.block_size, 2)
+        if self.device.type != "cuda":
+            return torch.from_numpy(wire.copy()), code
+        stage = torch.empty(wire.shape, dtype=_WIRE[code], pin_memory=True)
+        stage.numpy()[...] = wire
+        return stage.to(self.device, non_blocking=True), code
+
+    def _segment(self, block: torch.Tensor | None, code: int) -> torch.Tensor:
+        """This rank's time segment of the block: scattered over the 'time'
+        group from rank 0, then broadcast over each 'ch' group."""
+        ctx = self.ctx
+        nloc = self.block_size // ctx.dt
+        seg = block if ctx.dt == 1 and self.rank == 0 else torch.empty(
+            (nloc, 2), dtype=_WIRE[code], device=self.device)
+        if ctx.ci == 0 and ctx.dt > 1:
+            parts = list(block.view(ctx.dt, nloc, 2).unbind(0)) if self.rank == 0 else None
+            dist.scatter(seg, parts, src=0, group=ctx.time_group)
+        if ctx.dc > 1:
+            dist.broadcast(seg, dist.get_global_rank(ctx.ch_group, 0), group=ctx.ch_group)
+        return seg if code == 1 else torch.view_as_complex(seg)
+
+    def _gather(self, y: torch.Tensor) -> torch.Tensor | None:
+        """Every rank's (nch/dc, F/dt) output → (nch, F) on rank 0 (None
+        elsewhere)."""
+        ctx, y = self.ctx, y.contiguous()
+        world = ctx.dt * ctx.dc
+        if world == 1:
+            return y
+        parts = [torch.empty_like(y) for _ in range(world)] if self.rank == 0 else None
+        dist.gather(y, parts, dst=0)
+        if parts is None:
+            return None
+        # rank = ti·dc + ci: (dt, dc, rows, frames) → (dc·rows, dt·frames)
+        g = torch.stack(parts).view(ctx.dt, ctx.dc, *y.shape)
+        return g.permute(1, 2, 0, 3).reshape(ctx.dc * y.shape[0], ctx.dt * y.shape[1])
+
+    def stream(self, source: Iterable[np.ndarray] | None = None,
+               num_samples: int | None = None) -> Iterator:
+        """Yield each block's output trimmed to its rational-rate count:
+        numpy (nch, k) on rank 0, None on the others.  Only rank 0's
+        ``source`` is read."""
+        blocks = self._host_blocks(source, num_samples) if self.rank == 0 else None
+        header = torch.zeros(2, dtype=torch.int64, device=self.device)
+        while True:
+            block = None
+            if blocks is not None:
+                nxt = next(blocks, None)
+                if nxt is not None:
+                    block, code = self._stage(nxt[0])
+                    header.copy_(torch.tensor([nxt[1], code]))
+                else:
+                    header.zero_()
+            dist.broadcast(header, 0)
+            valid, code = (int(v) for v in header.tolist())
+            if valid == 0:
+                return
+            self.state, y = self.sh.step(self.state, self._segment(block, code))
+            out = self._gather(y)
+            if out is None:
+                yield None
+                continue
+            trimmed, _ = _trim_tree(out, self.rate, valid)
+            yield trimmed.cpu().numpy()
+
+    def run(self, source: Iterable[np.ndarray] | None, sink: Callable | None,
+            num_samples: int | None = None) -> int:
+        """Stream rank 0's source (cut to ``num_samples``) through the
+        sharded step into rank 0's sink; returns the output samples per
+        channel (on rank 0; 0 elsewhere)."""
+        total = 0
+        for out in self.stream(source, num_samples):
+            if out is not None:
+                sink(out)
+                total += out.shape[-1]
+        return total

@@ -12,7 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["from_jax_chain_state", "from_jax_flagship_state", "from_jax_pfb_fm_state"]
+from ..ops.pfb import pfb_offset
+
+__all__ = ["from_jax_chain_state", "from_jax_flagship_state", "from_jax_flagship_wide_state",
+           "from_jax_pfb_fm_state", "from_jax_sharded_channelized_state"]
 
 
 def _leaf(a, device: torch.device) -> torch.Tensor:
@@ -65,6 +68,48 @@ def from_jax_flagship_state(state: dict, device: torch.device) -> dict:
         x_last=_leaf(np.complex64(scal[0] + 1j * scal[1]), device),
         y_dc_last=_leaf(np.complex64(scal[2] + 1j * scal[3]), device),
     )
+
+
+def from_jax_flagship_wide_state(state: dict, nch: int, device: torch.device,
+                                 m: int = 7) -> dict:
+    """State of the JAX wide fused kernel (``flagship_fused_wide_init``, the
+    state of ``ShardedFlagship``: phase, hist_re, hist_im (h, 128), scal)
+    → the port's ``flagship_fused`` state.
+
+    The wide hist holds the last h·128 DC-blocked samples in stream order,
+    not NCO-shifted (its kernel folds the NCO into its constants).  K1's
+    hist holds the last L+1 frames NCO-shifted, so the last (L+1)·nch of
+    those samples are rotated by e^{−j(phase + ω·k)} at their indices k =
+    −(L+1)·nch .. −1 before the next block, ``phase`` being the NCO phase
+    at that block's first sample (made in float64)."""
+    L = 2 * m
+    hs = (L + 1) * nch
+    y = (np.asarray(state["hist_re"], np.float64).reshape(-1)
+         + 1j * np.asarray(state["hist_im"], np.float64).reshape(-1))[-hs:]
+    if y.shape[0] != hs:
+        raise ValueError(f"wide hist holds {y.shape[0]} samples, K1's needs {hs}")
+    phase = float(np.asarray(state["phase"], np.float32))
+    k = np.arange(-hs, 0, dtype=np.float64)
+    theta = phase + np.mod(pfb_offset(nch) * k, 2.0 * np.pi)
+    hist = (y * np.exp(-1j * theta)).reshape(L + 1, nch)
+    return from_jax_flagship_state(dict(phase=state["phase"], hist_re=hist.real,
+                                        hist_im=hist.imag, scal=state["scal"]), device)
+
+
+def from_jax_sharded_channelized_state(state: dict, device: torch.device) -> dict:
+    """State of the JAX ``ShardedChannelizedFM`` (its ``init``/``step``
+    state: dc_x, dc_y, phase, pfb_tail, demod_last, fir_tail, agc_lng,
+    agc_above, complex leaves CEnc-encoded as float32 (…, 2) re/im planes)
+    → the port's ``ShardedChannelizedFM`` state, the same keys with
+    complex64 leaves.  A CEnc leaf arrives as the CEnc itself or as a
+    1-tuple of its planes."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, tuple):
+            ri = np.asarray(v[0], np.float32)
+            v = (ri[..., 0] + 1j * ri[..., 1]).astype(np.complex64)
+        out[k] = _leaf(v, device)
+    return out
 
 
 def from_jax_pfb_fm_state(state, device: torch.device):

@@ -13,7 +13,6 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
-import scipy.signal as sig
 
 __all__ = ["butter_sos", "prototype_sos", "sos_to_onepole", "OnePoleCascade", "IIR_PROTOTYPES"]
 
@@ -27,6 +26,8 @@ def butter_sos(order: int, fc: float) -> np.ndarray:
     (n_sections, 6)."""
     if not 0.0 < fc < 0.5:
         raise ValueError(f"fc must be in (0, 0.5), got {fc}")
+    import scipy.signal as sig  # here, not at import: it takes seconds to load
+
     return sig.butter(order, 2.0 * fc, btype="low", output="sos")
 
 
@@ -49,6 +50,8 @@ def prototype_sos(ftype: str, order: int, fc: float, f0: float = 0.0,
         wn, btype = (lo, hi), "bandpass"
     else:
         wn, btype = 2.0 * fc, "low"
+    import scipy.signal as sig
+
     if ftype == "butter":
         return sig.butter(order, wn, btype=btype, output="sos")
     if ftype == "cheby1":

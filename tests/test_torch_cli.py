@@ -79,7 +79,7 @@ def test_fused_and_eager_cli_outputs_agree(captures, tmp_path):
     assert np.max(np.abs(outs["fused"][:, 1:] - outs["eager"][:, 1:])) < 1.2e-3
 
 
-@pytest.mark.parametrize("extra", [["--demod", "DeRTTY 45.45"], ["--mesh", "2x1"],
+@pytest.mark.parametrize("extra", [["--demod", "DeRTTY 45.45"], ["--mesh", "2x1", "--demod", "DeAM WAV"],
                                    ["--demod", "DePOCSAG 1200"], ["--demod", "DeNBFMSync 10"],
                                    ["--demod", "DeADSB"], ["--demod", "DeNBFM 0.6 AU"],
                                    ["--demod", "DeAIS"], ["--no-file"]])
@@ -383,6 +383,95 @@ def test_pallas_fft_interpret_strategy_matches_jax(shape):
     assert np.max(np.abs(y.numpy() - y_jax)) / np.max(np.abs(y_jax)) < 2e-4
 
 
+@pytest.fixture(scope="module")
+def mesh_captures(tmp_path_factory):
+    """A 64-channel cu8 capture with an FM carrier on every channel centre
+    (no channel's magnitude nears zero, where atan2 amplifies rounding), and
+    an 8-channel cf32 capture with the even channels at −30 dB and the odd
+    ones empty, ≥ 15 dB from a −48 dB squelch either way."""
+    d = tmp_path_factory.mktemp("mesh")
+    rng = np.random.default_rng(31)
+    n64 = 2 * 16384 + 520
+    t = np.arange(n64)
+    x = 0.005 * (rng.normal(size=n64) + 1j * rng.normal(size=n64))
+    for k in range(64):
+        x = x + 0.075 * np.exp(1j * (2 * np.pi * np.mod((k - 31.5) / 64 * t, 1.0)
+                                     + 2.0 * np.sin(2 * np.pi * 3e-4 * (1 + k % 5) * t)
+                                     + rng.uniform(0, 2 * np.pi)))
+    q = np.clip(np.round(np.stack([x.real, x.imag], 1) * 127.5 + 127.5), 0, 255)
+    q.astype(np.uint8).tofile(d / "occ64.cu8")
+    n8 = 3 * 4096 + 24
+    t = np.arange(n8)
+    x = 1e-5 * (rng.normal(size=n8) + 1j * rng.normal(size=n8))
+    for k in range(0, 8, 2):
+        x = x + 0.03 * np.exp(1j * (2 * np.pi * np.mod((k - 3.5) / 8 * t, 1.0)
+                                    + 2.0 * np.sin(2 * np.pi * 0.004 * t)))
+    x.astype(np.complex64).tofile(d / "half8.cf32")
+    return {"fused": (str(d / "occ64.cu8"), n64), "pfb_fused": (str(d / "half8.cf32"), n8)}
+
+
+# backend → (port argv, JAX argv; the blocks match: 16384 and 4096 samples)
+MESH_FLOWS = {
+    "fused": (["-c", "64", "--mesh", "2x1", "--backend", "fused", "--blocksize", "16384"],
+              ["-c", "64", "--mesh", "2x1", "--blocksize", "16384"]),
+    "pfb_fused": (["-c", "8", "--mesh", "2x2", "--backend", "pfb_fused", "-a", "-48",
+                   "--blocksize", "4096"],
+                  ["-c", "8", "--mesh", "2x2", "-a", "-48", "--blocksize", "4096"]),
+}
+
+
+@pytest.mark.parametrize("backend", list(MESH_FLOWS))
+def test_mesh_flow_matches_jax_cli(mesh_captures, tmp_path, monkeypatch, backend):
+    """--mesh on gloo ranks against the JAX CLI's --mesh files (its
+    ShardedFlagship in interpret mode; its ShardedChannelizedFM with AGC):
+    equal byte counts, and the samples within tests/test_sharded_flagship.py:
+    61-66's bounds (fused) or tests/test_sharding.py:130's 5e-3 (AGC)."""
+    monkeypatch.setenv("CSDR_PALLAS_INTERPRET", "1")
+    path, n = mesh_captures[backend]
+    argv, jargv = MESH_FLOWS[backend]
+    common = ["--filename", path, "-n", str(n), "--demod", "DeNBFM 0.6 WAV"]
+    assert jax_main(common + jargv + ["-o", str(tmp_path / "j")]) == 0
+    assert main(common + argv + ["-o", str(tmp_path / "p"), "--device", "cpu"]) == 0
+    nch = int(argv[1])
+    for i in range(1, nch + 1):
+        assert (os.path.getsize(tmp_path / f"p_ch{i}.wav")
+                == os.path.getsize(tmp_path / f"j_ch{i}.wav")), i
+    got = _outputs(str(tmp_path / "p"), nch, "wav").astype(np.float64)
+    want = _outputs(str(tmp_path / "j"), nch, "wav")
+    assert got.shape == want.shape == (nch, n // nch)
+    d = np.abs(got - want)
+    if backend == "fused":
+        assert float(np.mean(d > 0.01)) < 0.005, float(np.mean(d > 0.01))
+        assert float(np.quantile(d, 0.99)) < 1e-4, float(np.quantile(d, 0.99))
+    else:
+        assert d.max() / np.abs(want).max() < 5e-3
+        assert not want[1::2].any() and not got[1::2].any()   # the squelch holds
+
+
+@pytest.mark.parametrize("extra,why", [
+    (["--mesh", "64x1", "--device", "cuda"], "mesh 64x1: 64 ranks need 64 CUDA devices"),
+    (["--mesh", "2x1", "--demod", "DeAM WAV"], "ShardedChain"),
+    (["--mesh", "2x1", "-m"], "ShardedChain"),
+    (["--mesh", "2x2", "--backend", "fused"], "over time only"),
+    (["--mesh", "2x3"], "does not split over 3 channel ranks"),
+])
+def test_mesh_refusals(captures, tmp_path, capsys, extra, why):
+    args = ["--filename", captures["cf32"], "-c", str(NCH), "-o", str(tmp_path / "x"),
+            "--demod", "DeNBFM 0.6 F32", "--device", "cpu"] + extra
+    assert main(args) != 0
+    assert why in capsys.readouterr().err
+    assert not any(f.startswith("x") for f in os.listdir(tmp_path))
+
+
+def test_dryrun_multichip_on_gloo_ranks():
+    """One channelized step and two flagship steps on a 2x2 mesh of four
+    gloo ranks, shapes asserted in every rank."""
+    from csdr_tpu_torch.parallel import dryrun_multichip
+
+    out = dryrun_multichip(4, "cpu")
+    assert out == [((2, 2), (4, 40), (64, 32))] * 4
+
+
 def test_cuda_device_without_a_card_is_an_error(captures, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -404,6 +493,7 @@ def test_package_imports_without_jax():
         import csdr_tpu_torch.ops.cuda.fir_valid, csdr_tpu_torch.ops.cuda.fft_fir
         import csdr_tpu_torch.models.stereo, csdr_tpu_torch.models.rds
         import csdr_tpu_torch.core.checkpoint, csdr_tpu_torch.utils.iirdes
+        import csdr_tpu_torch.parallel, csdr_tpu_torch.core.sharding
         bad = [m for m in sys.modules if m == "jax" and sys.modules[m] is not None
                or m.startswith(("jax.", "jaxlib")) or m == "csdr_tpu"
                or m.startswith("csdr_tpu.")]
