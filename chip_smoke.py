@@ -105,6 +105,24 @@ and ShardedFlagship runs with force_full):
   it.  ``python3 chip_smoke.py --mesh-only`` runs identity, build, phase 4
   and phase 7 alone.
 
+and for the packet receivers (models/ais, aprs, adsb, pocsag, rtty):
+
+  8.  seeded 2^25-sample cu8 captures made with the port's own
+      transmitters: DeADSB at -s 2000000 (4,000 DF17 ident, position and
+      velocity frames spread over the capture), DeAIS at -s 1920000 --offset 25000 -b 48000
+      (GMSK bursts on one channel), DeAPRS at --offset -60000 -b 48000
+      (keyed NBFM with AX.25 UI frames), DePOCSAG at --offset 150000
+      -b 38400 (alpha and numeric pages) and DeRTTY at --offset 300000
+      -b 48000 (USB, 45.45 Bd: its two 1,056-tap bit filters run on K5,
+      held against its plain version at that shape in 3c).  Each flow on
+      the card must decode every injected message and nothing else, write
+      the same .txt as its --device cpu run, and launch its kernels (K5 in
+      DeRTTY) and no other; then the band monitor (pocsag_band_monitor, 64
+      channels x 38.4 kHz, pages on four channels) through the library,
+      pfb_fused (K4) against eager: 2e-3 on the envelopes and on the paged
+      channels' scores, and every page decoded on its channel.  MSPS per
+      flow; the idle share and device time of each in a process of its own.
+
 Prints one JSON object per result, then the nvidia-smi line, the kernels
 line and, last, {"ok": true, "device": {...}}.  Each kernels entry carries
 bound_ms: the larger of the bytes the function must move (each input read
@@ -128,6 +146,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -842,7 +861,12 @@ def fir_cases(torch, dev):
     rds_taps = g.blocks[-1].b2.blocks[0].h_data
     check((len(rds_taps), fms_block) == (333, 1046400),
           f"RDS data filter: {len(rds_taps)} taps, {fms_block} samples per block")
+    rtty = rtty_taps()
     return [
+        # 8's DeRTTY at 48 kHz: each of the two 1,056-tap bit filters on one
+        # complex row per block of the CLI's default 2^20 samples
+        ("fir_valid", "c1_complex_rtty_1056", fv.fir_valid, fv.fir_valid_ref, rtty, 1,
+         RTTY_BLOCK, True),
         # 6b's RDS data filter: one real row per DeFMS --rds block
         ("fir_valid", "c1_real_rds_333", fv.fir_valid, fv.fir_valid_ref, rds_taps, 1, fms_block,
          False),
@@ -861,6 +885,18 @@ def fir_cases(torch, dev):
         ("fft_fir", "k6_c1_complex_3651", fx.fft_fir_valid, fx.fft_fir_valid_ref, cw1, 1, BLOCK,
          True),
     ]
+
+
+RTTY_BLOCK = 1 << 20     # the CLI's default block: DeRTTY's K5 rows
+
+
+def rtty_taps() -> np.ndarray:
+    """DeRTTY's bit filter at 48 kHz: the 1,056-tap moving average."""
+    from csdr_tpu_torch.models import rtty
+
+    taps = rtty.rtty_receiver(48000.0).blocks[0].parts[0][1].taps
+    check(len(taps) == 1056, f"RTTY bit filter: {len(taps)} taps")
+    return taps
 
 
 def rand_rows(torch, dev, rows: int, n: int, cplx: bool, seed: int):
@@ -1415,6 +1451,392 @@ def phase_checkpoint(torch, ct, ff, pf, dev, card, capture) -> dict:
     return out
 
 
+# ---- 8. packet receivers -----------------------------------------------------
+
+PKT_FS = 1920000             # -s of the AIS, APRS, POCSAG and RTTY captures
+ADSB_FS = 2000000            # -s of the ADS-B capture: 2 samples per µs
+AIS_OFFSET = 25000.0         # AIS 2 at 162.025 MHz, tuned to 162.000
+APRS_OFFSET = -60000.0       # the APRS carrier 60 kHz below the tuning
+POCSAG_OFFSET = 150000.0
+RTTY_OFFSET = 300000.0       # the RTTY signal's suppressed carrier (USB)
+BAND_NCH, BAND_RATE = 64, 38400.0   # the band monitor: 64 × 38.4 kHz = 2.4576 MS/s
+BAND_PAGES = {5: 3, 17: 3, 40: 2, 58: 3}    # channel → pages sent on it
+RTTY_TEXT = ("CQ CQ CQ DE N0CALL N0CALL K RYRYRYRYRY THE QUICK BROWN FOX JUMPS OVER "
+             "THE LAZY DOG 0123456789 73")
+
+
+def write_cu8(path: str, x: np.ndarray, scale: float = 60.0):
+    """complex → interleaved rtl_sdr uint8 on disk, in pieces of 2^22."""
+    with open(path, "wb") as f:
+        for i in range(0, len(x), 1 << 22):
+            p = x[i:i + (1 << 22)]
+            ri = np.stack([p.real, p.imag], 1) * scale + 127.5
+            np.clip(np.round(ri), 0, 255).astype(np.uint8).tofile(f)
+
+
+def host_noise(n: int, seed: int, sigma: float) -> np.ndarray:
+    r = np.random.default_rng(seed)
+    return (r.standard_normal((n, 2), dtype=np.float32) * np.float32(sigma)).view(
+        np.complex64)[:, 0]
+
+
+def carrier(start: int, n: int, f: float, fs: float) -> np.ndarray:
+    """e^{j2π·f·t/fs} at the absolute sample indices start .. start + n."""
+    t = np.arange(start, start + n, dtype=np.float64)
+    return np.exp(2j * np.pi * np.mod(f / fs * t, 1.0))
+
+
+def front_end_delay(ct, fs: float, bw: float) -> float:
+    """The front end's group delay in output samples (the centroid of its
+    impulse response, on the CPU): the AIS bursts are placed so that it
+    lands their symbols on the GMSK slicer's grid."""
+    g = ct.chain(*ct.front_end(fs, 0.0, bw))
+    n = 1 << 16
+    x = np.zeros(n, np.complex64)
+    x[n // 4] = 1.0
+    sink = ct.CollectSink()
+    ct.Pipeline(g, block_size=g.granule * 64, device="cpu").run(iter([x]), sink, num_samples=n)
+    y = sink.concat().real.astype(np.float64)
+    return float((np.arange(len(y)) * y).sum() / y.sum() - n // 4 * float(g.rate))
+
+
+ADSB_FRAMES = 4000           # the JAX decoder stops at 4,096 messages per call
+                             # (detect_frames' max_candidates, ROADMAP Queue C)
+
+
+def adsb_capture(n: int, seed: int):
+    """ADSB_FRAMES DF17 ident, even and odd position and velocity frames of
+    250 aircraft, evenly spread (±100 µs) over the capture at 2 MS/s (~240
+    frames per second over 2^25 samples); returns (IQ, the messages the
+    protocol layer gives the clean frames)."""
+    from csdr_tpu_torch.models import adsb
+
+    rng = np.random.default_rng(seed)
+    icaos = rng.choice(np.arange(0x400000, 0xC00000), 250, replace=False)
+    lat = rng.uniform(40.0, 55.0, 250)
+    lon = rng.uniform(-5.0, 15.0, 250)
+    mag = np.zeros(n, np.float32)
+    step = (n - 4000) // ADSB_FRAMES
+    want, pos, i = [], 2000, 0
+    while i < ADSB_FRAMES:
+        a, kind = i % 250, (i // 250) % 4
+        icao = int(icaos[a])
+        if kind == 0:
+            bits = adsb.make_es_ident(icao, f"TPU{a:04d}")
+        elif kind in (1, 2):
+            bits = adsb.make_es_position(icao, lat[a], lon[a], 1000 + 25 * (a * 37 % 1500),
+                                         odd=kind == 2)
+        else:
+            bits = adsb.make_es_velocity(icao, float(a % 300) - 150.0, 200.0, 64 * (a % 20))
+        mag[pos:pos + 240] = adsb.adsb_modulate(bits, ADSB_FS)
+        msg = adsb.decode_frame(bits)
+        msg["sample"] = pos + 16
+        want.append(msg)
+        pos = 2000 + (i + 1) * step + int(rng.integers(-200, 200))
+        i += 1
+    iq = adsb.to_iq(mag).astype(np.complex64) + host_noise(n, seed + 1, 0.02)
+    return iq, adsb.pair_positions(want)
+
+
+def ais_capture(ct, n: int, seed: int):
+    """GMSK bursts of class-A position reports on one AIS channel, 0.2 s
+    apart, at PKT_FS with the channel AIS_OFFSET above the tuning; each
+    burst placed so that the front end's delay puts its symbols on the
+    slicer's grid (k = 5 at 48 kHz)."""
+    from csdr_tpu_torch.models import ais
+
+    rng = np.random.default_rng(seed)
+    k_in = PKT_FS // 9600                    # 200 samples per bit
+    dec = PKT_FS // 48000                    # 40 input samples per output sample
+    shift = int(round(-front_end_delay(ct, PKT_FS, 48000.0) * dec)) % (5 * dec)
+    x = np.zeros(n, np.complex64)
+    want, start = [], 20000
+    while True:
+        mmsi = int(rng.integers(200000000, 780000000))
+        pb = ais.make_position_report(mmsi, float(rng.uniform(-80, 80)),
+                                      float(rng.uniform(-179, 179)),
+                                      round(float(rng.uniform(0, 30)), 1),
+                                      round(float(rng.uniform(0, 359)), 1), int(rng.integers(1, 4)))
+        lv = np.concatenate([np.array([0, 1] * 4, np.uint8), ais.ais_burst_bits(pb),
+                             np.array([0, 1] * 4, np.uint8)])
+        s = start - start % (5 * dec) + shift
+        if s + len(lv) * k_in + 20000 > n:
+            break
+        x[s:s + len(lv) * k_in] = 0.5 * ais.ais_modulate(lv, k_in) * carrier(
+            s, len(lv) * k_in, AIS_OFFSET, PKT_FS)
+        want.append(ais.parse_payload(pb))
+        start = s + int(0.2 * PKT_FS)
+    return x + host_noise(n, seed + 1, 0.02), want
+
+
+def aprs_capture(n: int, seed: int):
+    """Keyed NBFM carriers (3 kHz deviation) with AX.25 UI frames, one per
+    0.4 s, APRS_OFFSET from the tuning at PKT_FS; every frame starts on the
+    same bit phase (the decoder's open-loop bit clock is one per stream)."""
+    from csdr_tpu_torch.models import aprs
+
+    rng = np.random.default_rng(seed)
+    bit = PKT_FS // 1200                     # 1,600 samples per bit
+    x = np.zeros(n, np.complex64)
+    want, start, i = [], 16000, 0
+    while True:
+        frame = aprs.make_ax25_ui(f"N{i % 10}CALL-{i % 16}", "APRS",
+                                  f"!{4000 + i:04d}.50N/0{7000 + i:04d}.75W-seq {i}",
+                                  via=("WIDE1-1",) if i % 3 == 0 else ())
+        audio = aprs.afsk_modulate(aprs.aprs_burst_bits(frame), PKT_FS).astype(np.float64)
+        if start + len(audio) + 16000 > n:
+            break
+        ph = 2 * np.pi * 3000.0 / PKT_FS * np.cumsum(audio) + rng.uniform(0, 2 * np.pi)
+        x[start:start + len(audio)] = 0.5 * np.exp(1j * ph) * carrier(
+            start, len(audio), APRS_OFFSET, PKT_FS)
+        want.append(aprs.parse_ax25(frame))
+        start += int(0.4 * PKT_FS) // bit * bit
+        i += 1
+    return x + host_noise(n, seed + 1, 0.02), want
+
+
+POCSAG_PAGES = ["FIRE ALARM ZONE 3", "0123456789", "CALL OPS 2200", "55 12 -(0)",
+                "PAGER TEST OK", "1234 5678", "NEED ASSIST BAY 7", "911"]
+
+
+def pocsag_capture(n: int, seed: int):
+    """Alpha and numeric pages (1200 baud, ±4.5 kHz, inverted polarity)
+    back to back POCSAG_OFFSET from the tuning at PKT_FS, on the bit grid."""
+    from csdr_tpu_torch.models import pocsag
+
+    rng = np.random.default_rng(seed)
+    bit = PKT_FS // 1200
+    x = np.zeros(n, np.complex64)
+    want, start, i = [], 16000, 0
+    while True:
+        ric = int(rng.integers(8, 1 << 21))
+        lv = pocsag.make_transmission(ric, POCSAG_PAGES[i % len(POCSAG_PAGES)])
+        m = len(lv) * bit
+        if start + m + 16000 > n:
+            break
+        x[start:start + m] = 0.5 * pocsag.pocsag_modulate(lv, PKT_FS) * carrier(
+            start, m, POCSAG_OFFSET, PKT_FS)
+        want += pocsag.decode_bits(lv)
+        start += m + int(0.1 * PKT_FS) // bit * bit
+        i += 1
+    return x + host_noise(n, seed + 1, 0.02), want
+
+
+def rtty_capture(n: int, seed: int):
+    """RTTY_TEXT at 45.45 Bd, 170 Hz shift, between idle marks that fill the
+    capture, as USB audio on a carrier RTTY_OFFSET above the tuning at
+    PKT_FS (the real audio's image sideband is what the USB filter
+    rejects)."""
+    from csdr_tpu_torch.models import rtty
+
+    # idle mark fills the capture on both sides of the text: noise alone
+    # would frame random characters
+    k = PKT_FS / rtty.RTTY_BAUD
+    idle = (n / k - 7.5 * len(rtty.ita2_encode(RTTY_TEXT))) / 2 - 1
+    check(idle >= 2, f"RTTY text needs more than the capture's {n} samples")
+    audio = rtty.rtty_modulate(RTTY_TEXT, PKT_FS, idle_bits=idle)
+    x = np.zeros(n, np.complex64)
+    x[:len(audio)] = 0.5 * audio * carrier(0, len(audio), RTTY_OFFSET, PKT_FS)
+    return x + host_noise(n, seed + 1, 0.02), [rtty.ita2_decode(rtty.ita2_encode(RTTY_TEXT))]
+
+
+def band_capture(n: int, seed: int):
+    """A paging band: 64 channels of 38.4 kHz, pages (FSK synthesized at
+    the band's rate on the channel centre) on the channels of BAND_PAGES,
+    staggered in time; returns (IQ, [(channel, ric, text)] in the order
+    decode_channels gives them)."""
+    from csdr_tpu_torch.models import pocsag
+
+    fs = BAND_NCH * BAND_RATE
+    rng = np.random.default_rng(seed)
+    x = host_noise(n, seed + 1, 0.01)
+    want = []
+    for ch, count in BAND_PAGES.items():
+        fc = (ch - (BAND_NCH - 1) / 2) / BAND_NCH * fs
+        start = int(rng.integers(20000, 400000))
+        for j in range(count):
+            ric = int(rng.integers(8, 1 << 21))
+            text = POCSAG_PAGES[(ch + j) % len(POCSAG_PAGES)]
+            lv = pocsag.make_transmission(ric, text)
+            bb = pocsag.pocsag_modulate(lv, fs)
+            check(start + len(bb) < n, f"band page on channel {ch} runs past the capture")
+            x[start:start + len(bb)] += 0.5 * bb * carrier(start, len(bb), fc, fs)
+            want += [dict(m, channel=ch) for m in pocsag.decode_bits(lv)]
+            start += len(bb) + int(rng.integers(10000, 200000))
+    return x, want
+
+
+def on_air_mask(env: np.ndarray, k: float, level: float = 0.1) -> np.ndarray:
+    """Samples whose envelope, and that of the k samples before (the bit
+    filter's window and the discriminator's previous sample), is above
+    ``level``: where a page is on the air."""
+    k = int(round(k))
+    on = (env > level).astype(np.float64)
+    run = np.apply_along_axis(lambda r: np.convolve(r, np.ones(k + 1))[:len(r)], -1, on)
+    return run > k + 0.5
+
+
+def band_pipeline(ct, backend: str, dev):
+    """8's library path: u8 → IQ → pocsag_band_monitor(64, 38.4 kHz)."""
+    from csdr_tpu_torch.models import pocsag
+
+    g = pocsag.pocsag_band_monitor(BAND_NCH, BAND_RATE, backend=backend)
+    return ct.Pipeline(ct.chain(ct.u8_to_iq(), g), block_size=BLOCK, device=dev)
+
+
+def packet_flows(ct) -> dict:
+    """The five CLI flows of 8: kind → (capture writer, -s, extra argv,
+    output rate, expected messages)."""
+    return {
+        "DeADSB": (lambda n, s: adsb_capture(n, s), ADSB_FS, [], ADSB_FS),
+        "DeAIS": (lambda n, s: ais_capture(ct, n, s), PKT_FS,
+                  ["--offset", f"{AIS_OFFSET:g}", "-b", "48000"], 48000),
+        "DeAPRS": (lambda n, s: aprs_capture(n, s), PKT_FS,
+                   ["--offset", f"{APRS_OFFSET:g}", "-b", "48000"], 48000),
+        "DePOCSAG": (lambda n, s: pocsag_capture(n, s), PKT_FS,
+                     ["--offset", f"{POCSAG_OFFSET:g}", "-b", "38400"], 38400),
+        "DeRTTY": (lambda n, s: rtty_capture(n, s), PKT_FS,
+                   ["--offset", f"{RTTY_OFFSET:g}", "-b", "48000"], 48000),
+    }
+
+
+PACKET_DEMOD = {"DeADSB": "DeADSB", "DeAIS": "DeAIS", "DeAPRS": "DeAPRS 0.5",
+                "DePOCSAG": "DePOCSAG 1200", "DeRTTY": "DeRTTY"}
+PACKET_KERNELS = {"DeRTTY": "fir_valid"}     # the kernels each flow must launch
+
+
+def phase_packet(torch, ct, ff, pf, dev, card, tmp, samples: int = CAPTURE) -> dict:
+    """8. The packet receivers: each CLI flow on a seeded cu8 capture of
+    ``samples`` samples on the card, every injected message decoded and
+    nothing else, its .txt equal to the same flow's --device cpu run's,
+    its kernels' launches (K5 in DeRTTY, none elsewhere), MSPS and, each in
+    a child process, the device idle share and device time; then the band
+    monitor through the library on K4 against eager."""
+    from csdr_tpu_torch.apps import soapy_sdr_cli as cli
+
+    out, idle_specs = {}, []
+    for i, (kind, (make, fs, extra, rate)) in enumerate(packet_flows(ct).items()):
+        t0 = time.perf_counter()
+        x, msgs = make(samples, SEED + 800 + 10 * i)
+        path = os.path.join(tmp, f"{kind}.cu8")
+        write_cu8(path, x)
+        gen_s = time.perf_counter() - t0
+        del x
+        n_out = samples * rate // fs
+        want = cli.packet_lines(kind, msgs)
+        common = ["--filename", path, "-s", str(fs), *extra, "-n", str(n_out),
+                  "--demod", PACKET_DEMOD[kind]]
+        prefix = {d: os.path.join(tmp, f"{kind}_{d}") for d in ("cuda", "cpu")}
+        suffix = cli.PACKET_SUFFIX[kind]
+        # the CLI prints every decoded message: thousands of lines
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            dt, counts = cli_run(torch, ff, pf, cli.main,
+                                 common + ["-o", prefix["cuda"], "--device", "cuda"])
+            check_counts(counts, PACKET_KERNELS.get(kind), f"CLI {kind}")
+            dt_cpu, _ = cli_run(torch, ff, pf, cli.main,
+                                common + ["-o", prefix["cpu"], "--device", "cpu"])
+        with open(prefix["cuda"] + suffix) as f:
+            got = f.read()
+        with open(prefix["cpu"] + suffix) as f:
+            got_cpu = f.read()
+        lines = got.splitlines()
+        missing = list((Counter(want) - Counter(lines)).elements())
+        extra_lines = list((Counter(lines) - Counter(want)).elements())
+        out[kind] = dict(seconds=dt, msps=samples / dt / 1e6, launches=counts,
+                         messages=len(lines), injected=len(want), cpu_seconds=dt_cpu,
+                         capture_seconds=gen_s, equal_to_cpu=got == got_cpu)
+        emit(dict(phase="packet", flow=f"-s {fs} {' '.join(extra)} {PACKET_DEMOD[kind]}",
+                  wire="cu8", samples=samples, output_rate=rate,
+                  missing=missing[:3], unexpected=extra_lines[:3], **out[kind], **card))
+        check(lines == want, f"CLI {kind}: {len(missing)} injected messages missing, "
+                             f"{len(extra_lines)} unexpected, of {len(want)}")
+        check(got == got_cpu, f"CLI {kind}: the card's {suffix} differs from --device cpu's")
+        idle_specs.append({"cli": common + ["-o", prefix["cuda"], "--device", "cuda"]})
+        out[kind]["path"] = path
+
+    # the band monitor through the library: K4 against eager
+    t0 = time.perf_counter()
+    x, want = band_capture(samples, SEED + 900)
+    band_path = os.path.join(tmp, "band.cu8")
+    write_cu8(band_path, x)
+    gen_s = time.perf_counter() - t0
+    del x
+    from csdr_tpu_torch.models import pocsag
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+
+    def band_run(backend, kern):
+        sink = ct.CollectSink()
+        torch.cuda.synchronize()
+        reset_counts(ff, pf, fv, fx)
+        t0 = time.perf_counter()
+        band_pipeline(ct, backend, dev).run(ct.cu8_file_source(band_path, BLOCK), sink)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts(ff, pf, fv, fx)
+        check_counts(counts, kern, f"band monitor {backend}")
+        return dt, counts, sink
+
+    res, kerns = {}, {"pfb_fused": "pfb_channelize_fused", "eager": None}
+    for backend, kern in kerns.items():
+        _, counts, sink = band_run(backend, kern)
+        score, env = sink.concat()
+        check(score.shape == env.shape == (BAND_NCH, samples // BAND_NCH),
+              f"band monitor {backend}: leaves {score.shape} {env.shape}")
+        msgs = pocsag.decode_channels((score, env), BAND_RATE)
+        res[backend] = dict(secs=[], launches=counts, msgs=msgs, score=score, env=env)
+        idle_specs.append({"band_monitor": backend, "capture": band_path})
+    # the rate: warm runs in turns, after the runs above paid each first use
+    order = ["pfb_fused", "eager", "eager", "pfb_fused"]
+    for backend in order:
+        res[backend]["secs"].append(band_run(backend, kerns[backend])[0])
+    for r in res.values():
+        r["seconds"] = statistics.median(r["secs"])
+        r["msps"] = samples / r["seconds"] / 1e6
+    paged = sorted(BAND_PAGES)
+    (k, e) = res["pfb_fused"], res["eager"]
+    env_max = float(np.abs(k["env"] - e["env"]).max())
+    # the score where a page is on the air: the discriminator's atan2 turns
+    # K4's rounding on a noise-only sample into a ±2π branch flip (±1/(kf·k)
+    # after the bit filter), as K3's demod (tests/test_torch_cuda.py)
+    on_air = on_air_mask(e["env"][paged], BAND_RATE / 1200.0)
+    score_max = float(np.abs(k["score"][paged] - e["score"][paged])[on_air].max())
+    key = lambda m: (m["channel"], m["ric"], m["fn"], m["text"])  # noqa: E731
+    for backend, r in res.items():
+        out[f"band monitor {backend}"] = dict(
+            seconds=r["seconds"], msps=r["msps"], seconds_in_turns=r["secs"],
+            launches=r["launches"],
+            messages=len(r["msgs"]), injected=len(want), capture_seconds=gen_s,
+            decoded_as_injected=[key(m) for m in r["msgs"]] == [key(m) for m in want])
+    emit(dict(phase="packet", flow=f"library pocsag_band_monitor({BAND_NCH}, {BAND_RATE:g})",
+              wire="cu8", samples=samples, blocks=-(-samples // BLOCK), order=order,
+              on_air_share=float(on_air.mean()),
+              k4_vs_eager_env_max=env_max, k4_vs_eager_score_max_paged=score_max,
+              **{f"{b}": out[f"band monitor {b}"] for b in res}, **card))
+    for backend, r in res.items():
+        check(out[f"band monitor {backend}"]["decoded_as_injected"],
+              f"band monitor {backend}: decoded {[key(m) for m in r['msgs']][:4]}…, "
+              f"injected {[key(m) for m in want][:4]}…")
+    check(env_max < PFB_MAX_ERR and score_max < PFB_MAX_ERR,
+          f"band monitor K4 vs eager: envelope {env_max}, score {score_max}")
+    out["band monitor pfb_fused"].update(k4_vs_eager_env_max=env_max,
+                                         k4_vs_eager_score_max_paged=score_max)
+    del res
+
+    # idle share and device time of every flow, each in a process of its own
+    labels = list(packet_flows(ct)) + ["band monitor pfb_fused", "band monitor eager"]
+    for label, spec in zip(labels, idle_specs):
+        out[label].update(idle_share(spec))
+    for kind in packet_flows(ct):
+        os.unlink(out[kind].pop("path"))
+    os.unlink(band_path)
+    emit(dict(phase="packet_summary", **{label: {k: v for k, v in r.items() if k in (
+        "msps", "device_idle_share", "device_ms", "device_ms_by_kernel", "port_kernels",
+        "idle_session")}
+        for label, r in out.items()}, **card))
+    return out
+
+
 MESH_MAX = 4                 # ranks of the mesh phase: min(cards, MESH_MAX)
 MESH_BLOCKS = 2              # blocks of each ShardedChannelizedFM run
 
@@ -1838,11 +2260,16 @@ def idle_share(spec: dict) -> dict:
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
+PORT_KERNEL = re.compile(r"(dc_chunk|carry_scan|channel_tile|pfb_tile<[^>]*>|fir_valid_tile|"
+                         r"fft_fir_segment)")
+
+
 def idle_child(spec: dict, tries: int = 3) -> int:
     """The process behind ``idle_share``: one unprofiled run of the flow,
     then profiled runs until one whose trace holds a device kernel for
     every launch call (at most ``tries``).  Prints {"device_idle_share",
-    "idle_session"}; the share is null where every session lost records."""
+    "device_ms", "device_ms_by_kernel", "port_kernels", "idle_session"};
+    the share is null where every session lost records."""
     import torch
 
     sys.path.insert(0, HERE)
@@ -1854,7 +2281,13 @@ def idle_child(spec: dict, tries: int = 3) -> int:
         from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
 
         def fn():
-            check(cli_main(spec["cli"]) == 0, f"idle share: CLI {spec['cli']}")
+            # a packet flow prints every decoded message
+            with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+                check(cli_main(spec["cli"]) == 0, f"idle share: CLI {spec['cli']}")
+    elif "band_monitor" in spec:
+        def fn():
+            band_pipeline(ct, spec["band_monitor"], dev).run(
+                ct.cu8_file_source(spec["capture"], BLOCK), ct.CollectSink())
     else:
         def fn():
             checkpoint_pipeline(ct, spec["checkpoint"], dev).run(
@@ -1867,7 +2300,13 @@ def idle_child(spec: dict, tries: int = 3) -> int:
         if n_dev == n_host:
             break
     busy_s = sum(v["device_us"] for v in kern.values()) * 1e-6
+    top = sorted(kern.items(), key=lambda kv: -kv[1]["device_us"])[:4]
     emit(dict(device_idle_share=1.0 - busy_s / wall if n_dev == n_host else None,
+              device_ms=busy_s * 1e3,
+              device_ms_by_kernel={k[:60]: v["device_us"] * 1e-3 for k, v in top},
+              # the port's own kernels, whatever their share: (launches, device ms)
+              port_kernels={m.group(1): (v["count"], v["device_us"] * 1e-3)
+                            for k, v in kern.items() if (m := PORT_KERNEL.search(k))},
               idle_session=dict(device_kernels=n_dev, launch_calls=n_host, sessions=t,
                                 wall_s=wall)))
     return 0
@@ -1905,6 +2344,8 @@ def phase_profile(torch, dev, card):
     xr = rand_rows(torch, dev, 1, BLOCK + len(cw1) - 1, False, SEED + 13)
     x5 = rand_rows(torch, dev, 64, BLOCK // 64 + len(cw64) - 1, True, SEED + 14)
     x3 = rand_rows(torch, dev, 1, BLOCK + len(cw1) - 1, True, SEED + 15)
+    rtty = rtty_taps()
+    xr1 = rand_rows(torch, dev, 1, RTTY_BLOCK + len(rtty) - 1, True, SEED + 16)[0]
     steps = {
         "flagship_fused": k1,
         "flagship_fused_nch20": k2,
@@ -1912,6 +2353,7 @@ def phase_profile(torch, dev, card):
         "pfb_channelize_fused": lambda: pf.pfb_channelize_fused(v4, taps, W, nch=64, L=14),
         "fir_valid": lambda: fv.fir_valid(x5, cw64),
         "fir_valid_3651": lambda: fv.fir_valid(x3, cw1),
+        "fir_valid_rtty": lambda: fv.fir_valid(xr1, rtty),
         "fft_fir": lambda: fx.fft_fir_valid(xu, usb),
         "fft_fir_real_real": lambda: fx.fft_fir_valid(xr, cw1),
     }
@@ -2003,6 +2445,7 @@ def main(mesh_only: bool = False) -> int:
         wbfm = phase_wbfm(torch, ff, pf, dev, card, tmp)  # 6a
         fms = phase_stereo_rds(torch, ff, pf, dev, card, tmp)  # 6b
         mix = phase_mix(torch, ff, pf, dev, card, tmp)  # 6c
+        pkt = phase_packet(torch, ct, ff, pf, dev, card, tmp)  # 8
         emit(dict(phase="broadcast_and_mix_flows", msps={
             "DeWBFM": wbfm["msps"], "DeFMS --rds": fms["msps"],
             **{f"-c {MIX_NCH} -m {k}": v["msps"] for k, v in mix.items()},
@@ -2097,6 +2540,11 @@ def main(mesh_only: bool = False) -> int:
         "launches": pfb_runs["pfb_channelize_fused"]["launches"],
         "launches_raw_split": pfb_runs["raw_split"]["launches"],
         "launches_mix_agc_run": mix["pfb_fused -a"]["launches"]["pfb_channelize_fused"],
+        "launches_band_monitor_run": pkt["band monitor pfb_fused"]["launches"][
+            "pfb_channelize_fused"],
+        "band_monitor": {k: pkt["band monitor pfb_fused"][k] for k in (
+            "msps", "device_idle_share", "device_ms", "k4_vs_eager_env_max",
+            "k4_vs_eager_score_max_paged")},
         "launches_mesh_runs_per_rank": {
             f"{c['mesh'][0]}x{c['mesh'][1]}": [n["pfb_channelize_fused"]
                                                for n in c["launches_per_rank"]]
@@ -2127,6 +2575,7 @@ def main(mesh_only: bool = False) -> int:
         "launches_pfb_fused_run": fir_runs["fir_valid"]["launches_pfb_fused"],
         "launches_single_channel_run": fir_runs["fir_valid_single"],
         "launches_rds_run": fms["launches"]["fir_valid"],
+        "launches_rtty_run": pkt["DeRTTY"]["launches"]["fir_valid"],
         "max_abs_err": errs["c64_complex_585"][0],
         "vs_fft_strategy_rel": errs["c64_complex_585"][1],
         "ms": fir_med[("c64_complex_585", "kernel")],
@@ -2143,7 +2592,11 @@ def main(mesh_only: bool = False) -> int:
                                  device_ms=per_step["fir_valid_3651"][1],
                                  **fir_bound(1, BLOCK, 3651, True, False))),
                              ("c1_real_rds_333", fir_bound(1, fms_graph()[1], 333, False,
-                                                           False)))},
+                                                           False)),
+                             ("c1_complex_rtty_1056", dict(
+                                 launches_per_step=per_step["fir_valid_rtty"][0],
+                                 device_ms=per_step["fir_valid_rtty"][1],
+                                 **fir_bound(1, RTTY_BLOCK, 1056, True, False))))},
         "pipeline_msps": {f"{f} {b}": r for (f, b), r in fir_rates.items()
                           if "DeCW" in f},
         "pipeline_msps_in_turns": {f"-c 64 DeCW {b}": r for b, r in cw_rates.items()},

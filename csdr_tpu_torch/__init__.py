@@ -39,7 +39,7 @@ from .models.receivers import (  # noqa: E402
 )
 from .models.stereo import stereo_fm_decoder  # noqa: E402
 from .models.rds import rds_receiver  # noqa: E402
-from .io.sources import cf32_file_source, cu8_file_source  # noqa: E402
+from .io.sources import cf32_file_source, cu8_file_source, f32_file_source  # noqa: E402
 from .io.sinks import (  # noqa: E402
     RawFileSink, AudioFileSink, BranchSinks, ChannelFileSinks, NullSink, CollectSink,
 )
@@ -53,7 +53,7 @@ __all__ = [
     "ssb_demodulator", "u8_to_iq", "wbfm_demodulator",
     "front_end", "wbfm_receiver", "nbfm_receiver", "am_receiver", "raw_capture",
     "channelized_receiver", "channelized_fm_receiver", "stereo_fm_decoder", "rds_receiver",
-    "cf32_file_source", "cu8_file_source",
+    "cf32_file_source", "cu8_file_source", "f32_file_source",
     "RawFileSink", "AudioFileSink", "BranchSinks", "ChannelFileSinks", "NullSink",
     "CollectSink",
 ]

@@ -16,7 +16,13 @@ port carries, from a .cf32 or .cu8 capture:
     decode to ``<output>.rds.txt``), ``"DeAM WAV|F32"``,
     ``"DeUSB|DeLSB bw_hz WAV|F32"``, ``"DeCW [bw_hz pitch_hz] WAV|F32"`` or
     ``DeNo`` (raw complex64); ``-a T`` adds an AGC with a T dB squelch.
-    Audio runs at int(bandwidth) // decim // nch Hz.
+    Audio runs at int(bandwidth) // decim // nch Hz;
+  * the packet flows (``-c 1`` only): ``"DeAIS"`` (GMSK at n·9600 S/s),
+    ``"DeAPRS [kf]"`` (NBFM → AFSK1200), ``"DeADSB"`` (Mode S at 2n MS/s,
+    no AGC), ``"DePOCSAG [baud]"`` and ``"DeRTTY [baud]"`` (USB → ITA2): the
+    device chain into a ``CollectSink``, the host-side decode, one line per
+    message on stdout, then ``N message(s)``, and the same lines in
+    ``<output>.{ais,aprs,adsb,pocsag,rtty}.txt``.
 
 ``--backend`` picks the channelizer of ``-c N`` flows: ``eager`` runs the
 plain PyTorch graph; ``pfb_fused`` runs its FIR and DFT in the K3 kernel
@@ -40,6 +46,8 @@ yet ported in csdr_tpu_torch".
         -c 64 --demod "DeCW 500 700 WAV" --backend pfb_fused --device cuda
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -s 2560000 \\
         -b 200000 -n 2621440 --demod "DeFMS 8 WAV" --rds --device cuda
+    python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename ais.cu8 -s 1920000 \\
+        --offset 25000 -b 48000 -n 838860 --demod DeAIS -o ais --device cuda
     python -m torch.distributed.run --nproc-per-node 4 -m csdr_tpu_torch.apps.soapy_sdr_cli \\
         --filename cap.cu8 -n 33554432 -c 64 --mesh 4x1 --backend fused \\
         --demod "DeNBFM 0.6 F32"
@@ -61,7 +69,8 @@ from ..core.runtime import Pipeline
 from ..io import sinks as S
 from ..io import sources as SRC
 
-__all__ = ["main", "build_parser", "run_opts", "parse_demod"]
+__all__ = ["main", "build_parser", "run_opts", "parse_demod", "packet_messages", "packet_lines",
+           "PACKET_SUFFIX"]
 
 _NOT_PORTED = "not yet ported in csdr_tpu_torch"
 
@@ -94,7 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help='Demodulation: "DeNBFM <kf> WAV|F32", "DeWBFM <decim> WAV|F32", '
                         '"DeFMS <decim> WAV|F32" (stereo), "DeAM WAV|F32", '
                         '"DeUSB|DeLSB <bw Hz> WAV|F32", "DeCW [<bw Hz> <pitch Hz>] '
-                        'WAV|F32" or DeNo (raw CF32)')
+                        'WAV|F32", DeNo (raw CF32), or the packet decoders DeAIS, '
+                        '"DeAPRS [kf]", DeADSB, "DePOCSAG [baud]", "DeRTTY [baud]" '
+                        '(-c 1; <output>.<kind>.txt)')
     p.add_argument("--rds", action="store_true",
                    help="With --demod 'DeFMS ...': also decode the 57 kHz RDS subcarrier "
                         "(PS/RadioText/PI) to <output>.rds.txt")
@@ -113,7 +124,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_DEMODS = ("DeNBFM", "DeWBFM", "DeFMS", "DeAM", "DeUSB", "DeLSB", "DeCW", "DeNo")
+PACKET_SUFFIX = {"DeAIS": ".ais.txt", "DeAPRS": ".aprs.txt", "DeADSB": ".adsb.txt",
+                 "DePOCSAG": ".pocsag.txt", "DeRTTY": ".rtty.txt"}
+_DEMODS = ("DeNBFM", "DeWBFM", "DeFMS", "DeAM", "DeUSB", "DeLSB", "DeCW", "DeNo", *PACKET_SUFFIX)
 
 
 def parse_demod(s: str):
@@ -135,6 +148,12 @@ def parse_demod(s: str):
         if len(toks) == 2:
             return ("DeCW", 500.0, 700.0, toks[1].upper())
         return ("DeCW", float(toks[1]), float(toks[2]), toks[3].upper())
+    if kind == "DeAPRS":
+        return ("DeAPRS", float(toks[1]) if len(toks) > 1 else 0.5)
+    if kind == "DePOCSAG":
+        return ("DePOCSAG", float(toks[1]) if len(toks) > 1 else 1200.0)
+    if kind == "DeRTTY":
+        return ("DeRTTY", float(toks[1]) if len(toks) > 1 else 1000.0 / 22.0)
     return (kind,)
 
 
@@ -142,8 +161,8 @@ def _refusal(opts, demod) -> str | None:
     """Why the requested flow is outside the port, or None."""
     if demod[0] not in _DEMODS:
         return (f"--demod {demod[0]} is {_NOT_PORTED}; use DeNBFM, DeWBFM, DeFMS, DeAM, "
-                "DeUSB, DeLSB, DeCW or DeNo")
-    if demod[0] != "DeNo" and demod[-1] not in ("WAV", "F32"):
+                "DeUSB, DeLSB, DeCW, DeNo, DeAIS, DeAPRS, DeADSB, DePOCSAG or DeRTTY")
+    if demod[0] not in ("DeNo", *PACKET_SUFFIX) and demod[-1] not in ("WAV", "F32"):
         return f"audio format {demod[-1]} is {_NOT_PORTED}; use WAV or F32"
     if opts.mesh and (demod[0] != "DeNBFM" or opts.channels < 2 or opts.mix):
         return (f"--mesh for this flow is {_NOT_PORTED} (the generic sharded chain, "
@@ -178,6 +197,78 @@ def _demod_block(demod, out_bw: float, nch: int):
     return None
 
 
+def _packet_graph(demod, agc: list, rate: float):
+    """The packet flow's device chain at the front end's output ``rate``,
+    as the JAX CLI composes it: ``[AGC >>]`` the receiver (no AGC for
+    DeADSB, whose envelope detector is its gain normalizer), a USB
+    demodulator in front of RTTY and an FM demodulator in front of APRS."""
+    from .. import blocks as B
+    from ..models import adsb, ais, aprs, pocsag, rtty
+
+    kind = demod[0]
+    if kind == "DeAIS":
+        return chain(*agc, ais.ais_receiver(rate))
+    if kind == "DeADSB":
+        return chain(adsb.adsb_receiver(rate))
+    if kind == "DePOCSAG":
+        return chain(*agc, pocsag.pocsag_receiver(rate, demod[1]))
+    if kind == "DeRTTY":
+        return chain(*agc, B.ssb_demodulator("usb", 3000.0 / rate),
+                     rtty.rtty_receiver(rate, demod[1]))
+    return chain(*agc, B.fm_demodulator(demod[1]), aprs.afsk1200_receiver(rate))
+
+
+def packet_messages(demod, collected, rate: float) -> list:
+    """Decode a packet flow's collected output at ``rate``: message dicts,
+    or for DeRTTY the non-empty lines of the decoded text."""
+    from ..models import adsb, ais, aprs, pocsag, rtty
+
+    kind = demod[0]
+    if kind == "DeAIS":
+        return ais.decode_bits(np.asarray(collected))
+    if kind == "DeADSB":
+        return adsb.pair_positions(adsb.decode_collected(collected, rate))
+    if kind == "DePOCSAG":
+        return pocsag.decode_score(np.asarray(collected), rate, demod[1])
+    if kind == "DeRTTY":
+        text = rtty.decode_score(np.asarray(collected), rate, demod[1])
+        return [ln for ln in text.splitlines() if ln.strip()]
+    return aprs.decode_score(np.asarray(collected), rate)
+
+
+def packet_lines(kind: str, msgs: list) -> list[str]:
+    """The lines the JAX CLI prints and writes for a packet flow's messages."""
+    from .adsb_decode import format_msg as adsb_line
+    from .pocsag_decode import format_msg as pocsag_line
+
+    if kind == "DeAIS":
+        return [(f"type {m['type']} mmsi {m['mmsi']:09d} "
+                 f"lat {m['lat_deg']:+.5f} lon {m['lon_deg']:+.5f} "
+                 f"sog {m['sog_kn']:.1f} cog {m['cog_deg']:.1f}"
+                 if "lat_deg" in m else f"type {m['type']} mmsi {m['mmsi']:09d}")
+                for m in msgs]
+    if kind == "DeADSB":
+        return [adsb_line(m) for m in msgs]
+    if kind == "DePOCSAG":
+        return [pocsag_line(m) for m in msgs]
+    if kind == "DeRTTY":
+        return list(msgs)
+    return [f"{m['src']}>{m['dst']}" + (("," + ",".join(m["via"])) if m["via"] else "")
+            + f":{m['info']}" for m in msgs]
+
+
+def _report_packet(opts, demod, collected, rate: float):
+    """Print the decoded lines and ``N message(s)``, and write the lines to
+    ``<output>.<kind>.txt``."""
+    msgs = packet_messages(demod, collected, rate)
+    lines = packet_lines(demod[0], msgs)
+    for ln in lines:
+        print(ln)
+    print(f"{len(msgs)} message(s)")
+    with open(opts.output + PACKET_SUFFIX[demod[0]], "w") as f:
+        f.write("\n".join(lines) + ("\n" if lines else ""))
+
+
 def _graph(opts, demod, agc_t, out_bw: float):
     """The flow's main graph behind the front end, composed as the JAX CLI
     composes it: ``dc_blocker >> [AGC] >> demod`` for -c 1 (DeFMS:
@@ -190,6 +281,8 @@ def _graph(opts, demod, agc_t, out_bw: float):
 
     nch = opts.channels
     agc = [B.automatic_gain_control(agc_t)] if agc_t is not None else []
+    if demod[0] in PACKET_SUFFIX:
+        return _packet_graph(demod, agc, out_bw)
     if demod[0] == "DeFMS":
         from ..core.block import Tee
         from ..models.rds import rds_receiver
@@ -213,8 +306,12 @@ def _graph(opts, demod, agc_t, out_bw: float):
 def _sink(opts, demod, out_bw: float):
     """The flow's sink: per-channel files for -c N, one file for -c 1 or
     ``-m``; DeFMS writes a 2-channel WAV, and with ``--rds`` routes the bit
-    branch to a CollectSink (returned second, else None)."""
+    branch to a CollectSink (returned second, else None); a packet flow
+    collects its whole output (returned twice)."""
     nch = opts.channels
+    if demod[0] in PACKET_SUFFIX:
+        bits = S.CollectSink()
+        return bits, bits
     decim = demod[1] if demod[0] in ("DeWBFM", "DeFMS") else 1
     rate = int(round(out_bw)) // decim // nch
     if demod[0] == "DeNo":
@@ -261,8 +358,8 @@ def run_opts(opts) -> int:
     if nch < 1:
         print(f"-c must be at least 1, got {nch}", file=sys.stderr)
         return 2
-    if demod[0] == "DeFMS" and nch != 1:
-        print("DeFMS does not support channel splitting", file=sys.stderr)
+    if demod[0] in ("DeFMS", *PACKET_SUFFIX) and nch != 1:
+        print(f"{demod[0]} does not support channel splitting", file=sys.stderr)
         return 1
     if opts.backend == "fused" and (nch == 1 or demod[0] != "DeNBFM" or agc_t is not None):
         print("--backend fused runs the whole channelized DeNBFM chain in one kernel, with "
@@ -284,9 +381,9 @@ def run_opts(opts) -> int:
 
     try:
         graph = _graph(opts, demod, agc_t, out_bw)
-    except ValueError as e:  # a bandwidth or pitch outside the channel
+    except ValueError as e:  # a bandwidth or pitch outside the channel, a packet rate
         print(e, file=sys.stderr)
-        return 2
+        return 1 if demod[0] in PACKET_SUFFIX else 2
     read = SRC.cu8_file_source if cu8 else SRC.cf32_file_source
     fe_stages = front_end(opts.samplerate, opts.offset, opts.bandwidth)
     if fe_stages:
@@ -317,6 +414,9 @@ def run_opts(opts) -> int:
         n_in = total / graph.rate
         print(f"Throughput: {int(n_in)} samples into the flow in {dt:.3f} s "
               f"({n_in / dt / 1e6:.2f} MSPS)")
+    if demod[0] in PACKET_SUFFIX:
+        _report_packet(opts, demod, bits.concat(), out_bw)
+        return 0
     print(f"Wrote {total} output samples per stream ({opts.backend}, {device})")
     if bits is not None:
         _report_rds(opts, bits.concat())

@@ -112,15 +112,35 @@ class NullSink(SinkBase):
 
 
 class CollectSink(SinkBase):
-    """Accumulate outputs in memory (tests)."""
+    """Accumulate outputs in memory.  ``concat()`` joins them leaf by leaf
+    along the last axis, so a ``Tee`` graph's tuple (or a dict) of outputs
+    comes back as one array per leaf; a run that collected nothing returns
+    a flat ``np.zeros(0)``, whatever the graph's output structure."""
 
     def __init__(self):
         self.parts: list = []
 
     def __call__(self, data):
-        self.parts.append(np.asarray(data))
+        self.parts.append(_tree_map(_host, data))
 
-    def concat(self) -> np.ndarray:
+    def concat(self):
         if not self.parts:
             return np.zeros(0)
-        return np.concatenate(self.parts, axis=-1)
+        return _tree_map(lambda *xs: np.concatenate(xs, axis=-1), *self.parts)
+
+
+def _host(leaf) -> np.ndarray:
+    """A leaf as a host numpy array (a tensor is moved off its device)."""
+    if hasattr(leaf, "detach"):
+        leaf = leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of same-structured tuple/list/dict trees."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_tree_map(fn, *parts) for parts in zip(*trees))
+    return fn(*trees)

@@ -3,7 +3,8 @@
 Copied from ``csdr_tpu/utils/firdes.py`` (the JAX package imports jax at
 package level, so the port cannot import its numpy code).  Only the designs
 the port's blocks use are here (the channelizer prototype, the Kaiser
-low-pass and length estimate, the decimator and half-band designs);
+low-pass and length estimate, the decimator and half-band designs, the
+GMSK transmit and receive pulses);
 ``tests/test_torch_design.py`` and ``tests/test_torch_fir.py`` hold them
 equal to the JAX package's arrays.
 
@@ -16,7 +17,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["kaiser_beta", "kaiser_filter_len", "kaiser_lowpass", "firdecim_kaiser",
-           "pfb_kaiser_prototype", "halfband_kaiser", "group_delay"]
+           "pfb_kaiser_prototype", "halfband_kaiser", "group_delay", "nyquist_kaiser",
+           "gmsk_tx", "erf_vec", "gmsk_rx"]
 
 
 def kaiser_beta(as_db: float) -> float:
@@ -96,3 +98,59 @@ def group_delay(h: np.ndarray, f: float = 0.0) -> float:
     if abs(H) < 1e-12:
         return (n - 1) / 2.0
     return float(np.real(1j * dH / H))
+
+
+def nyquist_kaiser(k: int, m: int, beta: float) -> np.ndarray:
+    """Kaiser-windowed Nyquist (ISI-free) filter: k samples per symbol,
+    semi-length m symbols; ``beta`` relaxes the window's stop-band target."""
+    n = 2 * k * m + 1
+    t = (np.arange(n, dtype=np.float64) - (n - 1) / 2.0) / k
+    h = np.sinc(t)
+    as_db = 60.0 if beta <= 0 else max(40.0, 60.0 * (1.0 - 0.3 * beta))
+    w = np.kaiser(n, kaiser_beta(as_db))
+    return h * w
+
+
+def gmsk_tx(k: int, m: int, bt: float = 0.3) -> np.ndarray:
+    """GMSK transmit pulse: a Gaussian of bandwidth-time ``bt`` convolved
+    with a one-symbol rectangle; k samples per symbol, semi-length m
+    symbols, normalized to sum 1."""
+    n = 2 * k * m + 1
+    t = (np.arange(n, dtype=np.float64) - (n - 1) / 2.0) / k
+    alpha = np.sqrt(2.0 / np.log(2.0)) * np.pi * bt
+
+    def q(x):
+        return 0.5 * (1.0 + erf_vec(alpha * x / np.sqrt(2.0)))
+
+    h = q(t + 0.5) - q(t - 0.5)
+    return h / h.sum()
+
+
+def erf_vec(x: np.ndarray) -> np.ndarray:
+    """Elementwise error function in float64 (``math.erf``)."""
+    from math import erf
+
+    return np.vectorize(erf)(np.asarray(x, dtype=np.float64))
+
+
+def gmsk_rx(k: int, m: int, bt: float = 0.3) -> np.ndarray:
+    """GMSK receive matched filter: the frequency-domain deconvolution of a
+    Nyquist target by the transmit pulse, regularized, so that gmsk_tx *
+    gmsk_rx is close to Nyquist; unity cascade gain at the symbol
+    instant."""
+    htx = gmsk_tx(k, m, bt)
+    n = len(htx)
+    target = nyquist_kaiser(k, m, max(bt, 0.2))
+    nfft = 1 << int(np.ceil(np.log2(16 * n)))
+
+    def pad_center(h):
+        return np.pad(h, ((nfft - len(h)) // 2, nfft - len(h) - (nfft - len(h)) // 2))
+
+    Ht = np.fft.fft(np.fft.ifftshift(pad_center(htx)))
+    Hg = np.fft.fft(np.fft.ifftshift(pad_center(target)))
+    eps = 1e-2 * np.max(np.abs(Ht))
+    Hr = Hg * np.conj(Ht) / (np.abs(Ht) ** 2 + eps**2)
+    hr = np.fft.fftshift(np.fft.ifft(Hr).real)
+    c = nfft // 2
+    h = hr[c - (n - 1) // 2: c + (n - 1) // 2 + 1]
+    return h / np.sum(h * htx)

@@ -280,3 +280,75 @@ def test_auto_strategy_launches_fir_valid_on_the_card(dev):
     assert k5.launches == before + 1
     _, want = fir_ops.fir_stream(taps, state, x, "fft")
     assert _rel(y, want) < K5_REL_ERR
+
+
+@pytest.mark.cuda
+def test_rtty_bit_filter_runs_fir_valid_on_one_complex_row(dev):
+    """DeRTTY at 48 kHz: the AFSK discriminator's two 1,056-tap moving
+    averages over one complex row (a 1-D block) take K5 through "auto",
+    each against K5's plain version."""
+    from csdr_tpu_torch.models import rtty
+
+    rx = rtty.rtty_receiver(48000.0).blocks[0]
+    taps = rx.parts[0][1].taps
+    assert len(taps) == 1056
+    x = _rows(dev, (1, (1 << 16) + 1055), True, seed=9)[0]
+    before = k5.launches
+    got = k5.fir_valid(x, taps)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    want = k5.fir_valid_ref(x, taps)
+    assert got.shape == want.shape == (1 << 16,)
+    assert _rel(got, want) < K5_REL_ERR
+    audio = torch.randn(1 << 16, device=dev)
+    before = k5.launches
+    rx.apply(rx.init(dev), audio)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_pocsag_band_monitor_pfb_fused_matches_eager(dev):
+    """The band monitor on K4 against the eager channelizer, 2e-3 max
+    (tests/test_pallas_fused.py:55): the envelope on every channel, the bit
+    score on the paged channels while a page is on the air (on noise the
+    discriminator's atan2 turns K4's rounding into a 2π branch flip); both
+    leaves trimmed to n/nch, and the same pages decoded on the same
+    channels."""
+    from csdr_tpu_torch.models import pocsag
+
+    nch, rate = 64, 38400.0
+    pages = {3: (1234567, "BAND K4"), 40: (765432, "0123 45")}
+    n = nch * 64 * 16 * 56  # 56 blocks of 2^16; a page lasts 1,664 bits (1.39 s)
+    t = np.arange(n)
+    rng = np.random.default_rng(1)
+    x = 0.01 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+    for ch, (ric, text) in pages.items():
+        # FSK synthesized at the band's rate, on the channel's centre
+        bb = pocsag.pocsag_modulate(pocsag.make_transmission(ric, text), nch * rate)
+        seg = slice(100_000, 100_000 + len(bb))
+        x[seg] += 0.5 * bb * np.exp(2j * np.pi * np.mod((ch - (nch - 1) / 2) / nch * t[seg], 1.0))
+    x = x.astype(np.complex64)
+    out = {}
+    for backend in ("eager", "pfb_fused"):
+        g = pocsag.pocsag_band_monitor(nch, rate, backend=backend)
+        sink = ct.CollectSink()
+        before = pf.launches["pfb_channelize_fused"]
+        ct.Pipeline(g, block_size=nch * 64 * 16, device=dev).run(iter([x]), sink)
+        ran = pf.launches["pfb_channelize_fused"] - before
+        assert (ran > 0) == (backend == "pfb_fused")
+        out[backend] = sink.concat()
+    for got, want in zip(out["pfb_fused"], out["eager"]):
+        assert got.shape == want.shape == (nch, n // nch)
+    (score, env), (score_e, env_e) = out["pfb_fused"], out["eager"]
+    assert np.max(np.abs(env - env_e)) < 2e-3
+    # the score while a page is on the air: this sample's and the 32 before
+    # (the bit filter's window) above the noise
+    paged = sorted(pages)
+    loud = (env_e[paged] > 0.1).astype(np.float64)
+    on_air = np.stack([np.convolve(r, np.ones(33))[:len(r)] for r in loud]) > 32.5
+    assert on_air.mean() > 0.4
+    assert np.max(np.abs(score[paged] - score_e[paged])[on_air]) < 2e-3
+    msgs = pocsag.decode_channels(out["pfb_fused"], rate)
+    assert {m["channel"]: (m["ric"], m["text"]) for m in msgs} == pages
+    assert msgs == pocsag.decode_channels(out["eager"], rate)
