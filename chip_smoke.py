@@ -123,6 +123,30 @@ and for the packet receivers (models/ais, aprs, adsb, pocsag, rtty):
       channels' scores, and every page decoded on its channel.  MSPS per
       flow; the idle share and device time of each in a process of its own.
 
+and for symbol sync, the coded modem and the beacon (no new kernel; K4 on
+the DeNBFMSync path):
+
+  9.  a seeded 2^25-sample cu8 capture with helicopter 2-FSK frames (4,000
+      baud, own coordinates, start phase and a clock within ±100 ppm) on 8
+      of 64 channels: 9a K4 at the DeNBFMSync graph's block (8,376,320
+      samples, F = 130,880) against its plain version, timed there, and
+      PerChannel(fm_dem_with_sync(10)) on the card against the CPU on the
+      occupied channels; 9b -c 64 "DeNBFMSync 10" under pfb_fused (K4 once
+      per block, no other kernel) and eager in turns, the occupied channels
+      against each other, helidecode's coordinates on every occupied
+      channel on both backends (the same count) and none on the empty
+      ones, MSPS, idle share, the step's time and peak memory; 9c -c 1
+      --offset -b 48000 "DeNBFMSync 12" (4,000 baud at 48 kHz) on the card
+      and the CPU; 9d the library: 64 coded qpsk and 64 qam16 packets
+      through sym_tracker and coded_packet_demodulate on the card (the
+      Viterbi, on the host, timed beside its add-compare-select run as
+      tensor ops on the card), 32 beacons at −13 dB through beacon_decode,
+      FSKDemod against the CPU.
+      The sync outputs are held to 2e-3 of the reference's output or, where
+      float order picks (a phase-rounding tie, a window at an integer), of
+      its output of the other pick.
+      ``python3 chip_smoke.py --sync-only`` runs identity, build and 9.
+
 Prints one JSON object per result, then the nvidia-smi line, the kernels
 line and, last, {"ok": true, "device": {...}}.  Each kernels entry carries
 bound_ms: the larger of the bytes the function must move (each input read
@@ -1837,6 +1861,596 @@ def phase_packet(torch, ct, ff, pf, dev, card, tmp, samples: int = CAPTURE) -> d
     return out
 
 
+# ---- 9. symbol sync, the coded modem and the beacon ---------------------------
+
+SYNC_NCH, SYNC_K = 64, 10      # 64 × 40 kHz channels; k = 10: 4,000 baud
+SYNC_CHANNELS = (3, 11, 19, 27, 35, 43, 51, 59)   # helicopter 2-FSK; the rest noise
+SYNC_PPM = 100e-6              # each channel's symbol clock within ±100 ppm
+SYNC_FE_RATE, SYNC_FE_K = 48000, 12   # -c 1 -b 48000: 4,000 baud at 12 samples/symbol
+SYNC_FE_BLOCK = 1 << 16        # the -c 1 flow's --blocksize; the CPU run takes 2 blocks
+# the sync against another float order: 2e-3 relative to the largest output
+# (tests/test_sharding_generic.py:346) of the reference's output or, where
+# float order picks (record_ties: a phase-rounding tie, or a window position
+# at an integer), of its output of the other pick
+SYNC_TOL, SYNC_TIE = 2e-3, 0.01
+TRACK_K, TRACK_M = 4, 3        # the tracker's RRC-shaped packets (tests/test_modem.py)
+TRACK_SNR = {"qpsk": 20.0, "qam16": 26.0}
+TRACK_PACKETS, TRACK_BITS, TRACK_TRAIN = 64, 512, 2048
+TRACK_BLOCK = 1 << 16          # the tracker's Pipeline block, in samples
+BEACONS, BEACON_SNR_DB = 32, -13.0   # tests/test_beacon.py:31-45
+BEACON_REFUSED = [19]          # the CRC refuses this one in both packages (the mode's limit)
+
+
+def other_pick(sync, xfull, nout: int, tm, slope, cm, width: float):
+    """Where float order picks a SymSync output, the output of the other
+    pick: (codes int8, other outputs) as numpy (…, nout), for the step that
+    interpolated ``nout`` outputs of ``xfull`` on the line (tm, slope, cm).
+
+      * code 1: round(frac·npfb) lies within ``width`` of a rounding tie;
+        the other pick is the neighbouring bank phase;
+      * code 2: the window position lies within width/npfb of an integer;
+        the other pick is the window one sample over with the phase wrapped
+        (0 ↔ npfb − 1).  Bank row p interpolates at ipos − p/npfb (the JAX
+        package's bank), so the two picks are two samples of time apart;
+      * code 0: no other pick (the output itself)."""
+    import torch
+
+    ipos, ph, f = sync._positions(nout, tm, slope, cm)
+    ipos, ph, f = (v.expand(*xfull.shape[:-1], nout) for v in (ipos, ph, f))
+    npfb = sync.npfb
+    lo, hi = f < width, f > npfb - width
+    tie = (torch.abs(f - torch.floor(f) - 0.5) < width) & ~lo & ~hi
+    ph_tie = torch.where(ph == torch.floor(f).to(torch.int64), ph + 1, ph - 1)
+    ipos_alt = ipos - lo.to(torch.int64) + hi.to(torch.int64)
+    ph_alt = torch.where(lo, npfb - 1, torch.where(hi, 0, torch.where(
+        tie, ph_tie.clamp(0, npfb - 1), ph)))
+    code = torch.where(lo | hi, 2, tie.to(torch.int64)).to(torch.int8)
+    return code.cpu().numpy(), sync._bank_sum(xfull, ipos_alt, ph_alt).cpu().numpy()
+
+
+@contextlib.contextmanager
+def record_ties(width: float = SYNC_TIE):
+    """For holding two implementations of the symbol sync against each
+    other: inside the block every ``SymSync`` step of the port appends
+    ``other_pick``'s (codes, other outputs) for its outputs to the yielded
+    list.  It wraps ``SymSync._interp`` for the block's duration."""
+    from csdr_tpu_torch.models.symsync import SymSync
+
+    log: list = []
+    interp = SymSync._interp
+
+    def recording(self, xfull, nout, tm, slope, cm):
+        y = interp(self, xfull, nout, tm, slope, cm)
+        log.append(other_pick(self, xfull, nout, tm, slope, cm, width))
+        return y
+
+    SymSync._interp = recording
+    try:
+        yield log
+    finally:
+        SymSync._interp = interp
+
+
+def heli_text(ch: int) -> str:
+    """Channel ch's two coordinate records (two-digit degrees, mmss)."""
+    return (f"AN {40 + ch % 50:02d} {10 + ch % 49:02d}{13 * ch % 100:02d}\r\n"
+            f"BW {10 + ch % 80:02d} {20 + ch % 39:02d}{7 * ch % 100:02d}\r\n")
+
+
+def heli_levels(text: str, nsym: int) -> np.ndarray:
+    """The helicopter frame layout (tests/test_cli_apps.py:345-352), 710-bit
+    frames of 71 10-bit characters between 20-bit syncs, as ±1 symbol levels
+    (bit '0' → +1), repeated to at least nsym symbols."""
+    payload = (b"\xff\xff" + (text * 3).encode())[:71]
+    frame = "".join("".join("1" if (b >> j) & 1 else "0" for j in range(8)) + "11"
+                    for b in payload)
+    unit = "1100000000" + "0100000000" + frame
+    bits = unit * (nsym // len(unit) + 2)
+    return np.where(np.frombuffer(bits.encode(), np.uint8) == ord("0"), 1.0, -1.0)
+
+
+def heli_coord(text: str) -> tuple:
+    """The (lat deg, min, sec, lon deg, min, sec) helidecode parses from a
+    record pair."""
+    a, b = text.split("\r\n")[:2]
+    _, ad, am = a.split()
+    _, bd, bm = b.split()
+    return (float(int(ad)), float(int(am[:2])), int(am[2:]) / 100.0 * 60.0,
+            float(int(bd)), float(int(bm[:2])), int(bm[2:]) / 100.0 * 60.0)
+
+
+def sync_capture(torch, dev, n: int, seed: int):
+    """SYNC_NCH channels of 2.56 MS/s: helicopter 2-FSK (±0.1 cycles/sample
+    at the channel rate) on SYNC_CHANNELS, each with its own coordinates,
+    start phase and symbol clock (±SYNC_PPM), over noise.  The levels,
+    clocks and noise are numpy's from the seed; the per-sample phase is
+    made on the device in float64.  Returns (IQ complex64 on the device,
+    {channel: text}, {channel: clock offset})."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(host_noise(n, seed + 1, 0.02)).to(dev)
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    spb = SYNC_K * SYNC_NCH                    # input samples per symbol
+    dev_c = 0.02 * SYNC_K * 0.5 / SYNC_NCH     # deviation, cycles per input sample
+    texts, eps_of = {}, {}
+    for ch in SYNC_CHANNELS:
+        eps, d0, c0 = rng.uniform(-SYNC_PPM, SYNC_PPM), rng.uniform(0, spb), rng.uniform(0, 1)
+        texts[ch], eps_of[ch] = heli_text(ch), eps
+        lv = torch.from_numpy(heli_levels(texts[ch], int(n / spb) + 4)).to(dev)
+        sym = torch.floor((t + d0) / (spb * (1 + eps))).to(torch.int64)
+        fc = (ch - (SYNC_NCH - 1) / 2) / SYNC_NCH
+        cyc = c0 + torch.cumsum(lv[sym] * dev_c, 0) + fc * t
+        cyc -= torch.floor(cyc)
+        x += (0.3 * torch.polar(torch.ones_like(cyc), 2 * np.pi * cyc)).to(torch.complex64)
+        del sym, cyc
+    return x, texts, eps_of
+
+
+def sync_close(got: np.ndarray, want: np.ndarray, rec: tuple) -> list:
+    """[max error, outputs that matched only the other pick, outputs at a
+    phase tie, outputs at a window crossing, outputs]: ``got`` against
+    ``want`` or, where float order picks, ``want``'s output of the other
+    pick (``rec``: ``other_pick``'s (codes, other) for ``want``), relative
+    to the largest of ``want``."""
+    codes, other = rec
+    want = want.astype(np.float64)
+    scale = np.abs(want).max() + 1e-12
+    e0 = np.abs(got - want) / scale
+    err = np.minimum(e0, np.abs(got - other) / scale)
+    return [float(err.max()), int(((e0 >= SYNC_TOL) & (err < SYNC_TOL)).sum()),
+            int((codes == 1).sum()), int((codes == 2).sum()), int(err.size)]
+
+
+def sync_agree(parts: list) -> list:
+    """sync_close over several rows: [the worst error, the sums of the
+    counts]."""
+    return [max(p[0] for p in parts)] + [sum(p[i] for p in parts) for i in range(1, 5)]
+
+
+def heli_decode(path: str) -> list:
+    """helidecode's coordinates of one .f32 file, as tuples."""
+    from csdr_tpu_torch.apps import helidecode
+
+    base = path[:-4]
+    cs = helidecode.decode_file(path, base + ".kml", base + ".m")
+    for ext in (".kml", ".m"):
+        os.unlink(base + ext)
+    return [(c.lat_deg, c.lat_min, c.lat_sec, c.lon_deg, c.lon_min, c.lon_sec) for c in cs]
+
+
+def sync_graph(ct, backend: str):
+    """The CLI's -c 64 DeNBFMSync graph behind the cu8 reader."""
+    from csdr_tpu_torch.models.receivers import channelized_receiver
+    from csdr_tpu_torch.models.symsync import fm_dem_with_sync
+
+    return ct.chain(ct.u8_to_iq(), channelized_receiver(SYNC_NCH, fm_dem_with_sync(SYNC_K),
+                                                        backend=backend))
+
+
+def phase_sync(torch, ct, ff, pf, dev, card, tmp) -> dict:
+    """9. DeNBFMSync, the coded modem and the beacon (no new kernel).
+
+    9a. K4 at the DeNBFMSync graph's block (its granule nch·tileF·k/… rounds
+        2^23 down to 8,376,320 samples, F = 130,880 frames) against its plain
+        version over 3 state-chained blocks, and timed there; then
+        PerChannel(fm_dem_with_sync(10)) on K4's output on the card against
+        the same graph on the CPU, on the occupied channels.
+    9b. -c 64 "DeNBFMSync 10" on a 2^25-sample cu8 capture with helicopter
+        frames on 8 channels, pfb_fused (K4 once per block, no other
+        kernel) and eager (none), in turns: occupied channels against each
+        other, helidecode's coordinates on both (every occupied channel,
+        the same count, nothing on the empty ones); MSPS, idle share, the
+        step's time and peak memory, and the sync step's.
+    9c. -c 1 --offset F -b 48000 "DeNBFMSync 12" on one of those channels,
+        on the card and on the CPU (2 blocks): samples and coordinates.
+    9d. The library: coded qpsk and qam16 packets through sym_tracker →
+        coded_packet_demodulate on the card, every payload decoded; 32
+        beacons at −13 dB through beacon_decode; FSKDemod against the CPU."""
+    from csdr_tpu_torch.apps import soapy_sdr_cli as cli
+    from csdr_tpu_torch.core.block import PerChannel
+    from csdr_tpu_torch.models import symsync
+
+    out = {}
+    graph = sync_graph(ct, "pfb_fused")
+    block = BLOCK // graph.granule * graph.granule
+    F = block // SYNC_NCH
+    nblocks = -(-CAPTURE // block)
+    t0 = time.perf_counter()
+    x, texts, eps_of = sync_capture(torch, dev, CAPTURE, SEED + 1000)
+    path = os.path.join(tmp, "heli.cu8")
+    to_cu8(torch, x).cpu().numpy().tofile(path)
+    gen_s = time.perf_counter() - t0
+    emit(dict(phase="sync_capture", samples=CAPTURE, granule=graph.granule, block=block,
+              frames_per_block=F, blocks=nblocks, channels=list(SYNC_CHANNELS),
+              clock_ppm={ch: e * 1e6 for ch, e in eps_of.items()}, capture_seconds=gen_s, **card))
+
+    # 9a. K4 at F frames, and the sync on the card against the CPU
+    sk = st = ct.firpfbch_channelizer(SYNC_NCH).init(dev)
+    ks, ts = [], []
+    before = pf.launches["pfb_channelize_fused"]
+    for b in range(3):
+        xb = x[b * block:(b + 1) * block]
+        sk, yk = pf.channelize_pfb_step(sk, xb, nch=SYNC_NCH)
+        st, yt = pfb_plain_step(torch, pf, st, xb, SYNC_NCH, False)
+        ks.append(yk), ts.append(yt)
+    torch.cuda.synchronize()
+    check(pf.launches["pfb_channelize_fused"] == before + 3, "9a: K4 launch count")
+    check(ks[0].shape == (SYNC_NCH, F), f"9a: K4 output {tuple(ks[0].shape)}")
+    k4_max, k4_rms = errors(as_real(torch, torch.cat(ks, 1)), as_real(torch, torch.cat(ts, 1)))
+    del ts
+    taps, W = pf.pfb_design(SYNC_NCH, 7, 80.0, dev)
+    v4 = block_panels(torch, pf, x[:block], SYNC_NCH)[1:].contiguous()
+    k4_ms = statistics.median(time_steps(
+        torch, lambda: pf.pfb_channelize_fused(v4, taps, W, nch=SYNC_NCH, L=14), steps=10))
+    k4_plain_ms = statistics.median(time_steps(
+        torch, lambda: pf.pfb_channelize_fused_ref(v4, taps, W, nch=SYNC_NCH, L=14), steps=5,
+        warmup=1))
+    del v4
+    sync = PerChannel(symsync.fm_dem_with_sync(SYNC_K), SYNC_NCH)
+    sg, sc = sync.init(dev), sync.init(torch.device("cpu"))
+    occ = list(SYNC_CHANNELS)
+    parts = []
+    for b in range(3):
+        sg, yg = sync.apply(sg, ks[b])
+        with record_ties(SYNC_TIE) as rec:
+            sc, yc = sync.apply(sc, ks[b].cpu())
+        yg = yg.cpu().numpy()
+        check(yg.shape == (SYNC_NCH, F // SYNC_K * 2) and bool(np.isfinite(yg).all()),
+              f"9a: sync output {yg.shape}")
+        parts += [sync_close(yg[ch], yc.numpy()[ch], (rec[0][0][ch], rec[0][1][ch]))
+                  for ch in occ]
+    worst = sync_agree(parts)
+    del ks, sg, sc
+    out["9a"] = dict(k4_vs_plain_max=k4_max, k4_vs_plain_rms=k4_rms, k4_ms=k4_ms,
+                     k4_plain_ms=k4_plain_ms, sync_card_vs_cpu=worst,
+                     **pfb_bound(block, SYNC_NCH, False))
+    emit(dict(phase="sync_kernel", shape=f"({F + 13}, {SYNC_NCH}) -> ({SYNC_NCH}, {F})",
+              blocks=3, **out["9a"], **card))
+    check(k4_max < PFB_MAX_ERR and k4_rms < RMS_ERR, f"9a: K4 vs plain max {k4_max} rms {k4_rms}")
+    check(worst[0] < SYNC_TOL, f"9a: sync card vs CPU {worst} (max, other pick, ties, "
+                               "crossings, of)")
+
+    # 9b. the main path through the CLI, both backends at pfb_fused's block
+    # (eager's granule, 640, would take 8,388,480: the sync's line fits, one
+    # per block, then see other blocks)
+    prefix = {b: os.path.join(tmp, f"sync_{b}") for b in ("pfb_fused", "eager")}
+    argv = lambda b: ["--filename", path, "-n", str(CAPTURE), "-c", str(SYNC_NCH),  # noqa: E731
+                      "--demod", f"DeNBFMSync {SYNC_K}", "--backend", b,
+                      "--blocksize", str(block), "-o", prefix[b], "--device", "cuda"]
+    kern = {"pfb_fused": "pfb_channelize_fused", "eager": None}
+    runs = {b: dict(secs=[]) for b in kern}
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        _, counts = cli_run(torch, ff, pf, cli.main, argv("pfb_fused"))
+        check_counts(counts, kern["pfb_fused"], "9b pfb_fused")
+        check(counts["pfb_channelize_fused"] == nblocks,
+              f"9b: K4 launched {counts['pfb_channelize_fused']} times for {nblocks} blocks")
+        runs["pfb_fused"]["launches"] = counts
+        with record_ties(SYNC_TIE) as rec:
+            _, counts = cli_run(torch, ff, pf, cli.main, argv("eager"))
+        check_counts(counts, None, "9b eager")
+        runs["eager"]["launches"] = counts
+        order = ["pfb_fused", "eager", "eager", "pfb_fused"]
+        for b in order:
+            dt, counts = cli_run(torch, ff, pf, cli.main, argv(b))
+            check_counts(counts, kern[b], f"9b {b}")
+            runs[b]["secs"].append(dt)
+    nout = CAPTURE * 2 // (SYNC_NCH * SYNC_K)
+    # sample by sample on the full blocks: the last block is zero-padded past
+    # the capture's end, where the channels hold only the DC blocker's decay
+    # and FM demod reads atan2 of rounding, which enters that block's line fit
+    full = CAPTURE // block * (block * 2 // (SYNC_NCH * SYNC_K))
+    codes, other = (np.concatenate([r[i] for r in rec], axis=-1)[:, :full] for i in (0, 1))
+    chans = {b: read_channels(prefix[b], "f32", np.float32, SYNC_NCH, 4 * nout) for b in kern}
+    worst = sync_agree([sync_close(chans["pfb_fused"][ch][:full], chans["eager"][ch][:full],
+                                   (codes[ch], other[ch])) for ch in occ])
+    last = float(max(np.abs(chans["pfb_fused"][ch][full:] - chans["eager"][ch][full:]).max(
+        initial=0.0) / np.abs(chans["eager"][ch]).max() for ch in occ))
+    del chans
+    coords = {b: [heli_decode(f"{prefix[b]}_ch{ch + 1}.f32") for ch in range(SYNC_NCH)]
+              for b in kern}
+    frames = CAPTURE // (SYNC_K * SYNC_NCH) // 730
+    for b, r in runs.items():
+        r["seconds"] = statistics.median(r["secs"])
+        r["msps"] = CAPTURE / r["seconds"] / 1e6
+        r["coords_per_channel"] = {ch: len(coords[b][ch]) for ch in occ}
+        r["coords_on_empty_channels"] = sum(len(coords[b][ch]) for ch in range(SYNC_NCH)
+                                            if ch not in occ)
+    # one step of each backend's graph at the block: time and peak memory;
+    # the sync alone at (64, F)
+    u8 = torch.from_numpy(np.fromfile(path, np.uint8, count=2 * block).reshape(block, 2)).to(dev)
+    for b in kern:
+        g = sync_graph(ct, b)
+        box = {"s": g.init(dev)}
+
+        def step():
+            box["s"], _ = g.apply(box["s"], u8)
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step()
+        torch.cuda.synchronize()
+        runs[b]["step_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        runs[b]["step_ms"] = statistics.median(time_steps(torch, step, steps=10))
+        del box
+    chan = ct.chain(ct.u8_to_iq(), ct.dc_blocker(), ct.firpfbch_channelizer(SYNC_NCH))
+    _, panel = chan.apply(chan.init(dev), u8)
+    box = {"s": sync.init(dev)}
+
+    def sync_step():
+        box["s"], _ = sync.apply(box["s"], panel)
+
+    sync_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sync_step()
+    torch.cuda.synchronize()
+    sync_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    sync_ms = statistics.median(time_steps(torch, sync_step, steps=10))
+    del u8, panel, box
+    for b in kern:
+        runs[b].update(idle_share({"cli": argv(b)}))
+    out["9b"] = dict(runs=runs, order=order, pfb_vs_eager_occupied=worst,
+                     pfb_vs_eager_occupied_padded_block=last, block=block,
+                     sync_step_ms=sync_ms, sync_step_peak_mib=sync_peak)
+    emit(dict(phase="sync_main_path", flow=f"-c {SYNC_NCH} DeNBFMSync {SYNC_K}", wire="cu8",
+              samples=CAPTURE, block=block, blocks=nblocks, order=order,
+              pfb_fused_vs_eager_occupied=worst, compared_outputs_per_channel=full,
+              pfb_fused_vs_eager_occupied_padded_block=last, frames_per_channel=frames,
+              sync_step_ms=sync_ms, sync_step_peak_mib=sync_peak,
+              **{b: {k: v for k, v in r.items()} for b, r in runs.items()}, **card))
+    check(worst[0] < SYNC_TOL, f"9b: pfb_fused vs eager on the occupied channels {worst} "
+                               "(max, other pick, ties, crossings, of)")
+    for ch in occ:
+        want = heli_coord(texts[ch])
+        for b in kern:
+            got = coords[b][ch]
+            check(len(got) >= 2 * frames * 9 // 10 and set(got) == {want},
+                  f"9b {b} channel {ch}: {len(got)} coordinates {set(got)}, want {want} "
+                  f"from ~{2 * frames - 1}")
+        check(len(coords["pfb_fused"][ch]) == len(coords["eager"][ch]),
+              f"9b channel {ch}: {len(coords['pfb_fused'][ch])} coordinates on pfb_fused, "
+              f"{len(coords['eager'][ch])} on eager")
+    for b in kern:
+        check(runs[b]["coords_on_empty_channels"] == 0,
+              f"9b {b}: {runs[b]['coords_on_empty_channels']} coordinates on empty channels")
+    for b in kern:
+        for ch in range(SYNC_NCH):
+            os.unlink(f"{prefix[b]}_ch{ch + 1}.f32")
+
+    # 9c. one channel through the front end, on the card and on the CPU
+    ch = SYNC_CHANNELS[2]
+    offset = (ch - (SYNC_NCH - 1) / 2) / SYNC_NCH * 2.56e6
+    n_out = CAPTURE * SYNC_FE_RATE // 2560000
+    n_cpu = 2 * (SYNC_FE_BLOCK // SYNC_FE_K * SYNC_FE_K)
+    fe_prefix = {d: os.path.join(tmp, f"sync_fe_{d}") for d in ("cuda", "cpu")}
+    fe_argv = lambda d, n: ["--filename", path, "-s", "2560000", "--offset", str(offset),  # noqa: E731
+                            "-b", str(SYNC_FE_RATE), "-n", str(n), "--demod",
+                            f"DeNBFMSync {SYNC_FE_K}", "--blocksize", str(SYNC_FE_BLOCK),
+                            "-o", fe_prefix[d], "--device", d]
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        fe_dt, counts = cli_run(torch, ff, pf, cli.main, fe_argv("cuda", n_out))
+        check_counts(counts, None, "9c")
+        with record_ties(SYNC_TIE) as rec:
+            cpu_dt, _ = cli_run(torch, ff, pf, cli.main, fe_argv("cpu", n_cpu))
+    card_y = np.fromfile(fe_prefix["cuda"] + ".f32", np.float32)
+    cpu_y = np.fromfile(fe_prefix["cpu"] + ".f32", np.float32)
+    check(card_y.shape == (n_out * 2 // SYNC_FE_K,) and cpu_y.shape == (n_cpu * 2 // SYNC_FE_K,),
+          f"9c: {card_y.shape} {cpu_y.shape} samples")
+    fe_err = sync_close(card_y[:len(cpu_y)], cpu_y,
+                        tuple(np.concatenate([r[i] for r in rec], -1)[:len(cpu_y)]
+                              for i in (0, 1)))
+    fe_coords = {d: heli_decode(fe_prefix[d] + ".f32") for d in fe_prefix}
+    out["9c"] = dict(flow=f"-c 1 --offset {offset:g} -b {SYNC_FE_RATE} DeNBFMSync {SYNC_FE_K}",
+                     seconds=fe_dt, msps=CAPTURE / fe_dt / 1e6, cpu_seconds=cpu_dt,
+                     card_vs_cpu=fe_err, coords={d: len(v) for d, v in fe_coords.items()})
+    emit(dict(phase="sync_front_end", channel=ch, samples=CAPTURE, cpu_output_samples=n_cpu,
+              **out["9c"], **card))
+    check(fe_err[0] < SYNC_TOL, f"9c: card vs CPU {fe_err} (max, other pick, ties, crossings, "
+                                "of)")
+    want = heli_coord(texts[ch])
+    check(set(fe_coords["cuda"]) == {want} and len(fe_coords["cuda"]) >= 2 * frames * 9 // 10,
+          f"9c: {len(fe_coords['cuda'])} coordinates {set(fe_coords['cuda'])}, want {want}")
+    check(len(fe_coords["cpu"]) > 0 and fe_coords["cpu"] == fe_coords["cuda"][
+        :len(fe_coords["cpu"])], f"9c: the CPU's {len(fe_coords['cpu'])} coordinates differ")
+    for d in fe_prefix:
+        os.unlink(fe_prefix[d] + ".f32")
+    os.unlink(path)
+    del x
+
+    out["9d"] = phase_sync_library(torch, ct, ff, pf, dev, card)
+    return out
+
+
+def beacon_set():
+    """BEACONS coded beacons of random messages at BEACON_SNR_DB in the full
+    baseband bandwidth (tests/test_beacon.py:31-45): [(message, IQ)]."""
+    from csdr_tpu_torch.models import beacon
+
+    rng = np.random.default_rng(SEED + 1200)
+    sigma = np.sqrt(10.0 ** (-BEACON_SNR_DB / 10.0) / 2.0)
+    out = []
+    for _ in range(BEACONS):
+        m = rng.integers(0, 2, beacon.MESSAGE_BITS)
+        x = beacon.beacon_modulate(m, spsym=64)
+        out.append((m, (x + sigma * (rng.normal(size=len(x)) + 1j * rng.normal(size=len(x))))
+                    .astype(np.complex64)))
+    return out
+
+
+def track_stream(ms: str, seed: int):
+    """TRACK_TRAIN random training symbols, then TRACK_PACKETS coded packets
+    of TRACK_BITS random bits, 32 random symbols apart, then random symbols
+    to whole TRACK_BLOCKs, RRC-shaped at
+    TRACK_K samples/symbol with gain 0.31, a 0.3 rad carrier phase, a 1.7
+    sample delay and AWGN at TRACK_SNR (tests/test_modem.py:129-153);
+    returns (IQ, tx indices, [(first symbol, payload)])."""
+    from csdr_tpu_torch.models import modem
+    from csdr_tpu_torch.utils import firdes
+
+    rng = np.random.default_rng(seed)
+    bps = modem.bits_per_symbol(ms)
+    parts = [modem.modulate(rng.integers(0, 2, TRACK_TRAIN * bps), ms)]
+    packets, pos = [], TRACK_TRAIN
+    for _ in range(TRACK_PACKETS):
+        bits = rng.integers(0, 2, TRACK_BITS)
+        sym = modem.coded_packet_modulate(bits, ms)
+        packets.append((pos, len(sym), bits))
+        gap = modem.modulate(rng.integers(0, 2, 32 * bps), ms)
+        parts += [sym, gap]
+        pos += len(sym) + len(gap)
+    # random filler to whole tracker blocks: a zero-padded block would skew
+    # the block's power normalization
+    fill = -pos % (TRACK_BLOCK // TRACK_K)
+    parts.append(modem.modulate(rng.integers(0, 2, fill * bps), ms))
+    syms = np.concatenate(parts).astype(np.complex128)
+    h = firdes.rrc(TRACK_K, TRACK_M, 0.25)
+    h = h / np.sqrt(np.sum(h ** 2))
+    up = np.zeros(len(syms) * TRACK_K, np.complex128)
+    up[::TRACK_K] = syms
+    x = np.convolve(up, h)[: len(up)] * np.sqrt(TRACK_K) * 0.31 * np.exp(0.3j)
+    t = np.arange(61) - 30
+    x = np.convolve(x, np.sinc(t - 0.7) * np.hamming(61))[31:][: len(x)]   # 1.7 samples late
+    n0 = 10 ** (-TRACK_SNR[ms] / 10.0) * np.mean(np.abs(x) ** 2)
+    x = x + np.sqrt(n0 / 2) * (rng.normal(size=len(x)) + 1j * rng.normal(size=len(x)))
+    C = modem.constellation(ms)
+    idx = np.abs(syms[:, None] - C[None, :]).argmin(1)
+    return x.astype(np.complex64), idx, packets
+
+
+def viterbi_acs_on_card(torch, llr):
+    """The other design for ops/fec.viterbi_decode, timed beside it in 9d:
+    the add-compare-select as one step of tensor ops per coded symbol on
+    the LLRs' device (~7 launches per step, no host sync inside the loop),
+    the decisions copied to the host once, then the same numpy traceback.
+    Returns the decoded message bits (CCSDS K = 7, tail)."""
+    from csdr_tpu_torch.ops import fec
+
+    S, prev_np, bit_in, branch_out = fec._tables(fec.CCSDS_POLYS, 7)
+    dev = llr.device
+    prev = torch.as_tensor(prev_np.reshape(-1), device=dev)
+    sign = torch.as_tensor(1.0 - 2.0 * branch_out, dtype=torch.float32, device=dev)
+    bm = torch.einsum("tg,hgs->ths", llr.to(torch.float32).reshape(-1, 2), sign)
+    metric = torch.full((S,), -1e9, dtype=torch.float32, device=dev)
+    metric[0] = 0.0
+    decisions = []
+    for t in range(bm.shape[0]):
+        cand = metric[prev].reshape(2, S) + bm[t]
+        decisions.append(cand[1] > cand[0])
+        new = torch.maximum(cand[0], cand[1])
+        metric = new - new.max()
+    dec = torch.stack(decisions).to(torch.uint8).cpu().numpy()
+    T, state = dec.shape[0], 0
+    bits = np.empty(T, np.uint8)
+    for t in range(T - 1, -1, -1):
+        bits[t] = bit_in[state]
+        state = int(prev_np[dec[t, state], state])
+    return bits[: T - 6]
+
+
+def phase_sync_library(torch, ct, ff, pf, dev, card) -> dict:
+    """9d: the tracker and the coded packet link, the beacon, FSKDemod."""
+    from csdr_tpu_torch.blocks import fsk_demodulator
+    from csdr_tpu_torch.models import beacon, modem, symsync
+    from csdr_tpu_torch.ops import fec
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+
+    out = {}
+    for i, ms in enumerate(("qpsk", "qam16")):
+        x, tx, packets = track_stream(ms, SEED + 1100 + i)
+        tracker = symsync.sym_tracker(TRACK_M, TRACK_K, ms=ms)
+        sink = ct.CollectSink()
+        torch.cuda.synchronize()
+        reset_counts(ff, pf, fv, fx)
+        t0 = time.perf_counter()
+        ct.Pipeline(tracker, block_size=TRACK_BLOCK, device=dev).run(iter([x]), sink)
+        torch.cuda.synchronize()
+        track_s = time.perf_counter() - t0
+        check_counts(read_counts(ff, pf, fv, fx), None, f"9d tracker {ms}")
+        y = sink.concat()
+        check(y.shape == (len(x) // TRACK_K,) and bool(np.isfinite(y).all()),
+              f"9d tracker {ms}: output {y.shape}")
+        # the tracker's delay, from the training symbols
+        dec = modem.hard_decision(torch.from_numpy(y), ms)[0].numpy()
+        acc, lag = max((float(np.mean(dec[1000 + L:TRACK_TRAIN - 16 + L]
+                                      == tx[1000:TRACK_TRAIN - 16])), L) for L in range(0, 33))
+        check(acc > 0.98, f"9d tracker {ms}: {acc} of the training symbols at lag {lag}")
+        yd = torch.from_numpy(y).to(dev)
+        secs, vit, ok = [], [], 0
+        nv = 10 ** (-TRACK_SNR[ms] / 10.0)
+        for pos, n, bits in packets:
+            seg = yd[pos + lag:pos + lag + n]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = modem.coded_packet_demodulate(seg, ms, noise_var=nv)
+            secs.append(time.perf_counter() - t0)
+            ok += got is not None and np.array_equal(got, bits)
+        llr = modem.soft_llrs(yd[packets[0][0] + lag:packets[0][0] + lag + packets[0][1]], ms,
+                              nv).reshape(-1)[64:]
+        vit_card = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host_bits = fec.viterbi_decode(llr)
+            vit.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card_bits = viterbi_acs_on_card(torch, llr)
+            vit_card.append(time.perf_counter() - t0)
+        check(np.array_equal(host_bits.cpu().numpy(), card_bits),
+              f"9d {ms}: the Viterbi's ACS on the card decodes other bits than on the host")
+        out[ms] = dict(symbols=len(y), lag=lag, training_accuracy=acc, packets=len(packets),
+                       decoded=ok, tracker_seconds=track_s,
+                       tracker_msps=len(x) / track_s / 1e6,
+                       decode_ms_per_packet=statistics.median(secs) * 1e3,
+                       viterbi_ms_per_packet=statistics.median(vit) * 1e3,
+                       viterbi_acs_on_card_ms_per_packet=statistics.median(vit_card) * 1e3,
+                       viterbi_steps=llr.shape[0] // 2)
+        emit(dict(phase="sync_library", what=f"sym_tracker -> coded_packet_demodulate {ms}",
+                  **out[ms], **card))
+        check(ok == len(packets), f"9d {ms}: {ok} of {len(packets)} payloads decoded")
+
+    secs, ok, refused, wrong = [], [], [], []
+    for i, (m, xb) in enumerate(beacon_set()):
+        t0 = time.perf_counter()
+        got, info = beacon.beacon_decode(xb, spsym=64)
+        secs.append(time.perf_counter() - t0)
+        (refused if got is None else ok if np.array_equal(got, m) else wrong).append(i)
+    te = beacon.tone_energies_device(torch.from_numpy(xb).to(dev), 64).cpu().numpy()
+    te_rel = float(np.abs(te - beacon.tone_energies(xb, 64)).max() / np.abs(te).max())
+    out["beacon"] = dict(beacons=BEACONS, snr_db=BEACON_SNR_DB, decoded=len(ok),
+                         refused=refused, wrong=wrong, decode_ms=statistics.median(secs) * 1e3,
+                         tone_energies_device_rel=te_rel)
+    emit(dict(phase="sync_library", what="beacon_decode", **out["beacon"], **card))
+    # the mode's own limit: at −13 dB the JAX package refuses the same
+    # beacons of this set (tests/test_torch_modem.py holds the port to it)
+    check(not wrong and refused == BEACON_REFUSED,
+          f"9d beacons: refused {refused} (want {BEACON_REFUSED}), wrong {wrong}")
+    check(te_rel < 1e-5, f"9d: tone_energies_device vs host {te_rel}")
+
+    rng = np.random.default_rng(SEED + 1300)
+    syms = rng.integers(0, 4, 1 << 16)
+    f = 0.25 * (2.0 * syms - 3) / 3
+    xf = np.exp(2j * np.pi * np.concatenate([[0.0], np.cumsum(np.repeat(f, 16))[:-1]]))
+    xf = (xf + 0.3 * (rng.normal(size=len(xf)) + 1j * rng.normal(size=len(xf)))).astype(
+        np.complex64)
+    res = {}
+    for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        sink = ct.CollectSink()
+        ct.Pipeline(ct.chain(fsk_demodulator(2, 16, 0.25)), block_size=1 << 18,
+                    device=d).run(iter([xf]), sink)
+        res[label] = sink.concat()
+    out["fsk"] = dict(symbols=len(syms), dtype=str(res["card"].dtype),
+                      equal_to_cpu=bool(np.array_equal(res["card"], res["cpu"])),
+                      symbol_accuracy=float(np.mean(res["card"] == syms)))
+    emit(dict(phase="sync_library", what="FSKDemod(2, 16, 0.25)", **out["fsk"], **card))
+    check(out["fsk"]["equal_to_cpu"] and res["card"].dtype == np.uint32
+          and out["fsk"]["symbol_accuracy"] > 0.99, f"9d FSKDemod: {out['fsk']}")
+    return out
+
+
 MESH_MAX = 4                 # ranks of the mesh phase: min(cards, MESH_MAX)
 MESH_BLOCKS = 2              # blocks of each ShardedChannelizedFM run
 
@@ -2375,10 +2989,11 @@ def phase_profile(torch, dev, card):
     return out
 
 
-def main(mesh_only: bool = False) -> int:
+def main(mesh_only: bool = False, sync_only: bool = False) -> int:
     """Every phase; with ``mesh_only`` (``--mesh-only``) identity, build,
     phase 4's CLI runs (the serial reference) and phase 7 alone, for a
-    call on several cards."""
+    call on several cards; with ``sync_only`` (``--sync-only``) identity,
+    build and phase 9."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2410,6 +3025,12 @@ def main(mesh_only: bool = False) -> int:
     ptxas = ptxas_summary(lib)
     emit(dict(phase="build", seconds=build_s, library=os.path.relpath(lib, HERE), ptxas=ptxas))
 
+    if sync_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_sync(torch, ct, ff, pf, dev, card, tmp)
+        print(smi, flush=True)
+        emit({"sync_only": True, "ok": True})
+        return 0
     if mesh_only:
         with tempfile.TemporaryDirectory() as tmp:
             _, _, _, runs, capture, _ = phase_main_path(torch, ff, pf, dev, card, tmp)
@@ -2446,6 +3067,7 @@ def main(mesh_only: bool = False) -> int:
         fms = phase_stereo_rds(torch, ff, pf, dev, card, tmp)  # 6b
         mix = phase_mix(torch, ff, pf, dev, card, tmp)  # 6c
         pkt = phase_packet(torch, ct, ff, pf, dev, card, tmp)  # 8
+        sync = phase_sync(torch, ct, ff, pf, dev, card, tmp)  # 9
         emit(dict(phase="broadcast_and_mix_flows", msps={
             "DeWBFM": wbfm["msps"], "DeFMS --rds": fms["msps"],
             **{f"-c {MIX_NCH} -m {k}": v["msps"] for k, v in mix.items()},
@@ -2542,6 +3164,17 @@ def main(mesh_only: bool = False) -> int:
         "launches_mix_agc_run": mix["pfb_fused -a"]["launches"]["pfb_channelize_fused"],
         "launches_band_monitor_run": pkt["band monitor pfb_fused"]["launches"][
             "pfb_channelize_fused"],
+        "launches_denbfmsync_run": sync["9b"]["runs"]["pfb_fused"]["launches"][
+            "pfb_channelize_fused"],
+        "denbfmsync": {
+            "shape": f"({sync['9b']['block'] // 64 + 13}, 64) complex64 -> "
+                     f"(64, {sync['9b']['block'] // 64}) complex64",
+            "ms": sync["9a"]["k4_ms"], "plain_ms": sync["9a"]["k4_plain_ms"],
+            "max_abs_err": sync["9a"]["k4_vs_plain_max"],
+            **{k: sync["9a"][k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_flops")},
+            "pipeline_msps_in_turns": {b: r["msps"] for b, r in sync["9b"]["runs"].items()},
+            "device_idle_share": {b: r["device_idle_share"]
+                                  for b, r in sync["9b"]["runs"].items()}},
         "band_monitor": {k: pkt["band monitor pfb_fused"][k] for k in (
             "msps", "device_idle_share", "device_ms", "k4_vs_eager_env_max",
             "k4_vs_eager_score_max_paged")},
@@ -2648,4 +3281,5 @@ def main(mesh_only: bool = False) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--idle-share"]:
         sys.exit(idle_child(json.loads(sys.argv[2])))
-    sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh-only"]))
+    sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh-only"],
+                  sync_only=sys.argv[1:2] == ["--sync-only"]))

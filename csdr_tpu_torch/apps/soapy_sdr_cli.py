@@ -14,7 +14,9 @@ port carries, from a .cf32 or .cu8 capture:
   * ``--demod``: ``"DeNBFM kf WAV|F32"``, ``"DeWBFM decim WAV|F32"``,
     ``"DeFMS decim WAV|F32"`` (stereo, ``-c 1`` only; ``--rds`` adds the RDS
     decode to ``<output>.rds.txt``), ``"DeAM WAV|F32"``,
-    ``"DeUSB|DeLSB bw_hz WAV|F32"``, ``"DeCW [bw_hz pitch_hz] WAV|F32"`` or
+    ``"DeUSB|DeLSB bw_hz WAV|F32"``, ``"DeCW [bw_hz pitch_hz] WAV|F32"``,
+    ``"DeNBFMSync k"`` (FM demod with kf = 0.02·k, then symbol sync from k
+    samples/symbol to 2, into ``.f32`` files for ``apps/helidecode``) or
     ``DeNo`` (raw complex64); ``-a T`` adds an AGC with a T dB squelch.
     Audio runs at int(bandwidth) // decim // nch Hz;
   * the packet flows (``-c 1`` only): ``"DeAIS"`` (GMSK at n·9600 S/s),
@@ -48,6 +50,8 @@ yet ported in csdr_tpu_torch".
         -b 200000 -n 2621440 --demod "DeFMS 8 WAV" --rds --device cuda
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename ais.cu8 -s 1920000 \\
         --offset 25000 -b 48000 -n 838860 --demod DeAIS -o ais --device cuda
+    python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename heli.cu8 -n 33554432 \\
+        -c 64 --demod "DeNBFMSync 10" --backend pfb_fused --blocksize 8388608
     python -m torch.distributed.run --nproc-per-node 4 -m csdr_tpu_torch.apps.soapy_sdr_cli \\
         --filename cap.cu8 -n 33554432 -c 64 --mesh 4x1 --backend fused \\
         --demod "DeNBFM 0.6 F32"
@@ -103,7 +107,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help='Demodulation: "DeNBFM <kf> WAV|F32", "DeWBFM <decim> WAV|F32", '
                         '"DeFMS <decim> WAV|F32" (stereo), "DeAM WAV|F32", '
                         '"DeUSB|DeLSB <bw Hz> WAV|F32", "DeCW [<bw Hz> <pitch Hz>] '
-                        'WAV|F32", DeNo (raw CF32), or the packet decoders DeAIS, '
+                        'WAV|F32", "DeNBFMSync <k>" (2 samples/symbol F32), DeNo (raw '
+                        'CF32), or the packet decoders DeAIS, '
                         '"DeAPRS [kf]", DeADSB, "DePOCSAG [baud]", "DeRTTY [baud]" '
                         '(-c 1; <output>.<kind>.txt)')
     p.add_argument("--rds", action="store_true",
@@ -126,7 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 PACKET_SUFFIX = {"DeAIS": ".ais.txt", "DeAPRS": ".aprs.txt", "DeADSB": ".adsb.txt",
                  "DePOCSAG": ".pocsag.txt", "DeRTTY": ".rtty.txt"}
-_DEMODS = ("DeNBFM", "DeWBFM", "DeFMS", "DeAM", "DeUSB", "DeLSB", "DeCW", "DeNo", *PACKET_SUFFIX)
+_DEMODS = ("DeNBFM", "DeWBFM", "DeFMS", "DeAM", "DeUSB", "DeLSB", "DeCW", "DeNBFMSync", "DeNo",
+           *PACKET_SUFFIX)
 
 
 def parse_demod(s: str):
@@ -140,6 +146,8 @@ def parse_demod(s: str):
         return ("DeNBFM", float(toks[1]), toks[2].upper())
     if kind in ("DeWBFM", "DeFMS"):
         return (kind, int(toks[1]), toks[2].upper())
+    if kind == "DeNBFMSync":
+        return ("DeNBFMSync", int(toks[1]))
     if kind == "DeAM":
         return ("DeAM", toks[1].upper())
     if kind in ("DeUSB", "DeLSB"):
@@ -161,8 +169,10 @@ def _refusal(opts, demod) -> str | None:
     """Why the requested flow is outside the port, or None."""
     if demod[0] not in _DEMODS:
         return (f"--demod {demod[0]} is {_NOT_PORTED}; use DeNBFM, DeWBFM, DeFMS, DeAM, "
-                "DeUSB, DeLSB, DeCW, DeNo, DeAIS, DeAPRS, DeADSB, DePOCSAG or DeRTTY")
-    if demod[0] not in ("DeNo", *PACKET_SUFFIX) and demod[-1] not in ("WAV", "F32"):
+                "DeUSB, DeLSB, DeCW, DeNBFMSync, DeNo, DeAIS, DeAPRS, DeADSB, DePOCSAG or "
+                "DeRTTY")
+    if (demod[0] not in ("DeNo", "DeNBFMSync", *PACKET_SUFFIX)
+            and demod[-1] not in ("WAV", "F32")):
         return f"audio format {demod[-1]} is {_NOT_PORTED}; use WAV or F32"
     if opts.mesh and (demod[0] != "DeNBFM" or opts.channels < 2 or opts.mix):
         return (f"--mesh for this flow is {_NOT_PORTED} (the generic sharded chain, "
@@ -194,6 +204,10 @@ def _demod_block(demod, out_bw: float, nch: int):
         return B.ssb_demodulator("usb" if kind == "DeUSB" else "lsb", demod[1] / chan_rate)
     if kind == "DeCW":
         return B.cw_demodulator(demod[1] / chan_rate, demod[2] / chan_rate)
+    if kind == "DeNBFMSync":
+        from ..models.symsync import fm_dem_with_sync
+
+        return fm_dem_with_sync(demod[1])
     return None
 
 
@@ -305,9 +319,10 @@ def _graph(opts, demod, agc_t, out_bw: float):
 
 def _sink(opts, demod, out_bw: float):
     """The flow's sink: per-channel files for -c N, one file for -c 1 or
-    ``-m``; DeFMS writes a 2-channel WAV, and with ``--rds`` routes the bit
-    branch to a CollectSink (returned second, else None); a packet flow
-    collects its whole output (returned twice)."""
+    ``-m`` (raw ``.f32`` for DeNBFMSync and F32 flows); DeFMS writes a
+    2-channel WAV, and with ``--rds`` routes the bit branch to a
+    CollectSink (returned second, else None); a packet flow collects its
+    whole output (returned twice)."""
     nch = opts.channels
     if demod[0] in PACKET_SUFFIX:
         bits = S.CollectSink()
@@ -340,9 +355,10 @@ def _report_rds(opts, bits: np.ndarray):
         f.write(f"PI: {pi}\nPS: {info['ps']}\nRT: {info['rt']}\ngroups: {info['groups']}\n")
 
 
-def _announce(label: str, graph, device):
+def _announce(label: str, graph, device, block_size: int):
     blocks = graph.blocks if isinstance(graph, Chain) else [graph]
-    print(f"{label} (rate {graph.rate}, granule {graph.granule}) on {device}:")
+    print(f"{label} (rate {graph.rate}, granule {graph.granule}, block {block_size}) "
+          f"on {device}:")
     for b in blocks:
         print(f"  {b!r}")
 
@@ -391,7 +407,7 @@ def run_opts(opts) -> int:
         fe = chain(*([B.u8_to_iq()] if cu8 else []), *fe_stages)
         fe_pipe = Pipeline(fe, block_size=opts.blocksize, device=device)
         if opts.verbose:
-            _announce("Front end", fe, device)
+            _announce("Front end", fe, device, fe_pipe.block_size)
         stream = fe_pipe.stream(read(opts.filename, fe_pipe.block_size))
     else:
         if cu8 and opts.backend != "fused":
@@ -401,7 +417,7 @@ def run_opts(opts) -> int:
     if stream is None:
         stream = read(opts.filename, pipe.block_size)
     if opts.verbose:
-        _announce("Flow", graph, device)
+        _announce("Flow", graph, device, pipe.block_size)
 
     t0 = time.perf_counter()
     sink, bits = _sink(opts, demod, out_bw)

@@ -7,6 +7,7 @@ resampler r as            → resampler(rate, as_db)
 mixUp f / mixDown f       → mix_up(f) / mix_down(f)
 fmDemodulator kf          → fm_demodulator(kf)
 amDemodulator             → am_demodulator()
+fskDemodulator m k bw     → fsk_demodulator(m_bits, k, bandwidth)
 firDecimator m            → fir_decimator(m)
 automaticGainControl t    → automatic_gain_control(t)
 dcBlocker                 → dc_blocker()
@@ -43,9 +44,10 @@ from ..utils import firdes, iirdes
 __all__ = ["u8_to_iq", "mix_up", "mix_down", "fm_demodulator", "am_demodulator",
            "ssb_demodulator", "cw_demodulator", "fir_filter", "fir_filter_c_kaiser",
            "fir_decimator", "dc_blocker", "firpfbch_channelizer", "automatic_gain_control",
-           "resampler", "iir_filter", "iir_cfilter", "wbfm_demodulator", "U8ToIQ", "Mixer",
-           "FMDemod", "AMDemod", "FIRFilter", "FIRDecim", "DCBlocker", "IIRFilter",
-           "PFBChannelizer", "AGC", "HalfbandDecim", "RationalResampler"]
+           "resampler", "iir_filter", "iir_cfilter", "wbfm_demodulator", "fsk_demodulator",
+           "U8ToIQ", "Mixer", "FMDemod", "AMDemod", "FSKDemod", "FIRFilter", "FIRDecim",
+           "DCBlocker", "IIRFilter", "PFBChannelizer", "AGC", "HalfbandDecim",
+           "RationalResampler"]
 
 _TWO_PI = 2.0 * np.pi
 
@@ -128,6 +130,24 @@ class AMDemod(Block):
 
 def am_demodulator(mod_index: float = 0.8, suppressed: bool = False) -> Block:
     return AMDemod(mod_index, suppressed)
+
+
+class FSKDemod(Block):
+    """M-FSK demodulator (reference fskDemodulator): k input samples → one
+    uint32 symbol."""
+
+    def __init__(self, m_bits: int, k: int, bandwidth: float):
+        self.m_bits, self.k, self.bandwidth = m_bits, k, bandwidth
+        self.rate = Fraction(1, k)
+        self.granule = k
+        self.name = f"fsk_demod(m={m_bits},k={k})"
+
+    def apply(self, state, x):
+        return state, demod_ops.fskdem_block(x, self.m_bits, self.k, self.bandwidth)
+
+
+def fsk_demodulator(m_bits: int, k: int, bandwidth: float) -> Block:
+    return FSKDemod(m_bits, k, bandwidth)
 
 
 def _real_part(name: str = "re") -> Block:

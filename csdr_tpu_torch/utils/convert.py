@@ -45,9 +45,14 @@ def from_jax_chain_state(state, device: torch.device):
     histories, the de-emphasis cascades, the scan-PLL carry ``pll``), which
     map key for key; ``RDSBitSlicer`` carries (MF hist (15,), previous raw
     bit), the bit uint32 in the JAX package and uint8 here, the one leaf
-    whose dtype changes.  The port's blocks carry the same leaves in the
-    same nesting, so the structure maps one to one and every other leaf
-    keeps its shape and dtype."""
+    whose dtype changes.  ``SymSync`` carries ``(hist (H,), tau (), valid
+    () bool)``, and ``sym_tracker``'s stages their own: the AGC's pair, the
+    sync's triple, the power normalizer's ``(p, valid)``, the carrier
+    phase, the equalizer's ``(w (T,) complex64, hist (T − 1,))``; inside
+    ``PerChannel`` each gains the leading channel axis that the JAX vmap
+    stacks.  The port's blocks carry the same leaves in the same nesting,
+    so the structure maps one to one and every other leaf keeps its shape
+    and dtype."""
     if isinstance(state, dict):
         return {k: from_jax_chain_state(v, device) for k, v in state.items()}
     if isinstance(state, (tuple, list)):

@@ -4,7 +4,8 @@ Copied from ``csdr_tpu/utils/firdes.py`` (the JAX package imports jax at
 package level, so the port cannot import its numpy code).  Only the designs
 the port's blocks use are here (the channelizer prototype, the Kaiser
 low-pass and length estimate, the decimator and half-band designs, the
-GMSK transmit and receive pulses);
+GMSK transmit and receive pulses, the root-raised-cosine pulse of the
+modem transmitters);
 ``tests/test_torch_design.py`` and ``tests/test_torch_fir.py`` hold them
 equal to the JAX package's arrays.
 
@@ -17,8 +18,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["kaiser_beta", "kaiser_filter_len", "kaiser_lowpass", "firdecim_kaiser",
-           "pfb_kaiser_prototype", "halfband_kaiser", "group_delay", "nyquist_kaiser",
-           "gmsk_tx", "erf_vec", "gmsk_rx"]
+           "pfb_kaiser_prototype", "halfband_kaiser", "group_delay", "rrc",
+           "nyquist_kaiser", "gmsk_tx", "erf_vec", "gmsk_rx"]
 
 
 def kaiser_beta(as_db: float) -> float:
@@ -98,6 +99,30 @@ def group_delay(h: np.ndarray, f: float = 0.0) -> float:
     if abs(H) < 1e-12:
         return (n - 1) / 2.0
     return float(np.real(1j * dH / H))
+
+
+def rrc(k: int, m: int, beta: float) -> np.ndarray:
+    """Root-raised-cosine matched filter: k samples/symbol, semi-length m
+    symbols, roll-off beta (clamped to [1e-3, 1]).  Length 2·k·m + 1, scaled
+    by 1/√k."""
+    if beta <= 0 or beta > 1:
+        beta = max(min(beta, 1.0), 1e-3)
+    n = 2 * k * m + 1
+    t = (np.arange(n, dtype=np.float64) - (n - 1) / 2.0) / k
+    h = np.empty(n, dtype=np.float64)
+    for i, ti in enumerate(t):
+        if abs(ti) < 1e-9:
+            h[i] = 1.0 - beta + 4.0 * beta / np.pi
+        elif abs(abs(4.0 * beta * ti) - 1.0) < 1e-9:
+            h[i] = (beta / np.sqrt(2.0)) * (
+                (1.0 + 2.0 / np.pi) * np.sin(np.pi / (4.0 * beta))
+                + (1.0 - 2.0 / np.pi) * np.cos(np.pi / (4.0 * beta)))
+        else:
+            num = np.sin(np.pi * ti * (1.0 - beta)) + 4.0 * beta * ti * np.cos(
+                np.pi * ti * (1.0 + beta))
+            den = np.pi * ti * (1.0 - (4.0 * beta * ti) ** 2)
+            h[i] = num / den
+    return h / np.sqrt(k)
 
 
 def nyquist_kaiser(k: int, m: int, beta: float) -> np.ndarray:

@@ -80,7 +80,7 @@ def test_fused_and_eager_cli_outputs_agree(captures, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--mesh", "2x1", "--demod", "DeAM WAV"],
-                                   ["--demod", "DeNBFMSync 10"],
+                                   ["--mesh", "2x1", "--demod", "DeNBFMSync 10"],
                                    ["--demod", "DeNBFM 0.6 AU"], ["--no-file"]])
 def test_unported_options_exit_nonzero(captures, tmp_path, extra, capsys):
     args = ["--filename", captures["cf32"], "-c", str(NCH), "-o", str(tmp_path / "x"),
@@ -90,7 +90,10 @@ def test_unported_options_exit_nonzero(captures, tmp_path, extra, capsys):
     else:
         args += extra
     assert main(args) != 0
-    assert "not yet ported in csdr_tpu_torch" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not yet ported in csdr_tpu_torch" in err
+    if "--mesh" in extra:
+        assert "ShardedChain" in err
     assert not any(f.startswith("x_ch") for f in os.listdir(tmp_path))
 
 
@@ -496,25 +499,180 @@ def test_cuda_device_without_a_card_is_an_error(captures, tmp_path):
 
 
 def test_package_imports_without_jax():
+    """Every module of csdr_tpu_torch (walked, not listed; csrc holds the
+    CUDA sources) imports with ``jax`` made unimportable, and none of them
+    loads jax or the JAX package."""
     code = textwrap.dedent("""
-        import sys
+        import pkgutil, importlib, sys
         sys.modules["jax"] = None  # any `import jax` now raises ImportError
         import csdr_tpu_torch
-        import csdr_tpu_torch.apps.soapy_sdr_cli, csdr_tpu_torch.utils.convert
-        import csdr_tpu_torch.blocks.fused_blocks, csdr_tpu_torch.ops.cuda._build
-        import csdr_tpu_torch.ops.cuda.pfb_fused, csdr_tpu_torch.ops.agc
-        import csdr_tpu_torch.ops.fir, csdr_tpu_torch.ops.resamp
-        import csdr_tpu_torch.ops.cuda.fir_valid, csdr_tpu_torch.ops.cuda.fft_fir
-        import csdr_tpu_torch.models.stereo, csdr_tpu_torch.models.rds
-        import csdr_tpu_torch.core.checkpoint, csdr_tpu_torch.utils.iirdes
-        import csdr_tpu_torch.parallel, csdr_tpu_torch.core.sharding
+        names = [m.name for m in pkgutil.walk_packages(csdr_tpu_torch.__path__,
+                                                       "csdr_tpu_torch.")
+                 if ".csrc" not in m.name]
+        for name in names:
+            importlib.import_module(name)
+        for need in ("apps.helidecode", "models.symsync", "models.modem", "models.beacon",
+                     "ops.fec", "models.pocsag", "apps.adsb_decode", "parallel.flagship"):
+            assert "csdr_tpu_torch." + need in names, need
         bad = [m for m in sys.modules if m == "jax" and sys.modules[m] is not None
                or m.startswith(("jax.", "jaxlib")) or m == "csdr_tpu"
                or m.startswith("csdr_tpu.")]
         assert not bad, bad
-        print("ok")
+        print("ok", len(names))
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        cwd=REPO, env=env, timeout=120)
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    assert r.returncode == 0 and r.stdout.startswith("ok "), r.stderr
+    assert int(r.stdout.split()[1]) > 60
+
+
+# ---- DeNBFMSync: FM demod + symbol sync → helidecode --------------------------
+
+HELI_K = 10
+
+
+def heli_fsk(nch: int, occupied: dict, n: int, seed: int) -> np.ndarray:
+    """An nch-way capture with helicopter 2-FSK frames (tests/test_cli_apps.py:
+    345-352; k = 10 at the channel rate, ±0.1 cycles/sample there) on the
+    channels of ``occupied`` (channel → (start sample, fractional delay in
+    input samples)), each on its channel centre, over weak noise."""
+    from tests.test_torch_symsync import fractional_delay, heli_levels
+
+    rng = np.random.default_rng(seed)
+    x = 1e-3 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+    t = np.arange(n)
+    for ch, (start, delay) in occupied.items():
+        lv = heli_levels(HELI_K, reps=12)
+        inst = np.repeat(lv * 0.02 * HELI_K * 0.5 / nch, HELI_K * nch)[: n - start]
+        fc = (ch - (nch - 1) / 2) / nch if nch > 1 else 0.0
+        ph = 2 * np.pi * np.cumsum(inst)
+        sig = np.zeros(n, np.complex128)
+        sig[start:start + len(inst)] = fractional_delay(np.exp(1j * ph), delay)
+        x = x + 0.5 * sig * np.exp(2j * np.pi * np.mod(fc * t, 1.0))
+    return x.astype(np.complex64)
+
+
+@pytest.fixture(scope="module")
+def heli_captures(tmp_path_factory):
+    d = tmp_path_factory.mktemp("heli")
+    one = heli_fsk(1, {0: (0, 0.0)}, 14 * 7100 * HELI_K // 10 + 3000, 31)
+    four = heli_fsk(4, {0: (1200, 2.7), 2: (500, 13.1), 3: (3000, 29.4)}, 4 * 76800, 32)
+    one.tofile(d / "one.cf32")
+    four.tofile(d / "four.cf32")
+    q = np.clip(np.round(np.stack([four.real, four.imag], 1) * 100 + 127.5), 0, 255)
+    q.astype(np.uint8).tofile(d / "four.cu8")
+    return {"one": str(d / "one.cf32"), "four": str(d / "four.cf32"),
+            "four_cu8": str(d / "four.cu8"), "n_one": len(one), "n_four": len(four)}
+
+
+def _run_with_ties(argv):
+    """The port's CLI with every SymSync step's outputs of the other pick
+    recorded (``chip_smoke.record_ties``): (rc, (nch, n) outputs)."""
+    from chip_smoke import record_ties
+    from tests.test_torch_symsync import TIE
+
+    with record_ties(TIE) as rec:
+        rc = main(argv)
+    return rc, np.concatenate([np.atleast_2d(other) for _, other in rec], axis=-1)
+
+
+def _heli_coords(path):
+    from csdr_tpu_torch.apps import helidecode
+
+    base = path[:-4]
+    coords = helidecode.decode_file(path, base + ".kml", base + ".m")
+    return ([(c.lat_deg, c.lat_min, c.lat_sec, c.lon_deg, c.lon_min, c.lon_sec)
+             for c in coords], open(base + ".kml").read())
+
+
+def test_denbfmsync_helicopter_chain_matches_jax(heli_captures, tmp_path):
+    """The reference workflow (tests/test_cli_apps.py:339-368): 2-FSK capture
+    → soapy-sdr "DeNBFMSync 10" → helidecode, the port's CLI and helidecode
+    against the JAX CLI and the JAX helidecode: the same file length, the
+    samples within 2e-3 (of either pick where float order picks), the same
+    coordinates and the same KML text."""
+    from csdr_tpu.apps import helidecode as j_heli
+    from tests.test_torch_symsync import assert_sync_close
+
+    common = ["--filename", heli_captures["one"], "-n", str(heli_captures["n_one"]),
+              "--demod", f"DeNBFMSync {HELI_K}", "--blocksize", str(1 << 15)]
+    assert jax_main(common + ["-o", str(tmp_path / "j")]) == 0
+    rc, others = _run_with_ties(common + ["-o", str(tmp_path / "p"), "--device", "cpu"])
+    assert rc == 0
+    want = np.fromfile(tmp_path / "j.f32", np.float32)
+    got = np.fromfile(tmp_path / "p.f32", np.float32)
+    assert got.shape == want.shape == (heli_captures["n_one"] // HELI_K * 2,)
+    assert_sync_close(got, others[0, :len(got)], want, "-c 1")
+    coords, kml = _heli_coords(str(tmp_path / "p.f32"))
+    jc = j_heli.decode_file(str(tmp_path / "j.f32"), str(tmp_path / "j.kml"),
+                            str(tmp_path / "j.m"))
+    assert coords == [(c.lat_deg, c.lat_min, c.lat_sec, c.lon_deg, c.lon_min, c.lon_sec)
+                      for c in jc]
+    assert len(coords) >= 10 and kml == open(tmp_path / "j.kml").read()
+    assert abs(coords[0][0] + coords[0][1] / 60 + coords[0][2] / 3600
+               - (52 + 30 / 60 + (45 / 100 * 60) / 3600)) < 1e-6
+
+
+# (port argv, input, -a threshold); at the channelizer's output the occupied
+# channels read −6 dB (cu8 −8), the empty one −46 (cu8 −43): ≥ 17 dB from
+# a −25 dB squelch either way
+SYNC_FLOWS = {
+    "eager": (["--backend", "eager"], "four", None),
+    "pfb_fused": (["--backend", "pfb_fused"], "four", None),
+    "pfb_fused_cu8_agc": (["--backend", "pfb_fused"], "four_cu8", "-25"),
+    "eager_agc": (["--backend", "eager"], "four", "-25"),
+}
+
+
+@pytest.mark.parametrize("flow", list(SYNC_FLOWS))
+def test_denbfmsync_channelized_matches_jax(heli_captures, tmp_path, flow):
+    """-c 4 "DeNBFMSync 10" under eager and pfb_fused (K4's plain version on
+    the CPU), with and without -a, against the JAX CLI's files: every
+    channel's length equal, the occupied channels within 2e-3 (of either
+    pick where float order picks), helidecode's coordinates equal on every channel
+    and none on the empty one."""
+    from tests.test_torch_symsync import assert_sync_close
+
+    extra, src, agc = SYNC_FLOWS[flow]
+    common = ["--filename", heli_captures[src], "-n", str(heli_captures["n_four"]), "-c", "4",
+              "--demod", f"DeNBFMSync {HELI_K}", "--blocksize", str(25600)]
+    if agc:
+        common += ["-a", agc]
+    assert jax_main(common + ["-o", str(tmp_path / "j")]) == 0
+    rc, others = _run_with_ties(common + extra + ["-o", str(tmp_path / "p"), "--device", "cpu"])
+    assert rc == 0
+    want = read_channels(str(tmp_path / "j"), "f32", np.float32, 4)
+    got = read_channels(str(tmp_path / "p"), "f32", np.float32, 4)
+    assert got.shape == want.shape == (4, heli_captures["n_four"] // 4 // HELI_K * 2)
+    for ch in (0, 2, 3):
+        assert_sync_close(got[ch], others[ch, :got.shape[1]], want[ch], f"{flow} channel {ch}")
+    for ch in range(4):
+        p, _ = _heli_coords(str(tmp_path / f"p_ch{ch + 1}.f32"))
+        j, _ = _heli_coords(str(tmp_path / f"j_ch{ch + 1}.f32"))
+        assert p == j and (len(p) >= 10 if ch != 1 else not p), (ch, len(p), len(j))
+    if agc:
+        assert not got[1].any() and not want[1].any()   # the squelch holds
+
+
+def test_denbfmsync_front_end_matches_jax(heli_captures, tmp_path):
+    """-c 1 --offset F -b B "DeNBFMSync 10": the front end tunes channel 2
+    of the 4-way capture to DC and resamples it to a quarter rate, then the
+    sync flow; the same samples (2e-3 of either pick) and coordinates."""
+    from tests.test_torch_symsync import assert_sync_close
+
+    fs = 2.56e6
+    n = heli_captures["n_four"] // 4
+    common = ["--filename", heli_captures["four"], "-s", str(fs), "--offset",
+              str((2 - 1.5) / 4 * fs), "-b", str(fs / 4), "-n", str(n), "--demod",
+              f"DeNBFMSync {HELI_K}", "--blocksize", str(1 << 14)]
+    assert jax_main(common + ["-o", str(tmp_path / "j")]) == 0
+    rc, others = _run_with_ties(common + ["-o", str(tmp_path / "p"), "--device", "cpu"])
+    assert rc == 0
+    want = np.fromfile(tmp_path / "j.f32", np.float32)
+    got = np.fromfile(tmp_path / "p.f32", np.float32)
+    assert got.shape == want.shape == (n // HELI_K * 2,)
+    assert_sync_close(got, others[0, :len(got)], want, "--offset -b")
+    p, _ = _heli_coords(str(tmp_path / "p.f32"))
+    j, _ = _heli_coords(str(tmp_path / "j.f32"))
+    assert p == j and len(p) >= 10

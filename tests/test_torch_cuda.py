@@ -18,7 +18,9 @@ differs by exactly 2π/(2π·kf).  The FIR kernels, relative to the largest
 output: K5 (``fir_valid``) 1e-4, tighter than the JAX package's 2e-3
 (tests/test_pallas_fir.py:21,32) because its bf16x3 products read ~1e-5 and
 one product left out reads ~2e-3 (tests/test_torch_fir.py); K6
-(``fft_fir``) 2e-4 (tests/test_fftfir.py:36,51).
+(``fft_fir``) 2e-4 (tests/test_fftfir.py:36,51).  The symbol sync (no
+kernel of its own) against the CPU: 2e-3 of either pick where float order
+picks (tests/test_torch_symsync.py).
 """
 
 import numpy as np
@@ -352,3 +354,82 @@ def test_pocsag_band_monitor_pfb_fused_matches_eager(dev):
     msgs = pocsag.decode_channels(out["pfb_fused"], rate)
     assert {m["channel"]: (m["ric"], m["text"]) for m in msgs} == pages
     assert msgs == pocsag.decode_channels(out["eager"], rate)
+
+
+def _nrz_rows(rows, n, k, seed, smooth):
+    """Bipolar NRZ rows at k·(1 + ε) samples/symbol, each with its own clock
+    offset ε (±100 ppm: under 2 samples of drift per timing window, far from
+    the ±k/2 the unwrap allows) and timing phase, read at the rows' sample
+    times from an 8× dense grid: the step train itself (``smooth`` False:
+    every transition falls between two samples, so the timing tone fits
+    near-integer timing and many outputs sit where the window position
+    crosses an integer) or its one-symbol moving average."""
+    rng = np.random.default_rng(seed)
+    out = np.empty((rows, n), np.float32)
+    L = 8 * k
+    for r in range(rows):
+        eps, d0 = rng.uniform(-1e-4, 1e-4), rng.uniform(0, k)
+        t = (np.arange(n) + d0) * (1 + eps) * 8
+        bits = rng.integers(0, 2, int(t[-1] // L) + 3) * 2.0 - 1.0
+        if smooth:
+            c = np.concatenate([[0.0], np.cumsum(np.repeat(bits, L))])
+            out[r] = np.interp(t, np.arange(len(c) - L), (c[L:] - c[:-L]) / L)
+        else:
+            out[r] = np.interp(t, np.arange(len(bits) * L), np.repeat(bits, L))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smooth", [False, True], ids=["steps", "smoothed"])
+def test_sym_sync_on_card_matches_cpu(dev, smooth):
+    """PerChannel(sym_sync_r(8)) on 64 rows of 2^17 samples, two
+    state-chained blocks, on the card against the CPU: 2e-3 relative to the
+    largest output (tests/test_sharding_generic.py:346) of the CPU's output
+    or, where float order picks (``chip_smoke.record_ties`` at 0.01), of the
+    CPU's output of the other pick (tests/test_torch_symsync.py); the
+    carried τ within 1e-3 samples."""
+    from chip_smoke import record_ties
+    from csdr_tpu_torch.core.block import PerChannel
+    from csdr_tpu_torch.models import symsync
+
+    x = _nrz_rows(64, 2 << 17, 8, 5, smooth)
+    blk = PerChannel(symsync.sym_sync_r(8, 4, 0.0, 64), 64)
+    sg, sc = blk.init(dev), blk.init(torch.device("cpu"))
+    for b in range(2):
+        xb = torch.from_numpy(np.ascontiguousarray(x[:, b << 17:(b + 1) << 17]))
+        sg, yg = blk.apply(sg, xb.to(dev))
+        with record_ties(0.01) as rec:
+            sc, yc = blk.apply(sc, xb)
+        yg, yc = yg.cpu().numpy(), yc.numpy()
+        assert yg.shape == yc.shape == (64, (1 << 17) // 8 * 2)
+        codes, other = rec[0]
+        scale = np.abs(yc).max(axis=1, keepdims=True)
+        err = np.minimum(np.abs(yg - yc), np.abs(yg - other)) / scale
+        assert err.max() < 2e-3, (b, float(err.max()), np.bincount(codes.ravel(), minlength=3))
+        assert np.abs(sg[1].cpu().numpy() - sc[1].numpy()).max() < 1e-3
+
+
+@pytest.mark.cuda
+def test_denbfmsync_pfb_fused_cli_launches_k4(dev, tmp_path):
+    """-c 64 --backend pfb_fused "DeNBFMSync 10" through the CLI on the
+    card: K4 launches once per block and no other kernel does; every
+    channel's file holds n·2/(64·10) finite samples."""
+    from csdr_tpu_torch.apps.soapy_sdr_cli import main
+    from csdr_tpu_torch.ops.cuda import fft_fir as k6
+    from csdr_tpu_torch.ops.cuda import fir_valid as k5
+
+    nch, block, blocks = 64, 64 * 64 * 10 * 4, 3
+    x = occupied_band(nch, block * blocks, seed=9, per_frame=True)
+    q = np.clip(np.round(np.stack([x.real, x.imag], 1) * 60 + 127.5), 0, 255)
+    q.astype(np.uint8).tofile(tmp_path / "cap.cu8")
+    before = (dict(pf.launches), ff.launches, k5.launches, k6.launches)
+    rc = main(["--filename", str(tmp_path / "cap.cu8"), "-n", str(block * blocks), "-c", str(nch),
+               "--demod", "DeNBFMSync 10", "--backend", "pfb_fused", "--blocksize", str(block),
+               "-o", str(tmp_path / "s"), "--device", "cuda"])
+    assert rc == 0
+    assert pf.launches["pfb_channelize_fused"] - before[0]["pfb_channelize_fused"] == blocks
+    assert pf.launches["pfb_fm_fused"] == before[0]["pfb_fm_fused"]
+    assert (ff.launches, k5.launches, k6.launches) == before[1:]
+    for ch in range(1, nch + 1):
+        y = np.fromfile(tmp_path / f"s_ch{ch}.f32", np.float32)
+        assert y.shape == (block * blocks * 2 // (nch * 10),) and np.isfinite(y).all()
