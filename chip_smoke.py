@@ -147,6 +147,30 @@ the DeNBFMSync path):
       its output of the other pick.
       ``python3 chip_smoke.py --sync-only`` runs identity, build and 9.
 
+and for the imagery receivers and the CLI's file surface (no new kernel; K1
+on WAV input and K3 under --profile):
+
+  10. 10a the offline decoders on the card and with --device cpu, inputs
+      made by the port's own modulators: an APT pass of 1,200 lines (10 min
+      at 33,280 Hz, .f32) and a 120-line .cf32 WBFM capture through the
+      app's FM front, one SSTV Martin 1 image (320 × 256 at 11,025 Hz), one
+      WEFAX chart of 600 lines at 120 lpm (12,000 Hz).  The card's track
+      within 2e-5 of the CPU's largest value (the Hz tracks from output 180,
+      the FIR's start-up), the same lines and sync positions, the images
+      within 1 LSB, the error against the transmitted image within the JAX
+      tests' bounds; samples per second on both, the .cf32 APT app's idle
+      share.
+      10b a mono float32 WAV of 2^24 samples (an FM carrier in every channel
+      of the IQ it lifts to): wav_iq_source card against CPU over the first
+      2^20 outputs (2e-5), then -c 64 "DeNBFM 0.6 F32" --backend fused (K1)
+      against eager at K1's bounds from frame 1, MSPS, the fused run's idle
+      share.  10c -c 64 --backend pfb_fused --profile on a 2^24-sample cf32
+      capture: the stage table, K3 once per block, the 64 files bit-equal
+      to the run without --profile.  10d -c 1 --offset -b DeAM AU read back
+      with read_au equal to the F32 run, and its --spectrum and
+      --constellation scripts within 1e-4 of the --device cpu run's.
+      ``python3 chip_smoke.py --imagery-only`` runs identity, build and 10.
+
 Prints one JSON object per result, then the nvidia-smi line, the kernels
 line and, last, {"ok": true, "device": {...}}.  Each kernels entry carries
 bound_ms: the larger of the bytes the function must move (each input read
@@ -162,6 +186,7 @@ complex shapes.  Nothing here imports JAX.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import re
@@ -2451,6 +2476,434 @@ def phase_sync_library(torch, ct, ff, pf, dev, card) -> dict:
     return out
 
 
+# ---- 10. the imagery receivers and the file surface ------------------------------
+
+APT_FS = 33280.0             # 8 × the 4,160 Hz word rate
+APT_LINES = 1200             # a 10 min pass at two lines per second
+APT_CF32_LINES = 120         # the .cf32 WBFM capture through the app's FM front
+APT_KF = 0.6                 # apt_decode's default WBFM deviation
+SSTV_FS = 11025.0            # one Martin 1 image, 320 × 256
+WEFAX_FS, WEFAX_LINES = 12000.0, 600   # one chart at 120 lpm
+IMG_WARMUP = 180             # the 161-tap FIR's start-up (tests/test_sstv.py:97-102)
+GOLDEN_REL = 2e-5            # tests/test_golden.py
+WAV_SAMPLES = 1 << 24        # the mono WAV of 10b: 2^23 IQ samples
+WAV_CARRIERS = 55            # channels 0..54 loaded; 55..63 hold the images of 8..0
+WAV_FIRST = 1 << 20          # wav_iq_source outputs compared, card against CPU
+PROFILE_SAMPLES = 1 << 24    # the cf32 capture of 10c and 10d
+AM_SAMPLES = 1 << 20         # 10d's -n, at the front end's 256 kS/s
+PLOT_REL = 1e-4              # the plot scripts, card against CPU
+
+
+@contextlib.contextmanager
+def recording_tracks(app):
+    """Keep the device track an offline decoder collects (its
+    ``collect``, the Pipeline run of its chain) while it runs: a test
+    helper, as ``record_ties``."""
+    tracks, collect = [], app.collect
+
+    def rec(*args, **kw):
+        out = collect(*args, **kw)
+        tracks.append(np.asarray(out))
+        return out
+
+    app.collect = rec
+    try:
+        yield tracks
+    finally:
+        app.collect = collect
+
+
+def app_run(torch, ff, pf, app, argv: list[str]) -> dict:
+    """One offline-decoder run (``app.main(argv)``) with every kernel count
+    set to 0 just before it; its seconds, the counts, the track it decoded
+    and what it printed."""
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts(ff, pf, fv, fx)
+    with recording_tracks(app) as tracks, contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        rc = app.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    check(rc == 0, f"{app.__name__} {' '.join(argv)}: exit code {rc}: {buf.getvalue()}")
+    return dict(seconds=dt, counts=read_counts(ff, pf, fv, fx), track=tracks[0],
+                out=buf.getvalue().strip())
+
+
+def read_pnm(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        raw = f.read()
+    magic, dims, _maxval, payload = raw.split(b"\n", 3)
+    w, h = (int(v) for v in dims.split())
+    img = np.frombuffer(payload, np.uint8)
+    return img.reshape(h, w, 3) if magic == b"P6" else img.reshape(h, w)
+
+
+def apt_pass(lines: int, seed: int) -> np.ndarray:
+    """(lines, 2080) APT rows: sync A and B at spec levels, black spaces,
+    smooth video that changes from line to line (a cloud field), telemetry
+    wedges that step every eight lines."""
+    from csdr_tpu_torch.models import apt
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(909) / 909
+    ln = np.arange(lines)[:, None] / lines
+    rows = np.zeros((lines, apt.LINE_WORDS))
+    rows[:, :39] = apt.SYNC_A * 233 + 11
+    rows[:, 39:86] = 11
+    ph = rng.uniform(0, 2 * np.pi, 3)
+    rows[:, 86:995] = 128 + 60 * np.sin(2 * np.pi * (3 * t + 2 * ln) + ph[0]) + 40 * np.cos(
+        2 * np.pi * (7 * t - 5 * ln) + ph[1])
+    rows[:, 995:1040] = 40 + 25 * ((np.arange(lines) // 8) % 8)[:, None]
+    rows[:, 1040:1079] = apt.SYNC_B * 233 + 11
+    rows[:, 1079:1126] = 11
+    rows[:, 1126:2035] = 128 + 90 * np.cos(2 * np.pi * (2 * t + 3 * ln) + ph[2])
+    rows[:, 2035:] = 200
+    return np.asarray(np.rint(rows), np.uint8)
+
+
+def sstv_picture(seed: int) -> np.ndarray:
+    """(256, 320, 3) smooth RGB content (tests/test_sstv.py's kind)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(320) / 320
+    ln = np.arange(256)[:, None] / 256
+    img = np.stack([128 + 100 * np.sin(2 * np.pi * (t + 2 * ln) + rng.uniform(0, 6)),
+                    np.broadcast_to(255 * t, (256, 320)) * (0.5 + 0.5 * ln),
+                    128 + 90 * np.cos(2 * np.pi * (2 * t - ln) + rng.uniform(0, 6))], axis=-1)
+    return np.asarray(np.rint(img), np.uint8)
+
+
+def wefax_chart(lines: int, seed: int) -> np.ndarray:
+    """(lines, 1810) chart content: isobars as slow sinusoids
+    (tests/test_wefax.py's kind)."""
+    from csdr_tpu_torch.models import wefax
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(wefax.PX_PER_LINE) / wefax.PX_PER_LINE
+    ln = np.arange(lines)[:, None] / lines
+    img = 200 - 150 * (0.5 + 0.5 * np.sin(2 * np.pi * (4 * t + 3 * ln) + rng.uniform(0, 6)))
+    return np.asarray(np.rint(img), np.uint8)
+
+
+def image_error(got: np.ndarray, want: np.ndarray) -> tuple[float, float]:
+    err = np.abs(got.astype(np.float64) - want)
+    return float(np.median(err)), float(np.quantile(err, 0.95))
+
+
+def imagery_case(torch, ff, pf, tmp, card, name, app, path, argv, samples, first,
+                 info_of, want_img) -> dict:
+    """One app on the card and on the CPU over the same file: the tracks
+    within GOLDEN_REL of the CPU's largest value (from output ``first``),
+    the same lines and sync positions (``info_of(track)``), the images
+    within 1 LSB, the card's image against the transmitted one
+    (``want_img(image, info) -> (median, q95, bounds)``)."""
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(tmp, f"{name}_{dev}")
+        r = app_run(torch, ff, pf, app, [path, *argv, "-o", out, "--device", dev])
+        check_counts(r["counts"], None, f"10a {name} --device {dev}")
+        r["image"] = read_pnm(out)
+        os.unlink(out)
+        runs[dev] = r
+    c, p = runs["cuda"], runs["cpu"]
+    check(c["track"].shape == p["track"].shape,
+          f"10a {name}: track {c['track'].shape} vs {p['track'].shape}")
+    rel = float(np.abs(c["track"][first:].astype(np.float64) - p["track"][first:]).max()
+                / np.abs(p["track"]).max())
+    ic, ip = info_of(c["track"]), info_of(p["track"])
+    same_shape = c["image"].shape == p["image"].shape
+    diff = (np.abs(c["image"].astype(np.int16) - p["image"]) if same_shape else None)
+    med, q95, (bmed, bq95) = want_img(c["image"], ic)
+    res = dict(samples=samples, lines=ic["lines"], image_shape=list(c["image"].shape),
+               card_vs_cpu_track_rel=rel, pixels_differing=int((diff > 0).sum()) if same_shape
+               else None, max_lsb=int(diff.max()) if same_shape else None,
+               error_median=med, error_q95=q95,
+               card_sps=samples / c["seconds"], cpu_sps=samples / p["seconds"],
+               card_seconds=c["seconds"], cpu_seconds=p["seconds"], report=c["out"])
+    emit(dict(phase="imagery", app=name, **res, **card))
+    check(rel < GOLDEN_REL, f"10a {name}: card vs CPU track {rel}")
+    check(ic == ip, f"10a {name}: lines/syncs differ: card {ic} cpu {ip}")
+    check(same_shape and res["max_lsb"] <= 1, f"10a {name}: images differ: {res}")
+    check(med <= bmed and q95 <= bq95, f"10a {name}: error vs transmitted {med}, {q95}")
+    return res
+
+
+def phase_imagery(torch, ff, pf, dev, card, tmp) -> dict:
+    """10a. The imagery apps on the card and on the CPU at the sizes users
+    decode, inputs made by the port's own modulators."""
+    from csdr_tpu_torch.apps import apt_decode, sstv_decode, wefax_decode
+    from csdr_tpu_torch.models import apt, sstv, wefax
+
+    out = {}
+    img = apt_pass(APT_LINES, SEED + 100)
+
+    def apt_info(track):
+        _, info = apt.decode_words(track)
+        return dict(lines=info["lines"], syncs=info["syncs"])
+
+    def apt_error(got, info, img=img):
+        s = np.asarray(info["syncs"])
+        check(len(s) >= len(img) // 10 and bool(np.all(np.diff(s) == apt.LINE_WORDS)),
+              f"10a APT: syncs not one line apart ({len(s)} lines)")
+        first = int(s[0]) // apt.LINE_WORDS + (1 if int(s[0]) % apt.LINE_WORDS > 39 else 0)
+        n = min(len(got), len(img) - first)
+        va_got, _ = apt.split_channels(got[:n])
+        va_want, _ = apt.split_channels(img[first:first + n])
+        return (*image_error(va_got, va_want), (3.0, 12.0))  # tests/test_apt.py:68-69
+
+    audio = apt.apt_modulate(img, APT_FS)
+    # the .cf32 pass first: its card run also warms the card's FFT plans
+    part = audio[:APT_CF32_LINES * apt.LINE_WORDS * 8]
+    iq = np.exp(1j * 2 * np.pi * APT_KF * np.cumsum(part, dtype=np.float64)).astype(np.complex64)
+    path = os.path.join(tmp, "apt.cf32")
+    iq.tofile(path)
+    out["apt_cf32"] = imagery_case(
+        torch, ff, pf, tmp, card, "apt_cf32", apt_decode, path, ["-s", str(APT_FS)], len(iq), 0,
+        apt_info, lambda got, info: apt_error(got, info, img[:APT_CF32_LINES]))
+    # the idle share of the 120-line pass: a profiler window over the whole
+    # pass (~340 launches per block) takes longer to read back than the rest
+    # of the phase
+    t0 = time.perf_counter()
+    idle = idle_share({"app": "apt_decode", "argv": [
+        path, "-s", str(APT_FS), "-o", os.path.join(tmp, "apt_idle.pgm")]})
+    emit(dict(phase="imagery_idle", app="apt_cf32", child_seconds=time.perf_counter() - t0,
+              **idle, **card))
+    out["apt_cf32"].update(idle)
+    os.unlink(path)
+    path = os.path.join(tmp, "apt.f32")
+    audio.tofile(path)
+    out["apt"] = imagery_case(torch, ff, pf, tmp, card, "apt", apt_decode, path,
+                              ["-s", str(APT_FS)], len(audio), 0, apt_info, apt_error)
+    os.unlink(path)
+    del audio, part, iq
+
+    pic = sstv_picture(SEED + 101)
+
+    def sstv_info(track):
+        mode, start = sstv.decode_vis(track, SSTV_FS)
+        _, info = sstv.decode_freq(track, SSTV_FS)
+        return dict(mode=mode, lines=info["lines"],
+                    syncs=sstv.find_syncs(track, SSTV_FS, start).tolist())
+
+    def sstv_error(got, info):
+        n = min(len(got), len(pic))
+        return (*image_error(got[:n], pic[:n]), (4.0, 16.0))  # tests/test_sstv.py:52-53
+
+    audio = sstv.sstv_modulate(pic, SSTV_FS, mode="martin1")
+    path = os.path.join(tmp, "sstv.f32")
+    audio.tofile(path)
+    out["sstv"] = imagery_case(torch, ff, pf, tmp, card, "sstv", sstv_decode, path,
+                               ["-s", str(SSTV_FS)], len(audio), IMG_WARMUP, sstv_info,
+                               sstv_error)
+    os.unlink(path)
+
+    chart = wefax_chart(WEFAX_LINES, SEED + 102)
+
+    def wefax_info(track):
+        start, score = wefax.find_phasing(track, WEFAX_FS)
+        _, info = wefax.decode_freq(track, WEFAX_FS)
+        return dict(lines=info["lines"], line_start=start, phasing_ok=score >= 0.9)
+
+    def wefax_error(got, info):
+        n = min(len(got), len(chart))
+        return (*image_error(got[:n], chart[:n]), (4.0, 16.0))  # tests/test_wefax.py:52-53
+
+    audio = wefax.wefax_modulate(chart, WEFAX_FS)
+    path = os.path.join(tmp, "wefax.f32")
+    audio.tofile(path)
+    out["wefax"] = imagery_case(torch, ff, pf, tmp, card, "wefax", wefax_decode, path,
+                                ["-s", str(WEFAX_FS)], len(audio), IMG_WARMUP, wefax_info,
+                                wefax_error)
+    os.unlink(path)
+    return out
+
+
+def wav_if_capture(torch, dev, n: int, seed: int) -> np.ndarray:
+    """(n,) float32 WAV samples (a sound-card IF recording) that lift to an
+    FM carrier in every channel of a 64-way split of the IQ: the Hilbert
+    2:1 and the mix by π put WAV frequency f at IQ frequency 2f − 1/2, so
+    channel k's centre is f = (k + 1/2)/128.  The converter's 21-tap
+    band edges pass a carrier near f = 0 or 1/2 also as an image in the
+    mirrored channel 63 − k, so channels 0..54 carry a carrier each and
+    55..63 hold the images of 8..0 alone: one carrier per channel, none
+    near zero where atan2 amplifies rounding."""
+    rng = np.random.default_rng(seed)
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    x = torch.zeros(n, dtype=torch.float64, device=dev)
+    for k in range(WAV_CARRIERS):
+        tone = 0.002 / 64 * (1 + k % 5) / 2   # cycles per WAV sample
+        ph = (2 * np.pi * torch.remainder((k + 0.5) / 128 * t, 1.0)
+              + 2.0 * torch.sin(2 * np.pi * torch.remainder(tone * t, 1.0))
+              + float(rng.uniform(0, 2 * np.pi)))
+        x += 0.075 * torch.cos(ph)
+    x += torch.from_numpy(rng.standard_normal(n) * 1e-3).to(dev)
+    return x.to(torch.float32).cpu().numpy()
+
+
+def phase_wav(torch, ff, pf, dev, card, tmp) -> dict:
+    """10b. A mono WAV through wav_iq_source, card against CPU, then the
+    CLI's -c 64 DeNBFM on it under fused (K1) against eager."""
+    import csdr_tpu_torch as ct
+    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
+    from csdr_tpu_torch.io.wav import write_wav
+
+    path = os.path.join(tmp, "if.wav")
+    write_wav(path, wav_if_capture(torch, dev, WAV_SAMPLES, SEED + 110), 96000)
+    first = {}
+    for d in ("cuda", "cpu"):
+        gen = ct.wav_iq_source(path, 2 * WAV_FIRST, device=d)
+        first[d] = next(gen)
+        gen.close()
+    check(first["cuda"].shape == first["cpu"].shape == (WAV_FIRST,),
+          f"10b wav_iq_source: first block {first['cuda'].shape}")
+    src_rel = float(np.abs(first["cuda"] - first["cpu"]).max() / np.abs(first["cpu"]).max())
+    n_iq = WAV_SAMPLES // 2
+    frames = n_iq // 64
+    runs = {}
+    for backend in ("fused", "eager"):
+        prefix = os.path.join(tmp, f"wav_{backend}")
+        argv = ["--filename", path, "-s", "48000", "-n", str(n_iq), "-c", "64", "--demod",
+                "DeNBFM 0.6 F32", "--backend", backend, "--blocksize", str(BLOCK // 2),
+                "-o", prefix]
+        dt, counts = cli_run(torch, ff, pf, cli_main, argv)
+        check_counts(counts, "flagship_fused" if backend == "fused" else None,
+                     f"10b -c 64 WAV {backend}")
+        runs[backend] = dict(seconds=dt, msps_iq=n_iq / dt / 1e6,
+                             msps_wav=WAV_SAMPLES / dt / 1e6, launches=counts, argv=argv)
+        runs[backend]["audio"] = read_channels(prefix, "f32", np.float32, 64, frames * 4)
+        for k in range(64):
+            os.unlink(f"{prefix}_ch{k + 1}.f32")
+    d = runs["fused"]["audio"][:, 1:].astype(np.float64) - runs["eager"]["audio"][:, 1:]
+    mx, rms = float(np.abs(d).max()), float(np.sqrt((d ** 2).mean()))
+    finite = bool(np.isfinite(runs["fused"]["audio"]).all())
+    for r in runs.values():
+        del r["audio"]
+    t0 = time.perf_counter()
+    runs["fused"].update(idle_share({"cli": runs["fused"]["argv"]}),
+                         idle_child_seconds=time.perf_counter() - t0)
+    res = dict(wav_samples=WAV_SAMPLES, iq_samples=n_iq, source_card_vs_cpu_rel=src_rel,
+               fused_vs_eager_max=mx, fused_vs_eager_rms=rms,
+               runs={b: {k: v for k, v in r.items() if k != "argv"} for b, r in runs.items()})
+    emit(dict(phase="wav_input", flow="-c 64 DeNBFM 0.6 F32 on a mono WAV", **res, **card))
+    os.unlink(path)
+    check(src_rel < GOLDEN_REL, f"10b wav_iq_source card vs CPU: {src_rel}")
+    check(finite, "10b: non-finite audio")
+    check(mx < 1.2e-3 and rms < 4e-5, f"10b fused vs eager: max {mx}, RMS {rms}")
+    return res
+
+
+def plot_arrays(path: str) -> list[np.ndarray]:
+    """The arrays of a --spectrum (f, p) or --constellation (v) script."""
+    with open(path) as f:
+        txt = f.read()
+    check("print -dpng" in txt, f"{path}: no plot command")
+    if "f = [" in txt:
+        return [np.array(txt.split(f"{k} = [")[1].split("];")[0].split(), float)
+                for k in ("f", "p")]
+    pts = re.findall(r"v\(end\+1\) = *(\S+) \+ j\* *(\S+);", txt)
+    return [np.array(pts, float)]
+
+
+def phase_file_surface(torch, ff, pf, dev, card, tmp) -> dict:
+    """10c. -c 64 --backend pfb_fused --profile on a cf32 capture (K3 once
+    per block, the stage table printed, the files bit-equal to the run
+    without --profile); 10d. -c 1 DeAM AU behind a device front end, read
+    back equal to the F32 run's samples, and its --spectrum and
+    --constellation scripts against the CPU run's."""
+    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
+    from csdr_tpu_torch.io.wav import read_au
+
+    path = os.path.join(tmp, "prof.cf32")
+    occupied_band(torch, dev, 64, PROFILE_SAMPLES, SEED + 120).cpu().numpy().tofile(path)
+    frames = PROFILE_SAMPLES // 64
+    blocks = PROFILE_SAMPLES // BLOCK
+    res = {}
+    outs = {}
+    for prof in (True, False):
+        prefix = os.path.join(tmp, f"prof_{prof}")
+        argv = ["--filename", path, "-n", str(PROFILE_SAMPLES), "-c", "64", "--demod",
+                "DeNBFM 0.6 F32", "--backend", "pfb_fused", "--blocksize", str(BLOCK),
+                "-o", prefix] + (["--profile"] if prof else [])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            dt, counts = cli_run(torch, ff, pf, cli_main, argv)
+        check_counts(counts, "pfb_fm_fused", f"10c --profile={prof}")
+        check(counts["pfb_fm_fused"] == blocks,
+              f"10c --profile={prof}: pfb_fm_fused launched {counts['pfb_fm_fused']} times, "
+              f"want {blocks}")
+        outs[prof] = read_channels(prefix, "f32", np.float32, 64, frames * 4)
+        for k in range(64):
+            os.unlink(f"{prefix}_ch{k + 1}.f32")
+        res["profile" if prof else "plain"] = dict(seconds=dt, msps=PROFILE_SAMPLES / dt / 1e6,
+                                                   launches=counts["pfb_fm_fused"])
+        if prof:
+            table = buf.getvalue()
+    check("Per-stage budget" in table and "pfb_fused_fm(64)" in table and "TOTAL" in table,
+          f"10c: no stage table in {table[-2000:]}")
+    lines = table.splitlines()
+    top = max(i for i, ln in enumerate(lines) if ln.startswith("Per-stage budget"))
+    res["table"] = lines[top + 1:top + 2 + next(i for i, ln in enumerate(lines[top + 1:])
+                                                if ln.startswith("TOTAL"))]
+    res["bit_equal"] = bool(np.array_equal(outs[True], outs[False]))
+    emit(dict(phase="profile", flow="-c 64 --backend pfb_fused --profile", **res, **card))
+    check(res["bit_equal"], "10c: --profile changed the output")
+    del outs
+
+    n = AM_SAMPLES
+    fe = ["--filename", path, "-s", "2560000", "--offset", "100000", "-b", "256000",
+          "-n", str(n), "-c", "1"]
+    runs = {}
+    for name, dev_, fmt, plots in (("au", "cuda", "AU", True), ("f32", "cuda", "F32", False),
+                                   ("cpu", "cpu", "AU", True)):
+        prefix = os.path.join(tmp, f"am_{name}")
+        argv = fe + ["--demod", f"DeAM {fmt}", "-o", prefix, "--device", dev_] + (
+            ["--spectrum", "--constellation"] if plots else [])
+        dt, counts = cli_run(torch, ff, pf, cli_main, argv)
+        check_counts(counts, None, f"10d DeAM {fmt} on {dev_}")
+        if fmt == "AU":
+            audio, rate = read_au(prefix + ".au")
+            check(rate == 256000, f"10d: AU rate {rate}")
+        else:
+            audio = np.fromfile(prefix + ".f32", np.float32)
+        runs[name] = dict(seconds=dt, audio=audio,
+                          plots=[plot_arrays(f"{prefix}_{k}.m") for k in ("spectrum",
+                                                                           "constellation")]
+                          if plots else None)
+    au, f32, cpu = runs["au"], runs["f32"], runs["cpu"]
+    plot_rel = max(float(np.abs(g - w).max() / np.abs(w).max())
+                   for gs, ws in zip(au["plots"], cpu["plots"]) for g, w in zip(gs, ws))
+    shapes_ok = all(g.shape == w.shape and w.size > 0
+                    for gs, ws in zip(au["plots"], cpu["plots"]) for g, w in zip(gs, ws))
+    res2 = dict(samples=n, au_equals_f32=bool(au["audio"].shape == f32["audio"].shape == (n,)
+                                              and np.array_equal(au["audio"], f32["audio"])),
+                card_vs_cpu_audio_rel=float(np.abs(au["audio"] - cpu["audio"]).max()
+                                            / np.abs(cpu["audio"]).max()),
+                plot_card_vs_cpu_rel=plot_rel, plots_parse=shapes_ok,
+                seconds={k: r["seconds"] for k, r in runs.items()})
+    emit(dict(phase="au_and_plots", flow="-s 2560000 --offset 100000 -b 256000 -c 1 DeAM AU "
+              "--spectrum --constellation", **res2, **card))
+    os.unlink(path)
+    check(res2["au_equals_f32"], "10d: the AU samples differ from the F32 run's")
+    check(shapes_ok and plot_rel < PLOT_REL, f"10d: plot scripts card vs CPU {plot_rel}")
+    res["au"] = res2
+    return res
+
+
+def phase_imagery_and_files(torch, ff, pf, dev, card, tmp) -> dict:
+    """Phase 10: 10a, 10b, then 10c and 10d."""
+    res, secs = {}, {}
+    for name, fn in (("imagery", phase_imagery), ("wav", phase_wav),
+                     ("files", phase_file_surface)):
+        t0 = time.perf_counter()
+        res[name] = fn(torch, ff, pf, dev, card, tmp)
+        secs[name] = time.perf_counter() - t0
+    emit(dict(phase="imagery_and_files", seconds=sum(secs.values()), by_part=secs, **card))
+    return res
+
+
 MESH_MAX = 4                 # ranks of the mesh phase: min(cards, MESH_MAX)
 MESH_BLOCKS = 2              # blocks of each ShardedChannelizedFM run
 
@@ -2866,7 +3319,9 @@ def idle_share(spec: dict) -> dict:
     wall time) under torch.profiler (PERF.md §2), measured by
     ``idle_child`` in a process of its own: later profiler sessions of a
     long process dropped kernel records, which read as idle.  ``spec`` is
-    {"cli": argv} or {"checkpoint": backend, "capture": path}."""
+    {"cli": argv}, {"app": module of csdr_tpu_torch.apps, "argv": argv},
+    {"band_monitor": backend, "capture": path} or {"checkpoint": backend,
+    "capture": path}."""
     r = subprocess.run([sys.executable, os.path.abspath(__file__), "--idle-share",
                         json.dumps(spec)], capture_output=True, text=True, timeout=600, cwd=HERE)
     check(r.returncode == 0, f"idle share of {spec}: exit code {r.returncode}: "
@@ -2898,6 +3353,14 @@ def idle_child(spec: dict, tries: int = 3) -> int:
             # a packet flow prints every decoded message
             with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
                 check(cli_main(spec["cli"]) == 0, f"idle share: CLI {spec['cli']}")
+    elif "app" in spec:
+        import importlib
+
+        app = importlib.import_module(f"csdr_tpu_torch.apps.{spec['app']}")
+
+        def fn():
+            with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+                check(app.main(spec["argv"]) == 0, f"idle share: {spec['app']} {spec['argv']}")
     elif "band_monitor" in spec:
         def fn():
             band_pipeline(ct, spec["band_monitor"], dev).run(
@@ -2989,11 +3452,12 @@ def phase_profile(torch, dev, card):
     return out
 
 
-def main(mesh_only: bool = False, sync_only: bool = False) -> int:
+def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = False) -> int:
     """Every phase; with ``mesh_only`` (``--mesh-only``) identity, build,
     phase 4's CLI runs (the serial reference) and phase 7 alone, for a
     call on several cards; with ``sync_only`` (``--sync-only``) identity,
-    build and phase 9."""
+    build and phase 9; with ``imagery_only`` (``--imagery-only``) identity,
+    build and phase 10."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3030,6 +3494,12 @@ def main(mesh_only: bool = False, sync_only: bool = False) -> int:
             phase_sync(torch, ct, ff, pf, dev, card, tmp)
         print(smi, flush=True)
         emit({"sync_only": True, "ok": True})
+        return 0
+    if imagery_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_imagery_and_files(torch, ff, pf, dev, card, tmp)
+        print(smi, flush=True)
+        emit({"imagery_only": True, "ok": True})
         return 0
     if mesh_only:
         with tempfile.TemporaryDirectory() as tmp:
@@ -3068,6 +3538,7 @@ def main(mesh_only: bool = False, sync_only: bool = False) -> int:
         mix = phase_mix(torch, ff, pf, dev, card, tmp)  # 6c
         pkt = phase_packet(torch, ct, ff, pf, dev, card, tmp)  # 8
         sync = phase_sync(torch, ct, ff, pf, dev, card, tmp)  # 9
+        img = phase_imagery_and_files(torch, ff, pf, dev, card, tmp)  # 10
         emit(dict(phase="broadcast_and_mix_flows", msps={
             "DeWBFM": wbfm["msps"], "DeFMS --rds": fms["msps"],
             **{f"-c {MIX_NCH} -m {k}": v["msps"] for k, v in mix.items()},
@@ -3097,6 +3568,7 @@ def main(mesh_only: bool = False, sync_only: bool = False) -> int:
         "device_ms": per_step["flagship_fused"][1],
         "launches_mix_run": mix["fused"]["launches"]["flagship_fused"],
         "launches_checkpoint_run": ckpt["fused"]["launches"]["flagship_fused"],
+        "launches_wav_run": img["wav"]["runs"]["fused"]["launches"]["flagship_fused"],
         "launches_mesh_run_per_rank": [c["flagship_fused"]
                                        for c in mesh["flagship_launches_per_rank"]],
         "launches_mesh_cli_per_rank": [c["flagship_fused"]
@@ -3138,6 +3610,7 @@ def main(mesh_only: bool = False, sync_only: bool = False) -> int:
         "replaces": "csdr_tpu/ops/pallas/pfb_fused.py:149",
         "launches": pfb_runs["pfb_fm_fused"]["launches"],
         "launches_mix_run": mix["pfb_fused"]["launches"]["pfb_fm_fused"],
+        "launches_profile_run": img["files"]["profile"]["launches"],
         "launches_mesh_runs_per_rank": {
             f"{c['mesh'][0]}x{c['mesh'][1]}": [n["pfb_fm_fused"] for n in c["launches_per_rank"]]
             for c in mesh["channelized"] if c["backend"] == "pfb_fused"},
@@ -3282,4 +3755,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--idle-share"]:
         sys.exit(idle_child(json.loads(sys.argv[2])))
     sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh-only"],
-                  sync_only=sys.argv[1:2] == ["--sync-only"]))
+                  sync_only=sys.argv[1:2] == ["--sync-only"],
+                  imagery_only=sys.argv[1:2] == ["--imagery-only"]))

@@ -29,9 +29,10 @@ from .core.block import (  # noqa: E402
 from .core.runtime import Pipeline, rechunk, skip_n, take_n  # noqa: E402
 from .core.checkpoint import resume_pipeline, save_pipeline  # noqa: E402
 from .blocks import (  # noqa: E402
-    am_demodulator, automatic_gain_control, cw_demodulator, dc_blocker, fir_decimator,
-    fir_filter, fir_filter_c_kaiser, firpfbch_channelizer, fm_demodulator, iir_cfilter,
-    iir_filter, mix_down, mix_up, resampler, ssb_demodulator, u8_to_iq, wbfm_demodulator,
+    am_demodulator, automatic_gain_control, complex_to_real, cw_demodulator, dc_blocker,
+    fir_decimator, fir_filter, fir_filter_c_kaiser, fir_filter_rnyquist, fir_interpolator,
+    firpfbch_channelizer, fm_demodulator, iir_cfilter, iir_filter, mix_down, mix_up,
+    real_to_complex, resampler, ssb_demodulator, u8_to_iq, wbfm_demodulator,
 )
 from .models.receivers import (  # noqa: E402
     am_receiver, channelized_fm_receiver, channelized_receiver, front_end, nbfm_receiver,
@@ -39,23 +40,28 @@ from .models.receivers import (  # noqa: E402
 )
 from .models.stereo import stereo_fm_decoder  # noqa: E402
 from .models.rds import rds_receiver  # noqa: E402
-from .io.sources import cf32_file_source, cu8_file_source, f32_file_source  # noqa: E402
+from .io.sources import (  # noqa: E402
+    cf32_file_source, cu8_file_source, f32_file_source, raw_bytes_source, wav_iq_source,
+)
 from .io.sinks import (  # noqa: E402
-    RawFileSink, AudioFileSink, BranchSinks, ChannelFileSinks, NullSink, CollectSink,
+    RawFileSink, StdoutSink, AudioFileSink, ConstellationPlotSink, SpectrumPlotSink,
+    BranchSinks, ChannelFileSinks, NullSink, CollectSink, PlaybackSink, TeeSink,
 )
 
 __all__ = [
     "Block", "Chain", "chain", "Delay", "Lambda", "PerChannel", "MixChannels", "Tee",
     "Pipeline", "rechunk", "skip_n", "take_n", "save_pipeline", "resume_pipeline",
-    "am_demodulator", "automatic_gain_control", "cw_demodulator", "dc_blocker",
-    "fir_decimator", "fir_filter", "fir_filter_c_kaiser", "firpfbch_channelizer",
-    "fm_demodulator", "iir_cfilter", "iir_filter", "mix_down", "mix_up", "resampler",
-    "ssb_demodulator", "u8_to_iq", "wbfm_demodulator",
+    "am_demodulator", "automatic_gain_control", "complex_to_real", "cw_demodulator",
+    "dc_blocker", "fir_decimator", "fir_filter", "fir_filter_c_kaiser", "fir_filter_rnyquist",
+    "fir_interpolator", "firpfbch_channelizer", "fm_demodulator", "iir_cfilter", "iir_filter",
+    "mix_down", "mix_up", "real_to_complex", "resampler", "ssb_demodulator", "u8_to_iq",
+    "wbfm_demodulator",
     "front_end", "wbfm_receiver", "nbfm_receiver", "am_receiver", "raw_capture",
     "channelized_receiver", "channelized_fm_receiver", "stereo_fm_decoder", "rds_receiver",
-    "cf32_file_source", "cu8_file_source", "f32_file_source",
-    "RawFileSink", "AudioFileSink", "BranchSinks", "ChannelFileSinks", "NullSink",
-    "CollectSink",
+    "cf32_file_source", "cu8_file_source", "f32_file_source", "raw_bytes_source",
+    "wav_iq_source",
+    "RawFileSink", "StdoutSink", "AudioFileSink", "ConstellationPlotSink", "SpectrumPlotSink",
+    "BranchSinks", "ChannelFileSinks", "NullSink", "CollectSink", "PlaybackSink", "TeeSink",
 ]
 
 __version__ = "0.1.0"

@@ -1,7 +1,9 @@
 """soapy-sdr — the file flows of the reference CLI on PyTorch.
 
-Counterpart of ``csdr_tpu/apps/soapy_sdr_cli.py``, reduced to the flows the
-port carries, from a .cf32 or .cu8 capture:
+Counterpart of ``csdr_tpu/apps/soapy_sdr_cli.py`` on file input: a .cu8
+capture, a mono WAV (a sound-card IF recording: Hilbert real → complex 2:1,
+then a mix by π, ``io/sources.wav_iq_source``, at half the WAV's rate) or
+anything else as raw CF32:
 
   * a front end: ``--offset`` (NCO mixer) and ``-b/--bandwidth`` (half-band
     cascade + rational resampler), then ``-n`` samples at the front end's
@@ -18,7 +20,8 @@ port carries, from a .cf32 or .cu8 capture:
     ``"DeNBFMSync k"`` (FM demod with kf = 0.02·k, then symbol sync from k
     samples/symbol to 2, into ``.f32`` files for ``apps/helidecode``) or
     ``DeNo`` (raw complex64); ``-a T`` adds an AGC with a T dB squelch.
-    Audio runs at int(bandwidth) // decim // nch Hz;
+    Audio runs at int(bandwidth) // decim // nch Hz, as float32 WAV, Sun AU
+    (``<output>.au``) or raw little-endian float32 (``F32``, ``<output>.f32``);
   * the packet flows (``-c 1`` only): ``"DeAIS"`` (GMSK at n·9600 S/s),
     ``"DeAPRS [kf]"`` (NBFM → AFSK1200), ``"DeADSB"`` (Mode S at 2n MS/s,
     no AGC), ``"DePOCSAG [baud]"`` and ``"DeRTTY [baud]"`` (USB → ITA2): the
@@ -41,8 +44,15 @@ are ``ShardedChannelizedFM`` with and without K3/K4.  Under torchrun the
 CLI joins the group it finds (one rank per GPU); otherwise it starts its
 own T·C local ranks.  ``--device cpu`` runs gloo ranks.
 
-Every other flow, demod and option of the JAX CLI exits non-zero with "not
-yet ported in csdr_tpu_torch".
+The host-side options: ``--spectrum [FILE]`` and ``--constellation [FILE]``
+tap the stream after the front end (before the DC blocker) into a Welch PSD
+and a scatter-plot Octave script; ``--play [CMD]`` tees single-stream audio
+into a live player (``io/sinks.PlaybackSink``); ``--profile`` runs each
+stage of the main graph as its own step between device barriers and prints
+the per-stage table.
+
+SDR devices, and ``--mesh`` for any flow but ``-c N`` DeNBFM, exit non-zero
+with "not yet ported in csdr_tpu_torch".
 
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -n 33554432 \\
         -c 64 --demod "DeCW 500 700 WAV" --backend pfb_fused --device cuda
@@ -50,6 +60,8 @@ yet ported in csdr_tpu_torch".
         -b 200000 -n 2621440 --demod "DeFMS 8 WAV" --rds --device cuda
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename ais.cu8 -s 1920000 \\
         --offset 25000 -b 48000 -n 838860 --demod DeAIS -o ais --device cuda
+    python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename if.wav -s 48000 -n 2097152 \\
+        -c 64 --demod "DeNBFM 0.6 AU" --backend fused --spectrum --profile
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename heli.cu8 -n 33554432 \\
         -c 64 --demod "DeNBFMSync 10" --backend pfb_fused --blocksize 8388608
     python -m torch.distributed.run --nproc-per-node 4 -m csdr_tpu_torch.apps.soapy_sdr_cli \\
@@ -62,6 +74,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import struct
 import sys
 import time
 
@@ -69,9 +82,10 @@ import numpy as np
 import torch
 
 from ..core.block import Chain, chain
-from ..core.runtime import Pipeline
+from ..core.runtime import Pipeline, take_n
 from ..io import sinks as S
 from ..io import sources as SRC
+from ..io.wav import probe_wav
 
 __all__ = ["main", "build_parser", "run_opts", "parse_demod", "packet_messages", "packet_lines",
            "PACKET_SUFFIX"]
@@ -84,7 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="soapy-sdr",
         description="Single-channel and channelized receivers on PyTorch (CUDA or CPU)")
     p.add_argument("--filename", metavar="NAME",
-                   help="Input file: raw CF32 (.cf32) or rtl_sdr uint8 IQ (.cu8)")
+                   help="Input file: rtl_sdr uint8 IQ (.cu8), a mono WAV (IF recording, "
+                        "lifted to IQ at half its rate) or raw CF32")
     p.add_argument("-s", "--samplerate", type=float, default=2.56e6, metavar="DOUBLE",
                    help="Sample rate in Hz")
     p.add_argument("--offset", type=float, default=0.0, metavar="DOUBLE",
@@ -110,7 +125,7 @@ def build_parser() -> argparse.ArgumentParser:
                         'WAV|F32", "DeNBFMSync <k>" (2 samples/symbol F32), DeNo (raw '
                         'CF32), or the packet decoders DeAIS, '
                         '"DeAPRS [kf]", DeADSB, "DePOCSAG [baud]", "DeRTTY [baud]" '
-                        '(-c 1; <output>.<kind>.txt)')
+                        '(-c 1; <output>.<kind>.txt); audio as WAV, AU or raw F32')
     p.add_argument("--rds", action="store_true",
                    help="With --demod 'DeFMS ...': also decode the 57 kHz RDS subcarrier "
                         "(PS/RadioText/PI) to <output>.rds.txt")
@@ -123,6 +138,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels; fused = the whole DeNBFM chain in one CUDA kernel")
     p.add_argument("--device", default="cuda", choices=["cpu", "cuda"],
                    help="Device the graph runs on (cuda never falls back to cpu)")
+    p.add_argument("--spectrum", nargs="?", const="", default=None, metavar="FILE",
+                   help="Also write a Welch-averaged PSD Octave script of the IQ after the "
+                        "front end (default <output>_spectrum.m)")
+    p.add_argument("--constellation", nargs="?", const="", default=None, metavar="FILE",
+                   help="Also write a constellation scatter Octave script of the IQ after "
+                        "the front end (default <output>_constellation.m)")
+    p.add_argument("--play", nargs="?", const="", default=None, metavar="CMD",
+                   help="Also play single-stream audio live (pacat/aplay/play found on the "
+                        "PATH, or this command; float32le PCM on its stdin)")
+    p.add_argument("--profile", action="store_true",
+                   help="Run each stage of the main graph as its own step between device "
+                        "barriers and print the per-stage time table")
     p.add_argument("--mesh", default=None, metavar="TxC",
                    help="Run -c N --demod 'DeNBFM ...' on a device mesh of T time × C "
                         "channel ranks, e.g. '4x1' (one process per device)")
@@ -172,17 +199,67 @@ def _refusal(opts, demod) -> str | None:
                 "DeUSB, DeLSB, DeCW, DeNBFMSync, DeNo, DeAIS, DeAPRS, DeADSB, DePOCSAG or "
                 "DeRTTY")
     if (demod[0] not in ("DeNo", "DeNBFMSync", *PACKET_SUFFIX)
-            and demod[-1] not in ("WAV", "F32")):
-        return f"audio format {demod[-1]} is {_NOT_PORTED}; use WAV or F32"
+            and demod[-1] not in ("WAV", "AU", "F32")):
+        return f"audio format {demod[-1]} is {_NOT_PORTED}; use WAV, AU or F32"
     if opts.mesh and (demod[0] != "DeNBFM" or opts.channels < 2 or opts.mix):
         return (f"--mesh for this flow is {_NOT_PORTED} (the generic sharded chain, "
-                "ShardedChain); --mesh runs -c N (> 1) --demod 'DeNBFM kf WAV|F32' without -m")
+                "ShardedChain); --mesh runs -c N (> 1) --demod 'DeNBFM kf WAV|AU|F32' without "
+                "-m")
     if not opts.filename:
         return f"SDR devices are {_NOT_PORTED}; use --filename"
-    with open(opts.filename, "rb") as f:
-        if f.read(4) == b"RIFF":
-            return f"WAV input is {_NOT_PORTED}; use a .cf32 or .cu8 capture"
     return None
+
+
+def _open_source(opts, device, block_size: int):
+    """The file source, sniffed as the JAX CLI does: ``.cu8`` first, then a
+    header-only ``probe_wav`` (a WAV goes through ``wav_iq_source`` on
+    ``device`` at ``block_size``), and a file it cannot read as WAV is raw
+    CF32.  A WAV the source refuses (not mono) raises ValueError."""
+    if opts.filename.endswith(".cu8"):
+        return SRC.cu8_file_source(opts.filename, block_size)
+    try:
+        probe_wav(opts.filename)
+    except (ValueError, struct.error):
+        return SRC.cf32_file_source(opts.filename, block_size)
+    return SRC.wav_iq_source(opts.filename, block_size, device=device)
+
+
+def _host_iq(chunk: np.ndarray) -> np.ndarray:
+    """A source block as complex64 IQ on the host: cu8 (n, 2) rows go
+    through ``U8ToIQ`` on the CPU."""
+    if chunk.dtype != np.uint8:
+        return chunk
+    from ..blocks import U8ToIQ
+
+    return U8ToIQ().apply((), torch.from_numpy(chunk.copy()))[1].numpy()
+
+
+def _plot_taps(opts, stream, out_bw: float):
+    """``--spectrum`` / ``--constellation``: the stream cut to ``-n`` and
+    copied, block by block, into the plot sinks on the host (closed when the
+    stream ends); the stream itself passes on unchanged."""
+    taps = []
+    if opts.spectrum is not None:
+        taps.append(S.SpectrumPlotSink(opts.spectrum or f"{opts.output}_spectrum.m",
+                                       sample_rate=out_bw))
+    if opts.constellation is not None:
+        taps.append(S.ConstellationPlotSink(opts.constellation
+                                            or f"{opts.output}_constellation.m"))
+    if not taps:
+        return stream
+
+    def tapped():
+        try:
+            for blk in take_n(stream, opts.numsamples):
+                iq = _host_iq(np.asarray(blk))
+                for t in taps:
+                    t(iq)
+                yield blk
+        finally:
+            for t in taps:
+                t.close()
+
+    return tapped()
 
 
 def _demod_block(demod, out_bw: float, nch: int):
@@ -319,28 +396,39 @@ def _graph(opts, demod, agc_t, out_bw: float):
 
 def _sink(opts, demod, out_bw: float):
     """The flow's sink: per-channel files for -c N, one file for -c 1 or
-    ``-m`` (raw ``.f32`` for DeNBFMSync and F32 flows); DeFMS writes a
-    2-channel WAV, and with ``--rds`` routes the bit branch to a
-    CollectSink (returned second, else None); a packet flow collects its
-    whole output (returned twice)."""
+    ``-m`` (WAV or AU audio, raw ``.f32`` for DeNBFMSync and F32 flows);
+    DeFMS writes 2-channel audio, and with ``--rds`` routes the bit branch
+    to a CollectSink (returned second, else None); a packet flow collects
+    its whole output (returned twice).  ``--play`` tees a single audio
+    stream into a live player."""
     nch = opts.channels
     if demod[0] in PACKET_SUFFIX:
         bits = S.CollectSink()
         return bits, bits
     decim = demod[1] if demod[0] in ("DeWBFM", "DeFMS") else 1
     rate = int(round(out_bw)) // decim // nch
+    channels = 2 if demod[0] == "DeFMS" else 1
     if demod[0] == "DeNo":
         make = lambda name: S.RawFileSink(f"{name}.cf32")
-    elif demod[-1] == "WAV":
-        make = lambda name: S.AudioFileSink(name, rate, 2 if demod[0] == "DeFMS" else 1)
+    elif demod[-1] in ("WAV", "AU"):
+        make = lambda name: S.AudioFileSink(name, rate, channels, demod[-1].lower())
     else:
         make = lambda name: S.RawFileSink(f"{name}.f32")
+    if nch > 1 and not opts.mix:
+        return S.ChannelFileSinks(lambda i: make(f"{opts.output}_ch{i + 1}"), nch), None
+    out = make(opts.output)
+    if opts.play is not None and _plays(opts, demod):
+        out = S.TeeSink(out, S.PlaybackSink(rate, channels, opts.play or None))
     if demod[0] == "DeFMS" and opts.rds:
         bits = S.CollectSink()
-        return S.BranchSinks(make(opts.output), bits), bits
-    if nch == 1 or opts.mix:
-        return make(opts.output), None
-    return S.ChannelFileSinks(lambda i: make(f"{opts.output}_ch{i + 1}"), nch), None
+        return S.BranchSinks(out, bits), bits
+    return out, None
+
+
+def _plays(opts, demod) -> bool:
+    """Whether the flow's output is one audio stream that ``--play`` takes."""
+    return (demod[0] not in ("DeNo", "DeNBFMSync", *PACKET_SUFFIX)
+            and (opts.channels == 1 or opts.mix))
 
 
 def _report_rds(opts, bits: np.ndarray):
@@ -382,6 +470,8 @@ def run_opts(opts) -> int:
               "no AGC stage, no raw channel output and no other demod; use --backend "
               "pfb_fused or eager", file=sys.stderr)
         return 2
+    if opts.play is not None and not _plays(opts, demod):
+        print("--play ignored: output is not a single audio stream")
     if opts.mesh:
         return _run_mesh(opts, demod, agc_t)
     if opts.device == "cuda" and not torch.cuda.is_available():
@@ -400,22 +490,23 @@ def run_opts(opts) -> int:
     except ValueError as e:  # a bandwidth or pitch outside the channel, a packet rate
         print(e, file=sys.stderr)
         return 1 if demod[0] in PACKET_SUFFIX else 2
-    read = SRC.cu8_file_source if cu8 else SRC.cf32_file_source
     fe_stages = front_end(opts.samplerate, opts.offset, opts.bandwidth)
+    fe_pipe = None
     if fe_stages:
         # the front end streams on its own pipeline and -n counts its output
         fe = chain(*([B.u8_to_iq()] if cu8 else []), *fe_stages)
         fe_pipe = Pipeline(fe, block_size=opts.blocksize, device=device)
         if opts.verbose:
             _announce("Front end", fe, device, fe_pipe.block_size)
-        stream = fe_pipe.stream(read(opts.filename, fe_pipe.block_size))
-    else:
-        if cu8 and opts.backend != "fused":
-            graph = chain(B.u8_to_iq(), graph)  # the fused kernel converts cu8 itself
-        stream = None
-    pipe = Pipeline(graph, block_size=opts.blocksize, device=device)
-    if stream is None:
-        stream = read(opts.filename, pipe.block_size)
+    elif cu8 and opts.backend != "fused":
+        graph = chain(B.u8_to_iq(), graph)  # the fused kernel converts cu8 itself
+    pipe = Pipeline(graph, block_size=opts.blocksize, device=device, profile=opts.profile)
+    try:
+        source = _open_source(opts, device, (fe_pipe or pipe).block_size)
+    except ValueError as e:  # a WAV of more than one channel
+        print(e, file=sys.stderr)
+        return 1
+    stream = _plot_taps(opts, fe_pipe.stream(source) if fe_pipe else source, out_bw)
     if opts.verbose:
         _announce("Flow", graph, device, pipe.block_size)
 
@@ -430,6 +521,9 @@ def run_opts(opts) -> int:
         n_in = total / graph.rate
         print(f"Throughput: {int(n_in)} samples into the flow in {dt:.3f} s "
               f"({n_in / dt / 1e6:.2f} MSPS)")
+    if opts.profile:
+        print("Per-stage budget (device time per block, barriers around each stage):")
+        print(pipe.profile_report())
     if demod[0] in PACKET_SUFFIX:
         _report_packet(opts, demod, bits.concat(), out_bw)
         return 0
@@ -528,12 +622,12 @@ def _mesh_rank(device: torch.device, opts, demod, agc_t) -> int:
 
         out_bw = opts.bandwidth if opts.bandwidth else opts.samplerate
         cu8 = opts.filename.endswith(".cu8")
-        read = SRC.cu8_file_source if cu8 else SRC.cf32_file_source
-        source = read(opts.filename, sh.block_size)
+        source = _open_source(opts, device, sh.block_size)
         fe_stages = front_end(opts.samplerate, opts.offset, opts.bandwidth)
         if fe_stages:
             fe = chain(*([B.u8_to_iq()] if cu8 else []), *fe_stages)
             source = Pipeline(fe, block_size=opts.blocksize, device=device).stream(source)
+        source = _plot_taps(opts, source, out_bw)
         sink, _ = _sink(opts, demod, out_bw)
         if opts.verbose:
             print(f"Mesh {dt}x{dc} ({opts.backend}, {device.type}): {type(sh).__name__}, "

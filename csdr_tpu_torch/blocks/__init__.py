@@ -9,6 +9,9 @@ fmDemodulator kf          → fm_demodulator(kf)
 amDemodulator             → am_demodulator()
 fskDemodulator m k bw     → fsk_demodulator(m_bits, k, bandwidth)
 firDecimator m            → fir_decimator(m)
+firFilterRNyquist k m b   → fir_filter_rnyquist(k, m, beta, mu)
+realToComplex             → real_to_complex()
+complexToReal             → complex_to_real()
 automaticGainControl t    → automatic_gain_control(t)
 dcBlocker                 → dc_blocker()
 firpfbchChannelizer n     → firpfbch_channelizer(nch)
@@ -16,7 +19,8 @@ firFilterCKaiser n fc ... → fir_filter_c_kaiser(n, fc, as_db, mu)
 iirFilter / iirCFilter    → iir_filter / iir_cfilter(order, fc, f0, ap, as_db, ftype)
 wbFMDemodulator q d       → wbfm_demodulator(quad_rate, decim)
 (explicit taps)           → fir_filter(taps, complex_input, strategy=…)
-(extensions)              → ssb_demodulator(side, bw), cw_demodulator(bw, pitch)
+(extensions)              → ssb_demodulator(side, bw), cw_demodulator(bw, pitch),
+                            fir_interpolator(p)
 (cu8 capture input)       → u8_to_iq()
 
 Every block works along the last axis, so inside ``PerChannel`` a
@@ -35,6 +39,7 @@ from ..core.block import Block, Lambda, TailStateBlock, chain
 from ..ops import agc as agc_ops
 from ..ops import demod as demod_ops
 from ..ops import fir as fir_ops
+from ..ops import hilbert as hilbert_ops
 from ..ops import iir as iir_ops
 from ..ops import nco as nco_ops
 from ..ops import pfb as pfb_ops
@@ -43,11 +48,12 @@ from ..utils import firdes, iirdes
 
 __all__ = ["u8_to_iq", "mix_up", "mix_down", "fm_demodulator", "am_demodulator",
            "ssb_demodulator", "cw_demodulator", "fir_filter", "fir_filter_c_kaiser",
-           "fir_decimator", "dc_blocker", "firpfbch_channelizer", "automatic_gain_control",
+           "fir_filter_rnyquist", "fir_decimator", "fir_interpolator", "dc_blocker", "firpfbch_channelizer", "automatic_gain_control",
            "resampler", "iir_filter", "iir_cfilter", "wbfm_demodulator", "fsk_demodulator",
+           "real_to_complex", "complex_to_real",
            "U8ToIQ", "Mixer", "FMDemod", "AMDemod", "FSKDemod", "FIRFilter", "FIRDecim",
-           "DCBlocker", "IIRFilter", "PFBChannelizer", "AGC", "HalfbandDecim",
-           "RationalResampler"]
+           "FIRInterp", "DCBlocker", "IIRFilter", "PFBChannelizer", "AGC", "HalfbandDecim",
+           "RationalResampler", "RealToComplex", "ComplexToReal"]
 
 _TWO_PI = 2.0 * np.pi
 
@@ -219,6 +225,14 @@ def fir_filter_c_kaiser(n: int, fc: float, as_db: float = 60.0, mu: float = 0.0)
     return FIRFilter(taps, complex_input=True, name=f"fir_kaiser({n},{fc:.4g})")
 
 
+def fir_filter_rnyquist(k: int, m: int, beta: float, mu: float = 0.0) -> FIRFilter:
+    """Real GMSK receive matched filter (reference firFilterRNyquist): the
+    ``gmsk_rx`` design (unity tx·rx cascade gain at the symbol instant),
+    delayed by the fractional sample ``mu``."""
+    taps = firdes.fractional_delay(firdes.gmsk_rx(k, m, max(beta, 0.1)), mu, extend=True)
+    return FIRFilter(taps, complex_input=False, name=f"fir_gmskrx(k={k},m={m})")
+
+
 class FIRDecim(TailStateBlock):
     """Kaiser decimating FIR (reference firDecimator: semi-length 10, 60 dB)."""
 
@@ -244,6 +258,31 @@ def fir_decimator(m: int, **kw) -> Block:
     if m == 1:
         return Lambda(lambda x: x, name="fir_decim(1)")
     return FIRDecim(m, **kw)
+
+
+class FIRInterp(TailStateBlock):
+    """Kaiser interpolating FIR: zero-stuff by p and filter with the
+    decimator's design scaled by p.  State: the last ⌈K/p⌉ − 1 inputs."""
+
+    def __init__(self, p: int, semilen: int = 10, as_db: float = 60.0,
+                 complex_input: bool = True):
+        self.p = p
+        self.taps = firdes.firdecim_kaiser(p, semilen, as_db) * p
+        self.tail_len = -(-len(self.taps) // p) - 1
+        self.complex_input = complex_input
+        self.rate = Fraction(p, 1)
+        self.name = f"fir_interp({p})"
+
+    def init(self, device: torch.device):
+        dt = torch.complex64 if self.complex_input else torch.float32
+        return torch.zeros((self.tail_len,), dtype=dt, device=device)
+
+    def apply(self, state, x):
+        return fir_ops.fir_interp_stream(self.taps, self.p, state, x)
+
+
+def fir_interpolator(p: int, **kw) -> Block:
+    return FIRInterp(p, **kw)
 
 
 class DCBlocker(Block):
@@ -386,6 +425,44 @@ class HalfbandDecim(TailStateBlock):
 
     def apply(self, state, x):
         return fir_ops.fir_decim_stream(self.taps, 2, state, x)
+
+
+class RealToComplex(TailStateBlock):
+    """Real → IQ, Hilbert 2:1 (reference realToComplex); the output is
+    centred at π."""
+
+    rate = Fraction(1, 2)
+    granule = 2
+    name = "real_to_complex"
+    tail_len = len(hilbert_ops.hilbert_taps()) - 1
+
+    def init(self, device: torch.device):
+        return hilbert_ops.real_to_complex_init(device)
+
+    def apply(self, state, x):
+        return hilbert_ops.real_to_complex_stream(state, x)
+
+
+class ComplexToReal(TailStateBlock):
+    """IQ → real, Hilbert 1:2 (reference complexToReal)."""
+
+    rate = Fraction(2, 1)
+    name = "complex_to_real"
+    tail_len = -(-len(hilbert_ops.hilbert_taps()) // 2) - 1
+
+    def init(self, device: torch.device):
+        return hilbert_ops.complex_to_real_init(device)
+
+    def apply(self, state, x):
+        return hilbert_ops.complex_to_real_stream(state, x)
+
+
+def real_to_complex() -> Block:
+    return RealToComplex()
+
+
+def complex_to_real() -> Block:
+    return ComplexToReal()
 
 
 def resampler(rate: float, as_db: float = 60.0, complex_input: bool = True) -> Block:

@@ -20,17 +20,23 @@ transfers carry complex64 as is.
 Host→device copies go from pinned buffers with ``non_blocking=True``; each
 block's output leaves come back the same way into fresh pinned buffers, and
 are handed to the sink one step later, after the next block was queued.
+
+``Pipeline(profile=True)`` runs each stage of a ``Chain`` as its own step
+with a device barrier around it and keeps a ``StageStat`` per stage
+(``stage_stats``, ``profile_report``); its output equals the unprofiled
+run's bit for bit.
 """
 
 from __future__ import annotations
 
+import time
 from fractions import Fraction
 from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
 
-from .block import Block, _map_tree
+from .block import Block, Chain, _map_tree
 
 __all__ = ["Pipeline", "rechunk", "take_n", "skip_n", "append_flush", "DEFAULT_BLOCK"]
 
@@ -99,10 +105,15 @@ def skip_n(chunks: Iterable[np.ndarray], n: int) -> Iterator[np.ndarray]:
 
 
 class Pipeline:
-    """Streaming executor for a Block graph on one explicit device."""
+    """Streaming executor for a Block graph on one explicit device.
+
+    ``profile=True`` times every stage of a ``Chain`` (a lone block is one
+    stage) on its own: a device barrier before the block and after each
+    stage, the host clock between them, the stage's input samples counted
+    at its own rate; the first call of each stage is counted apart."""
 
     def __init__(self, block: Block, block_size: int = DEFAULT_BLOCK, *,
-                 device: torch.device | str):
+                 device: torch.device | str, profile: bool = False):
         g = block.granule
         self.block = block
         self.block_size = max(g, (block_size // g) * g)
@@ -110,6 +121,17 @@ class Pipeline:
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.state = block.init(self.device)
+        self.profile = profile
+        self.stage_stats: list = []
+        if profile:
+            from ..utils.prof import StageStat
+
+            self._stages = list(block.blocks) if isinstance(block, Chain) else [block]
+            self._stage_in_rate, acc = [], Fraction(1)
+            for b in self._stages:
+                self._stage_in_rate.append(acc)
+                acc *= b.rate
+            self.stage_stats = [StageStat(b.name or type(b).__name__) for b in self._stages]
 
     def _to_device(self, chunk: np.ndarray) -> torch.Tensor:
         cuda = self.device.type == "cuda"
@@ -122,8 +144,39 @@ class Pipeline:
     def process_block(self, x: np.ndarray):
         """One graph step on a host block; returns the output (a tensor, or a
         tuple of them) on the device."""
+        if self.profile:
+            return self._process_profiled(self._to_device(x))
         self.state, y = self.block.apply(self.state, self._to_device(x))
         return y
+
+    def _barrier(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _process_profiled(self, x: torch.Tensor):
+        """The same stages as ``Chain.apply``, in the same order, each timed
+        between two device barriers."""
+        split = isinstance(self.block, Chain)
+        states = list(self.state) if split else [self.state]
+        n_in = x.shape[0]
+        self._barrier()
+        y = x
+        for i, b in enumerate(self._stages):
+            t0 = time.perf_counter()
+            states[i], y = b.apply(states[i], y)
+            self._barrier()
+            r = self._stage_in_rate[i]
+            self.stage_stats[i].add(time.perf_counter() - t0, n_in * r.numerator // r.denominator)
+        self.state = tuple(states) if split else states[0]
+        return y
+
+    def profile_report(self) -> str:
+        """The per-stage budget table of a ``profile=True`` run."""
+        from ..utils.prof import stage_table
+
+        if not self.stage_stats:
+            return "(profiling disabled: construct Pipeline(profile=True))"
+        return stage_table(self.stage_stats)
 
     def _to_host(self, y):
         """Queue the device→host copy of every output leaf; returns (host

@@ -1,11 +1,11 @@
 """FIR filter design (numpy, float64).
 
 Copied from ``csdr_tpu/utils/firdes.py`` (the JAX package imports jax at
-package level, so the port cannot import its numpy code).  Only the designs
-the port's blocks use are here (the channelizer prototype, the Kaiser
-low-pass and length estimate, the decimator and half-band designs, the
-GMSK transmit and receive pulses, the root-raised-cosine pulse of the
-modem transmitters);
+package level, so the port cannot import its numpy code).  Every design of
+the JAX module is here (the channelizer prototype, the Kaiser low-pass and
+length estimate, the decimator, half-band and Hilbert designs, the GMSK
+transmit and receive pulses, the root-raised-cosine and root-Nyquist
+pulses, the fractional delay);
 ``tests/test_torch_design.py`` and ``tests/test_torch_fir.py`` hold them
 equal to the JAX package's arrays.
 
@@ -15,11 +15,14 @@ convention): fc = 0.25 means a quarter of fs.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 __all__ = ["kaiser_beta", "kaiser_filter_len", "kaiser_lowpass", "firdecim_kaiser",
            "pfb_kaiser_prototype", "halfband_kaiser", "group_delay", "rrc",
-           "nyquist_kaiser", "gmsk_tx", "erf_vec", "gmsk_rx"]
+           "nyquist_kaiser", "gmsk_tx", "erf_vec", "gmsk_rx", "hilbert_halfband",
+           "root_nyquist_kaiser", "fractional_delay", "cached_kaiser_lowpass"]
 
 
 def kaiser_beta(as_db: float) -> float:
@@ -87,6 +90,13 @@ def halfband_kaiser(semilen: int, as_db: float = 60.0) -> np.ndarray:
     return h / h.sum() * 0.5
 
 
+def hilbert_halfband(semilen: int = 5, as_db: float = 60.0) -> np.ndarray:
+    """The half-band low-pass under the real ↔ complex converter (reference
+    ``firhilbf_create 5 60.0``), scaled to unity gain at DC;
+    ``ops/hilbert.py`` builds the quadrature structure from it."""
+    return halfband_kaiser(semilen, as_db) * 2.0
+
+
 def group_delay(h: np.ndarray, f: float = 0.0) -> float:
     """Group delay of the FIR ``h`` at normalized frequency ``f``
     (cycles/sample); the stereo and RDS decoders compensate the pilot
@@ -136,6 +146,22 @@ def nyquist_kaiser(k: int, m: int, beta: float) -> np.ndarray:
     return h * w
 
 
+def root_nyquist_kaiser(k: int, m: int, beta: float) -> np.ndarray:
+    """Approximate root-Nyquist Kaiser filter (reference symsync ftype 7):
+    the frequency-domain square root of ``nyquist_kaiser``, so the matched
+    cascade h*h is ISI-free to within the window's leakage; normalized to
+    unity symbol-rate gain of that cascade."""
+    n = 2 * k * m + 1
+    g = nyquist_kaiser(k, m, beta)
+    nfft = 1 << int(np.ceil(np.log2(16 * n)))
+    G = np.fft.fft(np.fft.ifftshift(np.pad(g, ((nfft - n) // 2, nfft - n - (nfft - n) // 2))))
+    H = np.sqrt(np.maximum(G.real, 0.0))
+    h_full = np.fft.fftshift(np.fft.ifft(H).real)
+    c = nfft // 2
+    h = h_full[c - (n - 1) // 2: c + (n - 1) // 2 + 1]
+    return h / np.sqrt(np.sum(h**2) * k)
+
+
 def gmsk_tx(k: int, m: int, bt: float = 0.3) -> np.ndarray:
     """GMSK transmit pulse: a Gaussian of bandwidth-time ``bt`` convolved
     with a one-symbol rectangle; k samples per symbol, semi-length m
@@ -179,3 +205,33 @@ def gmsk_rx(k: int, m: int, bt: float = 0.3) -> np.ndarray:
     c = nfft // 2
     h = hr[c - (n - 1) // 2: c + (n - 1) // 2 + 1]
     return h / np.sum(h * htx)
+
+
+def fractional_delay(h: np.ndarray, mu: float, extend: bool = False) -> np.ndarray:
+    """Delay real FIR taps by ``mu`` ∈ (−1, 1) samples through an exact
+    frequency-domain linear phase (taps zero-padded 8× so the shifted tails
+    do not wrap).  ``extend=False`` keeps length n and drops the one sample
+    of spill; ``extend=True`` returns n + 1 taps holding it (for
+    hard-truncated designs such as ``gmsk_rx``), a negative ``mu`` then
+    adding one whole sample of delay."""
+    if mu == 0.0:
+        return h
+    if not -1.0 < mu < 1.0:
+        raise ValueError(f"fractional delay mu={mu} not in (-1, 1)")
+    n = len(h)
+    nfft = 1 << int(np.ceil(np.log2(8 * n)))
+    H = np.fft.rfft(h, nfft)
+    f = np.fft.rfftfreq(nfft)
+    y = np.fft.irfft(H * np.exp(-2j * np.pi * f * mu), nfft)
+    if not extend:
+        return y[:n]
+    if mu > 0:
+        return y[: n + 1]
+    return np.concatenate([y[-1:], y[:n]])
+
+
+@functools.lru_cache(maxsize=None)
+def cached_kaiser_lowpass(n: int, fc: float, as_db: float = 60.0, mu: float = 0.0):
+    """``kaiser_lowpass`` memoized on its arguments (callers must not write
+    to the shared array)."""
+    return kaiser_lowpass(n, fc, as_db, mu)

@@ -1,9 +1,11 @@
 """The port's soapy-sdr CLI on the CPU — the channelized NBFM, AGC and
 raw-split flows, the single-channel and per-channel FIR demod flows
-(DeCW, DeUSB/DeLSB, DeAM) with --offset and -b, the mixed sink (-m), and
-the broadcast flows (DeWBFM, DeFMS with --rds), held against the JAX CLI on
-the same capture — the "pallas_fft_interpret" FIR strategy against the JAX
-function of that name, and the package's independence from JAX.
+(DeCW, DeUSB/DeLSB, DeAM) with --offset and -b, the mixed sink (-m), the
+broadcast flows (DeWBFM, DeFMS with --rds), and the file surface (mono WAV
+input, AU output, --spectrum, --constellation, --play), held against the
+JAX CLI on the same capture — the "pallas_fft_interpret" FIR strategy
+against the JAX function of that name, and the package's independence from
+JAX.
 
 pfb_fused against eager: 2e-3 max from frame 1 for DeNBFM
 (tests/test_pallas_fused.py:55); for the K4 flows, whose plain version on
@@ -11,7 +13,8 @@ the CPU is the eager channelizer's arithmetic, 2e-5 max-rel
 (tests/test_golden.py).  Against the JAX CLI, relative to the largest
 output: 2e-5 (tests/test_golden.py) where both run the same float32
 arithmetic, 2e-3 where a long filter runs through FFTs of other
-segmentations (tests/test_fir.py:36)."""
+segmentations (tests/test_fir.py:36).  The plot scripts against the JAX
+CLI's: 1e-4 of the largest value (the printed digits of two float32 orders)."""
 
 import os
 import subprocess
@@ -81,7 +84,7 @@ def test_fused_and_eager_cli_outputs_agree(captures, tmp_path):
 
 @pytest.mark.parametrize("extra", [["--mesh", "2x1", "--demod", "DeAM WAV"],
                                    ["--mesh", "2x1", "--demod", "DeNBFMSync 10"],
-                                   ["--demod", "DeNBFM 0.6 AU"], ["--no-file"]])
+                                   ["--no-file"]])
 def test_unported_options_exit_nonzero(captures, tmp_path, extra, capsys):
     args = ["--filename", captures["cf32"], "-c", str(NCH), "-o", str(tmp_path / "x"),
             "--demod", "DeNBFM 0.6 F32", "--device", "cpu"]
@@ -676,3 +679,157 @@ def test_denbfmsync_front_end_matches_jax(heli_captures, tmp_path):
     p, _ = _heli_coords(str(tmp_path / "p.f32"))
     j, _ = _heli_coords(str(tmp_path / "j.f32"))
     assert p == j and len(p) >= 10
+
+
+# ---- the file surface: WAV input, AU, --spectrum, --constellation, --play ----------
+
+@pytest.fixture(scope="module")
+def if_wav(tmp_path_factory):
+    """A mono float32 WAV at 96 kHz (a sound-card IF recording): an FM
+    carrier at every channel centre of an 8-way split of the IQ it lifts to
+    (the Hilbert 2:1 then the mix by π put WAV frequency f at IQ frequency
+    2f − 1/2), so no channel's magnitude nears zero where atan2 amplifies
+    rounding, an AM carrier off DC, and noise; and a stereo WAV."""
+    d = tmp_path_factory.mktemp("wav")
+    rng = np.random.default_rng(21)
+    n_iq = 8 * 1024 * 6 + 24
+    t = np.arange(2 * n_iq)
+    x = 0.003 * rng.normal(size=2 * n_iq)
+    for k in range(8):
+        f_iq = (k - 3.5) / 8
+        ph = 2 * np.pi * np.mod((f_iq + 0.5) / 2 * t, 1.0) + 1.5 * np.sin(2 * np.pi * 2e-4 * (k + 1) * t)
+        x += 0.08 * np.cos(ph + k)
+    env = 1.0 + 0.5 * np.sin(2 * np.pi * 3e-4 * t)
+    x += 0.05 * env * np.cos(2 * np.pi * np.mod((0.002 + 0.5) / 2 * t, 1.0))
+    from csdr_tpu_torch.io.wav import write_wav
+
+    write_wav(str(d / "if.wav"), x.astype(np.float32), 96000)
+    write_wav(str(d / "st.wav"), np.zeros((256, 2), np.float32), 96000)
+    return {"path": str(d / "if.wav"), "stereo": str(d / "st.wav"), "n": n_iq}
+
+
+def _audio(prefix, nch, ext):
+    from csdr_tpu_torch.io.wav import read_au
+
+    names = [f"{prefix}.{ext}"] if nch == 1 else [f"{prefix}_ch{i}.{ext}"
+                                                   for i in range(1, nch + 1)]
+    if ext == "au":
+        return np.stack([read_au(f)[0] for f in names])
+    return _outputs(prefix, nch, ext)
+
+
+# (argv, -n, output extension, backends: (name, compared from output, bound))
+WAV_FLOWS = {
+    "nbfm8_wav": (["-c", "8", "--demod", "DeNBFM 0.6 WAV"], None, "wav",
+                  (("eager", 0, 2e-5), ("pfb_fused", 1, 2e-5))),
+    "am1_au": (["-c", "1", "--demod", "DeAM AU"], None, "au", (("eager", 0, 2e-5),)),
+    "am8_au_resampled": (["-c", "8", "--demod", "DeAM AU", "-b", "24000"], 12000, "au",
+                         (("eager", 0, 2e-5), ("pfb_fused", 0, 2e-5))),
+    "usb1_offset_au": (["-c", "1", "--demod", "DeUSB 3000 AU", "--offset", "-6000"], None,
+                       "au", (("eager", 0, 2e-3),)),
+}
+
+
+@pytest.mark.parametrize("flow", list(WAV_FLOWS))
+def test_wav_input_flow_matches_jax_cli(if_wav, tmp_path, flow):
+    """A mono WAV in: the port's wav_iq_source (at --blocksize) and the
+    flow, against the JAX CLI on the same file (its WAV source at
+    2·--chunksize); AU output read back against the JAX CLI's AU files."""
+    argv, n, ext, backends = WAV_FLOWS[flow]
+    nch = int(argv[1])
+    common = ["--filename", if_wav["path"], "-s", "48000", "-n", str(n or if_wav["n"]),
+              "--blocksize", "4096"]
+    assert jax_main(common + argv + ["-o", str(tmp_path / "j")]) == 0
+    want = _audio(str(tmp_path / "j"), nch, ext)
+    for backend, first, bound in backends:
+        out = str(tmp_path / backend)
+        assert main(common + argv + ["-o", out, "--backend", backend, "--device", "cpu"]) == 0
+        got = _audio(out, nch, ext)
+        assert got.shape == want.shape, (backend, got.shape, want.shape)
+        err = np.max(np.abs(got[:, first:].astype(np.float64) - want[:, first:]))
+        assert err / np.max(np.abs(want)) < bound, (backend, err)
+
+
+def test_wav_input_fused_backend_holds_k1_bounds(if_wav, tmp_path):
+    """-c 8 DeNBFM on the WAV through the fused backend (K1's plain version
+    on the CPU) against eager: K1's 1.2e-3 max and 4e-5 RMS from frame 1
+    (tests/test_flagship_fused_wide.py:66-67)."""
+    outs = {}
+    for backend in ("eager", "fused"):
+        out = str(tmp_path / backend)
+        assert main(["--filename", if_wav["path"], "-s", "48000", "-n", str(if_wav["n"]),
+                     "-c", "8", "--blocksize", "4096", "--demod", "DeNBFM 0.6 F32",
+                     "--backend", backend, "--device", "cpu", "-o", out]) == 0
+        outs[backend] = read_channels(out, "f32", np.float32)
+    d = outs["fused"][:, 1:].astype(np.float64) - outs["eager"][:, 1:]
+    assert np.max(np.abs(d)) < 1.2e-3 and np.sqrt(np.mean(d ** 2)) < 4e-5
+
+
+def test_wav_input_refuses_stereo(if_wav, tmp_path, capsys):
+    assert main(["--filename", if_wav["stereo"], "-c", "1", "--demod", "DeAM WAV",
+                 "-o", str(tmp_path / "x"), "--device", "cpu"]) == 1
+    assert "only mono WAV supported" in capsys.readouterr().err
+    assert not os.listdir(tmp_path)
+
+
+def _plot_arrays(path):
+    import re
+
+    with open(path) as f:
+        txt = f.read()
+    if "f = [" in txt:
+        return [np.array(txt.split(f"{k} = [")[1].split("];")[0].split(), float)
+                for k in ("f", "p")]
+    pts = re.findall(r"v\(end\+1\) = *(\S+) \+ j\* *(\S+);", txt)
+    assert "print -dpng" in txt
+    return [np.array(pts, float)]
+
+
+@pytest.mark.parametrize("src", ["cu8", "wav"])
+def test_spectrum_and_constellation_match_jax_cli(keyed_capture, if_wav, tmp_path, src):
+    """--spectrum and --constellation (default names, and a given file) tap
+    the IQ after the front end on the host: the scripts parse and their
+    arrays are within 1e-4 of the JAX CLI's."""
+    if src == "cu8":
+        common = ["--filename", keyed_capture["cu8"], "-n", str(keyed_capture["n"]), "-c", "8",
+                  "--demod", "DeNBFM 0.6 WAV"]
+    else:
+        common = ["--filename", if_wav["path"], "-s", "48000", "-n", "9000", "-b", "24000",
+                  "-c", "1", "--demod", "DeAM WAV"]
+    common += ["--blocksize", "4096"]
+    for cli, name, extra in ((jax_main, "j", []), (main, "p", ["--device", "cpu"])):
+        out = str(tmp_path / name)
+        assert cli(common + extra + ["-o", out, "--spectrum", "--constellation",
+                                     str(tmp_path / f"{name}_iq.m")]) == 0
+    for want_f, got_f in (("j_spectrum.m", "p_spectrum.m"), ("j_iq.m", "p_iq.m")):
+        for w, g in zip(_plot_arrays(tmp_path / want_f), _plot_arrays(tmp_path / got_f)):
+            assert g.shape == w.shape and w.size > 0
+            assert np.max(np.abs(g - w)) <= 1e-4 * np.max(np.abs(w))
+    assert not os.path.exists(tmp_path / "p_constellation.m")
+
+
+def test_play_tees_single_stream_audio(if_wav, tmp_path, capsys):
+    """--play CMD feeds the player the file's samples as float32le PCM,
+    within 2e-5 of what the JAX CLI plays from the same file; a split into
+    files plays nothing and says so, as the JAX CLI does."""
+    common = ["--filename", if_wav["path"], "-s", "48000", "-n", "9000"]
+    for cli, name, extra in ((jax_main, "j", []), (main, "p", ["--device", "cpu"])):
+        assert cli(common + extra + ["-c", "1", "--demod", "DeAM WAV",
+                                     "-o", str(tmp_path / name),
+                                     "--play", f"sh -c 'cat > {tmp_path / name}.raw'"]) == 0
+        assert "--play ignored" not in capsys.readouterr().out
+    from csdr_tpu_torch.io.wav import read_wav
+
+    audio, rate = read_wav(str(tmp_path / "p.wav"))
+    assert rate == 48000 and audio.size == 9000
+    played = np.fromfile(tmp_path / "p.raw", np.float32)
+    assert np.array_equal(played, audio)
+    want = np.fromfile(tmp_path / "j.raw", np.float32)
+    assert played.shape == want.shape
+    assert np.max(np.abs(played - want)) / np.max(np.abs(want)) < 2e-5
+    for cli, name, extra in ((jax_main, "jb", []), (main, "pb", ["--device", "cpu"])):
+        assert cli(common + extra + ["-c", "8", "--demod", "DeAM WAV", "-o",
+                                     str(tmp_path / name), "--play",
+                                     f"sh -c 'cat > {tmp_path / name}.raw'"]) == 0
+        assert "--play ignored: output is not a single audio stream" in capsys.readouterr().out
+        assert not os.path.exists(tmp_path / f"{name}.raw")

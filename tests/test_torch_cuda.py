@@ -20,7 +20,11 @@ output: K5 (``fir_valid``) 1e-4, tighter than the JAX package's 2e-3
 one product left out reads ~2e-3 (tests/test_torch_fir.py); K6
 (``fft_fir``) 2e-4 (tests/test_fftfir.py:36,51).  The symbol sync (no
 kernel of its own) against the CPU: 2e-3 of either pick where float order
-picks (tests/test_torch_symsync.py).
+picks (tests/test_torch_symsync.py).  The Hilbert blocks and the imagery
+chains (no kernel of their own) against the CPU: 2e-5 relative to the
+largest output (tests/test_golden.py), the SSTV and WEFAX frequency tracks
+from output 180 (the FIR's start-up, tests/test_sstv.py:97-102); a
+profiled Pipeline equal to the unprofiled one bit for bit.
 """
 
 import numpy as np
@@ -433,3 +437,72 @@ def test_denbfmsync_pfb_fused_cli_launches_k4(dev, tmp_path):
     for ch in range(1, nch + 1):
         y = np.fromfile(tmp_path / f"s_ch{ch}.f32", np.float32)
         assert y.shape == (block * blocks * 2 // (nch * 10),) and np.isfinite(y).all()
+
+
+@pytest.mark.cuda
+def test_hilbert_blocks_on_card_match_cpu(dev):
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=3 * 8192).astype(np.float32)
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        r2c, c2r = ct.real_to_complex(), ct.complex_to_real()
+        s1, s2 = r2c.init(d), c2r.init(d)
+        cs, rs = [], []
+        for blk in np.split(x, 3):
+            s1, c = r2c.apply(s1, torch.from_numpy(blk).to(d))
+            s2, r = c2r.apply(s2, c)
+            cs.append(c.cpu().numpy())
+            rs.append(r.cpu().numpy())
+        outs[d.type] = (np.concatenate(cs), np.concatenate(rs))
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert np.abs(got - want).max() / np.abs(want).max() < 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["apt", "sstv", "wefax"])
+def test_imagery_chain_on_card_matches_cpu(dev, kind):
+    from csdr_tpu_torch.models import apt, sstv, wefax
+
+    rng = np.random.default_rng(12)
+    if kind == "apt":
+        img = rng.integers(11, 244, size=(4, apt.LINE_WORDS)).astype(np.uint8)
+        img[:, :39] = (apt.SYNC_A * 233 + 11).astype(np.uint8)
+        fs, rx, first = 8 * apt.WORD_RATE, apt.apt_receiver, 0
+        audio = apt.apt_modulate(img, fs)
+    elif kind == "sstv":
+        fs, rx, first = 11025.0, sstv.sstv_receiver, 180
+        audio = sstv.sstv_modulate(rng.integers(0, 256, (2, 320, 3)).astype(np.uint8), fs)
+    else:
+        fs, rx, first = 12000.0, wefax.wefax_receiver, 180
+        audio = wefax.wefax_modulate(rng.integers(0, 256, (2, wefax.PX_PER_LINE))
+                                     .astype(np.uint8), fs, phasing_lines=3)
+    outs = {}
+    for d in ("cuda", "cpu"):
+        sink = ct.CollectSink()
+        ct.Pipeline(rx(fs), block_size=1 << 15, device=d).run(iter([audio]), sink)
+        outs[d] = sink.concat()
+    got, want = outs["cuda"], outs["cpu"]
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.abs(got[first:] - want[first:]).max() / np.abs(want).max() < 2e-5
+
+
+@pytest.mark.cuda
+def test_profiled_pfb_fused_pipeline_matches_unprofiled(dev):
+    """dc_blocker >> PFBFusedFM (K3) with profile=True: one stage per block,
+    the same output bit for bit, K3 launched once per block."""
+    from csdr_tpu_torch.models.receivers import channelized_fm_receiver
+
+    nch = 64
+    x = occupied_band(nch, nch * 64 * 16 * 3, seed=13, per_frame=True)
+    outs = []
+    for profile in (False, True):
+        pipe = ct.Pipeline(channelized_fm_receiver(nch, backend="pfb_fused"),
+                           block_size=nch * 64 * 16, device=dev, profile=profile)
+        before = pf.launches["pfb_fm_fused"]
+        outs.append(np.concatenate([pipe.process_block(b).cpu().numpy()
+                                    for b in np.split(x, 3)], axis=-1))
+        assert pf.launches["pfb_fm_fused"] - before == 3
+    assert np.array_equal(outs[0], outs[1])
+    assert [s.calls for s in pipe.stage_stats] == [3, 3]
+    assert "pfb_fused_fm(64)" in pipe.profile_report()
