@@ -171,6 +171,28 @@ on WAV input and K3 under --profile):
       --constellation scripts within 1e-4 of the --device cpu run's.
       ``python3 chip_smoke.py --imagery-only`` runs identity, build and 10.
 
+and for the live-device path (no new kernel; K1 on the rtl_tcp flow and the
+tile sweep, K3 on the synthetic device):
+
+  11. 11a the port's rtl_tcp_server, a process of its own, serves a seeded
+      2^25-sample cu8 capture of phase 4's kind; the CLI runs --devname
+      rtl_tcp -s 2.56e6 -f 100e6 --ppm 3 -n 2^25 -c 64 "DeNBFM 0.6 F32"
+      --backend fused on it: its 64 files bit-equal to the --filename run of
+      the same samples as CF32 (the client's own conversion) and within
+      U8_ERR of the cu8 file run, every channel on its tone, the server's
+      command log (rate, frequency, gain mode 0, ppm 3); MSPS against the
+      CF32 run in turns, the real-time factor against 3.2 MS/s, the idle
+      share from a child process, K1's launches.  11b --devname synthetic
+      -n 2^24 -c 64 on pfb_fused (K3) and eager, each bit-equal to the
+      --filename run of the synthetic samples saved, K3 against eager on the
+      four occupied channels.  11c native_cf32_source against
+      cf32_file_source on a 2^25-sample CF32 file (bytes, MB/s each) and
+      NativeRawFileSink's round trip.  11d K1's tileF swept at nch 64 on cu8
+      2^23 (utils/autotune.sweep, a temporary cache), each tile's step ms;
+      FlagshipFused(tileF=None) takes the winner, within K1's bounds of the
+      default tile.  ``python3 chip_smoke.py --device-only`` runs identity,
+      build and 11.
+
 Prints one JSON object per result, then the nvidia-smi line, the kernels
 line and, last, {"ok": true, "device": {...}}.  Each kernels entry carries
 bound_ms: the larger of the bytes the function must move (each input read
@@ -2904,6 +2926,285 @@ def phase_imagery_and_files(torch, ff, pf, dev, card, tmp) -> dict:
     return res
 
 
+# ---- 11. the live-device path ------------------------------------------------
+
+RTL_RATE, RTL_FREQ, RTL_PPM = 2_560_000, 100_000_000, 3
+LIVE_MSPS = 3.2          # the fastest rate an RTL-SDR streams (2.4–3.2 MS/s)
+SYN_SAMPLES = 1 << 24    # 11b's synthetic device run
+TILES = (8, 16, 32, 64, 128, 256, 512)   # 11d: K1's tileF candidates at nch 64
+AUTOTUNE_ENV = "CSDR_TPU_TORCH_AUTOTUNE_CACHE"
+
+
+@contextlib.contextmanager
+def rtl_server(capture: str, tmp: str, clients: int):
+    """The port's rtl_tcp_server serving ``capture`` in a process of its own
+    (``--port 0 -v``, ``--clients``; 0 = until killed); yields (port, the
+    process, its log's path).  The process is killed on every way out."""
+    log = os.path.join(tmp, f"rtl_server_{time.monotonic_ns()}.log")
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "csdr_tpu_torch.apps.rtl_tcp_server", "--filename", capture,
+             "--port", "0", "--clients", str(clients), "-v"],
+            stdout=out, stderr=subprocess.STDOUT, cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE))
+    try:
+        end = time.monotonic() + 60
+        while not (m := re.search(r"rtl_tcp server on [\d.]+:(\d+)", open(log).read())):
+            check(proc.poll() is None,
+                  f"rtl_tcp_server exited {proc.returncode}: {open(log).read()[-2000:]}")
+            check(time.monotonic() < end, "rtl_tcp_server printed no port in 60 s")
+            time.sleep(0.05)
+        yield int(m.group(1)), proc, log
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=30)
+
+
+@contextlib.contextmanager
+def env_var(name: str, value: str):
+    """``os.environ[name] = value`` for the block (a child process inherits
+    it), the old value back after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def phase_device_rtl(torch, ff, pf, dev, card, tmp) -> dict:
+    """11a. The slice's main path: the port's rtl_tcp_server (a process of
+    its own) serves a 2^25-sample cu8 capture of phase 4's kind; the CLI
+    reads it with --devname rtl_tcp and runs -c 64 DeNBFM on K1.  Its 64
+    files equal the --filename run of the same samples as CF32 (the
+    client's own conversion, ``iq_from_u8``) bit for bit and the cu8 file
+    run's within U8_ERR; every channel sits on its tone; the server's
+    command log holds the tuning.  Device and CF32 runs in turns A, B, B,
+    A; the device flow's idle share in a child process."""
+    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
+    from csdr_tpu_torch.io.rtl_tcp import iq_from_u8
+
+    nch, frames = 64, CAPTURE // 64
+    j = 5 + 3 * (np.arange(nch) % 7)
+    x = occupied_band(torch, dev, nch, CAPTURE, SEED + 1100, tones=j / 1024.0 / nch)
+    u8 = to_cu8(torch, x).cpu().numpy()
+    del x
+    cu8_path, cf32_path = os.path.join(tmp, "live.cu8"), os.path.join(tmp, "live.cf32")
+    u8.tofile(cu8_path)
+    iq_from_u8(u8).tofile(cf32_path)
+    del u8
+    common = ["-n", str(CAPTURE), "-c", str(nch), "--demod", f"DeNBFM {KF} F32",
+              "--backend", "fused", "--device", "cuda"]
+    dev_argv = ["--devname", "rtl_tcp", "-s", str(RTL_RATE), "-f", str(RTL_FREQ),
+                "--ppm", str(RTL_PPM), *common]
+    want_log = [["set_sample_rate", RTL_RATE], ["set_frequency", RTL_FREQ],
+                ["set_gain_mode", 0], ["set_freq_correction", RTL_PPM]]
+    secs = {"rtl_tcp": [], "cf32": []}
+    audio, launches = {}, {}
+    for turn, src in enumerate(("rtl_tcp", "cf32", "cf32", "rtl_tcp")):
+        out = os.path.join(tmp, f"live_{turn}")
+        if src == "rtl_tcp":
+            with rtl_server(cu8_path, tmp, 1) as (port, proc, log), \
+                    env_var("CSDR_RTLTCP_ADDR", f"127.0.0.1:{port}"):
+                dt, counts = cli_run(torch, ff, pf, cli_main, dev_argv + ["-o", out])
+                proc.wait(timeout=60)
+                text = open(log).read()
+            check(proc.returncode == 0, f"11a: rtl_tcp_server exit code {proc.returncode}")
+            cmds = [json.loads(ln.removeprefix("commands: ")) for ln in text.splitlines()
+                    if ln.startswith("commands: ")]
+            check(cmds == [want_log], f"11a: the server's command log {cmds}, want {want_log}")
+            check("served 1 client(s)" in text, f"11a: server log {text[-500:]}")
+        else:
+            dt, counts = cli_run(torch, ff, pf, cli_main, ["--filename", cf32_path, *common,
+                                                           "-o", out])
+        check_counts(counts, "flagship_fused", f"11a {src} run")
+        secs[src].append(dt)
+        got = read_channels(out, "f32", np.float32, nch, frames * 4)
+        for k in range(nch):
+            os.unlink(f"{out}_ch{k + 1}.f32")
+        if src in audio:
+            check(np.array_equal(got, audio[src]), f"11a: two {src} runs differ")
+        else:
+            audio[src], launches[src] = got, counts["flagship_fused"]
+    check(np.array_equal(audio["rtl_tcp"], audio["cf32"]),
+          "11a: the rtl_tcp run differs from the CF32 file run of the same samples")
+    out = os.path.join(tmp, "live_cu8")
+    dt_cu8, counts = cli_run(torch, ff, pf, cli_main, ["--filename", cu8_path, *common,
+                                                       "-o", out])
+    check_counts(counts, "flagship_fused", "11a cu8 run")
+    cu8_max, cu8_rms = errors_np(read_channels(out, "f32", np.float32, nch, frames * 4),
+                                 audio["rtl_tcp"])
+    for k in range(nch):
+        os.unlink(f"{out}_ch{k + 1}.f32")
+    peaks = tone_peaks(audio["rtl_tcp"])
+    on_tone = int((peaks == j * (frames // 1024)).sum())
+    del audio
+    with rtl_server(cu8_path, tmp, 0) as (port, _, _), \
+            env_var("CSDR_RTLTCP_ADDR", f"127.0.0.1:{port}"):
+        idle = idle_share({"cli": dev_argv + ["-o", os.path.join(tmp, "live_idle")]})
+    for f in (cu8_path, cf32_path):
+        os.unlink(f)
+    msps = {s: CAPTURE / statistics.mean(v) / 1e6 for s, v in secs.items()}
+    res = dict(phase="device_rtl_tcp", flow=" ".join(dev_argv), samples=CAPTURE,
+               seconds_in_turns=secs, msps_in_turns=msps,
+               real_time_factor_vs_3_2_msps=msps["rtl_tcp"] / LIVE_MSPS, cu8_file_msps=CAPTURE
+               / dt_cu8 / 1e6, launches=launches["rtl_tcp"], bit_equal_to_cf32_run=True,
+               vs_cu8_run_max=cu8_max, vs_cu8_run_rms=cu8_rms, channels_on_their_tone=on_tone,
+               server_commands=want_log, **idle, **card)
+    emit(res)
+    check(cu8_max < U8_ERR, f"11a: rtl_tcp run vs the cu8 file run max {cu8_max}")
+    check(on_tone == nch, f"11a: channels off their tone: {np.flatnonzero(peaks != j * (frames // 1024)).tolist()}")
+    return res
+
+
+def phase_device_synthetic(torch, ff, pf, dev, card, tmp) -> dict:
+    """11b. --devname synthetic -s 2.56e6 -n 2^24 -c 64 DeNBFM on pfb_fused
+    (K3) and eager: each run's files equal the --filename run of the
+    synthetic samples saved as CF32 bit for bit; K3 against eager within
+    PFB_MAX_ERR and RMS_ERR from frame 1 on the channels that carry the
+    device's four tones (the other 60 hold noise alone, where atan2 of a
+    near-zero sample makes any two float orders part)."""
+    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
+    from csdr_tpu_torch.io.sources import SyntheticSdrSource
+
+    nch, n = 64, SYN_SAMPLES
+    src = SyntheticSdrSource(2.56e6, 100e6, 0.0, total_samples=n)
+    occupied = np.rint(np.array(src.tones) * nch + (nch - 1) / 2).astype(int)
+    path = os.path.join(tmp, "synthetic.cf32")
+    np.concatenate(list(src)).tofile(path)
+    common = ["-n", str(n), "-c", str(nch), "--demod", f"DeNBFM {KF} F32", "--device", "cuda"]
+    runs = {}
+    for backend, kern in (("pfb_fused", "pfb_fm_fused"), ("eager", None)):
+        got = {}
+        for how, argv in (("device", ["--devname", "synthetic", "-s", "2.56e6"]),
+                          ("file", ["--filename", path])):
+            out = os.path.join(tmp, f"syn_{backend}_{how}")
+            dt, counts = cli_run(torch, ff, pf, cli_main, argv + common + ["--backend", backend,
+                                                                          "-o", out])
+            check_counts(counts, kern, f"11b {backend} {how} run")
+            got[how] = read_channels(out, "f32", np.float32, nch, n // nch * 4)
+            for k in range(nch):
+                os.unlink(f"{out}_ch{k + 1}.f32")
+            runs[backend, how] = dict(seconds=dt, msps=n / dt / 1e6, launches=counts)
+        check(np.array_equal(got["device"], got["file"]),
+              f"11b {backend}: the synthetic device run differs from its file run")
+        runs[backend] = got["device"]
+    os.unlink(path)
+    occ_max, occ_rms = errors_np(runs["pfb_fused"][occupied, 1:], runs["eager"][occupied, 1:])
+    all_max, _ = errors_np(runs["pfb_fused"][:, 1:], runs["eager"][:, 1:])
+    res = dict(phase="device_synthetic", samples=n, channels=nch, occupied=occupied.tolist(),
+               runs={f"{b} {h}": runs[b, h] for b in ("pfb_fused", "eager")
+                     for h in ("device", "file")},
+               k3_vs_eager_occupied_max=occ_max, k3_vs_eager_occupied_rms=occ_rms,
+               k3_vs_eager_all_channels_max=all_max, bit_equal_to_file_runs=True, **card)
+    emit(res)
+    check(occ_max < PFB_MAX_ERR and occ_rms < RMS_ERR,
+          f"11b: K3 vs eager on the occupied channels max {occ_max} rms {occ_rms}")
+    return res
+
+
+def phase_native(torch, card, tmp) -> dict:
+    """11c. native_cf32_source against cf32_file_source on a 2^25-sample CF32
+    file (read from the page cache, turns Python, native, native, Python):
+    the same bytes, MB/s each; NativeRawFileSink writes it back equal."""
+    from csdr_tpu_torch.io import native
+    from csdr_tpu_torch.io.sources import cf32_file_source
+
+    t0 = time.perf_counter()
+    native.load_lib()
+    build_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "native.cf32")
+    data = np.random.default_rng(SEED + 1102).standard_normal(2 * CAPTURE, dtype=np.float32)
+    data.tofile(path)
+    readers = {"python": lambda: cf32_file_source(path, 1 << 18),
+               "native": lambda: native.native_cf32_source(path, 1 << 18)}
+    secs = {k: [] for k in readers}
+    for name in ("python", "native", "native", "python"):
+        t0 = time.perf_counter()
+        got = sum(len(c) for c in readers[name]())
+        secs[name].append(time.perf_counter() - t0)
+        check(got == CAPTURE, f"11c: the {name} reader gave {got} samples")
+    for a, b in zip(readers["python"](), readers["native"]()):
+        check(a.tobytes() == b.tobytes(), "11c: the native reader's bytes differ")
+    out = os.path.join(tmp, "native_out.cf32")
+    t0 = time.perf_counter()
+    with native.NativeRawFileSink(out) as sink:
+        for c in native.native_cf32_source(path, 1 << 18):
+            sink(c)
+    write_s = time.perf_counter() - t0
+    check(np.array_equal(np.fromfile(out, np.float32), data), "11c: NativeRawFileSink round trip")
+    for f in (path, out):
+        os.unlink(f)
+    mb = CAPTURE * 8 / 1e6
+    res = dict(phase="native_io", samples=CAPTURE, megabytes=mb, build_or_load_s=build_s,
+               seconds=secs, mb_per_s={k: mb / statistics.mean(v) for k, v in secs.items()},
+               native_copy_mb_per_s=mb / write_s, bytes_equal=True, **card)
+    emit(res)
+    return res
+
+
+def phase_autotune(torch, ff, pf, dev, card, tmp) -> dict:
+    """11d. K1's tileF swept at nch 64 on cu8 2^23-sample steps through
+    utils/autotune.sweep into a temporary cache (TILES; a tile the kernel's
+    own checks refuse is recorded as infeasible); each tile's step ms from
+    time_steps.  FlagshipFused(tileF=None) built afterwards takes the
+    winner, and its output stays within MAX_ERR and RMS_ERR of the
+    default tile's."""
+    from csdr_tpu_torch.blocks.fused_blocks import FlagshipFused
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+    from csdr_tpu_torch.utils import autotune
+
+    u8 = to_cu8(torch, occupied_band(torch, dev, 64, BLOCK, SEED + 1103))
+    step_ms = {}
+
+    def bench(t: int) -> float:
+        box = {"s": ff.flagship_fused_init(64, dev)}
+
+        def step():
+            box["s"], _ = ff.flagship_fused_step(box["s"], u8, nch=64, kf=KF, tileF=t)
+
+        step_ms[t] = statistics.median(time_steps(torch, step))
+        return BLOCK / step_ms[t] / 1e3
+
+    with env_var(AUTOTUNE_ENV, os.path.join(tmp, "autotune.json")):
+        reset_counts(ff, pf, fv, fx)
+        best, results = autotune.sweep("flagship_fused", 64, TILES, bench)
+        sweep_launches = ff.launches
+        blk = FlagshipFused(64, kf=KF)
+        entry = json.load(open(autotune.cache_path()))
+    check(blk.tileF == best, f"11d: FlagshipFused took tileF {blk.tileF}, the sweep's best {best}")
+    check(f"flagship_fused:{autotune.card()}:64" in entry, f"11d: cache keys {list(entry)}")
+    _, y_best = blk.apply(blk.init(dev), u8)
+    _, y_def = ff.flagship_fused_step(ff.flagship_fused_init(64, dev), u8, nch=64, kf=KF)
+    mx, rms = errors(y_best, y_def)
+    res = dict(phase="autotune", kernel="flagship_fused", nch=64, input="cu8", n=BLOCK,
+               best_tileF=best, default_tileF=ff.DEFAULT_TILE_F, step_ms=step_ms,
+               infeasible={r["tileF"]: r["error"] for r in results if "error" in r},
+               sweep_launches=sweep_launches, best_vs_default_max=mx, best_vs_default_rms=rms,
+               **card)
+    emit(res)
+    check(mx < MAX_ERR and rms < RMS_ERR, f"11d: tile {best} vs default max {mx} rms {rms}")
+    return res
+
+
+def phase_device(torch, ff, pf, dev, card, tmp) -> dict:
+    """Phase 11: 11a–11d."""
+    res, secs = {}, {}
+    for name, fn in (("11a", lambda: phase_device_rtl(torch, ff, pf, dev, card, tmp)),
+                     ("11b", lambda: phase_device_synthetic(torch, ff, pf, dev, card, tmp)),
+                     ("11c", lambda: phase_native(torch, card, tmp)),
+                     ("11d", lambda: phase_autotune(torch, ff, pf, dev, card, tmp))):
+        t0 = time.perf_counter()
+        res[name] = fn()
+        secs[name] = time.perf_counter() - t0
+    emit(dict(phase="device", seconds=sum(secs.values()), by_part=secs, **card))
+    return res
+
+
 MESH_MAX = 4                 # ranks of the mesh phase: min(cards, MESH_MAX)
 MESH_BLOCKS = 2              # blocks of each ShardedChannelizedFM run
 
@@ -3452,12 +3753,14 @@ def phase_profile(torch, dev, card):
     return out
 
 
-def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = False) -> int:
+def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = False,
+         device_only: bool = False) -> int:
     """Every phase; with ``mesh_only`` (``--mesh-only``) identity, build,
     phase 4's CLI runs (the serial reference) and phase 7 alone, for a
     call on several cards; with ``sync_only`` (``--sync-only``) identity,
     build and phase 9; with ``imagery_only`` (``--imagery-only``) identity,
-    build and phase 10."""
+    build and phase 10; with ``device_only`` (``--device-only``) identity,
+    build and phase 11."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3501,6 +3804,12 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         print(smi, flush=True)
         emit({"imagery_only": True, "ok": True})
         return 0
+    if device_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_device(torch, ff, pf, dev, card, tmp)
+        print(smi, flush=True)
+        emit({"device_only": True, "ok": True})
+        return 0
     if mesh_only:
         with tempfile.TemporaryDirectory() as tmp:
             _, _, _, runs, capture, _ = phase_main_path(torch, ff, pf, dev, card, tmp)
@@ -3539,6 +3848,7 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         pkt = phase_packet(torch, ct, ff, pf, dev, card, tmp)  # 8
         sync = phase_sync(torch, ct, ff, pf, dev, card, tmp)  # 9
         img = phase_imagery_and_files(torch, ff, pf, dev, card, tmp)  # 10
+        live = phase_device(torch, ff, pf, dev, card, tmp)  # 11
         emit(dict(phase="broadcast_and_mix_flows", msps={
             "DeWBFM": wbfm["msps"], "DeFMS --rds": fms["msps"],
             **{f"-c {MIX_NCH} -m {k}": v["msps"] for k, v in mix.items()},
@@ -3569,6 +3879,13 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         "launches_mix_run": mix["fused"]["launches"]["flagship_fused"],
         "launches_checkpoint_run": ckpt["fused"]["launches"]["flagship_fused"],
         "launches_wav_run": img["wav"]["runs"]["fused"]["launches"]["flagship_fused"],
+        "launches_rtl_tcp_device_run": live["11a"]["launches"],
+        "device_flow": {k: live["11a"][k] for k in (
+            "msps_in_turns", "real_time_factor_vs_3_2_msps", "device_idle_share",
+            "vs_cu8_run_max")},
+        "launches_autotune_sweep": live["11d"]["sweep_launches"],
+        "autotune_sweep_step_ms": live["11d"]["step_ms"],
+        "autotune_best_tileF": live["11d"]["best_tileF"],
         "launches_mesh_run_per_rank": [c["flagship_fused"]
                                        for c in mesh["flagship_launches_per_rank"]],
         "launches_mesh_cli_per_rank": [c["flagship_fused"]
@@ -3611,6 +3928,8 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         "launches": pfb_runs["pfb_fm_fused"]["launches"],
         "launches_mix_run": mix["pfb_fused"]["launches"]["pfb_fm_fused"],
         "launches_profile_run": img["files"]["profile"]["launches"],
+        "launches_synthetic_device_run": live["11b"]["runs"]["pfb_fused device"]["launches"][
+            "pfb_fm_fused"],
         "launches_mesh_runs_per_rank": {
             f"{c['mesh'][0]}x{c['mesh'][1]}": [n["pfb_fm_fused"] for n in c["launches_per_rank"]]
             for c in mesh["channelized"] if c["backend"] == "pfb_fused"},
@@ -3756,4 +4075,5 @@ if __name__ == "__main__":
         sys.exit(idle_child(json.loads(sys.argv[2])))
     sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh-only"],
                   sync_only=sys.argv[1:2] == ["--sync-only"],
-                  imagery_only=sys.argv[1:2] == ["--imagery-only"]))
+                  imagery_only=sys.argv[1:2] == ["--imagery-only"],
+                  device_only=sys.argv[1:2] == ["--device-only"]))

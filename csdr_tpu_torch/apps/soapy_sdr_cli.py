@@ -1,9 +1,17 @@
-"""soapy-sdr — the file flows of the reference CLI on PyTorch.
+"""soapy-sdr — the reference CLI on PyTorch.
 
-Counterpart of ``csdr_tpu/apps/soapy_sdr_cli.py`` on file input: a .cu8
-capture, a mono WAV (a sound-card IF recording: Hilbert real → complex 2:1,
-then a mix by π, ``io/sources.wav_iq_source``, at half the WAV's rate) or
-anything else as raw CF32:
+Counterpart of ``csdr_tpu/apps/soapy_sdr_cli.py``.  The input is an SDR
+device or a file.  Without ``--filename`` the CLI lists the drivers
+(``io/sources.enumerate_devices``) and opens ``--devname`` (default
+``rtlsdr``) at ``-s`` S/s, tuned to ``-f`` Hz with gain ``-g`` (0 = the
+device's AGC): ``synthetic`` (seeded tones and noise, ``-n`` samples long),
+``rtl_tcp`` (a network dongle at ``$CSDR_RTLTCP_ADDR``, with ``--ppm`` and
+``--bias-t``; ``apps/rtl_tcp_server`` serves a capture so) or a SoapySDR
+driver where the ``SoapySDR`` module imports.  A device yields complex64.
+A file is a .cu8 capture, a mono WAV (a sound-card IF recording: Hilbert
+real → complex 2:1, then a mix by π, ``io/sources.wav_iq_source``, at half
+the WAV's rate) or anything else as raw CF32, read ``--chunksize`` samples
+at a time.  Every flow below runs from either:
 
   * a front end: ``--offset`` (NCO mixer) and ``-b/--bandwidth`` (half-band
     cascade + rational resampler), then ``-n`` samples at the front end's
@@ -51,8 +59,8 @@ into a live player (``io/sinks.PlaybackSink``); ``--profile`` runs each
 stage of the main graph as its own step between device barriers and prints
 the per-stage table.
 
-SDR devices, and ``--mesh`` for any flow but ``-c N`` DeNBFM, exit non-zero
-with "not yet ported in csdr_tpu_torch".
+``--mesh`` for any flow but ``-c N`` DeNBFM exits non-zero with "not yet
+ported in csdr_tpu_torch".
 
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -n 33554432 \\
         -c 64 --demod "DeCW 500 700 WAV" --backend pfb_fused --device cuda
@@ -64,6 +72,9 @@ with "not yet ported in csdr_tpu_torch".
         -c 64 --demod "DeNBFM 0.6 AU" --backend fused --spectrum --profile
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename heli.cu8 -n 33554432 \\
         -c 64 --demod "DeNBFMSync 10" --backend pfb_fused --blocksize 8388608
+    CSDR_RTLTCP_ADDR=127.0.0.1:1234 python -m csdr_tpu_torch.apps.soapy_sdr_cli \\
+        --devname rtl_tcp -s 2.56e6 -f 100e6 --ppm 3 -n 33554432 -c 64 \\
+        --demod "DeNBFM 0.6 F32" --backend fused
     python -m torch.distributed.run --nproc-per-node 4 -m csdr_tpu_torch.apps.soapy_sdr_cli \\
         --filename cap.cu8 -n 33554432 -c 64 --mesh 4x1 --backend fused \\
         --demod "DeNBFM 0.6 F32"
@@ -99,7 +110,22 @@ def build_parser() -> argparse.ArgumentParser:
         description="Single-channel and channelized receivers on PyTorch (CUDA or CPU)")
     p.add_argument("--filename", metavar="NAME",
                    help="Input file: rtl_sdr uint8 IQ (.cu8), a mono WAV (IF recording, "
-                        "lifted to IQ at half its rate) or raw CF32")
+                        "lifted to IQ at half its rate) or raw CF32; without it, the SDR "
+                        "device --devname")
+    p.add_argument("--chunksize", type=int, default=None, metavar="INT",
+                   help="Samples per file read (default: the device block size); a device "
+                        "reads its own MTU")
+    p.add_argument("--devname", default="rtlsdr", metavar="NAME",
+                   help="SDR device driver: synthetic, rtl_tcp (at $CSDR_RTLTCP_ADDR) or a "
+                        "SoapySDR driver")
+    p.add_argument("--ppm", type=int, default=0, metavar="INT",
+                   help="Frequency correction in ppm (rtl_tcp driver)")
+    p.add_argument("--bias-t", dest="bias_t", action="store_true",
+                   help="Power the bias tee (rtl_tcp driver)")
+    p.add_argument("-f", "--frequency", type=float, default=100.0e6, metavar="DOUBLE",
+                   help="Rx frequency in Hz")
+    p.add_argument("-g", "--gain", type=float, default=0.0, metavar="DOUBLE",
+                   help="SDR gain level (0 = auto)")
     p.add_argument("-s", "--samplerate", type=float, default=2.56e6, metavar="DOUBLE",
                    help="Sample rate in Hz")
     p.add_argument("--offset", type=float, default=0.0, metavar="DOUBLE",
@@ -205,23 +231,63 @@ def _refusal(opts, demod) -> str | None:
         return (f"--mesh for this flow is {_NOT_PORTED} (the generic sharded chain, "
                 "ShardedChain); --mesh runs -c N (> 1) --demod 'DeNBFM kf WAV|AU|F32' without "
                 "-m")
-    if not opts.filename:
-        return f"SDR devices are {_NOT_PORTED}; use --filename"
     return None
 
 
+def _open_device(opts):
+    """The SDR device ``--devname``, with the JAX CLI's messages: the
+    drivers there are, then the one used; None, after "No SDR devices
+    detected", "Device X not found" or "Failed to open device X: …" on
+    stderr, where it cannot be opened.  ``synthetic`` streams ``-n``
+    samples; ``rtl_tcp`` takes ``--ppm`` and ``--bias-t``."""
+    devs = [d.get("driver") for d in SRC.enumerate_devices()]
+    if not devs:
+        print("No SDR devices detected", file=sys.stderr)
+        return None
+    print(f"Available devices: {devs}")
+    if opts.devname not in devs:
+        print(f"Device {opts.devname} not found", file=sys.stderr)
+        return None
+    print(f"Using device: {opts.devname}")
+    kw = {}
+    if opts.devname == "synthetic" and opts.numsamples:
+        kw["total_samples"] = int(opts.numsamples)
+    if opts.devname == "rtl_tcp":
+        if opts.ppm:
+            kw["ppm"] = opts.ppm
+        if opts.bias_t:
+            kw["bias_t"] = True
+    try:
+        return SRC.open_sdr(opts.devname, opts.samplerate, opts.frequency, opts.gain, **kw)
+    except OSError as e:  # an unreachable or silent server (ConnectionError is one)
+        print(f"Failed to open device {opts.devname}: {e}", file=sys.stderr)
+        return None
+
+
 def _open_source(opts, device, block_size: int):
-    """The file source, sniffed as the JAX CLI does: ``.cu8`` first, then a
-    header-only ``probe_wav`` (a WAV goes through ``wav_iq_source`` on
-    ``device`` at ``block_size``), and a file it cannot read as WAV is raw
-    CF32.  A WAV the source refuses (not mono) raises ValueError."""
+    """The input: the SDR device without ``--filename`` (None where it
+    cannot be opened), else the file, sniffed as the JAX CLI does: ``.cu8``
+    first, then a header-only ``probe_wav`` (a WAV goes through
+    ``wav_iq_source`` on ``device``), and a file it cannot read as WAV is
+    raw CF32, read ``--chunksize`` samples at a time (default
+    ``block_size``).  A WAV the source refuses (not mono) raises
+    ValueError."""
+    if not opts.filename:
+        return _open_device(opts)
+    chunk = opts.chunksize or block_size
     if opts.filename.endswith(".cu8"):
-        return SRC.cu8_file_source(opts.filename, block_size)
+        return SRC.cu8_file_source(opts.filename, chunk)
     try:
         probe_wav(opts.filename)
     except (ValueError, struct.error):
-        return SRC.cf32_file_source(opts.filename, block_size)
-    return SRC.wav_iq_source(opts.filename, block_size, device=device)
+        return SRC.cf32_file_source(opts.filename, chunk)
+    return SRC.wav_iq_source(opts.filename, chunk, device=device)
+
+
+def _is_cu8(opts) -> bool:
+    """Whether the input is a .cu8 capture (uint8 rows); a device yields
+    complex64."""
+    return bool(opts.filename) and opts.filename.endswith(".cu8")
 
 
 def _host_iq(chunk: np.ndarray) -> np.ndarray:
@@ -479,7 +545,7 @@ def run_opts(opts) -> int:
               file=sys.stderr)
         return 1
     device = torch.device(opts.device)
-    cu8 = opts.filename.endswith(".cu8")
+    cu8 = _is_cu8(opts)
     out_bw = opts.bandwidth if opts.bandwidth else opts.samplerate
 
     from .. import blocks as B
@@ -506,14 +572,20 @@ def run_opts(opts) -> int:
     except ValueError as e:  # a WAV of more than one channel
         print(e, file=sys.stderr)
         return 1
+    if source is None:
+        print("Unable to open source", file=sys.stderr)
+        return 1
     stream = _plot_taps(opts, fe_pipe.stream(source) if fe_pipe else source, out_bw)
     if opts.verbose:
         _announce("Flow", graph, device, pipe.block_size)
 
     t0 = time.perf_counter()
     sink, bits = _sink(opts, demod, out_bw)
-    with sink:
-        total = pipe.run(stream, sink, num_samples=opts.numsamples)
+    try:
+        with sink:
+            total = pipe.run(stream, sink, num_samples=opts.numsamples)
+    finally:
+        source.close()  # a device streams on past -n: hang up now
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
@@ -597,10 +669,12 @@ def _mesh_rank(device: torch.device, opts, demod, agc_t) -> int:
     rank = torch.distributed.get_rank()
     mesh = build_mesh(dt, dc, device.type)
     if opts.backend == "fused":
-        # the largest tile up to the kernel's default whose mesh granule fits
-        # the block size (halved down to 16 frames, so a segment covers the
-        # (L+1)-frame halo)
-        tileF = ff.DEFAULT_TILE_F
+        # the largest tile up to the card's autotuned one (the kernel's default
+        # without a cache entry) whose mesh granule fits the block size (halved
+        # down to 16 frames, so a segment covers the (L+1)-frame halo)
+        from ..utils import autotune
+
+        tileF = autotune.lookup("flagship_fused", nch)
         while tileF > 16 and dt * nch * tileF > opts.blocksize:
             tileF //= 2
         gran = dt * nch * tileF
@@ -621,8 +695,10 @@ def _mesh_rank(device: torch.device, opts, demod, agc_t) -> int:
         from ..models.receivers import front_end
 
         out_bw = opts.bandwidth if opts.bandwidth else opts.samplerate
-        cu8 = opts.filename.endswith(".cu8")
-        source = _open_source(opts, device, sh.block_size)
+        cu8 = _is_cu8(opts)
+        opened = source = _open_source(opts, device, sh.block_size)
+        if source is None:
+            raise RuntimeError("Unable to open source")
         fe_stages = front_end(opts.samplerate, opts.offset, opts.bandwidth)
         if fe_stages:
             fe = chain(*([B.u8_to_iq()] if cu8 else []), *fe_stages)
@@ -636,8 +712,11 @@ def _mesh_rank(device: torch.device, opts, demod, agc_t) -> int:
     if sink is None:
         total = runner.run(None, None)
     else:
-        with sink:
-            total = runner.run(source, sink, num_samples=opts.numsamples)
+        try:
+            with sink:
+                total = runner.run(source, sink, num_samples=opts.numsamples)
+        finally:
+            opened.close()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     secs = time.perf_counter() - t0

@@ -3,7 +3,9 @@
 Counterpart of ``csdr_tpu/blocks/pallas_blocks.py``: ``FlagshipFused``
 (the whole chain, K1/K2), ``PFBFusedFM`` (``PallasChannelizedFM``, K3) and
 ``PFBFusedChannelizer`` (the channelizer alone on K4, which the JAX package
-calls inside its sharded AGC flow)."""
+calls inside its sharded AGC flow).  ``tileF=None`` takes the card's
+best-known tile from ``utils/autotune`` (the kernel's default without a
+cache entry); the block's granule, nch·tileF, follows it."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from ..core.block import Block
 from ..ops import pfb as pfb_ops
 from ..ops.cuda import flagship_fused as ff
 from ..ops.cuda import pfb_fused as pf
+from ..utils import autotune
 
 __all__ = ["FlagshipFused", "PFBFusedFM", "PFBFusedChannelizer"]
 
@@ -32,7 +35,7 @@ class FlagshipFused(Block):
     def __init__(self, nch: int, kf: float = 0.6, m: int = 7, as_db: float = 80.0,
                  tileF: int | None = None, dc_alpha: float = 0.0005):
         self.nch, self.kf, self.m, self.as_db, self.dc_alpha = nch, kf, m, as_db, dc_alpha
-        self.tileF = ff.DEFAULT_TILE_F if tileF is None else tileF
+        self.tileF = autotune.lookup("flagship_fused", nch) if tileF is None else tileF
         self.rate = Fraction(1, nch)
         self.granule = nch * self.tileF
         # "/torch-v1": the state is the JAX narrow kernel's, with complex hist
@@ -60,7 +63,7 @@ class PFBFusedFM(Block):
     def __init__(self, nch: int, kf: float = 0.6, m: int = 7, as_db: float = 80.0,
                  tileF: int | None = None):
         self.nch, self.kf, self.m, self.as_db = nch, kf, m, as_db
-        self.tileF = pf.DEFAULT_TILE_F if tileF is None else tileF
+        self.tileF = autotune.lookup("pfb_fm_fused", nch) if tileF is None else tileF
         self.rate = Fraction(1, nch)
         self.granule = nch * self.tileF
         self.name = f"pfb_fused_fm({nch})"
@@ -80,7 +83,7 @@ class PFBFusedChannelizer(Block):
 
     def __init__(self, nch: int, m: int = 7, as_db: float = 80.0, tileF: int | None = None):
         self.nch, self.m, self.as_db = nch, m, as_db
-        self.tileF = pf.DEFAULT_TILE_F if tileF is None else tileF
+        self.tileF = autotune.lookup("pfb_channelize_fused", nch) if tileF is None else tileF
         self.rate = Fraction(1, nch)
         self.granule = nch * self.tileF
         # "/torch-v1", as FlagshipFused: a layout version for saved states;

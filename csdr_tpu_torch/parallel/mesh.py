@@ -139,8 +139,12 @@ def spawn(fn, world: int, device_type: str = "cuda", args: tuple = (),
             while True:
                 failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
                 if failed:
-                    r = failed[0]
-                    err = Path(tmp) / f"rank{r}.err"
+                    # report the rank that failed first: the others may have
+                    # failed after it, in a collective whose peer went away
+                    errs = {r: Path(tmp) / f"rank{r}.err" for r in failed}
+                    r = min(failed, key=lambda r: (errs[r].stat().st_mtime_ns
+                                                   if errs[r].exists() else float("inf"), r))
+                    err = errs[r]
                     why = err.read_text() if err.exists() else "no traceback"
                     raise RuntimeError(f"rank {r} of {world} failed (exit code "
                                        f"{procs[r].exitcode}):\n{why}")

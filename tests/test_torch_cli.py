@@ -84,14 +84,16 @@ def test_fused_and_eager_cli_outputs_agree(captures, tmp_path):
 
 @pytest.mark.parametrize("extra", [["--mesh", "2x1", "--demod", "DeAM WAV"],
                                    ["--mesh", "2x1", "--demod", "DeNBFMSync 10"],
-                                   ["--no-file"]])
+                                   ["--devname", "synthetic", "--mesh", "2x1", "--demod",
+                                    "DeAM WAV"]])
 def test_unported_options_exit_nonzero(captures, tmp_path, extra, capsys):
+    """An unported flow is refused before its source opens, from a file or
+    from an SDR device."""
     args = ["--filename", captures["cf32"], "-c", str(NCH), "-o", str(tmp_path / "x"),
             "--demod", "DeNBFM 0.6 F32", "--device", "cpu"]
-    if extra == ["--no-file"]:
+    if "--devname" in extra:
         args = args[2:]
-    else:
-        args += extra
+    args += extra
     assert main(args) != 0
     err = capsys.readouterr().err
     assert "not yet ported in csdr_tpu_torch" in err
@@ -515,7 +517,9 @@ def test_package_imports_without_jax():
         for name in names:
             importlib.import_module(name)
         for need in ("apps.helidecode", "models.symsync", "models.modem", "models.beacon",
-                     "ops.fec", "models.pocsag", "apps.adsb_decode", "parallel.flagship"):
+                     "ops.fec", "models.pocsag", "apps.adsb_decode", "parallel.flagship",
+                     "io.rtl_tcp", "io.soapy", "io.native", "apps.rtl_tcp_server",
+                     "utils.autotune", "utils.testsig"):
             assert "csdr_tpu_torch." + need in names, need
         bad = [m for m in sys.modules if m == "jax" and sys.modules[m] is not None
                or m.startswith(("jax.", "jaxlib")) or m == "csdr_tpu"

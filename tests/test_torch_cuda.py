@@ -506,3 +506,67 @@ def test_profiled_pfb_fused_pipeline_matches_unprofiled(dev):
     assert np.array_equal(outs[0], outs[1])
     assert [s.calls for s in pipe.stage_stats] == [3, 3]
     assert "pfb_fused_fm(64)" in pipe.profile_report()
+
+
+@pytest.mark.cuda
+def test_native_reader_feeds_the_card(dev, tmp_path):
+    """The native reader (built with the host's g++ into build/) on the
+    card's host: the same samples as the Python reader, and K1 on the
+    blocks it reads equals K1 on the Python reader's bit for bit; its
+    output written by NativeRawFileSink reads back equal."""
+    from csdr_tpu_torch.io import native
+    from csdr_tpu_torch.io.sources import cf32_file_source
+
+    nch, n = 64, 64 * 32 * 64
+    x = occupied_band(nch, 2 * n, seed=21)
+    path = tmp_path / "x.cf32"
+    x.tofile(path)
+    outs = []
+    for reader in (native.native_cf32_source, cf32_file_source):
+        state, ys = ff.flagship_fused_init(nch, dev), []
+        for blk in reader(str(path), n):
+            state, y = ff.flagship_fused_step(state, torch.from_numpy(blk).to(dev), nch=nch)
+            ys.append(y.cpu().numpy())
+        outs.append(np.concatenate(ys, axis=1))
+    assert outs[0].shape == (nch, 2 * n // nch) and np.array_equal(outs[0], outs[1])
+    with native.NativeRawFileSink(str(tmp_path / "y.f32")) as sink:
+        sink(outs[0])
+    assert np.array_equal(np.fromfile(tmp_path / "y.f32", np.float32), outs[0].ravel())
+
+
+@pytest.mark.cuda
+def test_autotune_sweep_on_k1(dev, tmp_path, monkeypatch):
+    """utils/autotune.sweep over K1 tiles on the card: a tile whose channel
+    tile needs more shared memory than a block has is recorded infeasible;
+    FlagshipFused(tileF=None) then takes the winner, within K1's bounds of
+    the default tile's output (1.2e-3 max, 4e-5 RMS)."""
+    from csdr_tpu_torch.blocks.fused_blocks import FlagshipFused
+    from csdr_tpu_torch.utils import autotune
+
+    monkeypatch.setenv("CSDR_TPU_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    nch, n = 64, 64 * 512 * 8
+    x = occupied_band(nch, n, seed=22)
+    u8 = torch.from_numpy(np.clip(np.round(np.stack([x.real, x.imag], 1) * 60 + 127.5), 0, 255)
+                          .astype(np.uint8).reshape(-1)).to(dev)
+
+    def bench(t):
+        state = ff.flagship_fused_init(nch, dev)
+        state, _ = ff.flagship_fused_step(state, u8, nch=nch, tileF=t)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(5):
+            state, _ = ff.flagship_fused_step(state, u8, nch=nch, tileF=t)
+        b.record()
+        torch.cuda.synchronize()
+        return n * 5 / a.elapsed_time(b) / 1e3
+
+    best, results = autotune.sweep("flagship_fused", nch, (16, 32, 64, 512), bench)
+    by_t = {r["tileF"]: r for r in results}
+    assert "shared memory" in by_t[512]["error"]
+    assert best in (16, 32, 64) and all("msps" in by_t[t] for t in (16, 32, 64))
+    blk = FlagshipFused(nch)
+    assert blk.tileF == best and autotune.has_entry("flagship_fused", nch)
+    _, got = blk.apply(blk.init(dev), u8)
+    _, want = ff.flagship_fused_step(ff.flagship_fused_init(nch, dev), u8, nch=nch)
+    d = (got.double() - want.double()).abs()
+    assert d.max().item() < 1.2e-3 and d.pow(2).mean().sqrt().item() < 4e-5
