@@ -193,6 +193,24 @@ tile sweep, K3 on the synthetic device):
       default tile.  ``python3 chip_smoke.py --device-only`` runs identity,
       build and 11.
 
+and for the generic sharded chain (csdr_tpu_torch/parallel/generic.py, the
+time layout; K5 on every rank; NCCL, world = min(cards, 4), one rank per
+card, trivial exchanges at one card):
+
+  12. 12a the library ShardedChain over phase 4's capture through
+      ShardedPipeline in 2^23-sample blocks: u8_to_iq >> dc_blocker >>
+      cw_demodulator at the -c 1 -b 48000 "DeCW 500 700" design (its
+      701-tap low-pass on K5) and the -b 200000 DeWBFM 8 chain, each
+      against the serial port Pipeline on rank 0's card (K5's 1e-4, 2e-3),
+      K5 once per block on every rank, no other kernel; the sharded step's
+      time against the serial step's, and one profiler window (K5 and
+      NCCL device time per step).  12b the CLI's -c 1 --offset -b 48000
+      --mesh Wx1 "DeCW 500 700 WAV" -v in a process of its own, in 2^17-
+      sample blocks so every rank's segment holds samples, against the
+      serial CLI's file (1e-4), its MSPS and each rank's launches (K5 once
+      per block).  ``python3 chip_smoke.py --chain-only`` runs identity,
+      build, phase 4's capture and 12.
+
 Prints one JSON object per result, then the nvidia-smi line, the kernels
 line and, last, {"ok": true, "device": {...}}.  Each kernels entry carries
 bound_ms: the larger of the bytes the function must move (each input read
@@ -533,6 +551,21 @@ def phase_compare_pfb(torch, ct, pf, dev, card):
     return result
 
 
+def main_capture(torch, dev, tmp) -> tuple[str, np.ndarray]:
+    """Phase 4's 2^25-sample cu8 capture, an FM carrier on each of 64
+    channel centres, written to ``tmp``: (path, j), channel k's tone sitting
+    on an exact FFT bin of its audio, j_k cycles per 1024 frames, j_k = 5 +
+    3·(k mod 7)."""
+    nch = 64
+    j = 5 + 3 * (np.arange(nch) % 7)
+    x = occupied_band(torch, dev, nch, CAPTURE, SEED, tones=j / 1024.0 / nch)
+    path = os.path.join(tmp, "capture.cu8")
+    to_cu8(torch, x).cpu().numpy().tofile(path)
+    del x
+    check(os.path.getsize(path) == 2 * CAPTURE, "capture size")
+    return path, j
+
+
 def phase_main_path(torch, ff, pf, dev, card, tmp):
     """The CLI's channelized NBFM flow over a cu8 capture, fused and eager."""
     from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
@@ -541,15 +574,7 @@ def phase_main_path(torch, ff, pf, dev, card, tmp):
 
     nch = 64
     frames = CAPTURE // nch
-    # channel k's tone sits on an exact FFT bin of its audio: j_k cycles per
-    # 1024 frames, j_k = 5 + 3·(k mod 7)
-    j = 5 + 3 * (np.arange(nch) % 7)
-    tones = j / 1024.0 / nch
-    x = occupied_band(torch, dev, nch, CAPTURE, SEED, tones=tones)
-    path = os.path.join(tmp, "capture.cu8")
-    to_cu8(torch, x).cpu().numpy().tofile(path)
-    del x
-    check(os.path.getsize(path) == 2 * CAPTURE, "capture size")
+    path, j = main_capture(torch, dev, tmp)
 
     runs = {}
     for backend in ("fused", "eager"):
@@ -3442,6 +3467,229 @@ def phase_mesh(torch, card, tmp, capture, agc_path, fused_cli) -> dict:
                 flagship_launches_per_rank=[r["flagship"]["launches"] for r in ranks])
 
 
+CHAIN_MAX = 4                # ranks of the sharded-chain phase: min(cards, CHAIN_MAX)
+# 12b's block: the 48 kHz stream's 629,145 samples in 5 blocks, every
+# rank's segment (32,768 samples at 4 ranks) holding data and covering
+# the CW filter's 700-sample halo
+CHAIN_CLI_BLOCK = 1 << 17
+CHAIN_REL_ERR = 2e-3         # tests/test_sharding_generic.py:60
+
+
+def chain_graphs(ct) -> dict:
+    """Phase 12's library graphs on cu8 rows: the -c 1 -b 48000 "DeCW 500
+    700" design (dc_blocker >> cw_demodulator, its 701-tap low-pass on K5)
+    and the -b 200000 "DeWBFM 8" one, each behind u8_to_iq as the CLI puts
+    it on a cu8 file with no front end; with their bounds against serial."""
+    return {"DeCW": (ct.chain(ct.u8_to_iq(), ct.dc_blocker(),
+                              ct.cw_demodulator(CW_BW / 48000.0, CW_PITCH / 48000.0)),
+                     K5_REL_ERR, "fir_valid"),
+            "DeWBFM": (ct.chain(ct.u8_to_iq(), ct.dc_blocker(), ct.wbfm_demodulator(FM_BW, 8)),
+                       CHAIN_REL_ERR, None)}
+
+
+def chain_rank(device, capture: str, world: int) -> dict:
+    """One NCCL rank of phase 12a (``parallel.spawn`` runs it on every card;
+    every collective below is called by every rank in the same order).
+
+    For each graph of ``chain_graphs``: the sharded step's time
+    (time_steps, every rank stepping its segment of one device-resident
+    block; this also warms the graph up) against the serial step's on rank
+    0, and one torch.profiler window over 5 sharded steps on rank 0 (kernel
+    launches and device time per step, NCCL's apart); then the ShardedChain
+    on mesh (world, 1) over phase 4's capture through ShardedPipeline, with
+    every kernel count set to 0 just before and read just after, rank 0
+    holding its output against the serial port Pipeline of the same graph
+    on its card."""
+    import torch
+    import torch.distributed as dist
+
+    import csdr_tpu_torch as ct
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+    from csdr_tpu_torch.ops.cuda import flagship_fused as ff
+    from csdr_tpu_torch.ops.cuda import pfb_fused as pf
+    from csdr_tpu_torch.parallel import ShardedChain, ShardedPipeline, build_mesh
+
+    rank = dist.get_rank()
+    mesh = build_mesh(world, 1, device.type)
+    out = dict(rank=rank, device=str(device))
+    nloc = BLOCK // world
+    seg = to_cu8(torch, occupied_band(torch, device, 64, BLOCK, SEED + 12)).view(BLOCK, 2)
+    for label, (graph, bound_rel, kernel) in chain_graphs(ct).items():
+        sh = ShardedChain(graph, mesh, BLOCK)
+        r = dict(blocks=CAPTURE // BLOCK, bound=bound_rel, kernel=kernel,
+                 taps=len(graph.blocks[2].taps) if label == "DeCW" else None)
+        # step times: every rank steps its segment of one device-resident block
+        box = {"s": sh.init()}
+        mine = seg[rank * nloc:(rank + 1) * nloc].contiguous()
+
+        def step():
+            box["s"], _ = sh.step(box["s"], mine)
+
+        torch.cuda.synchronize()
+        dist.barrier()
+        r["sharded_step_ms"] = statistics.median(time_steps(torch, step))
+        dist.barrier()
+        if rank == 0:
+            sbox = {"s": graph.init(device)}
+
+            def serial_step():
+                sbox["s"], _ = graph.apply(sbox["s"], seg)
+
+            r["serial_step_ms"] = statistics.median(time_steps(torch, serial_step))
+        dist.barrier()
+        # one profiler window over 5 sharded steps on rank 0 (every rank
+        # makes the same number of steps)
+        step()
+        torch.cuda.synchronize()
+        dist.barrier()
+        if rank == 0:
+            prof, _ = traced(torch, lambda: [step() for _ in range(5)])
+            kern = device_kernels(prof)
+            nccl = {k: v for k, v in kern.items() if "nccl" in k.lower()}
+            k5 = {k: v for k, v in kern.items() if "fir_valid" in k}
+            r.update(profile_steps=5, launch_calls=launch_calls(prof),
+                     device_kernels=sum(v["count"] for v in kern.values()),
+                     device_ms_per_step=sum(v["device_us"] for v in kern.values()) / 5e3,
+                     k5_launches_per_step=sum(v["count"] for v in k5.values()) / 5,
+                     k5_device_ms_per_step=sum(v["device_us"] for v in k5.values()) / 5e3,
+                     nccl_device_ms_per_step=sum(v["device_us"] for v in nccl.values()) / 5e3,
+                     top_kernels=[[k[:100], v["device_us"] / 5] for k, v in sorted(
+                         kern.items(), key=lambda kv: -kv[1]["device_us"])[:6]])
+        else:
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+        del box
+        # the library run over the capture, twice: the first pays for each
+        # new communicator (the runner's scatter, gather and header
+        # broadcast), the second shows the streaming rate
+        runs = []
+        for _ in range(2):
+            sink = ct.CollectSink() if rank == 0 else None
+            torch.cuda.synchronize()
+            dist.barrier()
+            reset_counts(ff, pf, fv, fx)
+            t0 = time.perf_counter()
+            total = ShardedPipeline(sh).run(
+                ct.cu8_file_source(capture, BLOCK) if rank == 0 else None, sink)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0, read_counts(ff, pf, fv, fx), sink))
+        (secs, counts, _), (warm, warm_counts, sink) = runs
+        r.update(launches=counts, seconds=secs, msps=CAPTURE / secs / 1e6,
+                 warm_launches=warm_counts, warm_seconds=warm, warm_msps=CAPTURE / warm / 1e6)
+        del runs
+        if rank == 0:
+            got = sink.concat()
+            serial = ct.CollectSink()
+            t0 = time.perf_counter()
+            ct.Pipeline(graph, block_size=BLOCK, device=device).run(
+                ct.cu8_file_source(capture, BLOCK), serial)
+            torch.cuda.synchronize()
+            r["serial_seconds"] = time.perf_counter() - t0
+            r["serial_msps"] = CAPTURE / r["serial_seconds"] / 1e6
+            want = serial.concat()
+            r.update(total=total, shape=list(got.shape), want_shape=list(want.shape),
+                     finite=bool(np.isfinite(got).all()),
+                     vs_serial_rel=float(np.abs(got.astype(np.float64) - want).max()
+                                         / np.abs(want).max()))
+            del got, want, serial
+        dist.barrier()
+        out[label] = r
+    return out
+
+
+def phase_chain(torch, ff, pf, card, tmp, capture) -> dict:
+    """12. The generic sharded chain (ShardedChain, the time layout) on
+    NCCL, world = min(cards, CHAIN_MAX), over phase 4's capture: 12a the
+    library graphs in ``chain_rank`` (every rank's kernel counts from 0);
+    12b the CLI's -c 1 --offset -b 48000 --mesh Wx1 "DeCW 500 700 WAV" in a
+    process of its own (it starts its own ranks; -v prints its rate and
+    each rank's kernel launches) against the serial CLI's file."""
+    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
+    from csdr_tpu_torch.parallel import spawn
+
+    import csdr_tpu_torch as ct
+
+    world = min(torch.cuda.device_count(), CHAIN_MAX)
+    t_start = time.perf_counter()
+    ranks = spawn(chain_rank, world, "cuda", args=(capture, world), timeout=600.0)
+    res = {"world": world}
+    for label, (_, _, kernel) in chain_graphs(ct).items():
+        r0 = ranks[0][label]
+        per_rank = [r[label]["launches"] for r in ranks]
+        emit(dict(phase="chain", part="library", flow=label, world=world, mesh=[world, 1],
+                  samples=CAPTURE, launches_per_rank=per_rank,
+                  **{k: v for k, v in r0.items() if not k.endswith("launches")}, **card))
+        what = f"sharded chain {label} on {world}x1"
+        n_out = CAPTURE // 8 if label == "DeWBFM" else CAPTURE
+        check(r0["finite"] and r0["shape"] == r0["want_shape"] == [n_out]
+              and r0["total"] == n_out, f"{what}: output {r0['shape']} vs {r0['want_shape']}")
+        check(r0["vs_serial_rel"] < r0["bound"], f"{what}: rel {r0['vs_serial_rel']} vs serial")
+        for counts in per_rank + [r[label]["warm_launches"] for r in ranks]:
+            check_counts(counts, kernel, what)
+            if kernel:
+                check(counts[kernel] == CAPTURE // BLOCK,
+                      f"{what}: {counts[kernel]} {kernel} launches, want one per block")
+        res[label] = dict(r0, launches_per_rank=per_rank)
+
+    # 12b. the CLI, serial in this process, then over the mesh in its own
+    offset = (10 - 31.5) / 64 * 2.56e6 - CW_TUNE
+    n48 = CAPTURE * 3 // 160
+    common = ["--filename", capture, "-c", "1", "--offset", repr(offset), "-b", "48000",
+              "--demod", f"DeCW {CW_BW:g} {CW_PITCH:g} WAV",
+              "--blocksize", str(CHAIN_CLI_BLOCK), "-n", str(n48)]
+    prefix = os.path.join(tmp, "chain_serial")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main_serial, counts = cli_run(torch, ff, pf, cli_main,
+                                      common + ["-o", prefix, "--device", "cuda", "-v"])
+    # each CLI's own clock from its first block to its last (-v's
+    # Throughput line), the set-up before it left out on both sides
+    thru = r"Throughput: \d+ samples into the flow in ([\d.]+) s"
+    m = re.search(thru, buf.getvalue())
+    check(m is not None, f"serial CLI -c 1 DeCW output: {buf.getvalue()[-2000:]}")
+    dt_serial = float(m.group(1))
+    check_counts(counts, "fir_valid", "serial CLI -c 1 DeCW")
+    check(counts["fir_valid"] == -(-n48 // CHAIN_CLI_BLOCK),
+          f"serial CLI -c 1 DeCW: {counts['fir_valid']} K5 launches")
+    serial = read_wavs(prefix, 1, n48)
+    prefix = os.path.join(tmp, "chain_mesh")
+    argv = [sys.executable, "-m", "csdr_tpu_torch.apps.soapy_sdr_cli", *common,
+            "--mesh", f"{world}x1", "--device", "cuda", "-v", "-o", prefix]
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, capture_output=True, text=True, timeout=600, cwd=HERE)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"CLI -c 1 --mesh: exit code {r.returncode}: "
+                             f"{r.stderr.strip()[-2000:]}")
+    m = re.search(thru, r.stdout)
+    cli_counts = [json.loads(c) for c in re.findall(r"Kernel launches on rank \d+: (\{[^}]*\})",
+                                                    r.stdout)]
+    check(m is not None and len(cli_counts) == world and "ShardedChain" in r.stdout,
+          f"CLI -c 1 --mesh output: {r.stdout[-2000:]}")
+    blocks = -(-n48 // CHAIN_CLI_BLOCK)
+    for counts in cli_counts:
+        check_counts(counts, "fir_valid", "CLI -c 1 --mesh DeCW")
+        check(counts["fir_valid"] == blocks,
+              f"CLI -c 1 --mesh DeCW: {counts['fir_valid']} K5 launches, want {blocks}")
+    audio = read_wavs(prefix, 1, n48)
+    rel = float(np.abs(audio.astype(np.float64) - serial).max() / np.abs(serial).max())
+    cli = dict(msps=CAPTURE / float(m.group(1)) / 1e6, rank0_seconds=float(m.group(1)),
+               wall_seconds=wall, launches_per_rank=cli_counts, serial_seconds=dt_serial,
+               serial_msps=CAPTURE / dt_serial / 1e6, serial_main_seconds=main_serial,
+               serial_launches=counts["fir_valid"],
+               vs_serial_cli_rel=rel, finite=bool(np.isfinite(audio).all()),
+               bit_equal=bool(np.array_equal(audio, serial)), samples_in=CAPTURE,
+               samples_out=n48, offset_hz=offset)
+    emit(dict(phase="chain", part="cli", world=world,
+              flow=f"-c 1 --offset -b 48000 --mesh {world}x1 DeCW", **cli, **card))
+    check(cli["finite"] and rel < K5_REL_ERR, f"CLI -c 1 --mesh DeCW vs serial CLI: rel {rel}")
+    res["cli"] = cli
+    res["seconds"] = time.perf_counter() - t_start
+    emit(dict(phase="chain", part="seconds", seconds=res["seconds"], **card))
+    return res
+
+
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12   # H100 SXM data sheet
 
 
@@ -3754,13 +4002,14 @@ def phase_profile(torch, dev, card):
 
 
 def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = False,
-         device_only: bool = False) -> int:
+         device_only: bool = False, chain_only: bool = False) -> int:
     """Every phase; with ``mesh_only`` (``--mesh-only``) identity, build,
     phase 4's CLI runs (the serial reference) and phase 7 alone, for a
     call on several cards; with ``sync_only`` (``--sync-only``) identity,
     build and phase 9; with ``imagery_only`` (``--imagery-only``) identity,
     build and phase 10; with ``device_only`` (``--device-only``) identity,
-    build and phase 11."""
+    build and phase 11; with ``chain_only`` (``--chain-only``) identity,
+    build, phase 4's capture and phase 12."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3810,6 +4059,13 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         print(smi, flush=True)
         emit({"device_only": True, "ok": True})
         return 0
+    if chain_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            capture, _ = main_capture(torch, dev, tmp)
+            chain = phase_chain(torch, ff, pf, card, tmp, capture)
+        print(smi, flush=True)
+        emit({"chain_only": True, "world": chain["world"], "ok": True})
+        return 0
     if mesh_only:
         with tempfile.TemporaryDirectory() as tmp:
             _, _, _, runs, capture, _ = phase_main_path(torch, ff, pf, dev, card, tmp)
@@ -3834,6 +4090,7 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         pfb_runs, agc_path = phase_main_path_pfb(torch, ct, ff, pf, dev, card, tmp, capture,
                                                  runs, bins)  # 4b
         mesh = phase_mesh(torch, card, tmp, capture, agc_path, runs["fused"])  # 7
+        chain = phase_chain(torch, ff, pf, card, tmp, capture)  # 12
         del runs
         rates = phase_cli_rates(torch, ff, pf, card, tmp, capture, agc_path)  # 5b
         ckpt = phase_checkpoint(torch, ct, ff, pf, dev, card, capture)  # 6d
@@ -4001,6 +4258,19 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         "launches_single_channel_run": fir_runs["fir_valid_single"],
         "launches_rds_run": fms["launches"]["fir_valid"],
         "launches_rtty_run": pkt["DeRTTY"]["launches"]["fir_valid"],
+        "launches_sharded_chain_per_rank": [c["fir_valid"]
+                                            for c in chain["DeCW"]["launches_per_rank"]],
+        "launches_sharded_cli_per_rank": [c["fir_valid"]
+                                          for c in chain["cli"]["launches_per_rank"]],
+        "sharded_chain": {
+            "world": chain["world"],
+            "shape": f"({BLOCK // chain['world'] + chain['DeCW']['taps'] - 1},) complex64 "
+                     f"x {chain['DeCW']['taps']} real taps per rank",
+            **{k: chain["DeCW"][k] for k in (
+                "sharded_step_ms", "serial_step_ms", "k5_launches_per_step",
+                "k5_device_ms_per_step", "nccl_device_ms_per_step", "vs_serial_rel",
+                "warm_msps", "serial_msps")},
+            "cli_msps": chain["cli"]["msps"], "serial_cli_msps": chain["cli"]["serial_msps"]},
         "max_abs_err": errs["c64_complex_585"][0],
         "vs_fft_strategy_rel": errs["c64_complex_585"][1],
         "ms": fir_med[("c64_complex_585", "kernel")],
@@ -4076,4 +4346,5 @@ if __name__ == "__main__":
     sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh-only"],
                   sync_only=sys.argv[1:2] == ["--sync-only"],
                   imagery_only=sys.argv[1:2] == ["--imagery-only"],
-                  device_only=sys.argv[1:2] == ["--device-only"]))
+                  device_only=sys.argv[1:2] == ["--device-only"],
+                  chain_only=sys.argv[1:2] == ["--chain-only"]))

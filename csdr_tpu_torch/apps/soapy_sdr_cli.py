@@ -44,13 +44,19 @@ plain PyTorch graph; ``pfb_fused`` runs its FIR and DFT in the K3 kernel
 real FIRs (the CW filter, the RDS data filter) take the K5 kernel on the
 card.
 
-``--mesh TxC`` runs ``-c N --demod "DeNBFM kf WAV|F32"`` ([``-a T``]) over
-T time × C channel ranks, one process per device (``csdr_tpu_torch/
-parallel``): ``--backend fused`` is the time-sharded flagship kernel
-(``ShardedFlagship``, C = 1, no AGC, nch | 64); ``pfb_fused`` and ``eager``
-are ``ShardedChannelizedFM`` with and without K3/K4.  Under torchrun the
-CLI joins the group it finds (one rank per GPU); otherwise it starts its
-own T·C local ranks.  ``--device cpu`` runs gloo ranks.
+``--mesh TxC`` runs a flow over T time × C channel ranks, one process per
+device (``csdr_tpu_torch/parallel``).  ``-c N --demod "DeNBFM kf
+WAV|F32"`` ([``-a T``]): ``--backend fused`` is the time-sharded flagship
+kernel (``ShardedFlagship``, C = 1, no AGC, nch | 64); ``pfb_fused`` and
+``eager`` are ``ShardedChannelizedFM`` with and without K3/K4.  ``-c 1``
+DeNBFM, DeWBFM, DeAM, DeUSB, DeLSB, DeCW and DeNo ([``-a T``]): the
+front end (``--offset``, ``-b``, with a cu8 file's ``u8_to_iq``) runs on
+rank 0's own Pipeline, and ``dc_blocker >> [AGC >>] demod`` runs as a
+``ShardedChain`` over time (a cu8 file without a front end puts
+``u8_to_iq`` at its head, as the serial flow does); the sinks and the plot
+taps are rank 0's.  Under torchrun the CLI joins the group it finds (one
+rank per GPU); otherwise it starts its own T·C local ranks.  ``--device
+cpu`` runs gloo ranks.
 
 The host-side options: ``--spectrum [FILE]`` and ``--constellation [FILE]``
 tap the stream after the front end (before the DC blocker) into a Welch PSD
@@ -59,8 +65,9 @@ into a live player (``io/sinks.PlaybackSink``); ``--profile`` runs each
 stage of the main graph as its own step between device barriers and prints
 the per-stage table.
 
-``--mesh`` for any flow but ``-c N`` DeNBFM exits non-zero with "not yet
-ported in csdr_tpu_torch".
+``--mesh`` for the other flows (``-c N`` flows but DeNBFM, ``-m``, DeFMS,
+DeNBFMSync, the packet flows) exits non-zero with "not yet ported in
+csdr_tpu_torch".
 
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -n 33554432 \\
         -c 64 --demod "DeCW 500 700 WAV" --backend pfb_fused --device cuda
@@ -78,6 +85,9 @@ ported in csdr_tpu_torch".
     python -m torch.distributed.run --nproc-per-node 4 -m csdr_tpu_torch.apps.soapy_sdr_cli \\
         --filename cap.cu8 -n 33554432 -c 64 --mesh 4x1 --backend fused \\
         --demod "DeNBFM 0.6 F32"
+    python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -c 1 --offset 95000 \\
+        -b 48000 -n 524288 --blocksize 131072 --mesh 2x1 --demod "DeCW 500 700 WAV" \\
+        --device cpu
 """
 
 from __future__ import annotations
@@ -177,7 +187,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Run each stage of the main graph as its own step between device "
                         "barriers and print the per-stage time table")
     p.add_argument("--mesh", default=None, metavar="TxC",
-                   help="Run -c N --demod 'DeNBFM ...' on a device mesh of T time × C "
+                   help="Run -c N --demod 'DeNBFM ...', or a -c 1 DeNBFM, DeWBFM, DeAM, "
+                        "DeUSB, DeLSB, DeCW or DeNo flow, on a device mesh of T time × C "
                         "channel ranks, e.g. '4x1' (one process per device)")
     return p
 
@@ -186,6 +197,8 @@ PACKET_SUFFIX = {"DeAIS": ".ais.txt", "DeAPRS": ".aprs.txt", "DeADSB": ".adsb.tx
                  "DePOCSAG": ".pocsag.txt", "DeRTTY": ".rtty.txt"}
 _DEMODS = ("DeNBFM", "DeWBFM", "DeFMS", "DeAM", "DeUSB", "DeLSB", "DeCW", "DeNBFMSync", "DeNo",
            *PACKET_SUFFIX)
+# the -c 1 flows that --mesh time-shards (ShardedChain)
+_MESH_SINGLE = ("DeNBFM", "DeWBFM", "DeAM", "DeUSB", "DeLSB", "DeCW", "DeNo")
 
 
 def parse_demod(s: str):
@@ -227,10 +240,11 @@ def _refusal(opts, demod) -> str | None:
     if (demod[0] not in ("DeNo", "DeNBFMSync", *PACKET_SUFFIX)
             and demod[-1] not in ("WAV", "AU", "F32")):
         return f"audio format {demod[-1]} is {_NOT_PORTED}; use WAV, AU or F32"
-    if opts.mesh and (demod[0] != "DeNBFM" or opts.channels < 2 or opts.mix):
-        return (f"--mesh for this flow is {_NOT_PORTED} (the generic sharded chain, "
-                "ShardedChain); --mesh runs -c N (> 1) --demod 'DeNBFM kf WAV|AU|F32' without "
-                "-m")
+    if opts.mesh and not (demod[0] in _MESH_SINGLE if opts.channels == 1
+                          else demod[0] == "DeNBFM" and not opts.mix):
+        return (f"--mesh for this flow is {_NOT_PORTED} (ShardedChain takes the time layout "
+                "of -c 1 flows only); --mesh runs -c N (> 1) --demod 'DeNBFM kf WAV|AU|F32' "
+                "without -m, and -c 1 " + ", ".join(_MESH_SINGLE))
     return None
 
 
@@ -509,6 +523,35 @@ def _report_rds(opts, bits: np.ndarray):
         f.write(f"PI: {pi}\nPS: {info['ps']}\nRT: {info['rt']}\ngroups: {info['groups']}\n")
 
 
+def _front_end(opts):
+    """The front end (``u8_to_iq`` for a cu8 file, the ``--offset`` mixer,
+    the ``-b`` resampler) as a chain that streams on its own Pipeline, or
+    None where the flow has no offset and no resampling."""
+    from .. import blocks as B
+    from ..models.receivers import front_end
+
+    stages = front_end(opts.samplerate, opts.offset, opts.bandwidth)
+    if not stages:
+        return None
+    return chain(*([B.u8_to_iq()] if _is_cu8(opts) else []), *stages)
+
+
+def _flow(opts, demod, agc_t):
+    """(front end or None, main graph, output bandwidth) of a flow, serial
+    or ``--mesh``.  Without a front end a cu8 file puts ``u8_to_iq`` at the
+    graph's head, except under ``--backend fused``, whose kernel converts
+    cu8 itself.  ValueError: a bandwidth or pitch outside the channel, a
+    packet rate."""
+    from .. import blocks as B
+
+    out_bw = opts.bandwidth if opts.bandwidth else opts.samplerate
+    graph = _graph(opts, demod, agc_t, out_bw)
+    fe = _front_end(opts)
+    if fe is None and _is_cu8(opts) and opts.backend != "fused":
+        graph = chain(B.u8_to_iq(), graph)
+    return fe, graph, out_bw
+
+
 def _announce(label: str, graph, device, block_size: int):
     blocks = graph.blocks if isinstance(graph, Chain) else [graph]
     print(f"{label} (rate {graph.rate}, granule {graph.granule}, block {block_size}) "
@@ -545,27 +588,17 @@ def run_opts(opts) -> int:
               file=sys.stderr)
         return 1
     device = torch.device(opts.device)
-    cu8 = _is_cu8(opts)
-    out_bw = opts.bandwidth if opts.bandwidth else opts.samplerate
-
-    from .. import blocks as B
-    from ..models.receivers import front_end
-
     try:
-        graph = _graph(opts, demod, agc_t, out_bw)
+        fe, graph, out_bw = _flow(opts, demod, agc_t)
     except ValueError as e:  # a bandwidth or pitch outside the channel, a packet rate
         print(e, file=sys.stderr)
         return 1 if demod[0] in PACKET_SUFFIX else 2
-    fe_stages = front_end(opts.samplerate, opts.offset, opts.bandwidth)
     fe_pipe = None
-    if fe_stages:
+    if fe is not None:
         # the front end streams on its own pipeline and -n counts its output
-        fe = chain(*([B.u8_to_iq()] if cu8 else []), *fe_stages)
         fe_pipe = Pipeline(fe, block_size=opts.blocksize, device=device)
         if opts.verbose:
             _announce("Front end", fe, device, fe_pipe.block_size)
-    elif cu8 and opts.backend != "fused":
-        graph = chain(B.u8_to_iq(), graph)  # the fused kernel converts cu8 itself
     pipe = Pipeline(graph, block_size=opts.blocksize, device=device, profile=opts.profile)
     try:
         source = _open_source(opts, device, (fe_pipe or pipe).block_size)
@@ -613,10 +646,26 @@ def _mesh_dims(mesh: str) -> tuple[int, int]:
     return dt, dc
 
 
+def _sharded_block(dt: int, graph, blocksize: int) -> int:
+    """The block size rounded down to a multiple of time ranks · the
+    graph's granule (``ShardedChain``'s divisibility), at least one."""
+    g = dt * graph.granule
+    return max(blocksize // g, 1) * g
+
+
+def _single_graph(opts, demod, agc_t):
+    """The -c 1 flow's sharded graph (``_flow``'s, run on rank 0's front
+    end where there is one) and its block."""
+    _, graph, _ = _flow(opts, demod, agc_t)
+    return graph, _sharded_block(_mesh_dims(opts.mesh)[0], graph, opts.blocksize)
+
+
 def _run_mesh(opts, demod, agc_t) -> int:
-    """-c N DeNBFM over a ('time', 'ch') mesh: under torchrun this process
-    is one rank of the group it finds, otherwise it starts T·C local ranks
-    (``parallel.spawn``) and waits for them."""
+    """A flow over a ('time', 'ch') mesh: under torchrun this process is
+    one rank of the group it finds, otherwise it starts T·C local ranks
+    (``parallel.spawn``) and waits for them.  A -c 1 graph is validated
+    here first, before any rank starts."""
+    from ..parallel.generic import ShardedChain
     from ..parallel.mesh import check_devices, init_distributed, spawn
 
     try:
@@ -630,9 +679,19 @@ def _run_mesh(opts, demod, agc_t) -> int:
               f"use --mesh {dt}x1 with -c dividing 64, or --backend pfb_fused or eager for "
               "a channel axis", file=sys.stderr)
         return 2
-    if nch % dc:
+    if nch > 1 and nch % dc:
         print(f"-c {nch} does not split over {dc} channel ranks", file=sys.stderr)
         return 2
+    if nch == 1:
+        try:
+            graph, block = _single_graph(opts, demod, agc_t)
+            ShardedChain.validate(graph, dt, dc, block)
+        except NotImplementedError as e:
+            print(f"--mesh: this flow cannot be time-sharded ({e})", file=sys.stderr)
+            return 1
+        except ValueError as e:   # a block too short for a halo, a bandwidth or pitch
+            print(f"--mesh: invalid configuration ({e})", file=sys.stderr)
+            return 1
     try:
         check_devices(world, opts.device)
     except ValueError as e:
@@ -659,16 +718,22 @@ def _run_mesh(opts, demod, agc_t) -> int:
 
 def _mesh_rank(device: torch.device, opts, demod, agc_t) -> int:
     """One rank of the --mesh flow; rank 0 reads the capture (through the
-    front end, on its own device) and writes the per-channel files."""
+    front end, on its own device) and writes the files."""
+    from ..ops.cuda import fft_fir as fx
+    from ..ops.cuda import fir_valid as fv
     from ..ops.cuda import flagship_fused as ff
     from ..ops.cuda import pfb_fused as pf
-    from ..parallel import ShardedChannelizedFM, ShardedFlagship, ShardedPipeline, build_mesh
+    from ..parallel import (ShardedChain, ShardedChannelizedFM, ShardedFlagship,
+                            ShardedPipeline, build_mesh)
 
     dt, dc = _mesh_dims(opts.mesh)
-    nch, kf = opts.channels, demod[1]
+    nch = opts.channels
     rank = torch.distributed.get_rank()
     mesh = build_mesh(dt, dc, device.type)
-    if opts.backend == "fused":
+    if nch == 1:
+        graph, block = _single_graph(opts, demod, agc_t)
+        sh = ShardedChain(graph, mesh, block)
+    elif opts.backend == "fused":
         # the largest tile up to the card's autotuned one (the kernel's default
         # without a cache entry) whose mesh granule fits the block size (halved
         # down to 16 frames, so a segment covers the (L+1)-frame halo)
@@ -679,35 +744,32 @@ def _mesh_rank(device: torch.device, opts, demod, agc_t) -> int:
             tileF //= 2
         gran = dt * nch * tileF
         sh = ShardedFlagship(mesh, nch=nch, block_size=max(opts.blocksize // gran, 1) * gran,
-                             kf=kf, tileF=tileF)
+                             kf=demod[1], tileF=tileF)
     else:
         # at least 64 frames per time rank; whole K3/K4 tiles under pfb_fused
         frames = max(opts.blocksize // (dt * nch), 64)
         fused = opts.backend == "pfb_fused"
         if fused:
             frames -= frames % pf.DEFAULT_TILE_F
-        sh = ShardedChannelizedFM(mesh=mesh, nch=nch, block_size=frames * dt * nch, kf=kf,
-                                  agc_threshold_db=agc_t, use_fused=fused)
+        sh = ShardedChannelizedFM(mesh=mesh, nch=nch, block_size=frames * dt * nch,
+                                  kf=demod[1], agc_threshold_db=agc_t, use_fused=fused)
     runner = ShardedPipeline(sh)
     source = sink = None
     if rank == 0:
-        from .. import blocks as B
-        from ..models.receivers import front_end
-
         out_bw = opts.bandwidth if opts.bandwidth else opts.samplerate
-        cu8 = _is_cu8(opts)
         opened = source = _open_source(opts, device, sh.block_size)
         if source is None:
             raise RuntimeError("Unable to open source")
-        fe_stages = front_end(opts.samplerate, opts.offset, opts.bandwidth)
-        if fe_stages:
-            fe = chain(*([B.u8_to_iq()] if cu8 else []), *fe_stages)
+        fe = _front_end(opts)
+        if fe is not None:
             source = Pipeline(fe, block_size=opts.blocksize, device=device).stream(source)
         source = _plot_taps(opts, source, out_bw)
         sink, _ = _sink(opts, demod, out_bw)
         if opts.verbose:
             print(f"Mesh {dt}x{dc} ({opts.backend}, {device.type}): {type(sh).__name__}, "
                   f"block {sh.block_size}, {sh.block_size // dt} samples per time rank")
+            if nch == 1:
+                _announce("Flow", sh.block, device, sh.block_size)
     t0 = time.perf_counter()
     if sink is None:
         total = runner.run(None, None)
@@ -722,13 +784,15 @@ def _mesh_rank(device: torch.device, opts, demod, agc_t) -> int:
     secs = time.perf_counter() - t0
     if rank == 0:
         if opts.verbose and secs > 0:
-            n_in = total * nch
+            n_in = int(total / sh.rate)
             print(f"Throughput: {n_in} samples into the flow in {secs:.3f} s "
                   f"({n_in / secs / 1e6:.2f} MSPS)")
-        print(f"Wrote {total} output samples per channel over mesh {dt}x{dc} "
-              f"({opts.backend}, {device.type})")
+        print(f"Wrote {total} output samples per {'stream' if nch == 1 else 'channel'} over "
+              f"mesh {dt}x{dc} ({'ShardedChain' if nch == 1 else opts.backend}, "
+              f"{device.type})")
     if opts.verbose:
-        counts = dict(pf.launches, flagship_fused=ff.launches)
+        counts = dict(pf.launches, flagship_fused=ff.launches, fir_valid=fv.launches,
+                      fft_fir=fx.launches)
         # one write, so that concurrent ranks' lines do not interleave
         sys.stdout.write(f"Kernel launches on rank {rank}: {json.dumps(counts)}\n")
         sys.stdout.flush()

@@ -26,6 +26,13 @@ wbFMDemodulator q d       → wbfm_demodulator(quad_rate, decim)
 Every block works along the last axis, so inside ``PerChannel`` a
 (nch, n) panel runs every channel at once and the state gains a leading
 channel axis.
+
+Sharded over time (``parallel/generic.ShardedChain``): the stateless blocks
+as they are; ``Mixer`` from its float64 per-rank phase offset, with no
+collective; ``DCBlocker``, ``IIRFilter`` and ``AGC`` on the distributed
+recurrence (``ShardCtx.linrec``); the FIR family, the resamplers, the
+Hilbert blocks and ``FMDemod`` through ``TailStateBlock``'s left halo.
+``PFBChannelizer`` refuses: the channel layout is not yet ported.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from ..core.block import Block, Lambda, TailStateBlock, chain
+from ..core.block import Block, Lambda, TailStateBlock, chain, shard_not_ported
 from ..ops import agc as agc_ops
 from ..ops import demod as demod_ops
 from ..ops import fir as fir_ops
@@ -65,6 +72,7 @@ class U8ToIQ(Block):
     samples (the JAX package's ``u8_to_iq`` takes the flat (2n,) bytes)."""
 
     name = "u8_to_iq"
+    stateless = True
 
     def apply(self, state, x):
         f = (x.to(torch.float32) - 127.5) * np.float32(1.0 / 127.5)
@@ -90,6 +98,20 @@ class Mixer(Block):
     def apply(self, state, x):
         return nco_ops.mix_stream(state, x, self.omega, self.up)
 
+    def shard_apply(self, state, x, ctx):
+        """The phase is affine in the global sample index: each time rank
+        starts at the carried phase plus its float64 offset, with no
+        collective."""
+        nloc = x.shape[-1]
+        off = nco_ops.phase_table(self.omega, nloc, ctx.dt)[ctx.ti]
+        local = torch.remainder(state + off, np.float32(_TWO_PI))
+        _, y = nco_ops.mix_stream(local, x, self.omega, self.up)
+        inc = np.float32(nco_ops.phase_increment(self.omega, nloc * ctx.dt))
+        return torch.remainder(state + inc, np.float32(_TWO_PI)), y
+
+    def shard_validate(self, nloc, ctx):
+        return nloc
+
 
 def mix_up(omega: float) -> Block:
     return Mixer(omega, up=True)
@@ -104,6 +126,7 @@ class FMDemod(TailStateBlock):
     sample."""
 
     tail_len = 1
+    fuse_zero_tail = False  # its init is a unit sample, not zero
 
     def __init__(self, kf: float):
         self.kf = float(kf)
@@ -125,6 +148,8 @@ class AMDemod(Block):
     """AM envelope demodulator, mod index 0.8, DSB, carrier present
     (reference amDemodulator)."""
 
+    stateless = True
+
     def __init__(self, mod_index: float = 0.8, suppressed: bool = False):
         self.mod_index = mod_index
         self.suppressed = suppressed
@@ -141,6 +166,8 @@ def am_demodulator(mod_index: float = 0.8, suppressed: bool = False) -> Block:
 class FSKDemod(Block):
     """M-FSK demodulator (reference fskDemodulator): k input samples → one
     uint32 symbol."""
+
+    stateless = True
 
     def __init__(self, m_bits: int, k: int, bandwidth: float):
         self.m_bits, self.k, self.bandwidth = m_bits, k, bandwidth
@@ -299,6 +326,12 @@ class DCBlocker(Block):
     def apply(self, state, x):
         return iir_ops.dc_blocker_stream(state, x, self.alpha)
 
+    def shard_apply(self, state, x, ctx):
+        return iir_ops.dc_blocker_shard_stream(state, x, ctx, self.alpha)
+
+    def shard_validate(self, nloc, ctx):
+        return nloc
+
 
 def dc_blocker(alpha: float = 0.0005, complex_input: bool = True) -> Block:
     return DCBlocker(alpha, complex_input)
@@ -325,6 +358,21 @@ class IIRFilter(Block):
 
     def apply(self, state, x):
         return iir_ops.onepole_cascade_stream(self.casc, state, x)
+
+    def shard_apply(self, state, x, ctx):
+        """The same cascade with the distributed FIR history and pole
+        carries injected."""
+        def dist_linrec(v, a, c):
+            y, _, new_carry = ctx.linrec(v, a, c)
+            return y, new_carry
+
+        return iir_ops.onepole_cascade_stream(self.casc, state, x, linrec_fn=dist_linrec,
+                                              fir_fn=ctx.fir)
+
+    def shard_validate(self, nloc, ctx):
+        if nloc < 2:
+            raise ValueError(f"{self.name}: local segment too short")
+        return nloc
 
 
 def iir_filter(order: int, fc: float, f0: float = 0.0, ap: float = 10.0,
@@ -360,6 +408,9 @@ class PFBChannelizer(Block):
                                                   self.as_db)
         return (phase, pfb_state), y
 
+    def shard_validate(self, nloc, ctx):
+        shard_not_ported(self)
+
 
 def firpfbch_channelizer(nch: int, **kw) -> Block:
     return PFBChannelizer(nch, **kw)
@@ -382,6 +433,13 @@ class AGC(Block):
 
     def apply(self, state, x):
         return agc_ops.agc_stream(state, x, self.bandwidth, self.squelch_threshold_db)
+
+    def shard_apply(self, state, x, ctx):
+        return agc_ops.agc_shard_stream(state, x, ctx, self.bandwidth,
+                                        self.squelch_threshold_db)
+
+    def shard_validate(self, nloc, ctx):
+        return nloc
 
 
 def automatic_gain_control(threshold_db: float) -> Block:

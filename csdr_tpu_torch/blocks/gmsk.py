@@ -14,7 +14,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from ..core.block import Block
+from ..core.block import Block, shard_not_ported
 from ..ops.demod import freqdem_stream
 from ..ops.fir import fir_stream
 from ..utils import firdes
@@ -39,6 +39,9 @@ class GMSKDemod(Block):
     def init(self, device: torch.device):
         return (torch.ones((1,), dtype=torch.complex64, device=device),
                 torch.zeros((len(self.taps) - 1,), dtype=torch.float32, device=device))
+
+    def shard_validate(self, nloc, ctx):
+        shard_not_ported(self)
 
     def apply(self, state, x):
         last, hist = state

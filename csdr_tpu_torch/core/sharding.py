@@ -16,19 +16,25 @@ the wire as ``torch.view_as_real`` planes and bools as uint8.  Carried state
 is replicated on every rank; each collective that updates it takes the last
 time rank's value, so streaming across blocks is exact on any mesh shape.
 
-The Block shard protocol of the JAX module (``shard_apply`` and its kin)
-is not here: it belongs to the generic sharded chain, not yet ported.
+A ctx carries the ``layout`` of the data at the current point of a graph
+(``TIME`` or ``CH``; ``core/block.Chain`` updates it from each block's
+``shard_layout``).  ``ShardCtx.static(dt, dc)`` is the ctx of
+``Block.shard_validate``: the mesh's shape and the layout, no process
+group, so a graph is checked before any collective runs.  The port's
+``ti``/``ci`` are ints (the JAX ctx's are methods that trace
+``axis_index``).
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["ShardCtx", "TIME", "CH"]
+__all__ = ["ShardCtx", "TIME", "CH", "mesh_dims"]
 
 # layout tags for data flowing through a sharded step
 TIME = "time"   # 1-D stream, this rank's time segment, replicated over ch
@@ -80,6 +86,15 @@ def _from_wire(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return w
 
 
+def mesh_dims(mesh) -> tuple[int, int]:
+    """(time ranks, ch ranks) of a ("time"[, "ch"]) ``DeviceMesh``."""
+    dims = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    if "time" not in dims or set(dims) - {"time", "ch"}:
+        raise ValueError(f"mesh needs a 'time' and an optional 'ch' dimension, got "
+                         f"{mesh.mesh_dim_names}")
+    return dims["time"], dims.get("ch", 1)
+
+
 class ShardCtx:
     """This rank's place on the mesh and the collectives a sharded step
     uses.  ``mesh`` is a ``DeviceMesh`` with a "time" dimension and an
@@ -87,26 +102,44 @@ class ShardCtx:
     together (the constructor runs one collective per group)."""
 
     def __init__(self, mesh):
-        dims = dict(zip(mesh.mesh_dim_names, mesh.shape))
-        if "time" not in dims or set(dims) - {"time", "ch"}:
-            raise ValueError(f"mesh needs a 'time' and an optional 'ch' dimension, got "
-                             f"{mesh.mesh_dim_names}")
+        self.dt, self.dc = mesh_dims(mesh)
         self.mesh = mesh
-        self.dt = dims["time"]
-        self.dc = dims.get("ch", 1)
+        self.layout = TIME
+        # True under ShardedChain: a "ch"-placed state leaf would arrive as
+        # this rank's rows (every leaf is replicated in the time layout)
+        self.state_local = False
         self.ti = mesh.get_local_rank("time")
-        self.ci = mesh.get_local_rank("ch") if "ch" in dims else 0
+        has_ch = "ch" in mesh.mesh_dim_names
+        self.ci = mesh.get_local_rank("ch") if has_ch else 0
         self.time_group = mesh.get_group("time")
-        self.ch_group = mesh.get_group("ch") if "ch" in dims else None
+        self.ch_group = mesh.get_group("ch") if has_ch else None
         self.device = (torch.device("cuda", torch.cuda.current_device())
                        if mesh.device_type == "cuda" else torch.device(mesh.device_type))
         self._time_ranks = [dist.get_global_rank(self.time_group, i) for i in range(self.dt)]
+        # linrec's device tables, shared by this ctx's clones and freed with them
+        self._linrec_tables: dict = {}
         # a first collective in each group, joined by all its ranks, before
         # any point-to-point exchange (NCCL wants one to set up its
         # communicator)
         for g in (self.time_group, self.ch_group):
             if g is not None:
                 dist.all_reduce(torch.zeros(1, device=self.device), group=g)
+
+    @classmethod
+    def static(cls, dt: int, dc: int = 1, layout=TIME) -> "ShardCtx":
+        """The ctx of ``shard_validate``: the mesh's shape and the layout,
+        with no process group and no collective."""
+        c = cls.__new__(cls)
+        c.dt, c.dc, c.mesh, c.layout, c.state_local = dt, dc, None, layout, False
+        return c
+
+    def clone(self, **kw) -> "ShardCtx":
+        """A copy sharing the groups, with the attributes ``kw`` set (a Tee
+        branch's own ``layout``)."""
+        c = copy.copy(self)
+        for k, v in kw.items():
+            setattr(c, k, v)
+        return c
 
     # ---- point to point over 'time' ---------------------------------------
     def send_right(self, t: torch.Tensor) -> torch.Tensor | None:
@@ -192,6 +225,19 @@ class ShardCtx:
         return g.reshape((-1,) + tuple(t.shape[1:]))
 
     # ---- distributed linear recurrence ---------------------------------------
+    def _linrec_tables_on(self, a, nloc: int, is_complex: bool, device: torch.device,
+                          dtype: torch.dtype):
+        """``linrec``'s a^(i+1) vector and this rank's carry weights on
+        ``device``, made once per ctx: a blocking host→device copy
+        synchronises the stream, so none runs per step."""
+        key = (a, nloc, is_complex, device, dtype)
+        if key not in self._linrec_tables:
+            self._linrec_tables[key] = (
+                torch.from_numpy(_apow_vec(a, nloc, is_complex)).to(device, dtype),
+                torch.from_numpy(_carry_coef_table(a, nloc, self.dt, is_complex)[self.ti])
+                .to(device, dtype))
+        return self._linrec_tables[key]
+
     def linrec(self, forcing: torch.Tensor, a: complex | float, carry0: torch.Tensor):
         """Solve y[n] = a·y[n−1] + forcing[n] along the last axis, across the
         time mesh.  ``forcing``: (..., nloc) this rank's segment, one
@@ -216,15 +262,13 @@ class ShardCtx:
         out_complex = a_complex or forcing.is_complex() or carry0.is_complex()
         dtt = torch.complex64 if out_complex else torch.float32
         forcing, carry0 = forcing.to(dtt), carry0.to(dtt)
-        apow = torch.from_numpy(_apow_vec(a, nloc, a_complex)).to(forcing.device, dtt)
+        apow, coef = self._linrec_tables_on(a, nloc, a_complex, forcing.device, dtt)
         w = linrec(forcing, a, torch.zeros((), dtype=dtt, device=forcing.device))
         if self.dt == 1:
             y_in = carry0.expand(forcing.shape[:-1])
         else:
             ends = self.all_gather_time(w[..., -1])                    # (dt, ...)
-            coef = _carry_coef_table(a, nloc, self.dt, a_complex)[self.ti]
             astep = _astep_table(a, nloc, self.dt, a_complex)[self.ti]
-            coef = torch.from_numpy(coef).to(forcing.device, dtt)
             y_in = astep.item() * carry0 + torch.tensordot(coef, ends, dims=1)
         y = w + apow * y_in[..., None]
         return y, y_in, self.from_last_time(y[..., -1].contiguous())

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..blocks import FIRFilter, mix_down
-from ..core.block import Block, chain
+from ..core.block import Block, chain, shard_not_ported
 from .hdlc import frame_to_wire_bits, hdlc_frames, sample_bits
 
 __all__ = ["AFSKDiscriminator", "afsk1200_receiver", "bits_from_score", "decode_score",
@@ -44,6 +44,9 @@ class AFSKDiscriminator(Block):
 
     def init(self, device: torch.device):
         return tuple((mx.init(device), fr.init(device)) for mx, fr in self.parts)
+
+    def shard_validate(self, nloc, ctx):
+        shard_not_ported(self)
 
     def apply(self, state, x):
         new_state, mags = [], []

@@ -27,7 +27,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from ..core.block import Block, chain
+from ..core.block import Block, chain, shard_not_ported
 from ..ops import fir as fir_ops
 from ..utils import firdes
 from .. import blocks as B
@@ -72,6 +72,9 @@ class RDSBaseband(Block):
             data_hist=torch.zeros((len(self.h_data) - 1,), dtype=torch.float32, device=device),
         )
 
+    def shard_validate(self, nloc, ctx):
+        shard_not_ported(self)
+
     def apply(self, state, c):
         n = c.shape[-1]
         s = dict(state)
@@ -113,6 +116,9 @@ class RDSBitSlicer(Block):
         hist, y = fir_ops.fir_stream(self.h_bi, hist, x)
         rows = y[..., : (x.shape[-1] // k) * k].reshape(-1, k)
         return hist, rows, torch.argmax((rows * rows).sum(dim=0))
+
+    def shard_validate(self, nloc, ctx):
+        shard_not_ported(self)
 
     def apply(self, state, x):
         hist, prev_raw = state

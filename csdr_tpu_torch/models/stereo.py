@@ -23,7 +23,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from ..core.block import Block
+from ..core.block import Block, shard_not_ported
 from ..ops import fir as fir_ops
 from ..ops import iir as iir_ops
 from ..ops.nco import _ramp_on, phase_increment
@@ -101,6 +101,9 @@ class StereoFMDecoder(Block):
         # the group-delay line withholds gdelay composite samples from the
         # audio paths; rounded up to the decimator so the last frame comes out
         return -(-self.gdelay // self.decim) * self.decim
+
+    def shard_validate(self, nloc, ctx):
+        shard_not_ported(self)
 
     def apply(self, state, c):
         n = c.shape[-1]

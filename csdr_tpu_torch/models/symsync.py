@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import blocks as B
-from ..core.block import Block, chain
+from ..core.block import Block, chain, shard_not_ported
 from ..utils import firdes
 
 __all__ = ["SymSync", "sym_sync_r", "sym_sync_c", "sym_tracker", "fm_dem_with_sync"]
@@ -139,6 +139,9 @@ class SymSync(Block):
     @staticmethod
     def _nw(n: int, k: int) -> int:
         return max(1, min(8, n // (64 * k)))  # sub-windows (≥ 64 symbols each)
+
+    def shard_validate(self, nloc, ctx):
+        shard_not_ported(self)
 
     def apply(self, state, x):
         hist, tau_prev, tau_valid = state

@@ -4,7 +4,8 @@ Counterpart of ``csdr_tpu/ops/nco.py``.  ``phase_ramp`` and
 ``phase_increment`` are the JAX package's float64 numpy design code,
 copied: the per-sample phase ω·k mod 2π is made in float64 on the host, so
 a 2^23-sample block suffers no float32 phase accumulation; only the scalar
-carried phase is run-time state.
+carried phase is run-time state.  ``phase_table`` is each time rank's
+phase offset under sharding, made the same way.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["phase_ramp", "phase_increment", "mix_stream"]
+__all__ = ["phase_ramp", "phase_increment", "phase_table", "mix_stream"]
 
 _TWO_PI = 2.0 * np.pi
 
@@ -30,6 +31,16 @@ def phase_ramp(omega: float, n: int) -> np.ndarray:
 def phase_increment(omega: float, n: int) -> float:
     """(n·ω) mod 2π as a float64-accurate python float."""
     return float(np.mod(np.float64(omega) * n, _TWO_PI))
+
+
+@functools.lru_cache(maxsize=None)
+def phase_table(omega: float, nloc: int, dt: int) -> np.ndarray:
+    """Per-rank phase offsets of a time-sharded NCO: entry i is
+    (ω·nloc·i) mod 2π, float64-accumulated, as float32.  Rank i starts its
+    local ramp at the carried phase plus this offset, so sharding the NCO
+    needs no collective."""
+    i = np.arange(dt, dtype=np.float64)
+    return np.mod(np.float64(omega) * nloc * i, _TWO_PI).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=8)

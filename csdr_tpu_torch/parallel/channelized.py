@@ -32,18 +32,19 @@ import numpy as np
 import torch
 
 from ..blocks import u8_to_iq
-from ..core.sharding import ShardCtx
+from ..core.sharding import CH, ShardCtx
 from ..ops import pfb as pfb_ops
+from ..ops.agc import agc_shard_stream
 from ..ops.cuda import pfb_fused as pf
 from ..ops.demod import freqdem_stream
 from ..ops.fir import fir_decim_stream
+from ..ops.iir import dc_blocker_shard_stream
 from ..ops.nco import mix_stream, phase_increment
 from ..utils.firdes import firdecim_kaiser
 
 __all__ = ["ShardedChannelizedFM"]
 
 _TWO_PI = 2.0 * np.pi
-_LN10_OVER_20 = np.log(10.0) / 20.0
 
 
 @dataclass
@@ -106,6 +107,14 @@ class ShardedChannelizedFM:
         self._taps, self._W = taps, W[:, self._rows].contiguous()
         self._u8 = u8_to_iq()
 
+    out_layout = CH   # each rank's output is its (nch/dc, F/dt) panel
+
+    def rate_tree(self):
+        return self.rate
+
+    def flush_len(self) -> int:
+        return 0
+
     # ---- state ----------------------------------------------------------
     def init(self):
         dev, nch = self.device, self.nch
@@ -137,11 +146,9 @@ class ShardedChannelizedFM:
             _, x = self._u8.apply((), x)
 
         # DC blocker: a distributed linear recurrence
-        r = 1.0 - self.dc_alpha
-        prev = torch.cat([ctx.left_halo(x, state["dc_x"], 1), x[:-1]])
-        forcing = np.float32((1.0 + r) / 2.0) * (x - prev)
-        xdc, _, dc_y = ctx.linrec(forcing, float(r), state["dc_y"][0])
-        new = dict(dc_x=ctx.from_last_time(x[-1:].contiguous()), dc_y=dc_y.reshape(1))
+        (dc_x, dc_y), xdc = dc_blocker_shard_stream((state["dc_x"], state["dc_y"]), x, ctx,
+                                                    self.dc_alpha)
+        new = dict(dc_x=dc_x, dc_y=dc_y)
 
         # NCO pre-shift, the segment's phase from the rank's time index
         phase0 = state["phase"] + self._delta * np.float32(ctx.ti)
@@ -194,18 +201,10 @@ class ShardedChannelizedFM:
 
     def _agc(self, state, d, new):
         """Per-channel AGC + squelch across the time mesh (``ops/agc.py``:
-        liquid's agc_crcf at bandwidth 0.1): the log-gain recurrence
-        solved by ``ShardCtx.linrec`` along each channel row, and the
-        squelch's previous decision from the left neighbour."""
-        ctx, alpha = self.ctx, 0.1
-        b = np.float32(-0.5 * alpha) * torch.log(d.abs() ** 2 + np.float32(1e-30))
-        lng_next, lng_in, _ = ctx.linrec(b, 1.0 - alpha, state["agc_lng"][self._rows])
-        lng = torch.cat([lng_in[:, None], lng_next[:, :-1]], dim=1)   # applied at n
-        y = d * torch.exp(lng)
-        above = -lng / np.float32(_LN10_OVER_20) > np.float32(self.agc_threshold_db)
-        left = ctx.send_right(above[:, -1].contiguous())
-        above0 = state["agc_above"][self._rows] if left is None else left
-        above_prev = torch.cat([above0[:, None], above[:, :-1]], dim=1)
-        new["agc_lng"] = self._channels(lng_next[:, -1])
-        new["agc_above"] = self._channels(above[:, -1])
-        return torch.where(above & above_prev, y, torch.zeros((), dtype=y.dtype, device=y.device))
+        liquid's agc_crcf at bandwidth 0.1) along each channel row, its
+        carried leaves gathered over the channel rows."""
+        rows = self._rows
+        (new["agc_lng"], new["agc_above"]), y = agc_shard_stream(
+            (state["agc_lng"][rows], state["agc_above"][rows]), d, self.ctx, 0.1,
+            self.agc_threshold_db, carried=self._channels)
+        return y

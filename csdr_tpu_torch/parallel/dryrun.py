@@ -1,9 +1,11 @@
 """One sharded step of each receiver on an n-rank mesh, shapes asserted.
 
-Counterpart of the channelized and flagship parts of
-``__graft_entry__.dryrun_multichip``: one ``ShardedChannelizedFM`` step
-with the audio decimator, then two ``ShardedFlagship`` steps on cu8 input
-(the second takes the first's carried state).
+Counterpart of ``__graft_entry__.dryrun_multichip``: one
+``ShardedChannelizedFM`` step with the audio decimator, two
+``ShardedFlagship`` steps on cu8 input (the second takes the first's
+carried state), and one ``ShardedChain`` step each of the WBFM chain, the
+USB chain and a multi-rate Tee on ones.  The symbol-sync step waits for the
+sync's shard methods.
 
     python -m csdr_tpu_torch.parallel.dryrun 4 cpu
 """
@@ -17,6 +19,35 @@ import torch
 from .mesh import build_mesh, make_mesh, spawn
 
 __all__ = ["dryrun_multichip"]
+
+
+def _chain_steps(mesh, device: torch.device) -> tuple:
+    """One ShardedChain step on ones of the WBFM, USB and multi-rate Tee
+    graphs; this rank's output shapes, each checked."""
+    from .. import blocks as B
+    from ..core.block import Tee, chain
+    from .generic import ShardedChain
+
+    dt = mesh.shape[0]
+    wbfm = chain(B.resampler(0.5), B.dc_blocker(), B.wbfm_demodulator(128_000.0, 2))
+    usb = chain(B.dc_blocker(), B.ssb_demodulator("usb", 0.0125))
+    tee = chain(B.dc_blocker(),
+                Tee(chain(B.fir_filter_c_kaiser(33, 0.2), B.fir_decimator(4, complex_input=True)),
+                    B.fir_filter_c_kaiser(17, 0.45)))
+    halo = max(b.tail_len for b in usb.blocks if hasattr(b, "tail_len"))
+    shapes = []
+    for graph, block, want in (
+            (wbfm, dt * wbfm.granule * max(1, 2048 // wbfm.granule), lambda n: [(n // 4,)]),
+            (usb, dt * max(4096, halo + 256), lambda n: [(n,)]),
+            (tee, dt * 4 * 512, lambda n: [(n // 4,), (n,)])):
+        sh = ShardedChain(graph, mesh, block)
+        x = torch.ones(block // dt, dtype=torch.complex64, device=device)
+        _, y = sh.step(sh.init(), x)
+        got = [tuple(t.shape) for t in (y if isinstance(y, tuple) else (y,))]
+        if got != want(block // dt):
+            raise RuntimeError(f"{graph.name} step: outputs of shapes {got}")
+        shapes.append(tuple(got))
+    return tuple(shapes)
 
 
 def _rank(device: torch.device, n: int) -> tuple:
@@ -45,15 +76,17 @@ def _rank(device: torch.device, n: int) -> tuple:
     state, fy = sf.step(state, fx)      # the carried-state hand-off
     if fy.shape != (fnch, fblock // n // fnch):
         raise RuntimeError(f"flagship step: audio of shape {tuple(fy.shape)}")
+    chains = _chain_steps(mesh, device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return (dt, dc), tuple(y.shape), tuple(fy.shape)
+    return (dt, dc), tuple(y.shape), tuple(fy.shape), chains
 
 
 def dryrun_multichip(n: int, device_type: str = "cuda") -> list:
     """Run the dry run on n local ranks (NCCL on ``"cuda"``, one card each;
     gloo on ``"cpu"``); returns each rank's (mesh shape, channelized
-    output shape, flagship output shape)."""
+    output shape, flagship output shape, the ShardedChain steps' output
+    shapes)."""
     return spawn(_rank, n, device_type, args=(n,), timeout=600.0)
 
 

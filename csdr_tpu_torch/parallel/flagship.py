@@ -43,7 +43,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from ..core.sharding import ShardCtx, _astep_table, _carry_coef_table
+from ..core.sharding import CH, ShardCtx, _astep_table, _carry_coef_table
 from ..ops.cuda import flagship_fused as ff
 from ..ops.linrec import linrec
 from ..ops.nco import _ramp_on, phase_increment
@@ -149,8 +149,16 @@ class ShardedFlagship:
         self._tail_coef = torch.from_numpy(_tail_coef(r, self.nloc, self.hs)).to(dev)
         self._tail_ramp = _ramp_on(self._omega, self.nloc, dev)[self.nloc - self.hs:]
 
+    out_layout = CH   # each rank's output is its (nch, F/dt) panel
+
     def init(self):
         return ff.flagship_fused_init(self.nch, self.device, self.m)
+
+    def rate_tree(self):
+        return self.rate
+
+    def flush_len(self) -> int:
+        return 0
 
     def _kernel(self, state, x):
         return ff.flagship_fused_step(state, x, nch=self.nch, m=self.m, as_db=self.as_db,

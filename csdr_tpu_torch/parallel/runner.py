@@ -4,16 +4,17 @@ sinks, over every rank of the mesh.
 Counterpart of ``csdr_tpu/parallel/runner.py`` (``ShardedPipeline``) on
 ``torch.distributed``.  Every rank constructs the runner and calls ``run``
 (or iterates ``stream``) together.  Rank 0 alone reads the source: it
-re-blocks it (``rechunk``, ``take_n``), zero-pads the last short block,
-stages each block in pinned memory and scatters its time segments over
-the 'time' group in the source's own wire type (cu8 as uint8 (n, 2) rows,
-complex64 as float32 (n, 2) planes); each ch group broadcasts its segment
-from its first rank.  Every rank steps; each rank's (nch/dc, F/dt) output
-is gathered to rank 0, which trims it to the block's rational-rate sample
-count (``core/runtime._trim_tree``) and alone owns the sinks.
-
-Neither sharded receiver has an end-of-stream flush allowance, so the
-runner appends none.
+re-blocks it (``rechunk``, ``take_n``, and in ``run`` the graph's
+end-of-stream flush allowance, ``append_flush``), zero-pads the last short
+block, stages each block in pinned memory and scatters its time segments
+over the 'time' group in the source's own wire type (cu8 as uint8 (n, 2)
+rows, complex64 as float32 (n, 2) planes); each ch group broadcasts its
+segment from its first rank.  Every rank steps, and rank 0 gathers each
+output leaf: a channel-layout panel (nch/dc, F/dt) from every rank, a
+time-layout leaf (replicated over 'ch') from the ranks of its own time
+group.  Rank 0 trims each leaf to its rational-rate sample count
+(``core/runtime._trim_tree`` with the graph's ``rate_tree``) and alone
+owns the sinks.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..core.runtime import _trim_tree, rechunk, take_n
+from ..core.block import _leaves, _map_tree
+from ..core.runtime import _trim_tree, append_flush, rechunk, take_n
+from ..core.sharding import CH, _from_wire, _to_wire
 
 __all__ = ["ShardedPipeline"]
 
@@ -32,15 +35,18 @@ _WIRE = {0: torch.float32, 1: torch.uint8}   # header code → wire dtype
 
 
 class ShardedPipeline:
-    """Feed/drain loop around a sharded step (``ShardedFlagship`` or
-    ``ShardedChannelizedFM``): anything with ``ctx``, ``init()``,
-    ``step(state, x)``, ``block_size``, ``rate`` and ``device``."""
+    """Feed/drain loop around a sharded step (``ShardedChain``,
+    ``ShardedFlagship`` or ``ShardedChannelizedFM``): anything with
+    ``ctx``, ``init()``, ``step(state, x)``, ``block_size``,
+    ``rate_tree()``, ``flush_len()``, ``out_layout`` and ``device``."""
 
     def __init__(self, sharded):
         self.sh = sharded
         self.ctx = sharded.ctx
         self.block_size = sharded.block_size
-        self.rate = sharded.rate
+        self.rate_tree = sharded.rate_tree()
+        # every leaf of one receiver's output has one layout
+        self.layout = _leaves(sharded.out_layout)[0]
         self.device = sharded.device
         self.rank = dist.get_rank()
         self.state = sharded.init()
@@ -89,13 +95,14 @@ class ShardedPipeline:
         return seg if code == 1 else torch.view_as_complex(seg)
 
     def _gather(self, y: torch.Tensor) -> torch.Tensor | None:
-        """Every rank's (nch/dc, F/dt) output → (nch, F) on rank 0 (None
+        """One output leaf of every rank → the whole leaf on rank 0 (None
         elsewhere)."""
         ctx, y = self.ctx, y.contiguous()
-        world = ctx.dt * ctx.dc
-        if world == 1:
+        if ctx.dt * ctx.dc == 1:
             return y
-        parts = [torch.empty_like(y) for _ in range(world)] if self.rank == 0 else None
+        if self.layout != CH:
+            return self._gather_time(y)
+        parts = [torch.empty_like(y) for _ in range(ctx.dt * ctx.dc)] if self.rank == 0 else None
         dist.gather(y, parts, dst=0)
         if parts is None:
             return None
@@ -103,11 +110,27 @@ class ShardedPipeline:
         g = torch.stack(parts).view(ctx.dt, ctx.dc, *y.shape)
         return g.permute(1, 2, 0, 3).reshape(ctx.dc * y.shape[0], ctx.dt * y.shape[1])
 
+    def _gather_time(self, y: torch.Tensor) -> torch.Tensor | None:
+        """A time-layout leaf, replicated over 'ch': rank 0's time group
+        (ci = 0) gathers its segments, joined along the last axis."""
+        ctx = self.ctx
+        if ctx.ci != 0:
+            return None
+        if ctx.dt == 1:
+            return y
+        w = _to_wire(y)
+        parts = [torch.empty_like(w) for _ in range(ctx.dt)] if self.rank == 0 else None
+        dist.gather(w, parts, dst=0, group=ctx.time_group)
+        if parts is None:
+            return None
+        return torch.cat([_from_wire(p, y) for p in parts], dim=-1)
+
     def stream(self, source: Iterable[np.ndarray] | None = None,
                num_samples: int | None = None) -> Iterator:
-        """Yield each block's output trimmed to its rational-rate count:
-        numpy (nch, k) on rank 0, None on the others.  Only rank 0's
-        ``source`` is read."""
+        """Yield each block's output trimmed leaf by leaf to its
+        rational-rate count: numpy on rank 0 (a tuple of arrays for a tuple
+        output), None on the others.  Only rank 0's ``source`` is read.  No
+        flush, as in the serial ``Pipeline.stream``: ``run`` appends it."""
         blocks = self._host_blocks(source, num_samples) if self.rank == 0 else None
         header = torch.zeros(2, dtype=torch.int64, device=self.device)
         while True:
@@ -124,21 +147,27 @@ class ShardedPipeline:
             if valid == 0:
                 return
             self.state, y = self.sh.step(self.state, self._segment(block, code))
-            out = self._gather(y)
-            if out is None:
+            out = _map_tree(self._gather, y)
+            if self.rank != 0:
                 yield None
                 continue
-            trimmed, _ = _trim_tree(out, self.rate, valid)
-            yield trimmed.cpu().numpy()
+            trimmed, _ = _trim_tree(out, self.rate_tree, valid)
+            yield _map_tree(lambda t: t.cpu().numpy(), trimmed)
 
     def run(self, source: Iterable[np.ndarray] | None, sink: Callable | None,
             num_samples: int | None = None) -> int:
-        """Stream rank 0's source (cut to ``num_samples``) through the
-        sharded step into rank 0's sink; returns the output samples per
-        channel (on rank 0; 0 elsewhere)."""
+        """Stream rank 0's source (cut to ``num_samples``, then the graph's
+        flush allowance, as the serial ``Pipeline.run``) through the sharded
+        step into rank 0's sink; returns the output samples of the first
+        output leaf (per channel for a panel; on rank 0, 0 elsewhere)."""
+        if self.rank == 0:
+            if num_samples is not None:
+                source = take_n(source, num_samples)
+            if self.sh.flush_len():
+                source = append_flush(source, self.sh.flush_len())
         total = 0
-        for out in self.stream(source, num_samples):
+        for out in self.stream(source):
             if out is not None:
                 sink(out)
-                total += out.shape[-1]
+                total += _leaves(out)[0].shape[-1]
         return total

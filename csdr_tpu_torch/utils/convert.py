@@ -15,7 +15,8 @@ import torch
 from ..ops.pfb import pfb_offset
 
 __all__ = ["from_jax_chain_state", "from_jax_flagship_state", "from_jax_flagship_wide_state",
-           "from_jax_pfb_fm_state", "from_jax_sharded_channelized_state"]
+           "from_jax_pfb_fm_state", "from_jax_sharded_channelized_state",
+           "from_jax_sharded_chain_state"]
 
 
 def _leaf(a, device: torch.device) -> torch.Tensor:
@@ -125,3 +126,19 @@ def from_jax_pfb_fm_state(state, device: torch.device):
     return (_leaf(np.asarray(phase, np.float32).reshape(()), device),
             _leaf(np.asarray(hist_x, np.complex64), device),
             _leaf(np.asarray(hist_v, np.complex64), device))
+
+
+def from_jax_sharded_chain_state(state, device: torch.device):
+    """State of the JAX ``ShardedChain`` (its ``init``/``step`` state: the
+    graph's ``shard_init`` tree, complex leaves CEnc-encoded) → the port's
+    ``ShardedChain`` state.  Both packages collapse a fused run the same
+    way (``Chain._shard_segments``: the run's raw-input tail (A1,) at its
+    first block, ``()`` at the others), so the trees map one to one; a CEnc
+    leaf (a named tuple with an ``ri`` field of float32 (…, 2) re/im planes)
+    becomes complex64."""
+    if hasattr(state, "ri"):
+        ri = np.asarray(state.ri, np.float32)
+        return _leaf((ri[..., 0] + 1j * ri[..., 1]).astype(np.complex64), device)
+    if isinstance(state, (tuple, list)):
+        return tuple(from_jax_sharded_chain_state(s, device) for s in state)
+    return _leaf(state, device)

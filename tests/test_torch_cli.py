@@ -486,12 +486,14 @@ def test_mesh_refusals(captures, tmp_path, capsys, extra, why):
 
 
 def test_dryrun_multichip_on_gloo_ranks():
-    """One channelized step and two flagship steps on a 2x2 mesh of four
+    """One channelized step, two flagship steps and one ShardedChain step
+    each of the WBFM, USB and multi-rate Tee graphs on a 2x2 mesh of four
     gloo ranks, shapes asserted in every rank."""
     from csdr_tpu_torch.parallel import dryrun_multichip
 
     out = dryrun_multichip(4, "cpu")
-    assert out == [((2, 2), (4, 40), (64, 32))] * 4
+    chains = (((512,),), ((4096,),), ((512,), (2048,)))
+    assert out == [((2, 2), (4, 40), (64, 32), chains)] * 4
 
 
 def test_cuda_device_without_a_card_is_an_error(captures, tmp_path):
@@ -518,6 +520,7 @@ def test_package_imports_without_jax():
             importlib.import_module(name)
         for need in ("apps.helidecode", "models.symsync", "models.modem", "models.beacon",
                      "ops.fec", "models.pocsag", "apps.adsb_decode", "parallel.flagship",
+                     "parallel.generic",
                      "io.rtl_tcp", "io.soapy", "io.native", "apps.rtl_tcp_server",
                      "utils.autotune", "utils.testsig"):
             assert "csdr_tpu_torch." + need in names, need
