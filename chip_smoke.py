@@ -208,8 +208,22 @@ card, trivial exchanges at one card):
       --mesh Wx1 "DeCW 500 700 WAV" -v in a process of its own, in 2^17-
       sample blocks so every rank's segment holds samples, against the
       serial CLI's file (1e-4), its MSPS and each rank's launches (K5 once
-      per block).  ``python3 chip_smoke.py --chain-only`` runs identity,
-      build, phase 4's capture and 12.
+      per block).  12c the channel layout through the library, on (W, 1)
+      and, on four cards, (2, 2): u8_to_iq >> dc_blocker >>
+      firpfbch_channelizer(64) >> PerChannel(cw_demodulator) at the -c 64
+      "DeCW 500 700" design (585 taps on K5 in every channel; each rank
+      runs K5 on its (64/C, 2^23/T/64 + 584) panel) on phase 4's capture,
+      against the serial Pipeline (1e-4), K5 once per block on every rank
+      and nothing else of K1-K6; and the -c 16 -m DeNBFM mixed monitor
+      (>> PerChannel(fm_demodulator) >> MixChannels) on a 16-channel
+      capture (2e-3, no kernel); the sharded step against the serial one,
+      one profiler window each (K5 and NCCL device time per step).  12d
+      the CLI's -c 64 --mesh Wx1 (and 2x2 on four cards) "DeCW 500 700
+      WAV" and -c 16 -m --mesh Wx1 "DeNBFM 0.6 WAV", each in a process of
+      its own, against the serial --backend eager CLI's files (1e-4 and
+      2e-3), MSPS on each CLI's -v clock, K5 launches per rank.  ``python3
+      chip_smoke.py --chain-only`` runs identity, build, phase 4's capture
+      and 12.  Every phase prints its seconds ({"phase": "seconds", ...}).
 
 Prints one JSON object per result, then the nvidia-smi line, the kernels
 line and, last, {"ok": true, "device": {...}}.  Each kernels entry carries
@@ -1802,23 +1816,26 @@ PACKET_KERNELS = {"DeRTTY": "fir_valid"}     # the kernels each flow must launch
 
 
 def phase_packet(torch, ct, ff, pf, dev, card, tmp, samples: int = CAPTURE) -> dict:
-    """8. The packet receivers: each CLI flow on a seeded cu8 capture of
-    ``samples`` samples on the card, every injected message decoded and
-    nothing else, its .txt equal to the same flow's --device cpu run's,
-    its kernels' launches (K5 in DeRTTY, none elsewhere), MSPS and, each in
-    a child process, the device idle share and device time; then the band
-    monitor through the library on K4 against eager."""
+    """8. The packet receivers: each CLI flow on a seeded cu8 capture on the
+    card, every injected message decoded and nothing else, its .txt equal
+    to the same flow's --device cpu run's, its kernels' launches (K5 in
+    DeRTTY, none elsewhere), MSPS and, each in a child process, the device
+    idle share and device time; then the band monitor through the library
+    on K4 against eager.  DeRTTY's capture is ``samples`` long (its text at
+    45.45 Bd needs ~32 M samples), the others' and the band's half that
+    (their messages fill any length; the band's pages need ~8 M)."""
     from csdr_tpu_torch.apps import soapy_sdr_cli as cli
 
     out, idle_specs = {}, []
     for i, (kind, (make, fs, extra, rate)) in enumerate(packet_flows(ct).items()):
+        n = samples if kind == "DeRTTY" else samples // 2
         t0 = time.perf_counter()
-        x, msgs = make(samples, SEED + 800 + 10 * i)
+        x, msgs = make(n, SEED + 800 + 10 * i)
         path = os.path.join(tmp, f"{kind}.cu8")
         write_cu8(path, x)
         gen_s = time.perf_counter() - t0
         del x
-        n_out = samples * rate // fs
+        n_out = n * rate // fs
         want = cli.packet_lines(kind, msgs)
         common = ["--filename", path, "-s", str(fs), *extra, "-n", str(n_out),
                   "--demod", PACKET_DEMOD[kind]]
@@ -1838,11 +1855,11 @@ def phase_packet(torch, ct, ff, pf, dev, card, tmp, samples: int = CAPTURE) -> d
         lines = got.splitlines()
         missing = list((Counter(want) - Counter(lines)).elements())
         extra_lines = list((Counter(lines) - Counter(want)).elements())
-        out[kind] = dict(seconds=dt, msps=samples / dt / 1e6, launches=counts,
+        out[kind] = dict(seconds=dt, msps=n / dt / 1e6, launches=counts,
                          messages=len(lines), injected=len(want), cpu_seconds=dt_cpu,
                          capture_seconds=gen_s, equal_to_cpu=got == got_cpu)
         emit(dict(phase="packet", flow=f"-s {fs} {' '.join(extra)} {PACKET_DEMOD[kind]}",
-                  wire="cu8", samples=samples, output_rate=rate,
+                  wire="cu8", samples=n, output_rate=rate,
                   missing=missing[:3], unexpected=extra_lines[:3], **out[kind], **card))
         check(lines == want, f"CLI {kind}: {len(missing)} injected messages missing, "
                              f"{len(extra_lines)} unexpected, of {len(want)}")
@@ -1851,8 +1868,9 @@ def phase_packet(torch, ct, ff, pf, dev, card, tmp, samples: int = CAPTURE) -> d
         out[kind]["path"] = path
 
     # the band monitor through the library: K4 against eager
+    n = samples // 2
     t0 = time.perf_counter()
-    x, want = band_capture(samples, SEED + 900)
+    x, want = band_capture(n, SEED + 900)
     band_path = os.path.join(tmp, "band.cu8")
     write_cu8(band_path, x)
     gen_s = time.perf_counter() - t0
@@ -1877,7 +1895,7 @@ def phase_packet(torch, ct, ff, pf, dev, card, tmp, samples: int = CAPTURE) -> d
     for backend, kern in kerns.items():
         _, counts, sink = band_run(backend, kern)
         score, env = sink.concat()
-        check(score.shape == env.shape == (BAND_NCH, samples // BAND_NCH),
+        check(score.shape == env.shape == (BAND_NCH, n // BAND_NCH),
               f"band monitor {backend}: leaves {score.shape} {env.shape}")
         msgs = pocsag.decode_channels((score, env), BAND_RATE)
         res[backend] = dict(secs=[], launches=counts, msgs=msgs, score=score, env=env)
@@ -1888,7 +1906,7 @@ def phase_packet(torch, ct, ff, pf, dev, card, tmp, samples: int = CAPTURE) -> d
         res[backend]["secs"].append(band_run(backend, kerns[backend])[0])
     for r in res.values():
         r["seconds"] = statistics.median(r["secs"])
-        r["msps"] = samples / r["seconds"] / 1e6
+        r["msps"] = n / r["seconds"] / 1e6
     paged = sorted(BAND_PAGES)
     (k, e) = res["pfb_fused"], res["eager"]
     env_max = float(np.abs(k["env"] - e["env"]).max())
@@ -1905,7 +1923,7 @@ def phase_packet(torch, ct, ff, pf, dev, card, tmp, samples: int = CAPTURE) -> d
             messages=len(r["msgs"]), injected=len(want), capture_seconds=gen_s,
             decoded_as_injected=[key(m) for m in r["msgs"]] == [key(m) for m in want])
     emit(dict(phase="packet", flow=f"library pocsag_band_monitor({BAND_NCH}, {BAND_RATE:g})",
-              wire="cu8", samples=samples, blocks=-(-samples // BLOCK), order=order,
+              wire="cu8", samples=n, blocks=-(-n // BLOCK), order=order,
               on_air_share=float(on_air.mean()),
               k4_vs_eager_env_max=env_max, k4_vs_eager_score_max_paged=score_max,
               **{f"{b}": out[f"band monitor {b}"] for b in res}, **card))
@@ -3487,9 +3505,157 @@ def chain_graphs(ct) -> dict:
                        CHAIN_REL_ERR, None)}
 
 
-def chain_rank(device, capture: str, world: int) -> dict:
-    """One NCCL rank of phase 12a (``parallel.spawn`` runs it on every card;
-    every collective below is called by every rank in the same order).
+def channel_graphs(ct) -> dict:
+    """Phase 12c's library graphs in the channel layout, behind u8_to_iq as
+    the CLI puts it on a cu8 file: the -c 64 "DeCW 500 700" design
+    (dc_blocker >> firpfbch_channelizer(64) >> PerChannel(cw_demodulator),
+    its 585-tap low-pass on K5 in every channel) on phase 4's capture, and
+    the -c 16 -m DeNBFM mixed monitor (>> PerChannel(fm_demodulator) >>
+    MixChannels) on a 16-channel capture (on phase 4's 64 carriers a
+    16-channel FM demod would sit on four carriers per channel, its phase
+    steps at atan2's branch cut, where two right float orders differ by
+    2π); with their bounds against serial, their kernel and capture."""
+    rate = 2.56e6 / 64
+    return {"-c 64 DeCW": (ct.chain(ct.u8_to_iq(), ct.dc_blocker(), ct.firpfbch_channelizer(64),
+                                    ct.PerChannel(ct.cw_demodulator(CW_BW / rate,
+                                                                    CW_PITCH / rate), 64)),
+                           K5_REL_ERR, "fir_valid", "capture"),
+            "-c 16 -m DeNBFM": (ct.chain(ct.u8_to_iq(), ct.dc_blocker(),
+                                         ct.firpfbch_channelizer(MIX_NCH),
+                                         ct.PerChannel(ct.fm_demodulator(KF), MIX_NCH),
+                                         ct.MixChannels()),
+                                CHAIN_REL_ERR, None, "mix")}
+
+
+def mix_capture(torch, dev, tmp) -> str:
+    """A 2^25-sample cu8 capture with an FM carrier on each of 16 channel
+    centres (6c's kind), written to ``tmp``."""
+    j = 5 + 3 * (np.arange(MIX_NCH) % 7)
+    path = os.path.join(tmp, "chain_mix.cu8")
+    to_cu8(torch, occupied_band(torch, dev, MIX_NCH, CAPTURE, SEED + 1200,
+                                tones=j / 1024.0 / MIX_NCH)).cpu().numpy().tofile(path)
+    return path
+
+
+def channel_layout_rank(torch, ct, device, world: int, captures: dict) -> dict:
+    """12c on one NCCL rank, on (W, 1) and, on four cards, (2, 2), for each
+    graph of ``channel_graphs`` (every rank calls every collective in the
+    same order): the sharded step's time against the serial step's on rank
+    0 (a device-resident block of the graph's kind), one profiler window
+    over 5 sharded steps on rank 0, then the ShardedChain over the 2^25-
+    sample capture through ShardedPipeline twice (the first run pays for
+    the runner's new communicators) with every kernel count set to 0 just
+    before each run and read just after; rank 0 holds the output against
+    the serial port Pipeline of the same graph on its card."""
+    import torch.distributed as dist
+
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+    from csdr_tpu_torch.ops.cuda import flagship_fused as ff
+    from csdr_tpu_torch.ops.cuda import pfb_fused as pf
+    from csdr_tpu_torch.parallel import ShardedChain, ShardedPipeline, build_mesh
+
+    rank = dist.get_rank()
+    out, serial_out = {}, {}
+    for shape in [(world, 1)] + ([(2, 2)] if world == 4 else []):
+        dt, dc = shape
+        mesh = build_mesh(dt, dc, device.type)
+        ti = rank // dc
+        nloc = BLOCK // dt
+        for label, (graph, bound_rel, kernel, cap) in channel_graphs(ct).items():
+            nch = graph.blocks[2].nch
+            sh = ShardedChain(graph, mesh, BLOCK)
+            r = dict(mesh=list(shape), bound=bound_rel, kernel=kernel, nch=nch,
+                     blocks=CAPTURE // BLOCK, panel_per_rank=[nch // dc, BLOCK // dt // nch])
+            if kernel:
+                taps = len(graph.blocks[3].inner.blocks[0].taps)
+                r.update(taps=taps, k5_shape_per_rank=(
+                    f"({nch // dc}, {BLOCK // dt // nch + taps - 1}) complex64 x {taps} "
+                    f"real taps"))
+            seg = to_cu8(torch, occupied_band(torch, device, nch, BLOCK, SEED + 12)).view(BLOCK, 2)
+            box = {"s": sh.init()}
+            mine = seg[ti * nloc:(ti + 1) * nloc].contiguous()
+
+            def step():
+                box["s"], _ = sh.step(box["s"], mine)
+
+            torch.cuda.synchronize()
+            dist.barrier()
+            r["sharded_step_ms"] = statistics.median(time_steps(torch, step))
+            dist.barrier()
+            if rank == 0:
+                sbox = {"s": graph.init(device)}
+
+                def serial_step():
+                    sbox["s"], _ = graph.apply(sbox["s"], seg)
+
+                r["serial_step_ms"] = statistics.median(time_steps(torch, serial_step))
+                del sbox
+            dist.barrier()
+            step()
+            torch.cuda.synchronize()
+            dist.barrier()
+            if rank == 0:
+                prof, _ = traced(torch, lambda: [step() for _ in range(5)])
+                kern = device_kernels(prof)
+                nccl = {k: v for k, v in kern.items() if "nccl" in k.lower()}
+                k5 = {k: v for k, v in kern.items() if "fir_valid" in k}
+                r.update(profile_steps=5, launch_calls=launch_calls(prof),
+                         device_kernels=sum(v["count"] for v in kern.values()),
+                         device_ms_per_step=sum(v["device_us"] for v in kern.values()) / 5e3,
+                         k5_launches_per_step=sum(v["count"] for v in k5.values()) / 5,
+                         k5_device_ms_per_step=sum(v["device_us"] for v in k5.values()) / 5e3,
+                         nccl_device_ms_per_step=sum(v["device_us"] for v in nccl.values()) / 5e3,
+                         top_kernels=[[k[:100], v["device_us"] / 5] for k, v in sorted(
+                             kern.items(), key=lambda kv: -kv[1]["device_us"])[:6]])
+            else:
+                for _ in range(5):
+                    step()
+                torch.cuda.synchronize()
+            del box, seg, mine
+            runs = []
+            for _ in range(2):
+                sink = ct.CollectSink() if rank == 0 else None
+                torch.cuda.synchronize()
+                dist.barrier()
+                reset_counts(ff, pf, fv, fx)
+                t0 = time.perf_counter()
+                total = ShardedPipeline(sh).run(
+                    ct.cu8_file_source(captures[cap], BLOCK) if rank == 0 else None, sink)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0, read_counts(ff, pf, fv, fx), sink))
+            (secs, counts, _), (warm, warm_counts, sink) = runs
+            r.update(launches=counts, seconds=secs, msps=CAPTURE / secs / 1e6,
+                     warm_launches=warm_counts, warm_seconds=warm,
+                     warm_msps=CAPTURE / warm / 1e6)
+            del runs
+            if rank == 0:
+                got = sink.concat()
+                if label not in serial_out:
+                    serial = ct.CollectSink()
+                    t0 = time.perf_counter()
+                    ct.Pipeline(graph, block_size=BLOCK, device=device).run(
+                        ct.cu8_file_source(captures[cap], BLOCK), serial)
+                    torch.cuda.synchronize()
+                    serial_out[label] = (serial.concat(), time.perf_counter() - t0)
+                want, ssecs = serial_out[label]
+                r.update(serial_seconds=ssecs, serial_msps=CAPTURE / ssecs / 1e6, total=total,
+                         shape=list(got.shape), want_shape=list(want.shape),
+                         finite=bool(np.isfinite(got).all()),
+                         vs_serial_rel=float(np.abs(got.astype(np.float64) - want).max()
+                                             / np.abs(want).max()))
+                del got, want
+            del sink
+            dist.barrier()
+            out[f"{label} {dt}x{dc}"] = r
+    return out
+
+
+def chain_rank(device, capture: str, world: int, mix_path: str) -> dict:
+    """One NCCL rank of phases 12a and 12c (``parallel.spawn`` runs it on
+    every card; every collective below is called by every rank in the same
+    order).  12c, the channel layout, is ``channel_layout_rank`` (its
+    mixed monitor reads ``mix_path``).
 
     For each graph of ``chain_graphs``: the sharded step's time
     (time_steps, every rank stepping its segment of one device-resident
@@ -3596,16 +3762,49 @@ def chain_rank(device, capture: str, world: int) -> dict:
             del got, want, serial
         dist.barrier()
         out[label] = r
+    out["channels"] = channel_layout_rank(torch, ct, device, world,
+                                          {"capture": capture, "mix": mix_path})
     return out
 
 
+def run_stamped(argv: list[str], timeout: float = 600.0):
+    """Run a CLI process unbuffered: (CompletedProcess, wall seconds, the
+    seconds after its start at which the first line of each kind reached
+    stdout), to see where a --mesh run's wall time goes."""
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=HERE, env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    timer = threading.Timer(timeout, proc.kill)
+    timer.start()
+    err: list[str] = []
+    reader = threading.Thread(target=lambda: err.append(proc.stderr.read()))
+    reader.start()
+    out, stamps = [], {}
+    for line in proc.stdout:
+        out.append(line)
+        key = " ".join(line.split()[:2])
+        stamps.setdefault(key, time.perf_counter() - t0)
+    proc.wait()
+    reader.join()
+    timer.cancel()
+    stamps["exit"] = wall = time.perf_counter() - t0
+    return (subprocess.CompletedProcess(argv, proc.returncode, "".join(out), "".join(err)),
+            wall, stamps)
+
+
 def phase_chain(torch, ff, pf, card, tmp, capture) -> dict:
-    """12. The generic sharded chain (ShardedChain, the time layout) on
-    NCCL, world = min(cards, CHAIN_MAX), over phase 4's capture: 12a the
+    """12. The generic sharded chain (ShardedChain) on NCCL, world =
+    min(cards, CHAIN_MAX), over phase 4's capture: 12a the time-layout
     library graphs in ``chain_rank`` (every rank's kernel counts from 0);
     12b the CLI's -c 1 --offset -b 48000 --mesh Wx1 "DeCW 500 700 WAV" in a
     process of its own (it starts its own ranks; -v prints its rate and
-    each rank's kernel launches) against the serial CLI's file."""
+    each rank's kernel launches) against the serial CLI's file; 12c the
+    channel-layout library graphs (``channel_layout_rank``) on (W, 1) and,
+    on four cards, (2, 2); 12d the CLI's -c 64 "DeCW 500 700 WAV" (--mesh
+    Wx1, and 2x2 on four cards) and -c 16 -m "DeNBFM 0.6 WAV" (--mesh Wx1)
+    against the serial --backend eager CLI's files."""
     from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
     from csdr_tpu_torch.parallel import spawn
 
@@ -3613,7 +3812,8 @@ def phase_chain(torch, ff, pf, card, tmp, capture) -> dict:
 
     world = min(torch.cuda.device_count(), CHAIN_MAX)
     t_start = time.perf_counter()
-    ranks = spawn(chain_rank, world, "cuda", args=(capture, world), timeout=600.0)
+    mix_path = mix_capture(torch, torch.device("cuda", 0), tmp)
+    ranks = spawn(chain_rank, world, "cuda", args=(capture, world, mix_path), timeout=900.0)
     res = {"world": world}
     for label, (_, _, kernel) in chain_graphs(ct).items():
         r0 = ranks[0][label]
@@ -3685,6 +3885,89 @@ def phase_chain(torch, ff, pf, card, tmp, capture) -> dict:
               flow=f"-c 1 --offset -b 48000 --mesh {world}x1 DeCW", **cli, **card))
     check(cli["finite"] and rel < K5_REL_ERR, f"CLI -c 1 --mesh DeCW vs serial CLI: rel {rel}")
     res["cli"] = cli
+
+    # 12c. the channel layout through the library, per mesh and graph
+    res["channels"] = {}
+    for key, r0 in ranks[0]["channels"].items():
+        per_rank = [r["channels"][key]["launches"] for r in ranks]
+        warm = [r["channels"][key]["warm_launches"] for r in ranks]
+        emit(dict(phase="chain", part="channel_library", flow=key, world=world, samples=CAPTURE,
+                  launches_per_rank=per_rank,
+                  **{k: v for k, v in r0.items() if not k.endswith("launches")}, **card))
+        what = f"sharded channel chain {key}"
+        n_out = [r0["nch"], CAPTURE // r0["nch"]] if r0["kernel"] else [CAPTURE // r0["nch"]]
+        check(r0["finite"] and r0["shape"] == r0["want_shape"] == n_out
+              and r0["total"] == CAPTURE // r0["nch"],
+              f"{what}: output {r0['shape']} vs {r0['want_shape']}")
+        check(r0["vs_serial_rel"] < r0["bound"], f"{what}: rel {r0['vs_serial_rel']} vs serial")
+        for counts in per_rank + warm:
+            check_counts(counts, r0["kernel"], what)
+            if r0["kernel"]:
+                check(counts[r0["kernel"]] == CAPTURE // BLOCK,
+                      f"{what}: {counts[r0['kernel']]} K5 launches, want one per block")
+        if r0["kernel"]:
+            check(r0["k5_launches_per_step"] == 1, f"{what}: K5 {r0['k5_launches_per_step']} "
+                                                   f"launches per profiled step")
+        res["channels"][key] = dict(r0, launches_per_rank=per_rank)
+
+    # 12d. the -c N CLI flows over the mesh, each in a process of its own,
+    # against the serial --backend eager CLI's files
+    res["channel_cli"] = {}
+    cli_flows = [("-c 64 DeCW", capture,
+                  ["-c", "64", "--demod", f"DeCW {CW_BW:g} {CW_PITCH:g} WAV"],
+                  64, "fir_valid", K5_REL_ERR, [f"{world}x1"] + (["2x2"] if world == 4 else [])),
+                 ("-c 16 -m DeNBFM", mix_path, ["-c", str(MIX_NCH), "-m", "--demod",
+                                                f"DeNBFM {KF:g} WAV"],
+                  1, None, CHAIN_REL_ERR, [f"{world}x1"])]
+    for label, path, flow, files, kernel, bound_rel, meshes in cli_flows:
+        common = ["--filename", path, "-n", str(CAPTURE), "--blocksize", str(BLOCK), *flow]
+        frames = CAPTURE // (64 if files == 64 else MIX_NCH)
+        prefix = os.path.join(tmp, "chain_ch_serial")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main_serial, serial_counts = cli_run(torch, ff, pf, cli_main, common + [
+                "--backend", "eager", "-o", prefix, "--device", "cuda", "-v"])
+        m = re.search(thru, buf.getvalue())
+        check(m is not None, f"serial CLI {label} output: {buf.getvalue()[-2000:]}")
+        dt_serial = float(m.group(1))
+        check_counts(serial_counts, kernel, f"serial CLI {label}")
+        if kernel:
+            check(serial_counts[kernel] == CAPTURE // BLOCK,
+                  f"serial CLI {label}: {serial_counts[kernel]} K5 launches")
+        serial = read_wavs(prefix, files, frames).astype(np.float64)
+        for mesh in meshes:
+            prefix = os.path.join(tmp, "chain_ch_mesh")
+            argv = [sys.executable, "-m", "csdr_tpu_torch.apps.soapy_sdr_cli", *common,
+                    "--mesh", mesh, "--device", "cuda", "-v", "-o", prefix]
+            r, wall, stamps = run_stamped(argv)
+            what = f"CLI {label} --mesh {mesh}"
+            check(r.returncode == 0, f"{what}: exit code {r.returncode}: "
+                                     f"{r.stderr.strip()[-2000:]}")
+            m = re.search(thru, r.stdout)
+            cli_counts = [json.loads(c) for c in re.findall(
+                r"Kernel launches on rank \d+: (\{[^}]*\})", r.stdout)]
+            ranks_n = int(mesh[0]) * int(mesh[2])
+            check(m is not None and len(cli_counts) == ranks_n and "ShardedChain" in r.stdout,
+                  f"{what} output: {r.stdout[-2000:]}")
+            for counts in cli_counts:
+                check_counts(counts, kernel, what)
+                if kernel:
+                    check(counts[kernel] == CAPTURE // BLOCK,
+                          f"{what}: {counts[kernel]} K5 launches, want {CAPTURE // BLOCK}")
+            audio = read_wavs(prefix, files, frames)
+            rel = float(np.abs(audio - serial).max() / np.abs(serial).max())
+            c = dict(msps=CAPTURE / float(m.group(1)) / 1e6, rank0_seconds=float(m.group(1)),
+                     wall_seconds=wall, launches_per_rank=cli_counts, serial_seconds=dt_serial,
+                     serial_msps=CAPTURE / dt_serial / 1e6, serial_main_seconds=main_serial,
+                     serial_launches=serial_counts,
+                     vs_serial_cli_rel=rel, finite=bool(np.isfinite(audio).all()),
+                     files=files, frames=frames, samples_in=CAPTURE, line_seconds=stamps)
+            emit(dict(phase="chain", part="channel_cli", world=world,
+                      flow=f"{label} --mesh {mesh}", **c, **card))
+            check(c["finite"] and rel < bound_rel, f"{what} vs serial CLI: rel {rel}")
+            res["channel_cli"][f"{label} {mesh}"] = c
+        del serial
+    os.unlink(mix_path)
     res["seconds"] = time.perf_counter() - t_start
     emit(dict(phase="chain", part="seconds", seconds=res["seconds"], **card))
     return res
@@ -4001,6 +4284,14 @@ def phase_profile(torch, dev, card):
     return out
 
 
+def timed(label: str, fn, *args):
+    """``fn(*args)``, then a {"phase": "seconds"} line with its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit(dict(phase="seconds", of=label, seconds=time.perf_counter() - t0))
+    return out
+
+
 def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = False,
          device_only: bool = False, chain_only: bool = False) -> int:
     """Every phase; with ``mesh_only`` (``--mesh-only``) identity, build,
@@ -4043,69 +4334,74 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
 
     if sync_only:
         with tempfile.TemporaryDirectory() as tmp:
-            phase_sync(torch, ct, ff, pf, dev, card, tmp)
+            timed("sync", phase_sync, torch, ct, ff, pf, dev, card, tmp)
         print(smi, flush=True)
         emit({"sync_only": True, "ok": True})
         return 0
     if imagery_only:
         with tempfile.TemporaryDirectory() as tmp:
-            phase_imagery_and_files(torch, ff, pf, dev, card, tmp)
+            timed("imagery_and_files", phase_imagery_and_files, torch, ff, pf, dev, card, tmp)
         print(smi, flush=True)
         emit({"imagery_only": True, "ok": True})
         return 0
     if device_only:
         with tempfile.TemporaryDirectory() as tmp:
-            phase_device(torch, ff, pf, dev, card, tmp)
+            timed("device", phase_device, torch, ff, pf, dev, card, tmp)
         print(smi, flush=True)
         emit({"device_only": True, "ok": True})
         return 0
     if chain_only:
         with tempfile.TemporaryDirectory() as tmp:
             capture, _ = main_capture(torch, dev, tmp)
-            chain = phase_chain(torch, ff, pf, card, tmp, capture)
+            chain = timed("chain", phase_chain, torch, ff, pf, card, tmp, capture)
         print(smi, flush=True)
         emit({"chain_only": True, "world": chain["world"], "ok": True})
         return 0
     if mesh_only:
         with tempfile.TemporaryDirectory() as tmp:
-            _, _, _, runs, capture, _ = phase_main_path(torch, ff, pf, dev, card, tmp)
+            _, _, _, runs, capture, _ = timed("main_path", phase_main_path, torch, ff, pf, dev,
+                                              card, tmp)
             agc_path = write_agc_capture(torch, ct, dev, card, tmp)
-            mesh = phase_mesh(torch, card, tmp, capture, agc_path, runs["fused"])
+            mesh = timed("mesh", phase_mesh, torch, card, tmp, capture, agc_path, runs["fused"])
         print(smi, flush=True)
         emit({"mesh_only": True, "world": mesh["world"], "ok": True})
         return 0
 
     # 3. kernel vs plain
-    errs = phase_compare(torch, ct, ff, dev, card)
-    errs.update(phase_compare_pfb(torch, ct, pf, dev, card))  # 3b
-    errs.update(phase_compare_fir(torch, dev, card))  # 3c
+    errs = timed("compare", phase_compare, torch, ct, ff, dev, card)
+    errs.update(timed("compare_pfb", phase_compare_pfb, torch, ct, pf, dev, card))  # 3b
+    errs.update(timed("compare_fir", phase_compare_fir, torch, dev, card))  # 3c
     # the profile comes before any other profiler window: later in the
     # process the tracer dropped kernel records (PERF.md §7)
-    per_step = phase_profile(torch, dev, card)
+    per_step = timed("profile", phase_profile, torch, dev, card)
 
     # 4. main paths through the CLI
     with tempfile.TemporaryDirectory() as tmp:
-        launches, fused_msps, eager_msps, runs, capture, bins = phase_main_path(
-            torch, ff, pf, dev, card, tmp)
-        pfb_runs, agc_path = phase_main_path_pfb(torch, ct, ff, pf, dev, card, tmp, capture,
-                                                 runs, bins)  # 4b
-        mesh = phase_mesh(torch, card, tmp, capture, agc_path, runs["fused"])  # 7
-        chain = phase_chain(torch, ff, pf, card, tmp, capture)  # 12
+        launches, fused_msps, eager_msps, runs, capture, bins = timed(
+            "main_path", phase_main_path, torch, ff, pf, dev, card, tmp)
+        pfb_runs, agc_path = timed("main_path_pfb", phase_main_path_pfb, torch, ct, ff, pf, dev,
+                                   card, tmp, capture, runs, bins)  # 4b
+        mesh = timed("mesh", phase_mesh, torch, card, tmp, capture, agc_path, runs["fused"])  # 7
+        chain = timed("chain", phase_chain, torch, ff, pf, card, tmp, capture)  # 12
         del runs
-        rates = phase_cli_rates(torch, ff, pf, card, tmp, capture, agc_path)  # 5b
-        ckpt = phase_checkpoint(torch, ct, ff, pf, dev, card, capture)  # 6d
+        rates = timed("cli_rates", phase_cli_rates, torch, ff, pf, card, tmp, capture,
+                      agc_path)  # 5b
+        ckpt = timed("checkpoint", phase_checkpoint, torch, ct, ff, pf, dev, card, capture)  # 6d
         for f in (capture, agc_path):
             os.unlink(f)
-        fir_runs, fir_rates, cw_path = phase_main_path_fir(torch, ff, pf, dev, card, tmp)  # 4c
-        fir_med, cw_rates = phase_timing_fir(torch, ff, pf, dev, card, tmp, cw_path)  # 5c
+        fir_runs, fir_rates, cw_path = timed("main_path_fir", phase_main_path_fir, torch, ff,
+                                             pf, dev, card, tmp)  # 4c
+        fir_med, cw_rates = timed("timing_fir", phase_timing_fir, torch, ff, pf, dev, card, tmp,
+                                  cw_path)  # 5c
         os.unlink(cw_path)
-        wbfm = phase_wbfm(torch, ff, pf, dev, card, tmp)  # 6a
-        fms = phase_stereo_rds(torch, ff, pf, dev, card, tmp)  # 6b
-        mix = phase_mix(torch, ff, pf, dev, card, tmp)  # 6c
-        pkt = phase_packet(torch, ct, ff, pf, dev, card, tmp)  # 8
-        sync = phase_sync(torch, ct, ff, pf, dev, card, tmp)  # 9
-        img = phase_imagery_and_files(torch, ff, pf, dev, card, tmp)  # 10
-        live = phase_device(torch, ff, pf, dev, card, tmp)  # 11
+        wbfm = timed("wbfm", phase_wbfm, torch, ff, pf, dev, card, tmp)  # 6a
+        fms = timed("stereo_rds", phase_stereo_rds, torch, ff, pf, dev, card, tmp)  # 6b
+        mix = timed("mix", phase_mix, torch, ff, pf, dev, card, tmp)  # 6c
+        pkt = timed("packet", phase_packet, torch, ct, ff, pf, dev, card, tmp)  # 8
+        sync = timed("sync", phase_sync, torch, ct, ff, pf, dev, card, tmp)  # 9
+        img = timed("imagery_and_files", phase_imagery_and_files, torch, ff, pf, dev, card,
+                    tmp)  # 10
+        live = timed("device", phase_device, torch, ff, pf, dev, card, tmp)  # 11
         emit(dict(phase="broadcast_and_mix_flows", msps={
             "DeWBFM": wbfm["msps"], "DeFMS --rds": fms["msps"],
             **{f"-c {MIX_NCH} -m {k}": v["msps"] for k, v in mix.items()},
@@ -4116,9 +4412,9 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
             **{f"checkpoint {k}": v["device_idle_share"] for k, v in ckpt.items()}}, **card))
 
     # 5. timings
-    med = phase_timing(torch, ct, ff, dev, card)
-    med.update(phase_timing_pfb(torch, ct, pf, dev, card))  # 5b
-    lib_ms = phase_library(torch, dev, card)
+    med = timed("timing", phase_timing, torch, ct, ff, dev, card)
+    med.update(timed("timing_pfb", phase_timing_pfb, torch, ct, pf, dev, card))  # 5b
+    lib_ms = timed("library", phase_library, torch, dev, card)
 
     print(smi, flush=True)
     flagship = {
@@ -4271,6 +4567,21 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
                 "k5_device_ms_per_step", "nccl_device_ms_per_step", "vs_serial_rel",
                 "warm_msps", "serial_msps")},
             "cli_msps": chain["cli"]["msps"], "serial_cli_msps": chain["cli"]["serial_msps"]},
+        "launches_channel_chain_per_rank": {
+            key: [c["fir_valid"] for c in r["launches_per_rank"]]
+            for key, r in chain["channels"].items() if r["kernel"] == "fir_valid"},
+        "launches_channel_cli_per_rank": {
+            key: [c["fir_valid"] for c in r["launches_per_rank"]]
+            for key, r in chain["channel_cli"].items() if "DeCW" in key},
+        "channel_chain": {
+            key: {"shape_per_rank": r["k5_shape_per_rank"], "panel_per_rank": r["panel_per_rank"],
+                  **{k: r[k] for k in (
+                      "sharded_step_ms", "serial_step_ms", "k5_launches_per_step",
+                      "k5_device_ms_per_step", "nccl_device_ms_per_step",
+                      "device_ms_per_step", "vs_serial_rel", "warm_msps", "serial_msps")},
+                  **fir_bound(r["panel_per_rank"][0], r["panel_per_rank"][1], r["taps"], True,
+                              False)}
+            for key, r in chain["channels"].items() if r["kernel"] == "fir_valid"},
         "max_abs_err": errs["c64_complex_585"][0],
         "vs_fft_strategy_rel": errs["c64_complex_585"][1],
         "ms": fir_med[("c64_complex_585", "kernel")],

@@ -46,15 +46,20 @@ card.
 
 ``--mesh TxC`` runs a flow over T time × C channel ranks, one process per
 device (``csdr_tpu_torch/parallel``).  ``-c N --demod "DeNBFM kf
-WAV|F32"`` ([``-a T``]): ``--backend fused`` is the time-sharded flagship
-kernel (``ShardedFlagship``, C = 1, no AGC, nch | 64); ``pfb_fused`` and
-``eager`` are ``ShardedChannelizedFM`` with and without K3/K4.  ``-c 1``
-DeNBFM, DeWBFM, DeAM, DeUSB, DeLSB, DeCW and DeNo ([``-a T``]): the
-front end (``--offset``, ``-b``, with a cu8 file's ``u8_to_iq``) runs on
-rank 0's own Pipeline, and ``dc_blocker >> [AGC >>] demod`` runs as a
-``ShardedChain`` over time (a cu8 file without a front end puts
-``u8_to_iq`` at its head, as the serial flow does); the sinks and the plot
-taps are rank 0's.  Under torchrun the CLI joins the group it finds (one
+WAV|F32"`` ([``-a T``], without ``-m``): ``--backend fused`` is the
+time-sharded flagship kernel (``ShardedFlagship``, C = 1, no AGC, nch |
+64); ``pfb_fused`` and ``eager`` are ``ShardedChannelizedFM`` with and
+without K3/K4.  Every other flow of DeNBFM, DeWBFM, DeAM, DeUSB, DeLSB,
+DeCW and DeNo ([``-a T``]), ``-c 1`` or ``-c N`` [``-m``], runs the serial
+``--backend eager`` graph as a ``ShardedChain``, whatever ``--backend``
+says: ``dc_blocker >> [AGC >>] demod`` over time for ``-c 1``;
+``dc_blocker >> firpfbch_channelizer(N) >> PerChannel([AGC >>] demod)
+[>> MixChannels()]`` for ``-c N``, the channels over C and the frames over
+T (C must divide N).  The front end (``--offset``, ``-b``, with a cu8
+file's ``u8_to_iq``) runs on rank 0's own Pipeline (a cu8 file without a
+front end puts ``u8_to_iq`` at the graph's head, as the serial flow does);
+the sinks and the plot taps are rank 0's, and ``--play`` is ignored for a
+``-c N -m`` mix.  Under torchrun the CLI joins the group it finds (one
 rank per GPU); otherwise it starts its own T·C local ranks.  ``--device
 cpu`` runs gloo ranks.
 
@@ -65,9 +70,8 @@ into a live player (``io/sinks.PlaybackSink``); ``--profile`` runs each
 stage of the main graph as its own step between device barriers and prints
 the per-stage table.
 
-``--mesh`` for the other flows (``-c N`` flows but DeNBFM, ``-m``, DeFMS,
-DeNBFMSync, the packet flows) exits non-zero with "not yet ported in
-csdr_tpu_torch".
+``--mesh`` for the other flows (DeFMS, DeNBFMSync, the packet flows)
+exits non-zero with "not yet ported in csdr_tpu_torch".
 
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -n 33554432 \\
         -c 64 --demod "DeCW 500 700 WAV" --backend pfb_fused --device cuda
@@ -88,6 +92,8 @@ csdr_tpu_torch".
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -c 1 --offset 95000 \\
         -b 48000 -n 524288 --blocksize 131072 --mesh 2x1 --demod "DeCW 500 700 WAV" \\
         --device cpu
+    python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -n 33554432 -c 64 \\
+        --blocksize 8388608 --mesh 2x2 --demod "DeCW 500 700 WAV" --device cuda
 """
 
 from __future__ import annotations
@@ -97,6 +103,7 @@ import json
 import os
 import struct
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -197,8 +204,9 @@ PACKET_SUFFIX = {"DeAIS": ".ais.txt", "DeAPRS": ".aprs.txt", "DeADSB": ".adsb.tx
                  "DePOCSAG": ".pocsag.txt", "DeRTTY": ".rtty.txt"}
 _DEMODS = ("DeNBFM", "DeWBFM", "DeFMS", "DeAM", "DeUSB", "DeLSB", "DeCW", "DeNBFMSync", "DeNo",
            *PACKET_SUFFIX)
-# the -c 1 flows that --mesh time-shards (ShardedChain)
-_MESH_SINGLE = ("DeNBFM", "DeWBFM", "DeAM", "DeUSB", "DeLSB", "DeCW", "DeNo")
+# the flows that --mesh shards, -c 1 and -c N (ShardedChain; non-mixed -c N
+# DeNBFM on ShardedFlagship or ShardedChannelizedFM)
+_MESH_FLOWS = ("DeNBFM", "DeWBFM", "DeAM", "DeUSB", "DeLSB", "DeCW", "DeNo")
 
 
 def parse_demod(s: str):
@@ -240,12 +248,18 @@ def _refusal(opts, demod) -> str | None:
     if (demod[0] not in ("DeNo", "DeNBFMSync", *PACKET_SUFFIX)
             and demod[-1] not in ("WAV", "AU", "F32")):
         return f"audio format {demod[-1]} is {_NOT_PORTED}; use WAV, AU or F32"
-    if opts.mesh and not (demod[0] in _MESH_SINGLE if opts.channels == 1
-                          else demod[0] == "DeNBFM" and not opts.mix):
-        return (f"--mesh for this flow is {_NOT_PORTED} (ShardedChain takes the time layout "
-                "of -c 1 flows only); --mesh runs -c N (> 1) --demod 'DeNBFM kf WAV|AU|F32' "
-                "without -m, and -c 1 " + ", ".join(_MESH_SINGLE))
+    if opts.mesh and demod[0] not in _MESH_FLOWS:
+        return (f"--mesh for {demod[0]} is {_NOT_PORTED} (ShardedChain has no shard methods "
+                "for the stereo, RDS, symbol-sync and packet blocks yet); --mesh runs -c 1 "
+                "and -c N " + ", ".join(_MESH_FLOWS))
     return None
+
+
+def _on_chain(opts, demod) -> bool:
+    """Whether a --mesh flow runs as a ``ShardedChain`` over ``_flow``'s
+    eager graph: every flow but non-mixed -c N DeNBFM, which runs the
+    hand-fused ``ShardedFlagship`` or ``ShardedChannelizedFM``."""
+    return opts.channels == 1 or demod[0] != "DeNBFM" or opts.mix
 
 
 def _open_device(opts):
@@ -440,13 +454,14 @@ def _report_packet(opts, demod, collected, rate: float):
         f.write("\n".join(lines) + ("\n" if lines else ""))
 
 
-def _graph(opts, demod, agc_t, out_bw: float):
+def _graph(opts, demod, agc_t, out_bw: float, backend: str):
     """The flow's main graph behind the front end, composed as the JAX CLI
     composes it: ``dc_blocker >> [AGC] >> demod`` for -c 1 (DeFMS:
     ``fm_demodulator(0.8) >> stereo_fm_decoder``, with ``--rds`` a ``Tee`` of
     it and ``rds_receiver``); for -c N, DeNBFM with no AGC is
     ``channelized_fm_receiver``, every other flow puts ``PerChannel([AGC >>]
-    demod)`` behind the channelizer; ``-m`` sums the channels."""
+    demod)`` behind the channelizer; ``-m`` sums the channels.  ``backend``
+    picks the channelizer of -c N."""
     from ..models.receivers import channelized_fm_receiver, channelized_receiver
     from .. import blocks as B
 
@@ -466,12 +481,12 @@ def _graph(opts, demod, agc_t, out_bw: float):
     if nch == 1:
         return chain(B.dc_blocker(), *agc, *([per] if per is not None else []))
     if demod[0] == "DeNBFM" and agc_t is None:
-        return channelized_fm_receiver(nch, kf=demod[1], mix=opts.mix, backend=opts.backend)
+        return channelized_fm_receiver(nch, kf=demod[1], mix=opts.mix, backend=backend)
     if per is None:  # DeNo: the AGC alone per channel, as the JAX CLI builds it
         per = agc[0] if agc else None
-        return channelized_receiver(nch, per, mix=opts.mix, backend=opts.backend)
+        return channelized_receiver(nch, per, mix=opts.mix, backend=backend)
     return channelized_receiver(nch, per, mix=opts.mix, agc_threshold_db=agc_t,
-                                backend=opts.backend)
+                                backend=backend)
 
 
 def _sink(opts, demod, out_bw: float):
@@ -536,18 +551,20 @@ def _front_end(opts):
     return chain(*([B.u8_to_iq()] if _is_cu8(opts) else []), *stages)
 
 
-def _flow(opts, demod, agc_t):
+def _flow(opts, demod, agc_t, backend: str | None = None):
     """(front end or None, main graph, output bandwidth) of a flow, serial
-    or ``--mesh``.  Without a front end a cu8 file puts ``u8_to_iq`` at the
-    graph's head, except under ``--backend fused``, whose kernel converts
-    cu8 itself.  ValueError: a bandwidth or pitch outside the channel, a
-    packet rate."""
+    or ``--mesh``, with ``backend`` (default ``--backend``; a ``ShardedChain``
+    flow passes ``eager``, as the JAX CLI's sharded flows ignore the
+    backend).  Without a front end a cu8 file puts ``u8_to_iq`` at the
+    graph's head, except under ``fused``, whose kernel converts cu8 itself.
+    ValueError: a bandwidth or pitch outside the channel, a packet rate."""
     from .. import blocks as B
 
+    backend = backend or opts.backend
     out_bw = opts.bandwidth if opts.bandwidth else opts.samplerate
-    graph = _graph(opts, demod, agc_t, out_bw)
+    graph = _graph(opts, demod, agc_t, out_bw, backend)
     fe = _front_end(opts)
-    if fe is None and _is_cu8(opts) and opts.backend != "fused":
+    if fe is None and _is_cu8(opts) and backend != "fused":
         graph = chain(B.u8_to_iq(), graph)
     return fe, graph, out_bw
 
@@ -653,18 +670,18 @@ def _sharded_block(dt: int, graph, blocksize: int) -> int:
     return max(blocksize // g, 1) * g
 
 
-def _single_graph(opts, demod, agc_t):
-    """The -c 1 flow's sharded graph (``_flow``'s, run on rank 0's front
-    end where there is one) and its block."""
-    _, graph, _ = _flow(opts, demod, agc_t)
+def _chain_graph(opts, demod, agc_t):
+    """A ``ShardedChain`` flow's graph (``_flow``'s eager one, run on rank
+    0's front end where there is one) and its block."""
+    _, graph, _ = _flow(opts, demod, agc_t, backend="eager")
     return graph, _sharded_block(_mesh_dims(opts.mesh)[0], graph, opts.blocksize)
 
 
 def _run_mesh(opts, demod, agc_t) -> int:
     """A flow over a ('time', 'ch') mesh: under torchrun this process is
     one rank of the group it finds, otherwise it starts T·C local ranks
-    (``parallel.spawn``) and waits for them.  A -c 1 graph is validated
-    here first, before any rank starts."""
+    (``parallel.spawn``) and waits for them.  A ``ShardedChain`` graph is
+    validated here first, before any rank starts."""
     from ..parallel.generic import ShardedChain
     from ..parallel.mesh import check_devices, init_distributed, spawn
 
@@ -674,17 +691,23 @@ def _run_mesh(opts, demod, agc_t) -> int:
         print(f"--mesh takes TxC, e.g. 4x1, got {opts.mesh!r}", file=sys.stderr)
         return 2
     nch, world = opts.channels, dt * dc
-    if opts.backend == "fused" and (dc != 1 or 64 % nch):
+    on_chain = _on_chain(opts, demod)
+    if not on_chain and opts.backend == "fused" and (dc != 1 or 64 % nch):
         print(f"--backend fused shards the flagship kernel over time only and needs nch | 64: "
               f"use --mesh {dt}x1 with -c dividing 64, or --backend pfb_fused or eager for "
               "a channel axis", file=sys.stderr)
         return 2
-    if nch > 1 and nch % dc:
+    if not on_chain and nch % dc:
         print(f"-c {nch} does not split over {dc} channel ranks", file=sys.stderr)
         return 2
-    if nch == 1:
+    if on_chain:
+        if nch > 1 and opts.mix and opts.play is not None:
+            # the JAX CLI's sharded mixes do not play either
+            print("--play ignored: --mesh writes the mixed stream to its file only",
+                  file=sys.stderr)
+            opts.play = None
         try:
-            graph, block = _single_graph(opts, demod, agc_t)
+            graph, block = _chain_graph(opts, demod, agc_t)
             ShardedChain.validate(graph, dt, dc, block)
         except NotImplementedError as e:
             print(f"--mesh: this flow cannot be time-sharded ({e})", file=sys.stderr)
@@ -709,7 +732,16 @@ def _run_mesh(opts, demod, agc_t) -> int:
             torch.distributed.destroy_process_group()
         return 0
     try:
-        spawn(_mesh_rank, world, opts.device, args=(opts, demod, agc_t), timeout=3600.0)
+        if world == 1:
+            # one rank has no peer to wait on: run it here, sparing a process start
+            with tempfile.TemporaryDirectory(prefix="csdr-mesh-") as tmp:
+                device = init_distributed(0, 1, 0, f"file://{tmp}/store", opts.device)
+                try:
+                    _mesh_rank(device, opts, demod, agc_t)
+                finally:
+                    torch.distributed.destroy_process_group()
+        else:
+            spawn(_mesh_rank, world, opts.device, args=(opts, demod, agc_t), timeout=3600.0)
     except (RuntimeError, TimeoutError) as e:
         print(f"--mesh {opts.mesh}: {e}", file=sys.stderr)
         return 1
@@ -730,8 +762,9 @@ def _mesh_rank(device: torch.device, opts, demod, agc_t) -> int:
     nch = opts.channels
     rank = torch.distributed.get_rank()
     mesh = build_mesh(dt, dc, device.type)
-    if nch == 1:
-        graph, block = _single_graph(opts, demod, agc_t)
+    on_chain = _on_chain(opts, demod)
+    if on_chain:
+        graph, block = _chain_graph(opts, demod, agc_t)
         sh = ShardedChain(graph, mesh, block)
     elif opts.backend == "fused":
         # the largest tile up to the card's autotuned one (the kernel's default
@@ -768,7 +801,7 @@ def _mesh_rank(device: torch.device, opts, demod, agc_t) -> int:
         if opts.verbose:
             print(f"Mesh {dt}x{dc} ({opts.backend}, {device.type}): {type(sh).__name__}, "
                   f"block {sh.block_size}, {sh.block_size // dt} samples per time rank")
-            if nch == 1:
+            if on_chain:
                 _announce("Flow", sh.block, device, sh.block_size)
     t0 = time.perf_counter()
     if sink is None:
@@ -787,9 +820,9 @@ def _mesh_rank(device: torch.device, opts, demod, agc_t) -> int:
             n_in = int(total / sh.rate)
             print(f"Throughput: {n_in} samples into the flow in {secs:.3f} s "
                   f"({n_in / secs / 1e6:.2f} MSPS)")
-        print(f"Wrote {total} output samples per {'stream' if nch == 1 else 'channel'} over "
-              f"mesh {dt}x{dc} ({'ShardedChain' if nch == 1 else opts.backend}, "
-              f"{device.type})")
+        per = "channel" if nch > 1 and not opts.mix else "stream"
+        print(f"Wrote {total} output samples per {per} over mesh {dt}x{dc} "
+              f"({'ShardedChain' if on_chain else opts.backend}, {device.type})")
     if opts.verbose:
         counts = dict(pf.launches, flagship_fused=ff.launches, fir_valid=fv.launches,
                       fft_fir=fx.launches)

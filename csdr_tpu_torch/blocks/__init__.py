@@ -31,8 +31,9 @@ Sharded over time (``parallel/generic.ShardedChain``): the stateless blocks
 as they are; ``Mixer`` from its float64 per-rank phase offset, with no
 collective; ``DCBlocker``, ``IIRFilter`` and ``AGC`` on the distributed
 recurrence (``ShardCtx.linrec``); the FIR family, the resamplers, the
-Hilbert blocks and ``FMDemod`` through ``TailStateBlock``'s left halo.
-``PFBChannelizer`` refuses: the channel layout is not yet ported.
+Hilbert blocks and ``FMDemod`` through ``TailStateBlock``'s left halo;
+``PFBChannelizer`` turns the stream into the channel layout, each rank
+holding its (nch/dc, F/dt) panel.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from ..core.block import Block, Lambda, TailStateBlock, chain, shard_not_ported
+from ..core.block import Block, Lambda, TailStateBlock, chain
+from ..core.sharding import CH, TIME
 from ..ops import agc as agc_ops
 from ..ops import demod as demod_ops
 from ..ops import fir as fir_ops
@@ -408,8 +410,55 @@ class PFBChannelizer(Block):
                                                   self.as_db)
         return (phase, pfb_state), y
 
+    def shard_apply(self, state, x, ctx):
+        """Time-sharded channelizer with a channel-sharded output: the NCO
+        pre-shift from the rank's float64 phase offset (no collective), the
+        polyphase history as one raw-sample halo of L·nch − 1 from the left
+        neighbour, and the DFT on this rank's columns of W only, so the
+        (nch/dc, F) panel lands on its (ch, time) rank with no further
+        exchange.  The carried (hist_x, hist_v) is a function of the last
+        L·nch − 1 shifted samples: one broadcast from the last time rank
+        carries both."""
+        phase, (hist_x, hist_v) = state
+        nch, L = self.nch, 2 * self.m
+        nloc = x.shape[-1]
+        omega = pfb_ops.pfb_offset(nch)
+        off = nco_ops.phase_table(omega, nloc, ctx.dt)[ctx.ti]
+        _, xs = nco_ops.mix_stream(torch.remainder(phase + off, np.float32(_TWO_PI)), x, omega,
+                                   up=False)
+        inc = np.float32(nco_ops.phase_increment(omega, nloc * ctx.dt))
+        new_phase = torch.remainder(phase + inc, np.float32(_TWO_PI))
+
+        H = L * nch - 1
+        carried = torch.cat([hist_v.flip(1).reshape(-1), hist_x])
+        halo = ctx.left_halo(xs, carried, H)
+        _, vfull = pfb_ops.halo_panels(halo, xs, nch)                # (L − 1 + F, nch)
+        taps, W = pfb_ops.pfb_design(nch, self.m, float(self.as_db), x.device)
+        cols = nch // ctx.dc
+        d = pfb_ops.branch_dft(vfull, taps, W[:, ctx.ci * cols:(ctx.ci + 1) * cols])
+
+        tail = ctx.from_last_time(xs[-H:].contiguous())
+        hist_v = tail[:(L - 1) * nch].reshape(L - 1, nch).flip(1)
+        return (new_phase, (tail[(L - 1) * nch:], hist_v)), d
+
     def shard_validate(self, nloc, ctx):
-        shard_not_ported(self)
+        if ctx.layout != TIME:
+            raise ValueError(f"{self.name}: channelizer input must be a 1-D time-sharded "
+                             f"stream")
+        if nloc % self.nch:
+            raise ValueError(f"{self.name}: local segment {nloc} not a multiple of "
+                             f"nch={self.nch}")
+        H = 2 * self.m * self.nch - 1
+        if nloc < H:
+            raise ValueError(f"{self.name}: local segment {nloc} shorter than the "
+                             f"{H}-sample polyphase halo")
+        if self.nch % ctx.dc:
+            raise ValueError(f"{self.name}: nch={self.nch} not divisible by the "
+                             f"{ctx.dc}-way channel mesh axis")
+        return nloc // self.nch
+
+    def shard_layout(self, in_layout):
+        return CH
 
 
 def firpfbch_channelizer(nch: int, **kw) -> Block:

@@ -26,9 +26,11 @@ operation, no collective) that a segment of ``nloc`` samples is valid.
 ``stateless`` blocks shard as they are; a ``TailStateBlock`` takes its
 carried tail from the left neighbour; a ``Chain`` runs each run of
 tail-state blocks on one raw-input context exchanged once
-(``Chain._shard_segments``).  This port takes the time layout: the
-channel layout (``PFBChannelizer``, ``PerChannel``, ``MixChannels``)
-refuses, "not yet ported".
+(``Chain._shard_segments``).  Behind a channelizer the data are a
+(nch, F) panel, channels over the mesh's "ch" axis and frames over
+"time": ``PerChannel`` runs its inner block's sharded step on this rank's
+rows with its stacked state placed "ch" (``shard_state_spec``), and
+``MixChannels`` sums the rows back into a time-layout stream.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from fractions import Fraction
 from typing import Any, Callable, Sequence
 
 import torch
+
+from .sharding import CH, TIME
 
 __all__ = ["Block", "Chain", "chain", "TailStateBlock", "Lambda", "PerChannel", "MixChannels",
            "Tee", "Delay", "shard_not_ported"]
@@ -399,9 +403,8 @@ class TailStateBlock(Block):
 
 
 def shard_not_ported(block: Block):
-    """The shard methods of the channel layout and of the stereo, RDS,
-    packet and symbol-sync blocks wait for a later slice (the JAX package
-    has them)."""
+    """The shard methods of the stereo, RDS, packet and symbol-sync blocks
+    wait for a later slice (the JAX package has them)."""
     raise NotImplementedError(f"{block.name}: sharded execution of {type(block).__name__} is "
                               f"not yet ported in csdr_tpu_torch")
 
@@ -442,8 +445,38 @@ class PerChannel(Block):
     def flush_len(self) -> int:
         return self.inner.flush_len()
 
+    # ---- sharded: the channel layout -----------------------------------------
+    def shard_init(self, device: torch.device):
+        return _stack_tree([self.inner.shard_init(device) for _ in range(self.nch)])
+
+    def shard_state_spec(self, ctx):
+        """Every leaf "ch" on a channel axis (each rank carries its own
+        channels' rows, no channel collective per step), "rep" without
+        one."""
+        tag = "ch" if ctx.dc > 1 else "rep"
+        # the stack has one inner state's structure; stacking meta tensors
+        # would load torch's symbolic-shape machinery (seconds at start-up)
+        return _map_tree(lambda _: tag, self.inner.shard_init(_META))
+
+    def shard_apply(self, state, x, ctx):
+        """x: this rank's (nch/dc, nloc) panel, ``state`` its stacked rows
+        (``ShardedChain`` places them, ``ctx.state_local``).  The inner
+        block's sharded step runs once on the whole panel, each row its own
+        stream along the last axis, so its time collectives run once per
+        step for every row (the JAX package vmaps it per channel)."""
+        if ctx.dc > 1 and not ctx.state_local:
+            raise ValueError(f"{self.name}: on a {ctx.dc}-way channel axis the state must "
+                             f"arrive as this rank's channel rows (ShardedChain places it)")
+        return self.inner.shard_apply(state, x, ctx.clone(layout=TIME))
+
     def shard_validate(self, nloc, ctx):
-        shard_not_ported(self)
+        if ctx.layout != CH:
+            raise ValueError(f"{self.name}: sharded PerChannel requires channelized (nch, n) "
+                             f"input layout")
+        if self.nch % ctx.dc:
+            raise ValueError(f"{self.name}: nch={self.nch} not divisible by the {ctx.dc}-way "
+                             f"channel mesh axis")
+        return self.inner.shard_validate(nloc, ctx.clone(layout=TIME))
 
 
 def _stack_tree(states: list):
@@ -456,7 +489,12 @@ def _stack_tree(states: list):
 
 
 class MixChannels(Block):
-    """Sum over the channel axis (reference ``mix``)."""
+    """Sum over the channel axis (reference ``mix``).  Sharded, each rank
+    sums its channel rows and the ch ranks add their partial sums
+    (``ShardCtx.sum_ch``): the output is a time-layout stream, the same on
+    every ch rank."""
+
+    stateless = True
 
     def __init__(self, name: str = "mix"):
         self.name = name
@@ -464,8 +502,16 @@ class MixChannels(Block):
     def apply(self, state, x):
         return state, x.sum(dim=0)
 
+    def shard_apply(self, state, x, ctx):
+        return state, ctx.sum_ch(x.sum(dim=0))
+
     def shard_validate(self, nloc, ctx):
-        shard_not_ported(self)
+        if ctx.layout != CH:
+            raise ValueError(f"{self.name}: mix requires channelized input")
+        return nloc
+
+    def shard_layout(self, in_layout):
+        return TIME
 
 
 class Tee(Block):

@@ -10,11 +10,16 @@ collectives map to
     lax.ppermute (j → j+1 over 'time')   dist.batch_isend_irecv in the time group
     lax.all_gather                       dist.all_gather in the time or ch group
     masked psum from the last time index dist.broadcast from the last time rank
+    lax.psum over 'ch'                   dist.all_reduce in the ch group
 
 The broadcast is exact where the psum added zeros.  Complex tensors cross
 the wire as ``torch.view_as_real`` planes and bools as uint8.  Carried state
-is replicated on every rank; each collective that updates it takes the last
+is replicated over 'time'; each collective that updates it takes the last
 time rank's value, so streaming across blocks is exact on any mesh shape.
+A "ch"-placed leaf (``PerChannel``'s stacked state under ``ShardedChain``,
+``state_local``) holds only this rank's channel rows.  Everything works
+along the last axis, the time axis of a 1-D stream and of a (rows, n)
+channel panel alike.
 
 A ctx carries the ``layout`` of the data at the current point of a graph
 (``TIME`` or ``CH``; ``core/block.Chain`` updates it from each block's
@@ -34,7 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["ShardCtx", "TIME", "CH", "mesh_dims"]
+__all__ = ["ShardCtx", "TIME", "CH", "mesh_dims", "place_state"]
 
 # layout tags for data flowing through a sharded step
 TIME = "time"   # 1-D stream, this rank's time segment, replicated over ch
@@ -86,6 +91,31 @@ def _from_wire(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return w
 
 
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_map_leaves(fn, t) for t in tree)
+    return fn(tree)
+
+
+def place_state(state, tags, ci: int, dc: int):
+    """This rank's share of a ``shard_init`` state: a leaf tagged "ch"
+    (``Block.shard_state_spec``) keeps rows [ci·n/dc, (ci+1)·n/dc) of its
+    leading axis, a "rep" leaf stays whole.  A tag stands for the whole
+    subtree below it (``shard_state_spec`` tags a dict state as one)."""
+    if isinstance(tags, str):
+        if tags == "rep" or dc == 1:
+            return state
+
+        def rows(a):
+            n = a.shape[0] // dc
+            return a[ci * n:(ci + 1) * n].clone()
+
+        return _map_leaves(rows, state)
+    return tuple(place_state(s, t, ci, dc) for s, t in zip(state, tags))
+
+
 def mesh_dims(mesh) -> tuple[int, int]:
     """(time ranks, ch ranks) of a ("time"[, "ch"]) ``DeviceMesh``."""
     dims = dict(zip(mesh.mesh_dim_names, mesh.shape))
@@ -105,8 +135,8 @@ class ShardCtx:
         self.dt, self.dc = mesh_dims(mesh)
         self.mesh = mesh
         self.layout = TIME
-        # True under ShardedChain: a "ch"-placed state leaf would arrive as
-        # this rank's rows (every leaf is replicated in the time layout)
+        # True under ShardedChain: a "ch"-placed state leaf arrives as this
+        # rank's channel rows (PerChannel reads it)
         self.state_local = False
         self.ti = mesh.get_local_rank("time")
         has_ch = "ch" in mesh.mesh_dim_names
@@ -180,20 +210,21 @@ class ShardCtx:
         return None if buf is None else _from_wire(buf, t)
 
     def left_halo(self, x: torch.Tensor, carried_tail: torch.Tensor, h: int) -> torch.Tensor:
-        """The last ``h`` samples (leading axis) before this rank's segment:
-        the left neighbour's tail; the first time rank gets the carried
-        global tail."""
-        left = self.send_right(x[-h:] if h > 0 else x[:0])
+        """The last ``h`` samples (last axis) before this rank's segment:
+        the left neighbour's tail, (..., h); the first time rank gets the
+        carried global tail.  Inside ``PerChannel`` ``x`` is a (rows, n)
+        panel and every row takes its own halo."""
+        left = self.send_right(x[..., -h:] if h > 0 else x[..., :0])
         return carried_tail if left is None else left
 
     def right_halo(self, x: torch.Tensor, r: int) -> torch.Tensor:
-        """The first ``r`` samples of the right neighbour's segment; the last
-        time rank gets its own final sample repeated, as a single device's
-        clamped read at the end of the block."""
+        """The first ``r`` samples (last axis) of the right neighbour's
+        segment; the last time rank gets its own final sample repeated, as
+        a single device's clamped read at the end of the block."""
         if r <= 0:
-            return x[:0]
-        right = self.send_left(x[:r])
-        return x[-1:].expand((r,) + tuple(x.shape[1:])) if right is None else right
+            return x[..., :0]
+        right = self.send_left(x[..., :r])
+        return x[..., -1:].expand(tuple(x.shape[:-1]) + (r,)) if right is None else right
 
     # ---- collectives --------------------------------------------------------
     def from_last_time(self, val: torch.Tensor) -> torch.Tensor:
@@ -223,6 +254,15 @@ class ShardCtx:
             return t
         g = self._gather(t, self.ch_group, self.dc)
         return g.reshape((-1,) + tuple(t.shape[1:]))
+
+    def sum_ch(self, t: torch.Tensor) -> torch.Tensor:
+        """Σ of ``t`` over the ch ranks, on every one of them (the JAX psum
+        over 'ch'); ``t`` itself where dc = 1."""
+        if self.dc == 1:
+            return t
+        w = _to_wire(t).clone()
+        dist.all_reduce(w, group=self.ch_group)
+        return _from_wire(w, t)
 
     # ---- distributed linear recurrence ---------------------------------------
     def _linrec_tables_on(self, a, nloc: int, is_complex: bool, device: torch.device,

@@ -21,7 +21,7 @@ import torch
 from ..utils.firdes import pfb_kaiser_prototype
 
 __all__ = ["pfb_offset", "pfb_taps", "pfb_dft_matrix", "pfb_design", "pfb_analyze_init",
-           "pfb_analyze_stream"]
+           "pfb_analyze_stream", "branch_dft", "halo_panels"]
 
 
 def pfb_offset(nch: int) -> float:
@@ -75,10 +75,30 @@ def pfb_analyze_stream(state, x: torch.Tensor, nch: int, m: int = 7, as_db: floa
     v = xfull[: F * nch].reshape(F, nch).flip(1)          # v[i, p] = x[i·nch − p]
 
     vfull = torch.cat([hist_v, v], dim=0)                 # (F + L − 1, nch)
+    return (xfull[F * nch:], vfull[F:]), branch_dft(vfull, taps, W)
+
+
+def branch_dft(vfull: torch.Tensor, taps: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """The L-tap FIR of every branch along the frames, then the DFT across
+    the branches on ``W``'s columns (all nch, or a rank's column shard):
+    vfull (F + L − 1, nch) → (columns, F), channel-major."""
+    L = taps.shape[0]
+    F = vfull.shape[0] - (L - 1)
     u = None
     for l in range(L):
         term = vfull[L - 1 - l: L - 1 - l + F] * taps[l][None, :]
         u = term if u is None else u + term
+    return (u @ W).T
 
-    d = u @ W
-    return (xfull[F * nch:], vfull[F:]), d.T
+
+def halo_panels(halo: torch.Tensor, xs: torch.Tensor, nch: int):
+    """Frame panels of a time segment behind its left halo.  ``halo``
+    holds the k·nch + nch − 1 raw samples before ``xs``: k history frames,
+    then the nch − 1 samples that spill into the first frame.  Returns
+    (v (F, nch), vfull (k + F, nch)) with v[i, p] = x[i·nch − p]."""
+    H = halo.shape[-1] - (nch - 1)
+    F = xs.shape[-1] // nch
+    xfull = torch.cat([halo[H:], xs])
+    v = xfull[:F * nch].reshape(F, nch).flip(1)
+    vprev = halo[:H].reshape(H // nch, nch).flip(1)
+    return v, torch.cat([vprev, v])

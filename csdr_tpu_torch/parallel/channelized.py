@@ -141,7 +141,7 @@ class ShardedChannelizedFM:
         """(state, this rank's segment: complex64 (nloc,) or cu8 as uint8
         (nloc, 2) rows) → (state, audio (nch/dc, nloc/nch/audio_decim)
         float32 of this rank's channels and frames)."""
-        ctx, nloc = self.ctx, self.nloc
+        ctx = self.ctx
         if x.dtype == torch.uint8:
             _, x = self._u8.apply((), x)
 
@@ -157,14 +157,11 @@ class ShardedChannelizedFM:
                                        np.float32(_TWO_PI))
         new["pfb_tail"] = ctx.from_last_time(xs[-self.pfb_halo:].contiguous())
 
-        # PFB: frame panels behind the history frames from the left halo
-        nch, L, F = self.nch, self.L, nloc // self.nch
+        # PFB: frame panels behind the history frames (L − 1; L for K3) from
+        # the left halo
+        nch, L = self.nch, self.L
         halo = ctx.left_halo(xs, state["pfb_tail"], self.pfb_halo)
-        H = self.pfb_halo - (nch - 1)                     # history frames · nch
-        xfull = torch.cat([halo[H:], xs])
-        v = xfull[:F * nch].reshape(F, nch).flip(1)
-        vprev = halo[:H].reshape(H // nch, nch).flip(1)   # L − 1 frames (L for K3)
-        vfull = torch.cat([vprev, v])
+        _, vfull = pfb_ops.halo_panels(halo, xs, nch)
 
         agc = self.agc_threshold_db is not None
         if not agc:

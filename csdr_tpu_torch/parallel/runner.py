@@ -45,8 +45,7 @@ class ShardedPipeline:
         self.ctx = sharded.ctx
         self.block_size = sharded.block_size
         self.rate_tree = sharded.rate_tree()
-        # every leaf of one receiver's output has one layout
-        self.layout = _leaves(sharded.out_layout)[0]
+        self.layout = sharded.out_layout   # a tag, or a tree of them (a Tee)
         self.device = sharded.device
         self.rank = dist.get_rank()
         self.state = sharded.init()
@@ -94,20 +93,29 @@ class ShardedPipeline:
             dist.broadcast(seg, dist.get_global_rank(ctx.ch_group, 0), group=ctx.ch_group)
         return seg if code == 1 else torch.view_as_complex(seg)
 
-    def _gather(self, y: torch.Tensor) -> torch.Tensor | None:
+    def _gather_tree(self, y, layout):
+        """Every output leaf by its own layout (one tag may stand for a
+        subtree), in the same order on every rank."""
+        if isinstance(y, tuple):
+            lays = layout if isinstance(layout, tuple) else (layout,) * len(y)
+            return tuple(self._gather_tree(a, lay) for a, lay in zip(y, lays))
+        return self._gather(y, layout)
+
+    def _gather(self, y: torch.Tensor, layout) -> torch.Tensor | None:
         """One output leaf of every rank → the whole leaf on rank 0 (None
         elsewhere)."""
         ctx, y = self.ctx, y.contiguous()
         if ctx.dt * ctx.dc == 1:
             return y
-        if self.layout != CH:
+        if layout != CH:
             return self._gather_time(y)
-        parts = [torch.empty_like(y) for _ in range(ctx.dt * ctx.dc)] if self.rank == 0 else None
-        dist.gather(y, parts, dst=0)
+        w = _to_wire(y)
+        parts = [torch.empty_like(w) for _ in range(ctx.dt * ctx.dc)] if self.rank == 0 else None
+        dist.gather(w, parts, dst=0)
         if parts is None:
             return None
         # rank = ti·dc + ci: (dt, dc, rows, frames) → (dc·rows, dt·frames)
-        g = torch.stack(parts).view(ctx.dt, ctx.dc, *y.shape)
+        g = _from_wire(torch.stack(parts), y).view(ctx.dt, ctx.dc, *y.shape)
         return g.permute(1, 2, 0, 3).reshape(ctx.dc * y.shape[0], ctx.dt * y.shape[1])
 
     def _gather_time(self, y: torch.Tensor) -> torch.Tensor | None:
@@ -147,7 +155,7 @@ class ShardedPipeline:
             if valid == 0:
                 return
             self.state, y = self.sh.step(self.state, self._segment(block, code))
-            out = _map_tree(self._gather, y)
+            out = self._gather_tree(y, self.layout)
             if self.rank != 0:
                 yield None
                 continue

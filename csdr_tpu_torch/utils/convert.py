@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.sharding import place_state
 from ..ops.pfb import pfb_offset
 
 __all__ = ["from_jax_chain_state", "from_jax_flagship_state", "from_jax_flagship_wide_state",
@@ -128,17 +129,26 @@ def from_jax_pfb_fm_state(state, device: torch.device):
             _leaf(np.asarray(hist_v, np.complex64), device))
 
 
-def from_jax_sharded_chain_state(state, device: torch.device):
+def from_jax_sharded_chain_state(state, device: torch.device, tags="rep", ci: int = 0,
+                                 dc: int = 1):
     """State of the JAX ``ShardedChain`` (its ``init``/``step`` state: the
-    graph's ``shard_init`` tree, complex leaves CEnc-encoded) → the port's
+    graph's ``shard_init`` tree, complex leaves CEnc-encoded, each leaf
+    whole as ``np.asarray`` reads it) → this rank's share of the port's
     ``ShardedChain`` state.  Both packages collapse a fused run the same
     way (``Chain._shard_segments``: the run's raw-input tail (A1,) at its
     first block, ``()`` at the others), so the trees map one to one; a CEnc
     leaf (a named tuple with an ``ri`` field of float32 (…, 2) re/im planes)
-    becomes complex64."""
+    becomes complex64.  ``tags`` is the port's ``ShardedChain.state_tags``
+    (the graph's ``shard_state_spec``): on a dc-way channel axis each "ch"
+    leaf (a ``PerChannel`` stack) is handed over as the rows of channel
+    rank ``ci``, as ``ShardedChain.init`` places them."""
+    return place_state(_from_jax_chain_tree(state, device), tags, ci, dc)
+
+
+def _from_jax_chain_tree(state, device: torch.device):
     if hasattr(state, "ri"):
         ri = np.asarray(state.ri, np.float32)
         return _leaf((ri[..., 0] + 1j * ri[..., 1]).astype(np.complex64), device)
     if isinstance(state, (tuple, list)):
-        return tuple(from_jax_sharded_chain_state(s, device) for s in state)
+        return tuple(_from_jax_chain_tree(s, device) for s in state)
     return _leaf(state, device)

@@ -82,13 +82,13 @@ def test_fused_and_eager_cli_outputs_agree(captures, tmp_path):
     assert np.max(np.abs(outs["fused"][:, 1:] - outs["eager"][:, 1:])) < 1.2e-3
 
 
-@pytest.mark.parametrize("extra", [["--mesh", "2x1", "--demod", "DeAM WAV"],
+@pytest.mark.parametrize("extra", [["--mesh", "2x1", "--demod", "DeFMS 8 WAV"],
                                    ["--mesh", "2x1", "--demod", "DeNBFMSync 10"],
                                    ["--devname", "synthetic", "--mesh", "2x1", "--demod",
-                                    "DeAM WAV"]])
+                                    "DeFMS 8 WAV"]])
 def test_unported_options_exit_nonzero(captures, tmp_path, extra, capsys):
-    """An unported flow is refused before its source opens, from a file or
-    from an SDR device."""
+    """An unported flow (--mesh for the stereo and symbol-sync flows) is
+    refused before its source opens, from a file or from an SDR device."""
     args = ["--filename", captures["cf32"], "-c", str(NCH), "-o", str(tmp_path / "x"),
             "--demod", "DeNBFM 0.6 F32", "--device", "cpu"]
     if "--devname" in extra:
@@ -472,8 +472,8 @@ def test_mesh_flow_matches_jax_cli(mesh_captures, tmp_path, monkeypatch, backend
 
 @pytest.mark.parametrize("extra,why", [
     (["--mesh", "64x1", "--device", "cuda"], "mesh 64x1: 64 ranks need 64 CUDA devices"),
-    (["--mesh", "2x1", "--demod", "DeAM WAV"], "ShardedChain"),
-    (["--mesh", "2x1", "-m"], "ShardedChain"),
+    (["--mesh", "2x1", "--demod", "DeNBFMSync 10"], "ShardedChain"),
+    (["--mesh", "2x1", "--demod", "DeFMS 8 WAV"], "ShardedChain"),
     (["--mesh", "2x2", "--backend", "fused"], "over time only"),
     (["--mesh", "2x3"], "does not split over 3 channel ranks"),
 ])

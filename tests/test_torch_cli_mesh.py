@@ -1,17 +1,22 @@
-"""The port's CLI with ``--mesh TxC -c 1`` (the generic sharded chain,
-parallel/generic.ShardedChain) on gloo ranks against the serial CLI's
+"""The port's CLI with ``--mesh TxC`` over the generic sharded chain
+(parallel/generic.ShardedChain) on gloo ranks against the serial CLI's
 files, and the flows that still refuse ``--mesh``.
 
-Each admitted flow (DeNBFM, DeWBFM, DeAM, DeUSB, DeLSB, DeCW with --offset
-and -b 48000, -a DeNo) runs through the CLI's own rank function
+Each admitted -c 1 flow (DeNBFM, DeWBFM, DeAM, DeUSB, DeLSB, DeCW with
+--offset and -b 48000, -a DeNo) runs through the CLI's own rank function
 (``_mesh_rank``) on one module-scoped pair of ranks, while this process
 runs the serial CLI; two flows also run whole through ``main`` (the parent's
 static check, then ``spawn``), one of them on a 2x2 mesh (the time layout
-replicated over 'ch').  Bound: 2e-3 relative to the largest output
-(tests/test_sharding_generic.py:60)."""
+replicated over 'ch').  The -c 8 flows (DeAM, DeCW, -a DeNo, DeWBFM, DeUSB,
+-m DeNBFM: the channel layout, ``dc_blocker >> firpfbch_channelizer >>
+PerChannel(...) [>> MixChannels]``) run the same way on 2x1 and 1x2 against
+the serial ``--backend eager`` CLI, and DeCW whole through ``main`` on 2x2
+against the JAX CLI's ``--mesh 2x2`` files.  Bound: 2e-3 relative to the
+largest output (tests/test_sharding_generic.py:60)."""
 
 import concurrent.futures
 import os
+import re
 
 import numpy as np
 import pytest
@@ -131,8 +136,12 @@ def test_mesh_cli_main_matches_serial(capture, runs, tmp_path, capsys, name, mes
 @pytest.mark.parametrize("extra,code,why", [
     (["-c", "1", "--demod", "DeFMS 8 WAV"], 2, "not yet ported in csdr_tpu_torch"),
     (["-c", "1", "--demod", "DeNBFMSync 10"], 2, "not yet ported in csdr_tpu_torch"),
-    (["-c", "4", "--demod", "DeCW 500 700 WAV"], 2, "not yet ported in csdr_tpu_torch"),
-    (["-c", "4", "-m", "--demod", "DeNBFM 0.6 WAV"], 2, "not yet ported in csdr_tpu_torch"),
+    (["-c", "4", "--demod", "DeCW 500 700 WAV", "--mesh", "1x3"], 1,
+     "--mesh: invalid configuration (pfb_channelizer(4): nch=4 not divisible by the 3-way "
+     "channel mesh axis)"),
+    (["-c", "6", "-m", "--demod", "DeNBFM 0.6 WAV", "--mesh", "2x4"], 1,
+     "--mesh: invalid configuration (pfb_channelizer(6): nch=6 not divisible by the 4-way "
+     "channel mesh axis)"),
     (["-c", "1", "--demod", "DeAIS"], 2, "not yet ported in csdr_tpu_torch"),
     (["-c", "1", "--offset", "94300", "-b", "48000", "--demod", "DeCW 500 700 WAV",
       "--blocksize", "1024", "--mesh", "4x1"], 1,
@@ -140,7 +149,10 @@ def test_mesh_cli_main_matches_serial(capture, runs, tmp_path, capsys, name, mes
      "700-sample halo"),
 ], ids=["DeFMS", "DeNBFMSync", "-c 4 DeCW", "-m", "DeAIS", "halo"])
 def test_mesh_refusals(capture, tmp_path, capsys, extra, code, why):
-    """Refused before any rank starts, with a message and no traceback."""
+    """Refused before any rank starts, with a message and no traceback: the
+    flows whose blocks have no shard methods yet, a channel count that the
+    C axis does not divide (-c N DeCW, -c N -m DeNBFM), a block too short
+    for a halo."""
     argv = ["--filename", capture, "-o", str(tmp_path / "x"), "--device", "cpu", *extra]
     if "--mesh" not in argv:
         argv += ["--mesh", "2x1"]
@@ -152,18 +164,161 @@ def test_mesh_refusals(capture, tmp_path, capsys, extra, code, why):
 
 def test_mesh_refuses_a_block_that_cannot_be_time_sharded(capture, tmp_path, capsys,
                                                           monkeypatch):
-    """A graph whose block cannot be time-sharded in this port (here the
-    channelizer, as a -c 1 graph) prints the JAX CLI's "this flow cannot be
-    time-sharded" and exits 1."""
+    """A graph whose block cannot be sharded in this port yet (here the
+    stereo decoder, as a -c 1 graph) prints the JAX CLI's "this flow cannot
+    be time-sharded" and exits 1."""
     from csdr_tpu_torch import blocks as B
     from csdr_tpu_torch.core.block import chain
+    from csdr_tpu_torch.models.stereo import stereo_fm_decoder
 
-    monkeypatch.setattr(cli, "_graph", lambda *a: chain(B.dc_blocker(),
-                                                       B.firpfbch_channelizer(8)))
+    monkeypatch.setattr(cli, "_graph", lambda *a: chain(B.dc_blocker(), B.fm_demodulator(0.8),
+                                                       stereo_fm_decoder(2.56e6, 8)))
     argv = ["--filename", capture, "-c", "1", "-o", str(tmp_path / "x"), "--device", "cpu",
             "--demod", "DeAM WAV", "--mesh", "2x1"]
     assert cli.main(argv) == 1
     err = capsys.readouterr().err
-    assert ("--mesh: this flow cannot be time-sharded (pfb_channelizer(8): sharded execution "
-            "of PFBChannelizer is not yet ported in csdr_tpu_torch)") in err
+    assert ("--mesh: this flow cannot be time-sharded (stereo_fm(2560000,8): sharded execution "
+            "of StereoFMDecoder is not yet ported in csdr_tpu_torch)") in err
     assert "Traceback" not in err and not os.listdir(tmp_path)
+
+
+# ---- -c N: the channel layout -------------------------------------------------
+
+FS8 = 256_000          # 32 kHz channels: every inner FIR's halo fits a rank's frames
+N8 = 3 * 16384 + 512   # a short last block, padded and trimmed
+CH_MESHES = ["2x1", "1x2"]
+CH_COMMON = ["-s", str(FS8), "-c", "8", "-n", str(N8), "--blocksize", "8192"]
+
+# name → (argv, output extension, per-channel files (False: one mixed file),
+#         samples out per file)
+CH_FLOWS = {
+    "DeAM": (["--demod", "DeAM WAV"], "wav", True, N8 // 8),
+    "DeCW": (["--demod", "DeCW 500 700 WAV"], "wav", True, N8 // 8),
+    "DeNo -a": (["-a", "-60", "--demod", "DeNo"], "cf32", True, N8 // 8),
+    "DeWBFM": (["--demod", "DeWBFM 4 F32"], "f32", True, N8 // 32),
+    "DeUSB": (["--demod", "DeUSB 3000 WAV"], "wav", True, N8 // 8),
+    "-m DeNBFM": (["-m", "--demod", "DeNBFM 0.6 WAV"], "wav", False, N8 // 8),
+}
+
+
+@pytest.fixture(scope="module")
+def capture8(tmp_path_factory):
+    """A cu8 capture at 256 kS/s with an FM carrier near every channel's
+    centre (no channel near zero, where atan2 amplifies rounding; every
+    channel far above the -60 dB squelch), and noise."""
+    d = tmp_path_factory.mktemp("cli_mesh_ch")
+    rng = np.random.default_rng(43)
+    t = np.arange(N8)
+    x = 0.01 * (rng.normal(size=N8) + 1j * rng.normal(size=N8))
+    for k in range(8):
+        f = (k - 3.5) / 8 + 0.01
+        x = x + 0.1 * np.exp(1j * (2 * np.pi * np.mod(f * t, 1.0)
+                                   + 1.5 * np.sin(2 * np.pi * 0.003 * (1 + k % 3) * t)))
+    q = np.clip(np.round(np.stack([x.real, x.imag], 1) * 127.5 + 127.5), 0, 255)
+    path = d / "cap8.cu8"
+    q.astype(np.uint8).tofile(path)
+    return str(path)
+
+
+def _argv8(capture8, name, out):
+    return ["--filename", capture8, "-o", out, *CH_COMMON, *CH_FLOWS[name][0], "--device", "cpu"]
+
+
+def _stem(name, kind):
+    return f"{kind}_{name.replace(' ', '_').replace('-', '')}"
+
+
+def _read8(prefix, name):
+    _, ext, per_channel, _ = CH_FLOWS[name]
+    if not per_channel:
+        return _read(f"{prefix}.{ext}", ext)[None]
+    return np.stack([_read(f"{prefix}_ch{i}.{ext}", ext) for i in range(1, 9)])
+
+
+def _mesh_flows8(device, capture8, outdir, mesh):
+    """One gloo rank: every -c 8 flow through the CLI's rank function on
+    ``mesh``, as ``_run_mesh`` spawns it."""
+    torch.set_num_threads(1)
+    for name in CH_FLOWS:
+        opts = cli.build_parser().parse_args(
+            _argv8(capture8, name, os.path.join(outdir, _stem(name, f"mesh{mesh}")))
+            + ["--mesh", mesh])
+        demod = cli.parse_demod(opts.demod)
+        cli._mesh_rank(device, opts, demod, opts.agc if opts.agc != 0.0 else None)
+    return True
+
+
+@pytest.fixture(scope="module")
+def runs8(capture8, tmp_path_factory):
+    """The -c 8 flows on each mesh (their ranks in a thread) while this
+    process runs the serial --backend eager CLI: {(flow, mesh): (serial,
+    mesh) arrays, (files or 1, samples)}."""
+    outdir = str(tmp_path_factory.mktemp("cli_mesh_ch_out"))
+
+    def meshes():
+        for mesh in CH_MESHES:
+            spawn(_mesh_flows8, 2, "cpu", (capture8, outdir, mesh), 300.0)
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        done = pool.submit(meshes)
+        for name in CH_FLOWS:
+            assert cli.main(_argv8(capture8, name, os.path.join(outdir, _stem(name, "serial")))
+                            + ["--backend", "eager"]) == 0, name
+        done.result()
+    return {(name, mesh): (_read8(os.path.join(outdir, _stem(name, "serial")), name),
+                           _read8(os.path.join(outdir, _stem(name, f"mesh{mesh}")), name))
+            for name in CH_FLOWS for mesh in CH_MESHES}
+
+
+@pytest.mark.parametrize("mesh", CH_MESHES)
+@pytest.mark.parametrize("name", list(CH_FLOWS))
+def test_channel_mesh_flow_matches_serial_cli(runs8, name, mesh):
+    """-c 8 --mesh TxC (ShardedChain over the eager graph) writes the
+    serial --backend eager CLI's files within 2e-3: every channel, every
+    sample, the short last block trimmed to the serial count."""
+    serial, got = runs8[(name, mesh)]
+    _, _, per_channel, n = CH_FLOWS[name]
+    assert serial.shape == got.shape == ((8 if per_channel else 1), n), (serial.shape, got.shape)
+    assert all(np.abs(row).max() > 0 for row in serial)
+    err = np.abs(got.astype(np.complex128) - serial).max() / np.abs(serial).max()
+    print(f"-c 8 {name} on {mesh}: {err:.3g}")
+    assert err < 2e-3, (name, mesh, err)
+
+
+def test_channel_mesh_main_matches_jax_cli(capture8, tmp_path, capfd, monkeypatch):
+    """The whole CLI at 2x2 (the parent's check, four spawned ranks, rank
+    0's per-channel files) against the JAX CLI's --mesh 2x2 files of the
+    same -c 8 DeCW flow: equal byte counts, 2e-3; -v prints each rank's
+    kernel launches and the count per channel."""
+    from csdr_tpu.apps.soapy_sdr_cli import main as jax_main
+
+    monkeypatch.setenv("CSDR_PALLAS_INTERPRET", "1")
+    argv = _argv8(capture8, "DeCW", str(tmp_path / "p"))
+    assert cli.main(argv + ["--mesh", "2x2", "-v"]) == 0
+    out = capfd.readouterr().out   # the ranks' processes write to the descriptor
+    assert "over mesh 2x2 (ShardedChain, cpu)" in out and " per channel " in out
+    # four processes share the descriptor: find each rank's line wherever it lands
+    assert set(re.findall(r"Kernel launches on rank (\d): \{", out)) == {"0", "1", "2", "3"}
+    assert jax_main(["--filename", capture8, "-o", str(tmp_path / "j"), *CH_COMMON,
+                     *CH_FLOWS["DeCW"][0], "--mesh", "2x2"]) == 0
+    for i in range(1, 9):
+        assert (os.path.getsize(tmp_path / f"p_ch{i}.wav")
+                == os.path.getsize(tmp_path / f"j_ch{i}.wav")), i
+    got, want = _read8(str(tmp_path / "p"), "DeCW"), _read8(str(tmp_path / "j"), "DeCW")
+    assert got.shape == want.shape == (8, N8 // 8)
+    assert np.abs(got - want).max() / np.abs(want).max() < 2e-3
+
+
+def test_channel_mesh_mix_ignores_play(capture8, runs8, tmp_path, capsys):
+    """--play under --mesh -c N -m: the mixed file is written and nothing
+    plays (the JAX CLI's sharded mix does not play either); stderr says so."""
+    out = str(tmp_path / "m")
+    argv = _argv8(capture8, "-m DeNBFM", out) + ["--mesh", "2x1", "--play",
+                                                  "sh -c 'cat > played.raw'"]
+    assert cli.main(argv) == 0
+    assert "--play ignored" in capsys.readouterr().err
+    got = _read8(out, "-m DeNBFM")
+    serial = runs8[("-m DeNBFM", "2x1")][0]
+    assert got.shape == serial.shape
+    assert np.abs(got - serial).max() / np.abs(serial).max() < 2e-3
+    assert not os.path.exists("played.raw")

@@ -570,3 +570,60 @@ def test_autotune_sweep_on_k1(dev, tmp_path, monkeypatch):
     _, want = ff.flagship_fused_step(ff.flagship_fused_init(nch, dev), u8, nch=nch)
     d = (got.double() - want.double()).abs()
     assert d.max().item() < 1.2e-3 and d.pow(2).mean().sqrt().item() < 4e-5
+
+
+CW_NCH, CW_BLOCK = 64, 1 << 20   # -c 64 "DeCW 500 700" at 2.56 MS/s: 585 taps per channel
+
+
+def _cw_channel_graph():
+    return ct.chain(ct.dc_blocker(), ct.firpfbch_channelizer(CW_NCH),
+                    ct.PerChannel(ct.cw_demodulator(500.0 / 40000.0, 700.0 / 40000.0), CW_NCH))
+
+
+def _cw_channel_rank(device, shape, x):
+    """One NCCL rank: the -c 64 DeCW channel graph as a ShardedChain over
+    three blocks of ``x``; this rank's panels and its K5 launches per step."""
+    from csdr_tpu_torch.parallel import ShardedChain, build_mesh
+
+    dt, dc = shape
+    rank = torch.distributed.get_rank()
+    ti = rank // dc
+    sh = ShardedChain(_cw_channel_graph(), build_mesh(dt, dc, "cuda"), CW_BLOCK)
+    nloc = CW_BLOCK // dt
+    st, outs, launches = sh.init(), [], []
+    for b in range(len(x) // CW_BLOCK):
+        seg = torch.from_numpy(x[b * CW_BLOCK + ti * nloc:][:nloc].copy()).to(device)
+        before = k5.launches
+        st, y = sh.step(st, seg)
+        torch.cuda.synchronize()
+        launches.append(k5.launches - before)
+        outs.append(y.cpu().numpy())
+    return outs, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)], ids=["2x1", "1x2"])
+def test_sharded_channel_graph_on_two_cards_launches_k5(dev, shape):
+    """PerChannel(DeCW) behind the channelizer on a 2-rank NCCL mesh (time
+    or channel axis) equals the serial K5 graph on one card within K5's
+    1e-4, and each rank launches K5 once per step on its own panel."""
+    from csdr_tpu_torch.parallel import spawn
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL takes one rank per card")
+    x = occupied_band(CW_NCH, 3 * CW_BLOCK, seed=31)
+    ranks = spawn(_cw_channel_rank, 2, "cuda", args=(shape, x), timeout=600.0)
+    g = _cw_channel_graph()
+    pipe = ct.Pipeline(g, block_size=CW_BLOCK, device=dev)
+    dt, dc = shape
+    for b in range(3):
+        before = k5.launches
+        want = pipe.process_block(x[b * CW_BLOCK:(b + 1) * CW_BLOCK]).cpu().numpy()
+        assert k5.launches == before + 1
+        rows = [np.concatenate([ranks[ti * dc + ci][0][b] for ti in range(dt)], axis=-1)
+                for ci in range(dc)]
+        got = np.concatenate(rows, axis=0)
+        assert got.shape == want.shape == (CW_NCH, CW_BLOCK // CW_NCH)
+        assert np.abs(got - want).max() / np.abs(want).max() < K5_REL_ERR
+    for _, launches in ranks:
+        assert launches == [1, 1, 1]

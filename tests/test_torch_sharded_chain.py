@@ -438,12 +438,12 @@ def test_shard_init_structure():
     (lambda: ct.chain(ct.Tee(ct.fir_decimator(4), ct.fir_decimator(2)),
                       ct.Lambda(lambda xy: xy[0] + xy[1][::2], name="combine")),
      2, 2 * 8 * 512, NotImplementedError, "combine: cannot consume a multi-rate tuple"),
-    (lambda: ct.chain(ct.dc_blocker(), ct.firpfbch_channelizer(8)), 2, 2 * 8 * 256,
-     NotImplementedError, "PFBChannelizer is not yet ported in csdr_tpu_torch"),
+    (lambda: ct.chain(ct.dc_blocker(), ct.firpfbch_channelizer(8)), 2, 2 * 8 * 8,
+     ValueError, "local segment 64 shorter than the 111-sample polyphase halo"),
     (lambda: ct.chain(ct.PerChannel(ct.fm_demodulator(0.6), 8)), 2, 2 * 256,
-     NotImplementedError, "PerChannel is not yet ported in csdr_tpu_torch"),
+     ValueError, r"sharded PerChannel requires channelized \(nch, n\) input layout"),
     (lambda: ct.chain(ct.fm_demodulator(0.6), ct.MixChannels()), 2, 2 * 256,
-     NotImplementedError, "MixChannels is not yet ported in csdr_tpu_torch"),
+     ValueError, "mix: mix requires channelized input"),
     (lambda: ct.chain(ct.stereo_fm_decoder(192000.0, 4)), 2, 1 << 16,
      NotImplementedError, "StereoFMDecoder is not yet ported in csdr_tpu_torch"),
 ], ids=["block_size", "halo", "fused_context", "multirate_combine", "channelizer",
@@ -451,8 +451,9 @@ def test_shard_init_structure():
 def test_validation_refuses_statically(graph, dt, block, exc, match):
     """tests/test_sharding_generic.py:231-249, :380-390 and
     tests/test_halo_fusion.py:166-175: refused before any collective, with
-    the JAX messages' substance; the channel layout and the blocks whose
-    shard methods wait say "not yet ported"."""
+    the JAX messages' substance: the channelizer's halo, PerChannel and
+    MixChannels on a time-layout input; the blocks whose shard methods wait
+    say "not yet ported"."""
     with pytest.raises(exc, match=match):
         ShardedChain.validate(graph(), dt, 1, block)
 
