@@ -221,9 +221,22 @@ card, trivial exchanges at one card):
       the CLI's -c 64 --mesh Wx1 (and 2x2 on four cards) "DeCW 500 700
       WAV" and -c 16 -m --mesh Wx1 "DeNBFM 0.6 WAV", each in a process of
       its own, against the serial --backend eager CLI's files (1e-4 and
-      2e-3), MSPS on each CLI's -v clock, K5 launches per rank.  ``python3
-      chip_smoke.py --chain-only`` runs identity, build, phase 4's capture
-      and 12.  Every phase prints its seconds ({"phase": "seconds", ...}).
+      2e-3), MSPS on each CLI's -v clock, K5 launches per rank.  12e the
+      library ShardedChain over the inputs that phases 6b, 8 and 9 make
+      (the stereo and helicopter captures at 2^25 samples, the AIS, APRS and
+      RTTY ones at 2^23, each behind its front end): the DeFMS 8 --rds Tee
+      (K5 once per block per rank, the 333-tap RDS filter), the AIS, APRS
+      and RTTY receivers (RTTY's two 1,056-tap tone filters on K5), -c 1
+      DeNBFMSync 12 at 48 kHz and the -c 64 DeNBFMSync 10 channel graph on
+      (W, 1) and, on four cards, (2, 2), each against the serial Pipeline at
+      the same block (K5's 1e-4, 2e-3, bits and decoded messages equal, the
+      sync within 2e-3 of either pick on full blocks), step times, the
+      step's peak memory per rank, a profiler window.  12f the CLI's
+      --mesh Wx1 "DeFMS 8 WAV" --rds, DeAIS and -c 64 "DeNBFMSync 10",
+      each in a process of its own, against the serial CLI's files.
+      ``python3 chip_smoke.py --chain-only`` runs identity, build, phase
+      4's capture and 12.  Every phase prints its seconds ({"phase":
+      "seconds", ...}).
 
 Prints one JSON object per result, then the nvidia-smi line, the kernels
 line and, last, {"ok": true, "device": {...}}.  Each kernels entry carries
@@ -1732,8 +1745,8 @@ def pocsag_capture(n: int, seed: int):
     return x + host_noise(n, seed + 1, 0.02), want
 
 
-def rtty_capture(n: int, seed: int):
-    """RTTY_TEXT at 45.45 Bd, 170 Hz shift, between idle marks that fill the
+def rtty_capture(n: int, seed: int, text: str = RTTY_TEXT):
+    """``text`` at 45.45 Bd, 170 Hz shift, between idle marks that fill the
     capture, as USB audio on a carrier RTTY_OFFSET above the tuning at
     PKT_FS (the real audio's image sideband is what the USB filter
     rejects)."""
@@ -1742,12 +1755,12 @@ def rtty_capture(n: int, seed: int):
     # idle mark fills the capture on both sides of the text: noise alone
     # would frame random characters
     k = PKT_FS / rtty.RTTY_BAUD
-    idle = (n / k - 7.5 * len(rtty.ita2_encode(RTTY_TEXT))) / 2 - 1
+    idle = (n / k - 7.5 * len(rtty.ita2_encode(text))) / 2 - 1
     check(idle >= 2, f"RTTY text needs more than the capture's {n} samples")
-    audio = rtty.rtty_modulate(RTTY_TEXT, PKT_FS, idle_bits=idle)
+    audio = rtty.rtty_modulate(text, PKT_FS, idle_bits=idle)
     x = np.zeros(n, np.complex64)
     x[:len(audio)] = 0.5 * audio * carrier(0, len(audio), RTTY_OFFSET, PKT_FS)
-    return x + host_noise(n, seed + 1, 0.02), [rtty.ita2_decode(rtty.ita2_encode(RTTY_TEXT))]
+    return x + host_noise(n, seed + 1, 0.02), [rtty.ita2_decode(rtty.ita2_encode(text))]
 
 
 def band_capture(n: int, seed: int):
@@ -3651,11 +3664,12 @@ def channel_layout_rank(torch, ct, device, world: int, captures: dict) -> dict:
     return out
 
 
-def chain_rank(device, capture: str, world: int, mix_path: str) -> dict:
-    """One NCCL rank of phases 12a and 12c (``parallel.spawn`` runs it on
-    every card; every collective below is called by every rank in the same
-    order).  12c, the channel layout, is ``channel_layout_rank`` (its
-    mixed monitor reads ``mix_path``).
+def chain_rank(device, capture: str, world: int, mix_path: str, specs: list) -> dict:
+    """One NCCL rank of phases 12a, 12c and 12e (``parallel.spawn`` runs it
+    on every card; every collective below is called by every rank in the
+    same order).  12c, the channel layout, is ``channel_layout_rank`` (its
+    mixed monitor reads ``mix_path``); 12e, the stereo, RDS, packet and
+    sync graphs, is ``flow_rank`` over ``specs``.
 
     For each graph of ``chain_graphs``: the sharded step's time
     (time_steps, every rank stepping its segment of one device-resident
@@ -3764,7 +3778,439 @@ def chain_rank(device, capture: str, world: int, mix_path: str) -> dict:
         out[label] = r
     out["channels"] = channel_layout_rank(torch, ct, device, world,
                                           {"capture": capture, "mix": mix_path})
+    out["flows"] = flow_rank(torch, ct, device, world, specs)
     return out
+
+
+# ---- 12e/12f: the stereo, RDS, packet and symbol-sync graphs on the mesh -------
+
+FLOW_SAMPLES = 1 << 23       # 12e's packet captures at PKT_FS: ~210 k samples at 48 kHz
+FLOW_BLOCK = 1 << 16         # 12e's blocks at 48 kHz (several per capture)
+FLOW_RTTY_TEXT = "RYRY DE N0CALL 599"   # fits FLOW_SAMPLES (RTTY_TEXT needs ~32 M)
+FMS_DECIM = 8
+
+
+def round_block(n: int, quantum: int) -> int:
+    """The largest multiple of ``quantum`` not above n (at least one)."""
+    return max(n // quantum, 1) * quantum
+
+
+def flow_graph(ct, label: str):
+    """12e's graphs, each as the CLI composes it behind its front end: the
+    DeFMS --rds Tee (its 333-tap RDS data filter on K5), the AIS, APRS and
+    RTTY receivers (RTTY's two 1,056-tap tone filters on K5), -c 1
+    DeNBFMSync 12 at 48 kHz and the -c 64 DeNBFMSync 10 channel graph
+    behind the cu8 reader."""
+    from csdr_tpu_torch.apps import soapy_sdr_cli as cli
+    from csdr_tpu_torch.models.symsync import fm_dem_with_sync
+
+    if label == "DeFMS --rds":
+        return fms_graph(FMS_DECIM)[0]
+    if label in PACKET_DEMOD:
+        return cli._packet_graph(cli.parse_demod(PACKET_DEMOD[label]), [], 48000.0)
+    if label == "-c 1 DeNBFMSync":
+        return ct.chain(ct.dc_blocker(), fm_dem_with_sync(SYNC_FE_K))
+    return sync_graph(ct, "eager")
+
+
+def flow_specs(torch, ct, dev, tmp, world: int) -> list[dict]:
+    """12e's cases and their inputs, made as phases 6, 8 and 9 make theirs:
+    the stereo capture (6b) and the helicopter capture (9) at 2^25 samples,
+    the AIS, APRS and RTTY captures (8) at FLOW_SAMPLES.  A graph behind a
+    front end reads that front end's output, run once here on the card and
+    written as CF32 (the CLI runs it on rank 0's own Pipeline); the -c 64
+    sync reads the cu8 file.  Each block is a multiple of 4 · the graph's
+    granule (and for the sync of its 8 timing windows), so every mesh and
+    the serial reference step the same blocks."""
+    from csdr_tpu_torch.apps import soapy_sdr_cli as cli
+
+    def front(path, fs, offset, bw, name):
+        g = ct.chain(ct.u8_to_iq(), *ct.front_end(fs, offset, bw))
+        sink = ct.CollectSink()
+        ct.Pipeline(g, block_size=round_block(BLOCK, g.granule), device=dev).run(
+            ct.cu8_file_source(path, BLOCK), sink)
+        y = sink.concat()
+        out = os.path.join(tmp, f"{name}.cf32")
+        y.astype(np.complex64).tofile(out)
+        return out, len(y)
+
+    specs = []
+    t0 = time.perf_counter()
+    stereo = os.path.join(tmp, "flow_stereo.cu8")
+    stereo_capture(torch, dev, CAPTURE, SEED + 500).cpu().numpy().tofile(stereo)
+    fe, n = front(stereo, 2.56e6, 0.0, FM_BW, "flow_stereo_fe")
+    g = flow_graph(ct, "DeFMS --rds")
+    specs.append(dict(label="DeFMS --rds", path=fe, wire="cf32", samples=n, rate=FM_BW,
+                      block=round_block(1 << 20, 4 * g.granule), bound=K5_REL_ERR,
+                      kernel="fir_valid", per_block=1, cu8=stereo,
+                      meshes=[[world, 1]]))
+    for i, kind in enumerate(("DeAIS", "DeAPRS", "DeRTTY")):
+        make = {"DeAIS": lambda n, s: ais_capture(ct, n, s), "DeAPRS": aprs_capture,
+                "DeRTTY": lambda n, s: rtty_capture(n, s, FLOW_RTTY_TEXT)}[kind]
+        x, msgs = make(FLOW_SAMPLES, SEED + 1210 + 10 * i)
+        path = os.path.join(tmp, f"flow_{kind}.cu8")
+        write_cu8(path, x)
+        del x
+        extra = packet_flows(ct)[kind][2]
+        offset = float(extra[extra.index("--offset") + 1])
+        fe, n = front(path, PKT_FS, offset, 48000.0, f"flow_{kind}_fe")
+        g = flow_graph(ct, kind)
+        rtty = kind == "DeRTTY"
+        specs.append(dict(label=kind, path=fe, wire="cf32", samples=n, rate=48000.0,
+                          block=round_block(FLOW_BLOCK, 4 * g.granule),
+                          bound=K5_REL_ERR if rtty else CHAIN_REL_ERR,
+                          kernel="fir_valid" if rtty else None, per_block=2 if rtty else 0,
+                          cu8=path, want=cli.packet_lines(kind, msgs), extra=extra,
+                          meshes=[[world, 1]]))
+    heli = os.path.join(tmp, "flow_heli.cu8")
+    x, texts, _ = sync_capture(torch, dev, CAPTURE, SEED + 1000)
+    to_cu8(torch, x).cpu().numpy().tofile(heli)
+    del x
+    ch = SYNC_CHANNELS[2]
+    offset = (ch - (SYNC_NCH - 1) / 2) / SYNC_NCH * 2.56e6
+    fe, n = front(heli, 2.56e6, offset, float(SYNC_FE_RATE), "flow_heli_fe")
+    g = flow_graph(ct, "-c 1 DeNBFMSync")
+    specs.append(dict(label="-c 1 DeNBFMSync", path=fe, wire="cf32", samples=n,
+                      rate=float(SYNC_FE_RATE), block=round_block(FLOW_BLOCK, 4 * 8 * g.granule),
+                      bound=SYNC_TOL, kernel=None, per_block=0, sync=True, channels=[0],
+                      meshes=[[world, 1]]))
+    g = flow_graph(ct, "-c 64 DeNBFMSync")
+    specs.append(dict(label="-c 64 DeNBFMSync", path=heli, wire="cu8", samples=CAPTURE,
+                      rate=2.56e6, block=round_block(BLOCK, 4 * 8 * g.granule),
+                      bound=SYNC_TOL, kernel=None, per_block=0, sync=True,
+                      channels=list(SYNC_CHANNELS), texts=texts,
+                      meshes=[[world, 1]] + ([[2, 2]] if world == 4 else [])))
+    emit(dict(phase="chain", part="flow_captures", seconds=time.perf_counter() - t0,
+              cases={s["label"]: dict(samples=s["samples"], block=s["block"],
+                                      rate=s["rate"]) for s in specs}))
+    return specs
+
+
+def flow_serial(torch, ct, device, spec) -> dict:
+    """The serial port Pipeline of a 12e graph over its input on this card,
+    at the spec's block: the collected output (and for the sync the other
+    picks of ``record_ties``), seconds and kernel launches."""
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+    from csdr_tpu_torch.ops.cuda import flagship_fused as ff
+    from csdr_tpu_torch.ops.cuda import pfb_fused as pf
+
+    graph = flow_graph(ct, spec["label"])
+    src = (ct.cu8_file_source if spec["wire"] == "cu8" else ct.cf32_file_source)(
+        spec["path"], spec["block"])
+    sink = ct.CollectSink()
+    torch.cuda.synchronize()
+    reset_counts(ff, pf, fv, fx)
+    t0 = time.perf_counter()
+    with record_ties(SYNC_TIE) as rec:
+        ct.Pipeline(graph, block_size=spec["block"], device=device).run(src, sink)
+    torch.cuda.synchronize()
+    out = dict(seconds=time.perf_counter() - t0, launches=read_counts(ff, pf, fv, fx),
+               y=sink.concat())
+    if rec:
+        out["codes"], out["other"] = (np.concatenate([r[i] for r in rec], axis=-1)
+                                      for i in (0, 1))
+    return out
+
+
+def flow_compare(spec, got, want: dict) -> dict:
+    """A 12e output against the serial one: bits equal, the float leaves'
+    error relative to their largest sample, the sync by ``sync_close`` on
+    its channels' full blocks (the last, zero-padded block apart), and the
+    decoded messages (RDS fields, packet lines) equal."""
+    from csdr_tpu_torch.apps import soapy_sdr_cli as cli
+    from csdr_tpu_torch.models import rds
+
+    w = want["y"]
+    got_l = list(got) if isinstance(got, tuple) else [got]
+    want_l = list(w) if isinstance(w, tuple) else [w]
+    r = dict(shape=[list(a.shape) for a in got_l], want_shape=[list(a.shape) for a in want_l],
+             finite=bool(all(np.isfinite(a).all() for a in got_l)))
+    if r["shape"] != r["want_shape"]:
+        return r
+    if spec.get("sync"):
+        got2, want2 = np.atleast_2d(got_l[0]), np.atleast_2d(want_l[0])
+        other, codes = np.atleast_2d(want["other"]), np.atleast_2d(want["codes"])
+        per = spec["block"] // (64 if spec["wire"] == "cu8" else 1) // (
+            SYNC_K if spec["wire"] == "cu8" else SYNC_FE_K) * 2
+        full = spec["samples"] // spec["block"] * per
+        r["vs_serial"] = sync_agree([sync_close(got2[c][:full], want2[c][:full],
+                                                (codes[c][:full], other[c][:full]))
+                                     for c in spec["channels"]])
+        r["vs_serial_padded_block"] = float(max(
+            np.abs(got2[c][full:] - want2[c][full:]).max(initial=0.0)
+            / np.abs(want2[c]).max() for c in spec["channels"]))
+        r["ok"] = r["finite"] and r["vs_serial"][0] < SYNC_TOL
+        return r
+    errs = []
+    for a, b in zip(got_l, want_l):
+        if a.dtype == np.uint8:
+            errs.append(0.0 if np.array_equal(a, b) else float("inf"))
+        else:
+            errs.append(float(np.abs(a.astype(np.float64) - b).max() / np.abs(b).max()))
+    r["vs_serial_rel"] = errs
+    r["ok"] = r["finite"] and max(errs) < spec["bound"]
+    if spec["label"] == "DeFMS --rds":
+        r["rds"], r["rds_serial"] = rds.decode_groups(got_l[1]), rds.decode_groups(want_l[1])
+        r["ok"] = r["ok"] and r["rds"] == r["rds_serial"] and r["rds"]["ps"] == RDS_PS
+    elif spec["label"] in PACKET_DEMOD:
+        demod = cli.parse_demod(PACKET_DEMOD[spec["label"]])
+        lines = cli.packet_lines(demod[0], cli.packet_messages(demod, got_l[0], spec["rate"]))
+        r.update(messages=len(lines), injected=len(spec["want"]),
+                 equal_to_injected=lines == spec["want"])
+        r["ok"] = r["ok"] and r["equal_to_injected"]
+    return r
+
+
+def flow_rank(torch, ct, device, world: int, specs: list) -> dict:
+    """12e on one NCCL rank: for each case of ``flow_specs`` and mesh, the
+    sharded step's time against the serial step's on rank 0 (one device-
+    resident block), the sharded step's peak memory on this rank, one
+    profiler window over 5 sharded steps on rank 0, then the ShardedChain
+    over the case's input through ShardedPipeline with every kernel count
+    set to 0 just before and read just after; rank 0 holds the output
+    against the serial port Pipeline at the same block (``flow_serial``,
+    once per case) by ``flow_compare``."""
+    import torch.distributed as dist
+
+    from csdr_tpu_torch.ops.cuda import fft_fir as fx
+    from csdr_tpu_torch.ops.cuda import fir_valid as fv
+    from csdr_tpu_torch.ops.cuda import flagship_fused as ff
+    from csdr_tpu_torch.ops.cuda import pfb_fused as pf
+    from csdr_tpu_torch.parallel import ShardedChain, ShardedPipeline, build_mesh
+
+    rank = dist.get_rank()
+    out, serial = {}, {}
+    for spec in specs:
+        block, label = spec["block"], spec["label"]
+        source = ct.cu8_file_source if spec["wire"] == "cu8" else ct.cf32_file_source
+        first = next(iter(source(spec["path"], block)))
+        check(len(first) == block, f"12e {label}: input shorter than one block")
+        whole = torch.from_numpy(first.copy()).to(device)
+        for dt, dc in spec["meshes"]:
+            if dt * dc > world:
+                continue
+            mesh = build_mesh(dt, dc, device.type)
+            graph = flow_graph(ct, label)
+            sh = ShardedChain(graph, mesh, block)
+            nloc = block // dt
+            mine = whole[(rank // dc) * nloc:(rank // dc + 1) * nloc].contiguous()
+            box = {"s": sh.init()}
+
+            def step():
+                box["s"], _ = sh.step(box["s"], mine)
+
+            r = dict(mesh=[dt, dc], block=block, nloc=nloc,
+                     blocks=-(-(spec["samples"] + graph.flush_len()) // block))
+            step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            step()
+            torch.cuda.synchronize()
+            r["step_peak_mib_per_rank"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            dist.barrier()
+            r["sharded_step_ms"] = statistics.median(time_steps(torch, step, steps=10))
+            dist.barrier()
+            if rank == 0 and label not in serial:
+                sbox = {"s": graph.init(device)}
+
+                def serial_step():
+                    sbox["s"], _ = graph.apply(sbox["s"], whole)
+
+                serial_step()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                serial_step()
+                torch.cuda.synchronize()
+                peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+                ms = statistics.median(time_steps(torch, serial_step, steps=10))
+                del sbox
+                serial[label] = flow_serial(torch, ct, device, spec)
+                serial[label].update(step_ms=ms, step_peak_mib=peak)
+            dist.barrier()
+            step()
+            torch.cuda.synchronize()
+            dist.barrier()
+            if rank == 0:
+                prof, _ = traced(torch, lambda: [step() for _ in range(5)])
+                kern = device_kernels(prof)
+                nccl = {k: v for k, v in kern.items() if "nccl" in k.lower()}
+                k5 = {k: v for k, v in kern.items() if "fir_valid" in k}
+                r.update(launch_calls=launch_calls(prof),
+                         device_kernels=sum(v["count"] for v in kern.values()),
+                         device_ms_per_step=sum(v["device_us"] for v in kern.values()) / 5e3,
+                         k5_launches_per_step=sum(v["count"] for v in k5.values()) / 5,
+                         k5_device_ms_per_step=sum(v["device_us"] for v in k5.values()) / 5e3,
+                         nccl_device_ms_per_step=sum(v["device_us"] for v in nccl.values())
+                         / 5e3,
+                         top_kernels=[[k[:100], v["device_us"] / 5] for k, v in sorted(
+                             kern.items(), key=lambda kv: -kv[1]["device_us"])[:4]])
+            else:
+                for _ in range(5):
+                    step()
+                torch.cuda.synchronize()
+            del box, mine
+            sink = ct.CollectSink() if rank == 0 else None
+            torch.cuda.synchronize()
+            dist.barrier()
+            reset_counts(ff, pf, fv, fx)
+            t0 = time.perf_counter()
+            total = ShardedPipeline(sh).run(source(spec["path"], block) if rank == 0 else None,
+                                            sink)
+            torch.cuda.synchronize()
+            r.update(seconds=time.perf_counter() - t0, launches=read_counts(ff, pf, fv, fx),
+                     total=total)
+            r["msps"] = spec["samples"] / r["seconds"] / 1e6
+            if rank == 0:
+                want = serial[label]
+                r.update(flow_compare(spec, sink.concat(), want),
+                         serial_seconds=want["seconds"], serial_launches=want["launches"],
+                         serial_msps=spec["samples"] / want["seconds"] / 1e6,
+                         serial_step_ms=want["step_ms"],
+                         serial_step_peak_mib=want["step_peak_mib"])
+            del sink, sh
+            dist.barrier()
+            out[f"{label} {dt}x{dc}"] = r
+        del whole
+    return out
+
+
+def phase_chain_flows(torch, ff, pf, card, tmp, world: int, specs: list, ranks: list) -> dict:
+    """12e, the ranks' results of ``flow_rank`` checked, each against the
+    serial Pipeline; 12f, the CLI's --mesh Wx1 DeFMS 8 --rds, DeAIS and -c 64
+    DeNBFMSync 10, each mesh run in a process of its own, against the serial
+    CLI's files (the WAV within K5's 1e-4 and .rds.txt equal; .ais.txt equal
+    and every injected message; the 64 .f32 files within the sync rule on
+    full blocks, helidecode's coordinates equal).  Deletes 12e's inputs."""
+    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
+
+    thru = r"Throughput: \d+ samples into the flow in ([\d.]+) s"
+    res = {"flows": {}}
+    # 12e. the stereo, RDS, packet and sync graphs through the library
+    for key, r0 in ranks[0]["flows"].items():
+        spec = next(sp for sp in specs if key.startswith(sp["label"] + " "))
+        per_rank = [r["flows"][key]["launches"] for r in ranks]
+        emit(dict(phase="chain", part="flow_library", flow=key, world=world,
+                  samples=spec["samples"], rate=spec["rate"], launches_per_rank=per_rank,
+                  peak_mib_per_rank=[r["flows"][key]["step_peak_mib_per_rank"] for r in ranks],
+                  **{k: v for k, v in r0.items() if not k.endswith("launches")}, **card))
+        what = f"sharded flow {key}"
+        seen = {k: r0.get(k) for k in ("shape", "want_shape", "finite", "vs_serial_rel",
+                                       "vs_serial", "rds", "rds_serial", "messages",
+                                       "injected")}
+        check(r0.get("ok", False), f"{what}: {seen}")
+        kernel, want_n = spec["kernel"], spec["per_block"] * r0["blocks"]
+        for counts in per_rank + [r0["serial_launches"]]:
+            check_counts(counts, kernel, what)
+            if kernel:
+                check(counts[kernel] == want_n,
+                      f"{what}: {counts[kernel]} {kernel} launches, want {want_n}")
+        if kernel:
+            check(r0["k5_launches_per_step"] == spec["per_block"],
+                  f"{what}: K5 {r0['k5_launches_per_step']} launches per profiled step")
+        res["flows"][key] = dict(r0, launches_per_rank=per_rank)
+
+    # 12f. three CLI runs over the mesh against the serial CLI's files, each
+    # mesh run in a process of its own
+    res["flow_cli"] = {}
+    by = {sp["label"]: sp for sp in specs}
+    fms, ais_sp, heli = by["DeFMS --rds"], by["DeAIS"], by["-c 64 DeNBFMSync"]
+    cases = [
+        ("DeFMS --rds", CAPTURE, ["--filename", fms["cu8"], "-b", str(int(FM_BW)),
+                                  "-n", str(fms["samples"]), "--demod", f"DeFMS {FMS_DECIM} WAV",
+                                  "--rds", "--blocksize", str(fms["block"])], "fir_valid"),
+        ("DeAIS", FLOW_SAMPLES, ["--filename", ais_sp["cu8"], "-s", str(PKT_FS), *ais_sp["extra"],
+                   "-n", str(ais_sp["samples"]), "--demod", "DeAIS",
+                   "--blocksize", str(ais_sp["block"])], None),
+        ("-c 64 DeNBFMSync", CAPTURE, ["--filename", heli["path"], "-n", str(CAPTURE),
+                                       "-c", str(SYNC_NCH), "--demod", f"DeNBFMSync {SYNC_K}",
+                                       "--backend", "eager", "--blocksize", str(heli["block"])],
+         None)]
+    for label, samples_in, common, kernel in cases:
+        prefix = {k: os.path.join(tmp, f"flow_cli_{k}") for k in ("serial", "mesh")}
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), record_ties(SYNC_TIE) as rec:
+            main_serial, serial_counts = cli_run(torch, ff, pf, cli_main, common + [
+                "-o", prefix["serial"], "--device", "cuda", "-v"])
+        m = re.search(thru, buf.getvalue())
+        check(m is not None, f"serial CLI {label} output: {buf.getvalue()[-2000:]}")
+        check_counts(serial_counts, kernel, f"serial CLI {label}")
+        mesh = f"{world}x1"
+        argv = [sys.executable, "-m", "csdr_tpu_torch.apps.soapy_sdr_cli", *common,
+                "--mesh", mesh, "--device", "cuda", "-v", "-o", prefix["mesh"]]
+        r, wall, stamps = run_stamped(argv)
+        what = f"CLI {label} --mesh {mesh}"
+        check(r.returncode == 0, f"{what}: exit code {r.returncode}: {r.stderr.strip()[-2000:]}")
+        mm = re.search(thru, r.stdout)
+        cli_counts = [json.loads(c) for c in re.findall(
+            r"Kernel launches on rank \d+: (\{[^}]*\})", r.stdout)]
+        check(mm is not None and len(cli_counts) == world and "ShardedChain" in r.stdout,
+              f"{what} output: {r.stdout[-2000:]}")
+        for counts in cli_counts:
+            check_counts(counts, kernel, what)
+            if kernel:
+                check(counts[kernel] == serial_counts[kernel],
+                      f"{what}: {counts[kernel]} K5 launches, the serial CLI "
+                      f"{serial_counts[kernel]}")
+        c = dict(samples_in=samples_in, msps=samples_in / float(mm.group(1)) / 1e6,
+                 serial_msps=samples_in / float(m.group(1)) / 1e6,
+                 rank0_seconds=float(mm.group(1)),
+                 wall_seconds=wall, first_line_seconds=min(stamps.values()),
+                 launches_per_rank=cli_counts, serial_seconds=float(m.group(1)),
+                 serial_main_seconds=main_serial, serial_launches=serial_counts)
+        if label == "DeFMS --rds":
+            got, want = (np.fromfile(prefix[k] + ".wav", "<f4", offset=44) for k in prefix)
+            txt = {k: open(prefix[k] + ".rds.txt").read() for k in prefix}
+            c.update(samples=int(got.size), vs_serial_cli_rel=float(
+                np.abs(got.astype(np.float64) - want).max() / np.abs(want).max())
+                if got.shape == want.shape else float("inf"),
+                finite=bool(np.isfinite(got).all()), rds_txt_equal=txt["mesh"] == txt["serial"],
+                rds=txt["mesh"])
+            ok = (c["finite"] and c["vs_serial_cli_rel"] < K5_REL_ERR and c["rds_txt_equal"]
+                  and f"PS: {RDS_PS}" in txt["mesh"])
+            for k in prefix:
+                for ext in (".wav", ".rds.txt"):
+                    os.unlink(prefix[k] + ext)
+        elif label == "DeAIS":
+            txt = {k: open(prefix[k] + ".ais.txt").read() for k in prefix}
+            lines = txt["mesh"].splitlines()
+            c.update(txt_equal=txt["mesh"] == txt["serial"], messages=len(lines),
+                     injected=len(ais_sp["want"]))
+            ok = c["txt_equal"] and lines == ais_sp["want"]
+            for k in prefix:
+                os.unlink(prefix[k] + ".ais.txt")
+        else:
+            nout = CAPTURE * 2 // (SYNC_NCH * SYNC_K)
+            full = CAPTURE // heli["block"] * (heli["block"] * 2 // (SYNC_NCH * SYNC_K))
+            codes, other = (np.concatenate([x[i] for x in rec], axis=-1) for i in (0, 1))
+            chans = {k: read_channels(prefix[k], "f32", np.float32, SYNC_NCH, 4 * nout)
+                     for k in prefix}
+            occ = list(SYNC_CHANNELS)
+            c["vs_serial_cli"] = sync_agree([sync_close(
+                chans["mesh"][ch][:full], chans["serial"][ch][:full],
+                (codes[ch][:full], other[ch][:full])) for ch in occ])
+            c["vs_serial_cli_padded_block"] = float(max(
+                np.abs(chans["mesh"][ch][full:] - chans["serial"][ch][full:]).max(initial=0.0)
+                / np.abs(chans["serial"][ch]).max() for ch in occ))
+            coords = {k: {ch: heli_decode(f"{prefix[k]}_ch{ch + 1}.f32") for ch in occ}
+                      for k in prefix}
+            c["coords_per_channel"] = {ch: len(coords["mesh"][ch]) for ch in occ}
+            ok = c["vs_serial_cli"][0] < SYNC_TOL and all(
+                coords["mesh"][ch] == coords["serial"][ch]
+                and set(coords["mesh"][ch]) == {heli_coord(heli["texts"][ch])} for ch in occ)
+            for k in prefix:
+                for ch in range(SYNC_NCH):
+                    os.unlink(f"{prefix[k]}_ch{ch + 1}.f32")
+        emit(dict(phase="chain", part="flow_cli", world=world, flow=f"{label} --mesh {mesh}",
+                  line_seconds=stamps, **c, **card))
+        check(ok, f"{what} vs the serial CLI: {c}")
+        res["flow_cli"][label] = c
+    for sp in specs:
+        for f in {sp["path"], sp.get("cu8", sp["path"])}:
+            os.unlink(f)
+    return res
 
 
 def run_stamped(argv: list[str], timeout: float = 600.0):
@@ -3813,7 +4259,9 @@ def phase_chain(torch, ff, pf, card, tmp, capture) -> dict:
     world = min(torch.cuda.device_count(), CHAIN_MAX)
     t_start = time.perf_counter()
     mix_path = mix_capture(torch, torch.device("cuda", 0), tmp)
-    ranks = spawn(chain_rank, world, "cuda", args=(capture, world, mix_path), timeout=900.0)
+    specs = flow_specs(torch, ct, torch.device("cuda", 0), tmp, world)
+    ranks = spawn(chain_rank, world, "cuda", args=(capture, world, mix_path, specs),
+                  timeout=900.0)
     res = {"world": world}
     for label, (_, _, kernel) in chain_graphs(ct).items():
         r0 = ranks[0][label]
@@ -3967,6 +4415,7 @@ def phase_chain(torch, ff, pf, card, tmp, capture) -> dict:
             check(c["finite"] and rel < bound_rel, f"{what} vs serial CLI: rel {rel}")
             res["channel_cli"][f"{label} {mesh}"] = c
         del serial
+    res.update(phase_chain_flows(torch, ff, pf, card, tmp, world, specs, ranks))
     os.unlink(mix_path)
     res["seconds"] = time.perf_counter() - t_start
     emit(dict(phase="chain", part="seconds", seconds=res["seconds"], **card))
@@ -4122,28 +4571,37 @@ def profile_kernels(torch, fn, steps: int, want: int | None = None, tries: int =
     return kern
 
 
+def trace_events(prof) -> list[tuple[str, bool, float]]:
+    """(name, on the device, duration µs) of every event of a torch.profiler
+    run, read once from its Kineto results and kept on ``prof``: the events
+    ``key_averages`` sums, without building the profiler's FunctionEvent
+    tree."""
+    if not hasattr(prof, "_csdr_events"):
+        prof._csdr_events = [(e.name(), str(e.device_type()).endswith("CUDA"),
+                              e.duration_ns() / 1e3)
+                             for e in prof.profiler.kineto_results.events()]
+    return prof._csdr_events
+
+
 def device_kernels(prof) -> dict:
     """Kernel name → dict(count, device_us) of a torch.profiler run: the
-    events with device time, less operator rows, copies and the ranges
-    ProcessGroupNCCL records around its kernels ("nccl:broadcast", …)."""
+    device events, less copies, sets and the ranges ProcessGroupNCCL
+    records around its kernels ("nccl:broadcast", …)."""
     kern = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "cuda_time_total", 0)
-        if dev_us and ev.count and ("ProfilerStep" not in ev.key) and (
-                getattr(ev, "device_type", None) is None
-                or str(ev.device_type).endswith("CUDA")) and not ev.key.startswith(
-                    ("aten::", "Memcpy", "Memset", "nccl:")):
-            kern[ev.key] = dict(count=ev.count, device_us=dev_us)
+    for name, on_device, us in trace_events(prof):
+        if on_device and "ProfilerStep" not in name and not name.startswith(
+                ("aten::", "Memcpy", "Memset", "nccl:")):
+            k = kern.setdefault(name, dict(count=0, device_us=0.0))
+            k["count"] += 1
+            k["device_us"] += us
     return kern
 
 
 def launch_calls(prof) -> int:
     """Kernel launches the host made in a torch.profiler run: the CUDA
     runtime's and driver's launch calls in its trace."""
-    return sum(ev.count for ev in prof.key_averages()
-               if ev.key.startswith(("cudaLaunch", "cuLaunch")))
+    return sum(1 for name, on_device, _ in trace_events(prof)
+               if not on_device and name.startswith(("cudaLaunch", "cuLaunch")))
 
 
 def idle_share(spec: dict) -> dict:
@@ -4573,6 +5031,23 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         "launches_channel_cli_per_rank": {
             key: [c["fir_valid"] for c in r["launches_per_rank"]]
             for key, r in chain["channel_cli"].items() if "DeCW" in key},
+        "launches_sharded_flows_per_rank": {
+            key: [c["fir_valid"] for c in r["launches_per_rank"]]
+            for key, r in chain["flows"].items() if key.startswith(("DeFMS", "DeRTTY"))},
+        "launches_flow_cli_per_rank": [
+            c["fir_valid"] for c in chain["flow_cli"]["DeFMS --rds"]["launches_per_rank"]],
+        "sharded_flows": {
+            key: {"shape_per_rank": f"(1, {r['nloc'] + K - 1}) "
+                                    f"{'complex64' if cplx else 'float32'} x {K} real taps",
+                  "launches_per_step_per_rank": per,
+                  **{k: r[k] for k in ("sharded_step_ms", "serial_step_ms",
+                                       "k5_launches_per_step", "k5_device_ms_per_step",
+                                       "nccl_device_ms_per_step", "device_ms_per_step",
+                                       "vs_serial_rel", "msps", "serial_msps")},
+                  **fir_bound(1, r["nloc"], K, cplx, False)}
+            for key, r in chain["flows"].items()
+            for K, cplx, per in [(333, False, 1) if key.startswith("DeFMS") else (1056, True, 2)]
+            if key.startswith(("DeFMS", "DeRTTY"))},
         "channel_chain": {
             key: {"shape_per_rank": r["k5_shape_per_rank"], "panel_per_rank": r["panel_per_rank"],
                   **{k: r[k] for k in (

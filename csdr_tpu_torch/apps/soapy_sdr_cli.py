@@ -49,19 +49,23 @@ device (``csdr_tpu_torch/parallel``).  ``-c N --demod "DeNBFM kf
 WAV|F32"`` ([``-a T``], without ``-m``): ``--backend fused`` is the
 time-sharded flagship kernel (``ShardedFlagship``, C = 1, no AGC, nch |
 64); ``pfb_fused`` and ``eager`` are ``ShardedChannelizedFM`` with and
-without K3/K4.  Every other flow of DeNBFM, DeWBFM, DeAM, DeUSB, DeLSB,
-DeCW and DeNo ([``-a T``]), ``-c 1`` or ``-c N`` [``-m``], runs the serial
-``--backend eager`` graph as a ``ShardedChain``, whatever ``--backend``
-says: ``dc_blocker >> [AGC >>] demod`` over time for ``-c 1``;
-``dc_blocker >> firpfbch_channelizer(N) >> PerChannel([AGC >>] demod)
-[>> MixChannels()]`` for ``-c N``, the channels over C and the frames over
-T (C must divide N).  The front end (``--offset``, ``-b``, with a cu8
+without K3/K4.  Every other flow runs the serial ``--backend eager``
+graph as a ``ShardedChain``, whatever ``--backend`` says, so the mesh and
+serial runs build the same graph: ``dc_blocker >> [AGC >>] demod`` over
+time for ``-c 1`` (DeFMS: ``fm_demodulator(0.8) >> stereo_fm_decoder``, a
+(2, n) panel over time only, so C must be 1; with ``--rds`` a ``Tee`` of
+it and ``rds_receiver``, each leaf gathered by its own layout), the packet
+flows' receivers without the DC blocker, as serial; ``dc_blocker >>
+firpfbch_channelizer(N) >> PerChannel([AGC >>] demod) [>> MixChannels()]``
+for ``-c N`` (DeNBFMSync included), the channels over C and the frames
+over T (C must divide N).  The front end (``--offset``, ``-b``, with a cu8
 file's ``u8_to_iq``) runs on rank 0's own Pipeline (a cu8 file without a
 front end puts ``u8_to_iq`` at the graph's head, as the serial flow does);
-the sinks and the plot taps are rank 0's, and ``--play`` is ignored for a
-``-c N -m`` mix.  Under torchrun the CLI joins the group it finds (one
-rank per GPU); otherwise it starts its own T·C local ranks.  ``--device
-cpu`` runs gloo ranks.
+the sinks, the plot taps and the decoders (the packet ``.txt``, the
+``.rds.txt``) are rank 0's, and ``--play`` is ignored for a ``-c N -m``
+mix.  Under torchrun the CLI joins the group it finds (one rank per GPU);
+otherwise it starts its own T·C local ranks.  ``--device cpu`` runs gloo
+ranks.
 
 The host-side options: ``--spectrum [FILE]`` and ``--constellation [FILE]``
 tap the stream after the front end (before the DC blocker) into a Welch PSD
@@ -69,9 +73,6 @@ and a scatter-plot Octave script; ``--play [CMD]`` tees single-stream audio
 into a live player (``io/sinks.PlaybackSink``); ``--profile`` runs each
 stage of the main graph as its own step between device barriers and prints
 the per-stage table.
-
-``--mesh`` for the other flows (DeFMS, DeNBFMSync, the packet flows)
-exits non-zero with "not yet ported in csdr_tpu_torch".
 
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -n 33554432 \\
         -c 64 --demod "DeCW 500 700 WAV" --backend pfb_fused --device cuda
@@ -94,6 +95,12 @@ exits non-zero with "not yet ported in csdr_tpu_torch".
         --device cpu
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -n 33554432 -c 64 \\
         --blocksize 8388608 --mesh 2x2 --demod "DeCW 500 700 WAV" --device cuda
+    python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -s 2560000 \\
+        -b 200000 -n 2621440 --mesh 4x1 --demod "DeFMS 8 WAV" --rds --device cuda
+    python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename ais.cu8 -s 1920000 \\
+        --offset 25000 -b 48000 -n 838860 --mesh 4x1 --demod DeAIS -o ais
+    python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename heli.cu8 -n 33554432 -c 64 \\
+        --blocksize 8376320 --mesh 2x2 --demod "DeNBFMSync 10" --device cuda
 """
 
 from __future__ import annotations
@@ -194,9 +201,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Run each stage of the main graph as its own step between device "
                         "barriers and print the per-stage time table")
     p.add_argument("--mesh", default=None, metavar="TxC",
-                   help="Run -c N --demod 'DeNBFM ...', or a -c 1 DeNBFM, DeWBFM, DeAM, "
-                        "DeUSB, DeLSB, DeCW or DeNo flow, on a device mesh of T time × C "
-                        "channel ranks, e.g. '4x1' (one process per device)")
+                   help="Run the flow on a device mesh of T time × C channel ranks, e.g. "
+                        "'4x1' (one process per device); DeFMS and the packet flows on "
+                        "-c 1, DeFMS with C = 1")
     return p
 
 
@@ -204,9 +211,6 @@ PACKET_SUFFIX = {"DeAIS": ".ais.txt", "DeAPRS": ".aprs.txt", "DeADSB": ".adsb.tx
                  "DePOCSAG": ".pocsag.txt", "DeRTTY": ".rtty.txt"}
 _DEMODS = ("DeNBFM", "DeWBFM", "DeFMS", "DeAM", "DeUSB", "DeLSB", "DeCW", "DeNBFMSync", "DeNo",
            *PACKET_SUFFIX)
-# the flows that --mesh shards, -c 1 and -c N (ShardedChain; non-mixed -c N
-# DeNBFM on ShardedFlagship or ShardedChannelizedFM)
-_MESH_FLOWS = ("DeNBFM", "DeWBFM", "DeAM", "DeUSB", "DeLSB", "DeCW", "DeNo")
 
 
 def parse_demod(s: str):
@@ -248,10 +252,6 @@ def _refusal(opts, demod) -> str | None:
     if (demod[0] not in ("DeNo", "DeNBFMSync", *PACKET_SUFFIX)
             and demod[-1] not in ("WAV", "AU", "F32")):
         return f"audio format {demod[-1]} is {_NOT_PORTED}; use WAV, AU or F32"
-    if opts.mesh and demod[0] not in _MESH_FLOWS:
-        return (f"--mesh for {demod[0]} is {_NOT_PORTED} (ShardedChain has no shard methods "
-                "for the stereo, RDS, symbol-sync and packet blocks yet); --mesh runs -c 1 "
-                "and -c N " + ", ".join(_MESH_FLOWS))
     return None
 
 
@@ -797,7 +797,7 @@ def _mesh_rank(device: torch.device, opts, demod, agc_t) -> int:
         if fe is not None:
             source = Pipeline(fe, block_size=opts.blocksize, device=device).stream(source)
         source = _plot_taps(opts, source, out_bw)
-        sink, _ = _sink(opts, demod, out_bw)
+        sink, collected = _sink(opts, demod, out_bw)
         if opts.verbose:
             print(f"Mesh {dt}x{dc} ({opts.backend}, {device.type}): {type(sh).__name__}, "
                   f"block {sh.block_size}, {sh.block_size // dt} samples per time rank")
@@ -823,6 +823,10 @@ def _mesh_rank(device: torch.device, opts, demod, agc_t) -> int:
         per = "channel" if nch > 1 and not opts.mix else "stream"
         print(f"Wrote {total} output samples per {per} over mesh {dt}x{dc} "
               f"({'ShardedChain' if on_chain else opts.backend}, {device.type})")
+        if demod[0] in PACKET_SUFFIX:
+            _report_packet(opts, demod, collected.concat(), out_bw)
+        elif collected is not None:
+            _report_rds(opts, collected.concat())
     if opts.verbose:
         counts = dict(pf.launches, flagship_fused=ff.launches, fir_valid=fv.launches,
                       fft_fir=fx.launches)

@@ -4,7 +4,9 @@ FM discriminator → GMSK receive matched filter (``ops/fir``) → strided
 symbol sampling at the matched filter's peak → sign slicer, with no
 per-symbol loop.  Works along the last axis, so inside ``PerChannel`` a
 (nch, n) panel runs every channel at once.  The bits are uint8 (the JAX
-block emits uint32 of the same values).
+block emits uint32 of the same values).  Time-sharded, both carried tails
+come from the left neighbour and the symbol stride stays aligned because
+every local segment is a multiple of k, so the bits equal serial's.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from ..core.block import Block, shard_not_ported
+from ..core.block import Block
 from ..ops.demod import freqdem_stream
 from ..ops.fir import fir_stream
 from ..utils import firdes
@@ -40,9 +42,6 @@ class GMSKDemod(Block):
         return (torch.ones((1,), dtype=torch.complex64, device=device),
                 torch.zeros((len(self.taps) - 1,), dtype=torch.float32, device=device))
 
-    def shard_validate(self, nloc, ctx):
-        shard_not_ported(self)
-
     def apply(self, state, x):
         last, hist = state
         kf = 0.25 / self.k  # ±π/(2k) per sample of deviation → ±1 levels
@@ -50,6 +49,26 @@ class GMSKDemod(Block):
         hist, y = fir_stream(self.taps, hist, d)
         sym = y[..., self.offset::self.k]
         return (last, hist), (sym > 0).to(torch.uint8)
+
+    def shard_apply(self, state, x, ctx):
+        """The demod's previous sample and the matched filter's history
+        from the left neighbour (``ctx.fir``), each carried from the last
+        time rank."""
+        last, hist = state
+        prev = ctx.left_halo(x, last, 1)
+        _, d = freqdem_stream(prev, x, 0.25 / self.k)
+        new_last = ctx.from_last_time(x[..., -1:].contiguous())
+        new_hist, y = ctx.fir(self.taps, hist, d)
+        sym = y[..., self.offset::self.k]
+        return (new_last, new_hist), (sym > 0).to(torch.uint8)
+
+    def shard_validate(self, nloc, ctx):
+        if nloc % self.granule:
+            raise ValueError(f"{self.name}: local segment {nloc} not a multiple of k={self.k}")
+        if nloc < len(self.taps) - 1:
+            raise ValueError(f"{self.name}: local segment {nloc} shorter than the "
+                             f"matched-filter halo {len(self.taps) - 1}")
+        return nloc // self.k
 
 
 def gmsk_demodulator(m: int, k: int, bw: float = 0.3) -> Block:

@@ -44,7 +44,7 @@ import torch
 from .sharding import CH, TIME
 
 __all__ = ["Block", "Chain", "chain", "TailStateBlock", "Lambda", "PerChannel", "MixChannels",
-           "Tee", "Delay", "shard_not_ported"]
+           "Tee", "Delay"]
 
 _META = torch.device("meta")
 
@@ -400,13 +400,6 @@ class TailStateBlock(Block):
                              f"{self.tail_len}-sample halo: use a larger block or fewer "
                              f"time shards")
         return self.out_len(nloc)
-
-
-def shard_not_ported(block: Block):
-    """The shard methods of the stereo, RDS, packet and symbol-sync blocks
-    wait for a later slice (the JAX package has them)."""
-    raise NotImplementedError(f"{block.name}: sharded execution of {type(block).__name__} is "
-                              f"not yet ported in csdr_tpu_torch")
 
 
 class Lambda(Block):

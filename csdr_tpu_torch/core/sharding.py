@@ -10,7 +10,7 @@ collectives map to
     lax.ppermute (j → j+1 over 'time')   dist.batch_isend_irecv in the time group
     lax.all_gather                       dist.all_gather in the time or ch group
     masked psum from the last time index dist.broadcast from the last time rank
-    lax.psum over 'ch'                   dist.all_reduce in the ch group
+    lax.psum over 'ch' / 'time'          dist.all_reduce in the ch / time group
 
 The broadcast is exact where the psum added zeros.  Complex tensors cross
 the wire as ``torch.view_as_real`` planes and bools as uint8.  Carried state
@@ -255,14 +255,21 @@ class ShardCtx:
         g = self._gather(t, self.ch_group, self.dc)
         return g.reshape((-1,) + tuple(t.shape[1:]))
 
+    def _sum(self, t: torch.Tensor, group) -> torch.Tensor:
+        w = _to_wire(t).clone()
+        dist.all_reduce(w, group=group)
+        return _from_wire(w, t)
+
     def sum_ch(self, t: torch.Tensor) -> torch.Tensor:
         """Σ of ``t`` over the ch ranks, on every one of them (the JAX psum
         over 'ch'); ``t`` itself where dc = 1."""
-        if self.dc == 1:
-            return t
-        w = _to_wire(t).clone()
-        dist.all_reduce(w, group=self.ch_group)
-        return _from_wire(w, t)
+        return t if self.dc == 1 else self._sum(t, self.ch_group)
+
+    def sum_time(self, t: torch.Tensor) -> torch.Tensor:
+        """Σ of ``t`` over the time ranks, on every one of them (the JAX
+        psum over 'time'); ``t`` itself where dt = 1.  The ranks' terms add
+        in the collective's order, not in one serial reduction's."""
+        return t if self.dt == 1 else self._sum(t, self.time_group)
 
     # ---- distributed linear recurrence ---------------------------------------
     def _linrec_tables_on(self, a, nloc: int, is_complex: bool, device: torch.device,

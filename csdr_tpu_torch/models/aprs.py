@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..blocks import FIRFilter, mix_down
-from ..core.block import Block, chain, shard_not_ported
+from ..core.block import Block, chain
 from .hdlc import frame_to_wire_bits, hdlc_frames, sample_bits
 
 __all__ = ["AFSKDiscriminator", "afsk1200_receiver", "bits_from_score", "decode_score",
@@ -45,17 +45,28 @@ class AFSKDiscriminator(Block):
     def init(self, device: torch.device):
         return tuple((mx.init(device), fr.init(device)) for mx, fr in self.parts)
 
-    def shard_validate(self, nloc, ctx):
-        shard_not_ported(self)
-
-    def apply(self, state, x):
+    def _run(self, state, x, step):
         new_state, mags = [], []
         for (mx, fr), (sm, sf) in zip(self.parts, state):
-            sm, y = mx.apply(sm, x)
-            sf, y = fr.apply(sf, y)
+            sm, y = step(mx, sm, x)
+            sf, y = step(fr, sf, y)
             new_state.append((sm, sf))
             mags.append(y.abs())
         return tuple(new_state), mags[0] - mags[1]
+
+    def apply(self, state, x):
+        return self._run(state, x, lambda b, s, v: b.apply(s, v))
+
+    def shard_apply(self, state, x, ctx):
+        """Each part on its own ctx: the mixers' per-rank float64 phase
+        (no collective), the moving averages' left halos."""
+        return self._run(state, x, lambda b, s, v: b.shard_apply(s, v, ctx.clone()))
+
+    def shard_validate(self, nloc, ctx):
+        for mx, fr in self.parts:
+            mx.shard_validate(nloc, ctx.clone())
+            fr.shard_validate(nloc, ctx.clone())
+        return nloc
 
 
 def afsk1200_receiver(sample_rate: float) -> Block:

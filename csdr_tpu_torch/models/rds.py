@@ -10,6 +10,9 @@ Counterpart of ``csdr_tpu/models/rds.py``:
     of greatest energy over the 16 samples per bit at the exact rational
     rate 19 kHz = 16 × 1187.5;
   * differential decoding (m[n] = t[n] ⊕ t[n−1]) removes the BPSK polarity;
+  * time-sharded, the baseband uses the stereo decoder's primitives and the
+    slicer sums its 16 phase energies over the time ranks, so every rank
+    takes the block's one bit phase;
   * block and group sync and the text are bit-level protocol work on the
     host (EN 50067): 26-bit blocks of 16 data bits and a 10-bit CRC xor an
     offset word, whose syndrome is the offset word itself.  That layer is
@@ -27,11 +30,11 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from ..core.block import Block, chain, shard_not_ported
+from ..core.block import Block, chain
 from ..ops import fir as fir_ops
 from ..utils import firdes
 from .. import blocks as B
-from .stereo import pilot_subcarrier
+from .stereo import delay_line, pilot_phases, pilot_subcarrier, shard_delay_line
 
 __all__ = ["RDSBaseband", "RDSBitSlicer", "rds_receiver", "crc10", "encode_block",
            "syndrome", "make_group_0a", "make_group_2a", "bits_from_groups", "decode_groups",
@@ -72,20 +75,35 @@ class RDSBaseband(Block):
             data_hist=torch.zeros((len(self.h_data) - 1,), dtype=torch.float32, device=device),
         )
 
-    def shard_validate(self, nloc, ctx):
-        shard_not_ported(self)
-
     def apply(self, state, c):
-        n = c.shape[-1]
+        theta0, new_phase = pilot_phases(self.omega19, state["phase19"], c.shape[-1])
+        return self._process(state, c, theta0, new_phase, fir_ops.fir_stream, delay_line)
+
+    def _process(self, state, c, theta0, new_phase, fir_fn, delay_fn):
         s = dict(state)
-        s["pilot_hist"], s["phase19"], u = pilot_subcarrier(
-            self.omega19, self.gdelay, s["phase19"], c, self.h_pilot, s["pilot_hist"])
+        s["pilot_hist"], u = pilot_subcarrier(self.omega19, self.gdelay, theta0, c,
+                                              self.h_pilot, s["pilot_hist"], fir_fn)
+        s["phase19"] = new_phase
         sub57 = u * u * u  # e^{j3(ω19(n−gd)+θp)}: the RDS carrier
-        full = torch.cat([s["delay_buf"], c], dim=-1)
-        cd, s["delay_buf"] = full[..., :n], full[..., n:].clone()
+        s["delay_buf"], cd = delay_fn(s["delay_buf"], c)
         bb = (cd.to(torch.complex64) * sub57.conj()).real
-        s["data_hist"], y = fir_ops.fir_stream(self.h_data, s["data_hist"], bb)
+        s["data_hist"], y = fir_fn(self.h_data, s["data_hist"], bb)
         return s, y
+
+    def shard_apply(self, state, c, ctx):
+        """The stereo decoder's sharded primitives: the pilot NCO from the
+        per-rank float64 phase, the FIRs (the data filter on K5 on the
+        card) and the group-delay line from the left neighbour."""
+        theta0, new_phase = pilot_phases(self.omega19, state["phase19"], c.shape[-1], ctx)
+        return self._process(state, c, theta0, new_phase, ctx.fir,
+                             lambda buf, x: shard_delay_line(ctx, buf, x))
+
+    def shard_validate(self, nloc, ctx):
+        halo = max(len(self.h_pilot) - 1, len(self.h_data) - 1, self.gdelay)
+        if nloc < halo:
+            raise ValueError(f"{self.name}: local segment {nloc} shorter than the largest "
+                             f"halo {halo}: use a larger block or fewer time shards")
+        return nloc
 
 
 class RDSBitSlicer(Block):
@@ -117,15 +135,34 @@ class RDSBitSlicer(Block):
         rows = y[..., : (x.shape[-1] // k) * k].reshape(-1, k)
         return hist, rows, torch.argmax((rows * rows).sum(dim=0))
 
-    def shard_validate(self, nloc, ctx):
-        shard_not_ported(self)
-
     def apply(self, state, x):
         hist, prev_raw = state
         hist, rows, ph = self.matched(hist, x)
         raw = (rows[:, ph] > 0).to(torch.uint8)
         prevs = torch.cat([prev_raw.reshape(1), raw[:-1]])
         return (hist, raw[-1].clone()), torch.bitwise_xor(raw, prevs)
+
+    def shard_apply(self, state, x, ctx):
+        """The bit phase is one decision for the whole block: the per-phase
+        energies are summed over the time ranks (``sum_time``), so every
+        rank takes the same phase (16 | nloc keeps the bit grid aligned
+        across ranks).  The differential decode takes its previous raw bit
+        from the left neighbour."""
+        hist, prev_raw = state
+        k = SAMPLES_PER_BIT
+        new_hist, y = ctx.fir(self.h_bi, hist, x)
+        rows = y[..., : (x.shape[-1] // k) * k].reshape(-1, k)
+        ph = torch.argmax(ctx.sum_time((rows * rows).sum(dim=0)))
+        raw = (rows[:, ph] > 0).to(torch.uint8)
+        prev0 = ctx.left_halo(raw, prev_raw.reshape(1), 1)
+        bits = torch.bitwise_xor(raw, torch.cat([prev0, raw[:-1]]))
+        return (new_hist, ctx.from_last_time(raw[-1].clone())), bits
+
+    def shard_validate(self, nloc, ctx):
+        if nloc % SAMPLES_PER_BIT:
+            raise ValueError(f"{self.name}: local segment {nloc} not a multiple of "
+                             f"{SAMPLES_PER_BIT}")
+        return nloc // SAMPLES_PER_BIT
 
 
 def rds_receiver(quad_rate: float) -> Block:

@@ -12,6 +12,12 @@ Input: the FM-demodulated composite (real, quad_rate), as the reference's
 DeFMS flow makes it with fmDemodulator 0.8.  Output: (2, n/decim), row 0
 left, row 1 right.  One stream (not inside ``PerChannel``).
 
+Time-sharded (``shard_apply``) the same graph runs with its stateful
+primitives swapped: the pilot NCO's phase from the float64 per-rank table,
+the FIR histories, the group-delay line and the decimators' histories from
+the left neighbour, the de-emphasis poles through ``ShardCtx.linrec``.  The
+output is a (2, n′) panel on a mesh with one ch rank.
+
 The JAX package's serial per-sample PLL (``pll_mode="scan"``) is not
 ported; asking for it raises.
 """
@@ -23,9 +29,11 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from ..core.block import Block, shard_not_ported
+from ..core.block import Block
+from ..core.sharding import CH
 from ..ops import fir as fir_ops
 from ..ops import iir as iir_ops
+from ..ops import nco as nco_ops
 from ..ops.nco import _ramp_on, phase_increment
 from ..utils import firdes, iirdes
 
@@ -34,22 +42,50 @@ __all__ = ["StereoFMDecoder", "stereo_fm_decoder", "pilot_subcarrier"]
 _TWO_PI = 2.0 * np.pi
 
 
-def pilot_subcarrier(omega19: float, gdelay: float, phase19: torch.Tensor, c: torch.Tensor,
-                     h_pilot: np.ndarray, pilot_hist: torch.Tensor):
-    """The pilot's mix-down and low-pass on one block, and its normalized
+def pilot_subcarrier(omega19: float, gdelay: float, theta0: torch.Tensor, c: torch.Tensor,
+                     h_pilot: np.ndarray, pilot_hist: torch.Tensor, fir_fn=fir_ops.fir_stream):
+    """The pilot's mix-down (its NCO at ``theta0`` on the block's first
+    sample) and low-pass (``fir_fn``) on one block, and its normalized
     analytic phasor u at the group-delayed time base, e^{j(ω19(n−gd)+θp)}.
-    Returns (new pilot_hist, new phase19, u); shared by the stereo and RDS
-    decoders."""
+    Returns (new pilot_hist, u); shared by the stereo and RDS decoders."""
     n = c.shape[-1]
-    theta = phase19 + _ramp_on(float(omega19), int(n), c.device)
+    theta = theta0 + _ramp_on(float(omega19), int(n), c.device)
     m19 = c.to(torch.complex64) * torch.polar(torch.ones_like(theta), -theta)
-    pilot_hist, pilot_bb = fir_ops.fir_stream(h_pilot, pilot_hist, m19)
-    new_phase = torch.remainder(phase19 + np.float32(phase_increment(omega19, n)),
-                                np.float32(_TWO_PI))
+    pilot_hist, pilot_bb = fir_fn(h_pilot, pilot_hist, m19)
     gd_phase = np.float32(np.mod(omega19 * gdelay, _TWO_PI))
     rot = theta - gd_phase
     p_a = pilot_bb * torch.polar(torch.ones_like(rot), rot)
-    return pilot_hist, new_phase, p_a / (p_a.abs() + 1e-12)
+    return pilot_hist, p_a / (p_a.abs() + 1e-12)
+
+
+def pilot_phases(omega19: float, phase19: torch.Tensor, n: int, ctx=None):
+    """(the pilot NCO's phase on this block's first sample, the carried
+    phase after the block): serial, or on a time rank of ``ctx``, where
+    the block is every rank's n samples and the rank starts at its float64
+    offset (``ops/nco.phase_table``), with no collective."""
+    two_pi = np.float32(_TWO_PI)
+    if ctx is None:
+        return phase19, torch.remainder(phase19 + np.float32(phase_increment(omega19, n)),
+                                        two_pi)
+    off = nco_ops.phase_table(omega19, n, ctx.dt)[ctx.ti]
+    inc = np.float32(phase_increment(omega19, n * ctx.dt))
+    return torch.remainder(phase19 + off, two_pi), torch.remainder(phase19 + inc, two_pi)
+
+
+def delay_line(buf: torch.Tensor, x: torch.Tensor):
+    """The block delayed by len(buf) samples: (new buf, delayed block)."""
+    full = torch.cat([buf, x], dim=-1)
+    n = x.shape[-1]
+    return full[..., n:].clone(), full[..., :n]
+
+
+def shard_delay_line(ctx, buf: torch.Tensor, x: torch.Tensor):
+    """``delay_line`` on a time rank: the delayed samples from the left
+    neighbour's tail, the new buffer the last time rank's."""
+    d = buf.shape[-1]
+    halo = ctx.left_halo(x, buf, d)
+    delayed = torch.cat([halo, x], dim=-1)[..., :x.shape[-1]]
+    return ctx.from_last_time(x[..., -d:].contiguous()), delayed
 
 
 class StereoFMDecoder(Block):
@@ -102,37 +138,80 @@ class StereoFMDecoder(Block):
         # audio paths; rounded up to the decimator so the last frame comes out
         return -(-self.gdelay // self.decim) * self.decim
 
-    def shard_validate(self, nloc, ctx):
-        shard_not_ported(self)
-
     def apply(self, state, c):
-        n = c.shape[-1]
+        theta0, new_phase = pilot_phases(self.omega19, state["phase19"], c.shape[-1])
+
+        def decim_fn(hist, x):
+            return fir_ops.fir_decim_stream(self.h_decim, self.decim, hist, x)
+
+        return self._process(state, c, theta0, new_phase, fir_ops.fir_stream, delay_line,
+                             iir_ops.onepole_cascade_stream, decim_fn)
+
+    def _process(self, state, c, theta0, new_phase, fir_fn, delay_fn, deemph_fn, decim_fn):
+        """The decode graph with its stateful primitives injected: ``apply``
+        passes the streaming forms, ``shard_apply`` their ``ShardCtx``
+        ones; the arithmetic is the same."""
         s = dict(state)
-        s["pilot_hist"], s["phase19"], u = pilot_subcarrier(
-            self.omega19, self.gdelay, s["phase19"], c, self.h_pilot, s["pilot_hist"])
+        s["pilot_hist"], u = pilot_subcarrier(self.omega19, self.gdelay, theta0, c,
+                                              self.h_pilot, s["pilot_hist"], fir_fn)
+        s["phase19"] = new_phase
         sub38 = u * u  # e^{j(2ω19(n−gd)+2θp)}: the regenerated 38 kHz subcarrier
 
         # the composite delayed by the pilot filter's group delay
-        full = torch.cat([s["delay_buf"], c], dim=-1)
-        cd, s["delay_buf"] = full[..., :n], full[..., n:].clone()
+        s["delay_buf"], cd = delay_fn(s["delay_buf"], c)
 
         # L−R: mix down by the subcarrier, 15 kHz low-pass, × stereo gain
         lmr_in = cd.to(torch.complex64) * sub38.conj()
-        s["lmr_hist"], lmr_bb = fir_ops.fir_stream(self.h_audio, s["lmr_hist"], lmr_in)
+        s["lmr_hist"], lmr_bb = fir_fn(self.h_audio, s["lmr_hist"], lmr_in)
         lmr = np.float32(self.stereo_gain) * lmr_bb.real
         # L+R: 15 kHz low-pass of the delayed composite
-        s["lpr_hist"], lpr = fir_ops.fir_stream(self.h_audio, s["lpr_hist"], cd)
+        s["lpr_hist"], lpr = fir_fn(self.h_audio, s["lpr_hist"], cd)
 
-        s["deemph_l"], left = iir_ops.onepole_cascade_stream(self.deemph, s["deemph_l"],
-                                                             lpr + lmr)
-        s["deemph_r"], right = iir_ops.onepole_cascade_stream(self.deemph, s["deemph_r"],
-                                                              lpr - lmr)
+        s["deemph_l"], left = deemph_fn(self.deemph, s["deemph_l"], lpr + lmr)
+        s["deemph_r"], right = deemph_fn(self.deemph, s["deemph_r"], lpr - lmr)
         if self.h_decim is not None:
-            s["decim_l"], left = fir_ops.fir_decim_stream(self.h_decim, self.decim,
-                                                          s["decim_l"], left)
-            s["decim_r"], right = fir_ops.fir_decim_stream(self.h_decim, self.decim,
-                                                           s["decim_r"], right)
+            s["decim_l"], left = decim_fn(s["decim_l"], left)
+            s["decim_r"], right = decim_fn(s["decim_r"], right)
         return s, torch.stack([left, right])
+
+    # ---- sharded: time only ---------------------------------------------------
+    def shard_apply(self, state, c, ctx):
+        nloc = c.shape[-1]
+        theta0, new_phase = pilot_phases(self.omega19, state["phase19"], nloc, ctx)
+
+        def dist_linrec(v, a, carry):
+            y, _, new_carry = ctx.linrec(v, a, carry)
+            return y, new_carry
+
+        def deemph_fn(casc, st, x):
+            return iir_ops.onepole_cascade_stream(casc, st, x, linrec_fn=dist_linrec,
+                                                  fir_fn=ctx.fir)
+
+        def decim_fn(hist, x):
+            h = len(self.h_decim) - 1
+            _, y = fir_ops.fir_decim_stream(self.h_decim, self.decim,
+                                            ctx.left_halo(x, hist, h), x)
+            return ctx.from_last_time(x[..., -h:].contiguous()), y
+
+        return self._process(state, c, theta0, new_phase, ctx.fir,
+                             lambda buf, x: shard_delay_line(ctx, buf, x), deemph_fn, decim_fn)
+
+    def shard_validate(self, nloc, ctx):
+        if ctx.dc != 1:
+            raise ValueError(f"{self.name}: stereo output (2, n) shards over time only: use a "
+                             f"mesh with ch=1")
+        halo = max(len(self.h_pilot) - 1, len(self.h_audio) - 1, self.gdelay,
+                   len(self.h_decim) - 1 if self.h_decim is not None else 0)
+        if nloc < halo:
+            raise ValueError(f"{self.name}: local segment {nloc} shorter than the largest "
+                             f"halo {halo}: use a larger block or fewer time shards")
+        if nloc % self.decim:
+            raise ValueError(f"{self.name}: local segment {nloc} not a multiple of decim "
+                             f"{self.decim}")
+        return nloc // self.decim
+
+    def shard_layout(self, in_layout):
+        return CH  # the (2, n′) panel, gathered over the time ranks
 
 
 def stereo_fm_decoder(quad_rate: float, decim: int, **kw) -> Block:

@@ -13,8 +13,13 @@ against a polyphase matched-filter bank.  Every op works along the last
 axis with per-row timing, so inside ``PerChannel`` a (nch, n) panel syncs
 each channel on its own line fit.
 
+Time-sharded (``shard_apply``), each rank sums the timing tone over the
+global sub-windows it owns, the window sums are gathered over the time
+ranks, every rank fits the same global line and interpolates its own
+outputs against its segment between a left and a right halo.
+
 The closed-loop per-sample variant (``mode="scan"``, the JAX package's
-``SymSyncScan``) and the time-sharded methods are not ported.
+``SymSyncScan``) is not ported.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import blocks as B
-from ..core.block import Block, chain, shard_not_ported
+from ..core.block import Block, chain
 from ..utils import firdes
 
 __all__ = ["SymSync", "sym_sync_r", "sym_sync_c", "sym_tracker", "fm_dem_with_sync"]
@@ -140,8 +145,8 @@ class SymSync(Block):
     def _nw(n: int, k: int) -> int:
         return max(1, min(8, n // (64 * k)))  # sub-windows (≥ 64 symbols each)
 
-    def shard_validate(self, nloc, ctx):
-        shard_not_ported(self)
+    def _energy(self, d: torch.Tensor) -> torch.Tensor:
+        return d.abs() ** 2 if self.complex_input else d * d
 
     def apply(self, state, x):
         hist, tau_prev, tau_valid = state
@@ -152,8 +157,7 @@ class SymSync(Block):
 
         # transition-energy timing tone, per sub-window; it peaks at symbol
         # boundaries, the centers sit k/2 later
-        d = x[..., 1:] - x[..., :-1]
-        s = d.abs() ** 2 if self.complex_input else d * d
+        s = self._energy(x[..., 1:] - x[..., :-1])
         s = torch.cat([s[..., :1], s], dim=-1)  # keep length n for the rotator
         z = s.to(torch.complex64) * _rotator_on(k, n, x.device)
         nw = self._nw(n, k)
@@ -163,6 +167,63 @@ class SymSync(Block):
 
         y = self._interp(xfull, nout, tm, slope, cm)
         return (xfull[..., -self.H:].clone(), tau_carry, torch.ones_like(tau_valid)), y
+
+    # ---- sharded: the global line fit on every rank ---------------------------
+    def shard_apply(self, state, x, ctx):
+        """The same global arithmetic as ``apply`` on a block of dt·nloc
+        samples: each rank sums the timing tone over the global sub-windows
+        it owns (they align with the ranks' segments, ``shard_validate``),
+        the (…, nw) window sums are gathered over 'time', every rank fits
+        the same line and interpolates its own outputs against [left halo
+        H | x | right halo m·k + k + B]; the last rank's right halo repeats
+        its final sample, as the serial gather clamps there."""
+        hist, tau_prev, tau_valid = state
+        k = self.k
+        nloc = x.shape[-1]
+        n = nloc * ctx.dt
+        nout_loc = (nloc // k) * self.out_per_sym
+
+        s_inner = self._energy(x[..., 1:] - x[..., :-1])
+        # rank 0 repeats the block head's term, as serial does; the others
+        # take the true difference across the segment boundary
+        prev1 = ctx.left_halo(x, x[..., :1], 1)
+        s0 = s_inner[..., :1] if ctx.ti == 0 else self._energy(x[..., :1] - prev1)
+        s = torch.cat([s0, s_inner], dim=-1)
+        # each rank's rotator starts at a multiple of 2π (k | nloc)
+        z = s.to(torch.complex64) * _rotator_on(k, nloc, x.device)
+        nw = self._nw(n, k)
+        nw_loc, wlen = nw // ctx.dt, n // nw
+        Tw_loc = z[..., : nw_loc * wlen].reshape(*x.shape[:-1], nw_loc, wlen).sum(dim=-1)
+        Tw = torch.movedim(ctx.all_gather_time(Tw_loc), 0, -2).reshape(*x.shape[:-1], nw)
+        tm, slope, cm, tau_carry = self._fit_line(Tw, n, tau_prev, tau_valid)
+
+        ext = torch.cat([ctx.left_halo(x, hist, self.H), x,
+                         ctx.right_halo(x, self.m * k + k + self.B)], dim=-1)
+        ipos, ph, _ = self._positions(nout_loc, tm, slope, cm, j0=ctx.ti * nout_loc)
+        lead = x.shape[:-1]
+        y = self._bank_sum(ext, (ipos - ctx.ti * nloc).expand(*lead, nout_loc),
+                           ph.expand(*lead, nout_loc))
+        new_hist = ctx.from_last_time(x[..., -self.H:].contiguous())
+        return (new_hist, tau_carry, torch.ones_like(tau_valid)), y
+
+    def shard_validate(self, nloc, ctx):
+        k = self.k
+        n = nloc * ctx.dt
+        if nloc % k:
+            raise ValueError(f"{self.name}: local segment {nloc} not a multiple of k={k}")
+        nw = self._nw(n, k)
+        if nw % ctx.dt:
+            raise ValueError(f"{self.name}: {nw} timing sub-windows cannot align with {ctx.dt} "
+                             f"time shards: grow block_size (needs >= {64 * k * ctx.dt} "
+                             f"samples) or use dt dividing {nw}")
+        wlen = n // nw
+        if nloc % wlen:
+            raise ValueError(f"{self.name}: sub-window length {wlen} does not divide the "
+                             f"local segment {nloc}")
+        halo = max(self.H, self.m * k + k + self.B)
+        if nloc < halo:
+            raise ValueError(f"{self.name}: local segment {nloc} shorter than halo {halo}")
+        return (nloc // k) * self.out_per_sym
 
     def _fit_line(self, Tw: torch.Tensor, n: int, tau_prev, tau_valid):
         """Weighted least-squares τ(n) line through the per-window timing
@@ -201,9 +262,9 @@ class SymSync(Block):
         tau_carry = tau_carry - slip_syms * kf * torch.sign(tau_carry)
         return tm, slope, cm, tau_carry
 
-    def _positions(self, nout: int, tm, slope, cm):
-        """Window centers in xfull and bank phases of the outputs j = 0 ..
-        nout−1, int64 (…, nout), and frac·npfb, float32.
+    def _positions(self, nout: int, tm, slope, cm, j0: int = 0):
+        """Window centers in xfull and bank phases of the outputs j = j0 ..
+        j0 + nout − 1, int64 (…, nout), and frac·npfb, float32.
 
         A position is an exact integer grid point plus a small float32
         residual (one float32 position loses the polyphase fraction past
@@ -213,7 +274,7 @@ class SymSync(Block):
         # constant processing delay, centered in the slack: τ may roam
         # ±(B + k) samples before the window leaves the data
         start = self.H - (self.m * k + k + self.B)
-        num = torch.arange(nout, device=tm.device) * k
+        num = torch.arange(j0, j0 + nout, device=tm.device) * k
         base_int = start + torch.div(num, ops, rounding_mode="floor")
         base_frac = (num % ops).to(torch.float32) / np.float32(ops)
         # τ(n) = tm + slope·(n − cm) marks boundaries; centers are k/2 later

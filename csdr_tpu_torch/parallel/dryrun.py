@@ -4,8 +4,9 @@ Counterpart of ``__graft_entry__.dryrun_multichip``: one
 ``ShardedChannelizedFM`` step with the audio decimator, two
 ``ShardedFlagship`` steps on cu8 input (the second takes the first's
 carried state), and one ``ShardedChain`` step each of the WBFM chain, the
-USB chain and a multi-rate Tee on ones.  The symbol-sync step waits for the
-sync's shard methods.
+USB chain, a multi-rate Tee and the symbol-sync flow (``fm_dem_with_sync(4)``
+on a block that gives the estimator its 8 timing windows: the gathered
+window sums and the right halo) on ones.
 
     python -m csdr_tpu_torch.parallel.dryrun 4 cpu
 """
@@ -22,10 +23,11 @@ __all__ = ["dryrun_multichip"]
 
 
 def _chain_steps(mesh, device: torch.device) -> tuple:
-    """One ShardedChain step on ones of the WBFM, USB and multi-rate Tee
-    graphs; this rank's output shapes, each checked."""
+    """One ShardedChain step on ones of the WBFM, USB, multi-rate Tee and
+    symbol-sync graphs; this rank's output shapes, each checked."""
     from .. import blocks as B
     from ..core.block import Tee, chain
+    from ..models.symsync import fm_dem_with_sync
     from .generic import ShardedChain
 
     dt = mesh.shape[0]
@@ -34,12 +36,16 @@ def _chain_steps(mesh, device: torch.device) -> tuple:
     tee = chain(B.dc_blocker(),
                 Tee(chain(B.fir_filter_c_kaiser(33, 0.2), B.fir_decimator(4, complex_input=True)),
                     B.fir_filter_c_kaiser(17, 0.45)))
+    sync = chain(fm_dem_with_sync(4))
     halo = max(b.tail_len for b in usb.blocks if hasattr(b, "tail_len"))
+    # the sync's 8 sub-windows of 64 symbols each, whole on every rank
+    sblock = -(-max(dt * sync.granule, 64 * 4 * 8) // (dt * sync.granule)) * dt * sync.granule
     shapes = []
     for graph, block, want in (
             (wbfm, dt * wbfm.granule * max(1, 2048 // wbfm.granule), lambda n: [(n // 4,)]),
             (usb, dt * max(4096, halo + 256), lambda n: [(n,)]),
-            (tee, dt * 4 * 512, lambda n: [(n // 4,), (n,)])):
+            (tee, dt * 4 * 512, lambda n: [(n // 4,), (n,)]),
+            (sync, sblock, lambda n: [(n // 4 * 2,)])):
         sh = ShardedChain(graph, mesh, block)
         x = torch.ones(block // dt, dtype=torch.complex64, device=device)
         _, y = sh.step(sh.init(), x)

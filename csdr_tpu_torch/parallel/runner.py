@@ -8,8 +8,9 @@ re-blocks it (``rechunk``, ``take_n``, and in ``run`` the graph's
 end-of-stream flush allowance, ``append_flush``), zero-pads the last short
 block, stages each block in pinned memory and scatters its time segments
 over the 'time' group in the source's own wire type (cu8 as uint8 (n, 2)
-rows, complex64 as float32 (n, 2) planes); each ch group broadcasts its
-segment from its first rank.  Every rank steps, and rank 0 gathers each
+rows, complex64 as float32 (n, 2) planes, a real stream, such as an FM
+composite, as float32 (n, 1)); each ch group broadcasts its segment from
+its first rank.  Every rank steps, and rank 0 gathers each
 output leaf: a channel-layout panel (nch/dc, F/dt) from every rank, a
 time-layout leaf (replicated over 'ch') from the ranks of its own time
 group.  Rank 0 trims each leaf to its rational-rate sample count
@@ -31,7 +32,8 @@ from ..core.sharding import CH, _from_wire, _to_wire
 
 __all__ = ["ShardedPipeline"]
 
-_WIRE = {0: torch.float32, 1: torch.uint8}   # header code → wire dtype
+# header code → (wire dtype, wire width): complex64 planes, cu8 rows, real
+_WIRE = {0: (torch.float32, 2), 1: (torch.uint8, 2), 2: (torch.float32, 1)}
 
 
 class ShardedPipeline:
@@ -63,19 +65,22 @@ class ShardedPipeline:
             yield chunk, valid
 
     def _stage(self, chunk: np.ndarray) -> tuple[torch.Tensor, int]:
-        """Rank 0: a host block as its (n, 2) wire tensor on the device and
-        the wire's header code."""
+        """Rank 0: a host block as its (n, width) wire tensor on the device
+        and the wire's header code."""
         if np.iscomplexobj(chunk):
             wire, code = np.ascontiguousarray(chunk, np.complex64).view(np.float32), 0
         elif chunk.dtype == np.uint8 and chunk.ndim == 2:
             wire, code = chunk, 1
+        elif chunk.dtype == np.float32 and chunk.ndim == 1:
+            wire, code = chunk, 2
         else:
-            raise TypeError(f"source blocks must be complex or cu8 (n, 2) uint8 rows, got "
-                            f"{chunk.dtype} {chunk.shape}")
-        wire = wire.reshape(self.block_size, 2)
+            raise TypeError(f"source blocks must be complex, float32 or cu8 (n, 2) uint8 rows, "
+                            f"got {chunk.dtype} {chunk.shape}")
+        dtype, width = _WIRE[code]
+        wire = wire.reshape(self.block_size, width)
         if self.device.type != "cuda":
             return torch.from_numpy(wire.copy()), code
-        stage = torch.empty(wire.shape, dtype=_WIRE[code], pin_memory=True)
+        stage = torch.empty(wire.shape, dtype=dtype, pin_memory=True)
         stage.numpy()[...] = wire
         return stage.to(self.device, non_blocking=True), code
 
@@ -84,14 +89,17 @@ class ShardedPipeline:
         group from rank 0, then broadcast over each 'ch' group."""
         ctx = self.ctx
         nloc = self.block_size // ctx.dt
+        dtype, width = _WIRE[code]
         seg = block if ctx.dt == 1 and self.rank == 0 else torch.empty(
-            (nloc, 2), dtype=_WIRE[code], device=self.device)
+            (nloc, width), dtype=dtype, device=self.device)
         if ctx.ci == 0 and ctx.dt > 1:
-            parts = list(block.view(ctx.dt, nloc, 2).unbind(0)) if self.rank == 0 else None
+            parts = list(block.view(ctx.dt, nloc, width).unbind(0)) if self.rank == 0 else None
             dist.scatter(seg, parts, src=0, group=ctx.time_group)
         if ctx.dc > 1:
             dist.broadcast(seg, dist.get_global_rank(ctx.ch_group, 0), group=ctx.ch_group)
-        return seg if code == 1 else torch.view_as_complex(seg)
+        if code == 1:
+            return seg
+        return seg[:, 0] if code == 2 else torch.view_as_complex(seg)
 
     def _gather_tree(self, y, layout):
         """Every output leaf by its own layout (one tag may stand for a

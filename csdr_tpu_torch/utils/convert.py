@@ -138,7 +138,11 @@ def from_jax_sharded_chain_state(state, device: torch.device, tags="rep", ci: in
     way (``Chain._shard_segments``: the run's raw-input tail (A1,) at its
     first block, ``()`` at the others), so the trees map one to one; a CEnc
     leaf (a named tuple with an ``ri`` field of float32 (…, 2) re/im planes)
-    becomes complex64.  ``tags`` is the port's ``ShardedChain.state_tags``
+    becomes complex64.  The stereo and RDS decoders' dicts map key for key;
+    ``RDSBitSlicer``'s previous raw bit turns from uint32 to uint8, as in
+    ``from_jax_chain_state``; ``GMSKDemod`` carries (previous sample (1,),
+    matched-filter history) and ``SymSync`` (hist, tau, valid), as
+    serial.  ``tags`` is the port's ``ShardedChain.state_tags``
     (the graph's ``shard_state_spec``): on a dc-way channel axis each "ch"
     leaf (a ``PerChannel`` stack) is handed over as the rows of channel
     rank ``ci``, as ``ShardedChain.init`` places them."""
@@ -149,6 +153,8 @@ def _from_jax_chain_tree(state, device: torch.device):
     if hasattr(state, "ri"):
         ri = np.asarray(state.ri, np.float32)
         return _leaf((ri[..., 0] + 1j * ri[..., 1]).astype(np.complex64), device)
+    if isinstance(state, dict):
+        return {k: _from_jax_chain_tree(v, device) for k, v in state.items()}
     if isinstance(state, (tuple, list)):
         return tuple(_from_jax_chain_tree(s, device) for s in state)
     return _leaf(state, device)

@@ -83,22 +83,25 @@ def test_fused_and_eager_cli_outputs_agree(captures, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--mesh", "2x1", "--demod", "DeFMS 8 WAV"],
-                                   ["--mesh", "2x1", "--demod", "DeNBFMSync 10"],
+                                   ["--mesh", "2x1", "--demod", "DeNBFMSync 10",
+                                    "--backend", "fused"],
                                    ["--devname", "synthetic", "--mesh", "2x1", "--demod",
                                     "DeFMS 8 WAV"]])
 def test_unported_options_exit_nonzero(captures, tmp_path, extra, capsys):
-    """An unported flow (--mesh for the stereo and symbol-sync flows) is
-    refused before its source opens, from a file or from an SDR device."""
+    """An option set the JAX CLI refuses under --mesh is refused before its
+    source opens, from a file or from an SDR device: DeFMS with -c N (exit
+    1), the fused backend for DeNBFMSync (exit 2)."""
     args = ["--filename", captures["cf32"], "-c", str(NCH), "-o", str(tmp_path / "x"),
             "--demod", "DeNBFM 0.6 F32", "--device", "cpu"]
     if "--devname" in extra:
         args = args[2:]
     args += extra
-    assert main(args) != 0
+    fused = "fused" in extra
+    assert main(args) == (2 if fused else 1)
     err = capsys.readouterr().err
-    assert "not yet ported in csdr_tpu_torch" in err
-    if "--mesh" in extra:
-        assert "ShardedChain" in err
+    assert ("--backend fused runs the whole channelized DeNBFM chain in one kernel" if fused
+            else "DeFMS does not support channel splitting") in err
+    assert "Traceback" not in err
     assert not any(f.startswith("x_ch") for f in os.listdir(tmp_path))
 
 
@@ -106,14 +109,16 @@ def test_unported_options_exit_nonzero(captures, tmp_path, extra, capsys):
                                    "DeAPRS 0.5"])
 def test_packet_flows_refuse_channel_splitting_and_mesh(captures, tmp_path, demod, capsys):
     """The packet flows run on -c 1 only: -c N exits 1 with the JAX CLI's
-    message; --mesh is not yet ported and names ShardedChain."""
+    message, with or without --mesh (the mesh runs are in
+    tests/test_torch_cli_mesh_packets.py)."""
     args = ["--filename", captures["cf32"], "-o", str(tmp_path / "x"), "--demod", demod,
-            "--device", "cpu"]
-    assert main(args + ["-c", str(NCH)]) == 1
+            "--device", "cpu", "-c", str(NCH)]
+    assert main(args) == 1
     assert f"{demod.split()[0]} does not support channel splitting" in capsys.readouterr().err
-    assert main(args + ["-c", "1", "--mesh", "2x1"]) != 0
+    assert main(args + ["--mesh", "2x1"]) == 1
     err = capsys.readouterr().err
-    assert "not yet ported in csdr_tpu_torch" in err and "ShardedChain" in err
+    assert f"{demod.split()[0]} does not support channel splitting" in err
+    assert "Traceback" not in err
     assert not any(f.startswith("x") for f in os.listdir(tmp_path))
 
 
@@ -472,8 +477,9 @@ def test_mesh_flow_matches_jax_cli(mesh_captures, tmp_path, monkeypatch, backend
 
 @pytest.mark.parametrize("extra,why", [
     (["--mesh", "64x1", "--device", "cuda"], "mesh 64x1: 64 ranks need 64 CUDA devices"),
-    (["--mesh", "2x1", "--demod", "DeNBFMSync 10"], "ShardedChain"),
-    (["--mesh", "2x1", "--demod", "DeFMS 8 WAV"], "ShardedChain"),
+    (["--mesh", "2x1", "--demod", "DeNBFMSync 10", "--blocksize", "1280"],
+     "1 timing sub-windows cannot align with 2 time shards"),
+    (["--mesh", "2x1", "--demod", "DeFMS 8 WAV"], "DeFMS does not support channel splitting"),
     (["--mesh", "2x2", "--backend", "fused"], "over time only"),
     (["--mesh", "2x3"], "does not split over 3 channel ranks"),
 ])
@@ -487,12 +493,12 @@ def test_mesh_refusals(captures, tmp_path, capsys, extra, why):
 
 def test_dryrun_multichip_on_gloo_ranks():
     """One channelized step, two flagship steps and one ShardedChain step
-    each of the WBFM, USB and multi-rate Tee graphs on a 2x2 mesh of four
-    gloo ranks, shapes asserted in every rank."""
+    each of the WBFM, USB, multi-rate Tee and symbol-sync graphs on a 2x2
+    mesh of four gloo ranks, shapes asserted in every rank."""
     from csdr_tpu_torch.parallel import dryrun_multichip
 
     out = dryrun_multichip(4, "cpu")
-    chains = (((512,),), ((4096,),), ((512,), (2048,)))
+    chains = (((512,),), ((4096,),), ((512,), (2048,)), ((512,),))
     assert out == [((2, 2), (4, 40), (64, 32), chains)] * 4
 
 

@@ -1,6 +1,6 @@
 """The port's CLI with ``--mesh TxC`` over the generic sharded chain
 (parallel/generic.ShardedChain) on gloo ranks against the serial CLI's
-files, and the flows that still refuse ``--mesh``.
+files, and the configurations that ``--mesh`` refuses.
 
 Each admitted -c 1 flow (DeNBFM, DeWBFM, DeAM, DeUSB, DeLSB, DeCW with
 --offset and -b 48000, -a DeNo) runs through the CLI's own rank function
@@ -134,25 +134,30 @@ def test_mesh_cli_main_matches_serial(capture, runs, tmp_path, capsys, name, mes
 
 
 @pytest.mark.parametrize("extra,code,why", [
-    (["-c", "1", "--demod", "DeFMS 8 WAV"], 2, "not yet ported in csdr_tpu_torch"),
-    (["-c", "1", "--demod", "DeNBFMSync 10"], 2, "not yet ported in csdr_tpu_torch"),
+    (["-c", "1", "--demod", "DeFMS 8 WAV", "--mesh", "2x2"], 1,
+     "--mesh: invalid configuration (stereo_fm(2560000,8): stereo output (2, n) shards over "
+     "time only: use a mesh with ch=1)"),
+    (["-c", "1", "--demod", "DeNBFMSync 10", "--blocksize", "1280", "--mesh", "4x1"], 1,
+     "--mesh: invalid configuration (symsync_r(k=10): 2 timing sub-windows cannot align with "
+     "4 time shards"),
     (["-c", "4", "--demod", "DeCW 500 700 WAV", "--mesh", "1x3"], 1,
      "--mesh: invalid configuration (pfb_channelizer(4): nch=4 not divisible by the 3-way "
      "channel mesh axis)"),
     (["-c", "6", "-m", "--demod", "DeNBFM 0.6 WAV", "--mesh", "2x4"], 1,
      "--mesh: invalid configuration (pfb_channelizer(6): nch=6 not divisible by the 4-way "
      "channel mesh axis)"),
-    (["-c", "1", "--demod", "DeAIS"], 2, "not yet ported in csdr_tpu_torch"),
+    (["-c", "4", "--demod", "DeAIS"], 1, "DeAIS does not support channel splitting"),
     (["-c", "1", "--offset", "94300", "-b", "48000", "--demod", "DeCW 500 700 WAV",
       "--blocksize", "1024", "--mesh", "4x1"], 1,
      "--mesh: invalid configuration (cw_lp(0.01042): local segment 256 shorter than its "
      "700-sample halo"),
 ], ids=["DeFMS", "DeNBFMSync", "-c 4 DeCW", "-m", "DeAIS", "halo"])
 def test_mesh_refusals(capture, tmp_path, capsys, extra, code, why):
-    """Refused before any rank starts, with a message and no traceback: the
-    flows whose blocks have no shard methods yet, a channel count that the
-    C axis does not divide (-c N DeCW, -c N -m DeNBFM), a block too short
-    for a halo."""
+    """Refused before any rank starts, with the JAX CLI's message and no
+    traceback: the stereo decoder on a mesh with C > 1 (time only), a sync
+    block whose timing windows do not align with the time ranks, a packet
+    flow with -c N, a channel count that the C axis does not divide (-c N
+    DeCW, -c N -m DeNBFM), a block too short for a halo."""
     argv = ["--filename", capture, "-o", str(tmp_path / "x"), "--device", "cpu", *extra]
     if "--mesh" not in argv:
         argv += ["--mesh", "2x1"]
@@ -164,21 +169,20 @@ def test_mesh_refusals(capture, tmp_path, capsys, extra, code, why):
 
 def test_mesh_refuses_a_block_that_cannot_be_time_sharded(capture, tmp_path, capsys,
                                                           monkeypatch):
-    """A graph whose block cannot be sharded in this port yet (here the
-    stereo decoder, as a -c 1 graph) prints the JAX CLI's "this flow cannot
-    be time-sharded" and exits 1."""
+    """A graph with a block that has no shard methods (here the symbol
+    tracker's power normalizer, as a -c 1 graph) prints the JAX CLI's "this
+    flow cannot be time-sharded" and exits 1."""
     from csdr_tpu_torch import blocks as B
     from csdr_tpu_torch.core.block import chain
-    from csdr_tpu_torch.models.stereo import stereo_fm_decoder
+    from csdr_tpu_torch.models.symsync import sym_tracker
 
-    monkeypatch.setattr(cli, "_graph", lambda *a: chain(B.dc_blocker(), B.fm_demodulator(0.8),
-                                                       stereo_fm_decoder(2.56e6, 8)))
+    monkeypatch.setattr(cli, "_graph", lambda *a: chain(B.dc_blocker(), sym_tracker(3, 4)))
     argv = ["--filename", capture, "-c", "1", "-o", str(tmp_path / "x"), "--device", "cpu",
             "--demod", "DeAM WAV", "--mesh", "2x1"]
     assert cli.main(argv) == 1
     err = capsys.readouterr().err
-    assert ("--mesh: this flow cannot be time-sharded (stereo_fm(2560000,8): sharded execution "
-            "of StereoFMDecoder is not yet ported in csdr_tpu_torch)") in err
+    assert ("--mesh: this flow cannot be time-sharded (_PowerNormalize (pwr_norm) does not "
+            "support sharded execution)") in err
     assert "Traceback" not in err and not os.listdir(tmp_path)
 
 

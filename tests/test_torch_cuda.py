@@ -627,3 +627,88 @@ def test_sharded_channel_graph_on_two_cards_launches_k5(dev, shape):
         assert np.abs(got - want).max() / np.abs(want).max() < K5_REL_ERR
     for _, launches in ranks:
         assert launches == [1, 1, 1]
+
+
+FMS_RATE = 200000.0   # -b 200000 "DeFMS 8 WAV" --rds: the RDS data filter's 333 taps on K5
+
+
+def _fms_rds_graph():
+    from csdr_tpu_torch.models.rds import rds_receiver
+    from csdr_tpu_torch.models.stereo import stereo_fm_decoder
+
+    return ct.chain(ct.dc_blocker(), ct.fm_demodulator(0.8),
+                    ct.Tee(stereo_fm_decoder(FMS_RATE, 8), rds_receiver(FMS_RATE)))
+
+
+def _fms_rds_capture(n, seed):
+    """FM (0.8 of the demod's scale) of a stereo composite with RDS groups
+    0A at 200 kHz: L 1 kHz, R 2.5 kHz, the pilot at a seeded phase."""
+    from csdr_tpu_torch.models import rds
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / FMS_RATE
+    pil = 2 * np.pi * 19000.0 * t + rng.uniform(0, 2 * np.pi)
+    left, right = 0.6 * np.sin(2 * np.pi * 1000.0 * t), 0.6 * np.sin(2 * np.pi * 2500.0 * t)
+    tx = rds.bits_from_groups([rds.make_group_0a(0xC5D7, s, "PORTTEST"[2 * s:2 * s + 2])
+                               for s in range(4)])
+    bit = np.floor(t * rds.RDS_BAUD).astype(np.int64) % len(tx)
+    half = np.floor(t * 2 * rds.RDS_BAUD).astype(np.int64) % 2
+    x = (0.45 * (left + right) + 0.1 * np.cos(pil) + 0.45 * (left - right) * np.cos(2 * pil)
+         + 0.05 * (tx[bit] * 2.0 - 1.0) * np.where(half == 0, 1.0, -1.0) * np.cos(3 * pil))
+    return np.exp(1j * np.cumsum(2 * np.pi * 0.8 * 0.25 * x)).astype(np.complex64)
+
+
+def _fms_rds_block():
+    g = _fms_rds_graph().granule
+    return (1 << 20) // (2 * g) * 2 * g
+
+
+def _fms_rds_rank(device, x):
+    """One NCCL rank of a 2x1 mesh: the DeFMS --rds graph as a ShardedChain
+    over three blocks of ``x``; this rank's (stereo panel, bits) per step and
+    its K5 launches per step."""
+    from csdr_tpu_torch.parallel import ShardedChain, build_mesh
+
+    block = _fms_rds_block()
+    rank = torch.distributed.get_rank()
+    sh = ShardedChain(_fms_rds_graph(), build_mesh(2, 1, "cuda"), block)
+    nloc = block // 2
+    st, outs, launches = sh.init(), [], []
+    for b in range(len(x) // block):
+        seg = torch.from_numpy(x[b * block + rank * nloc:][:nloc].copy()).to(device)
+        before = k5.launches
+        st, (stereo, bits) = sh.step(st, seg)
+        torch.cuda.synchronize()
+        launches.append(k5.launches - before)
+        outs.append((stereo.cpu().numpy(), bits.cpu().numpy()))
+    return outs, launches
+
+
+@pytest.mark.cuda
+def test_sharded_defms_rds_on_two_cards_launches_k5(dev):
+    """The DeFMS --rds graph (the stereo panel and the RDS bits of one Tee)
+    on a 2x1 NCCL mesh: the stereo audio within K5's 1e-4 of the serial
+    graph on one card, the RDS bits equal, and each rank launches K5 (the
+    333-tap data filter) once per step."""
+    from csdr_tpu_torch.parallel import spawn
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL takes one rank per card")
+    block = _fms_rds_block()
+    x = _fms_rds_capture(3 * block, seed=33)
+    ranks = spawn(_fms_rds_rank, 2, "cuda", args=(x,), timeout=600.0)
+    g = _fms_rds_graph()
+    st = g.init(dev)
+    for b in range(3):
+        before = k5.launches
+        st, (stereo, bits) = g.apply(st, torch.from_numpy(x[b * block:(b + 1) * block]).to(dev))
+        torch.cuda.synchronize()
+        assert k5.launches == before + 1
+        got = np.concatenate([r[0][b][0] for r in ranks], axis=-1)
+        got_bits = np.concatenate([r[0][b][1] for r in ranks])
+        want = stereo.cpu().numpy()
+        assert got.shape == want.shape == (2, block // 8)
+        assert np.abs(got - want).max() / np.abs(want).max() < K5_REL_ERR
+        assert np.array_equal(got_bits, bits.cpu().numpy())
+    for _, launches in ranks:
+        assert launches == [1, 1, 1]

@@ -444,16 +444,15 @@ def test_shard_init_structure():
      ValueError, r"sharded PerChannel requires channelized \(nch, n\) input layout"),
     (lambda: ct.chain(ct.fm_demodulator(0.6), ct.MixChannels()), 2, 2 * 256,
      ValueError, "mix: mix requires channelized input"),
-    (lambda: ct.chain(ct.stereo_fm_decoder(192000.0, 4)), 2, 1 << 16,
-     NotImplementedError, "StereoFMDecoder is not yet ported in csdr_tpu_torch"),
+    (lambda: ct.chain(ct.stereo_fm_decoder(192000.0, 4)), 8, 8 * 64,
+     ValueError, "local segment 64 shorter than the largest halo 141"),
 ], ids=["block_size", "halo", "fused_context", "multirate_combine", "channelizer",
         "perchannel", "mix", "stereo"])
 def test_validation_refuses_statically(graph, dt, block, exc, match):
     """tests/test_sharding_generic.py:231-249, :380-390 and
     tests/test_halo_fusion.py:166-175: refused before any collective, with
     the JAX messages' substance: the channelizer's halo, PerChannel and
-    MixChannels on a time-layout input; the blocks whose shard methods wait
-    say "not yet ported"."""
+    MixChannels on a time-layout input, the stereo decoder's largest halo."""
     with pytest.raises(exc, match=match):
         ShardedChain.validate(graph(), dt, 1, block)
 
