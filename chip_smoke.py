@@ -235,8 +235,40 @@ card, trivial exchanges at one card):
       --mesh Wx1 "DeFMS 8 WAV" --rds, DeAIS and -c 64 "DeNBFMSync 10",
       each in a process of its own, against the serial CLI's files.
       ``python3 chip_smoke.py --chain-only`` runs identity, build, phase
-      4's capture and 12.  Every phase prints its seconds ({"phase":
-      "seconds", ...}).
+      4's capture and 12.
+
+and for the serial per-sample recurrences and the bundle (K7 pll_scan and
+K8 symsync_scan, the port's own kernels with no Pallas counterpart; K4, K5
+and K1 on their paths):
+
+  13. 13a K7 against its twin (one noisy pilot row of 2^16 samples, two
+      state-chained blocks: 2e-3, θ within 1e-4) and K8 through SymSyncScan
+      against its twin (4 rows of the JAX sync tests' signals with their
+      own clocks, real k = 10 and complex k = 4, three blocks of 2^14: every
+      output within 2e-3 of the largest, τ within 1e-4: the twin sums each
+      window in the kernel's order); each twin timed on the card at 2^14 samples beside its
+      kernel.  13b the scan modes at full width through the library: DeFMS 8
+      --rds with pll_mode="scan" on phase 6b's capture behind the CLI's
+      front end (L/R separation > 15 dB on the second half, PI and PS,
+      K7 once per block, K5 at least once, nothing else), and the -c 64
+      DeNBFMSync 10 tracker with mode="scan" behind K4 on phase 9's capture
+      (K8 and K4 once per block, nothing else; helidecode finds only the
+      sent coordinate on each occupied channel, at least every one sent
+      after the first block, nothing on the empty ones); for each one
+      block's step ms, device ms, launches and peak memory beside the
+      default mode's; K7/K8 alone on the arguments the flow's first block
+      hands them, timed there with their ns per serial step, and held
+      against their twins on the CPU at that shape (K7 over the first 2^16
+      outputs and θ at the cut, 2e-3; K8 over every output, 2e-3 of the
+      largest, τ within 1e-4).  13c the port's bundle (apps/package_app,
+      not self-contained, its kernel library removed) runs phase 4's -c 64
+      --backend fused --device cuda flow through its launcher in a process
+      of its own: its kernel library is built from the zipapp's sources in
+      the bundle's build directory, K1 launches once per block and nothing
+      else (its -v line), its files equal the repo CLI's bit for bit.
+      ``python3 chip_smoke.py --scan-only`` runs identity, build, phase 4's
+      capture and fused CLI run, and 13.  Every phase prints its seconds
+      ({"phase": "seconds", ...}).
 
 Prints one JSON object per result, then the nvidia-smi line, the kernels
 line and, last, {"ok": true, "device": {...}}.  Each kernels entry carries
@@ -252,11 +284,14 @@ complex shapes.  Nothing here imports JAX.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import io
 import json
 import os
 import re
+import select
+import shutil
 import statistics
 import subprocess
 import sys
@@ -468,15 +503,16 @@ def phase_compare(torch, ct, ff, dev, card):
     return result
 
 
-def reset_counts(ff, pf, fv, fx):
-    ff.launches = fv.launches = fx.launches = 0
-    for k in pf.launches:
-        pf.launches[k] = 0
+def reset_counts():
+    from csdr_tpu_torch.apps.soapy_sdr_cli import reset_kernel_launches
+
+    reset_kernel_launches()
 
 
-def read_counts(ff, pf, fv, fx) -> dict:
-    return dict(pf.launches, flagship_fused=ff.launches, fir_valid=fv.launches,
-                fft_fir=fx.launches)
+def read_counts() -> dict:
+    from csdr_tpu_torch.apps.soapy_sdr_cli import kernel_launches
+
+    return kernel_launches()
 
 
 def pfb_plain_step(torch, pf, state, x, nch: int, demod: bool):
@@ -611,7 +647,7 @@ def phase_main_path(torch, ff, pf, dev, card, tmp):
                 "--blocksize", str(BLOCK)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts(ff, pf, fv, fx)
+        reset_counts()
         t0 = time.perf_counter()
         rc = cli_main(argv)
         torch.cuda.synchronize()
@@ -655,20 +691,18 @@ def phase_main_path(torch, ff, pf, dev, card, tmp):
     return fused_launches, fused_msps, eager_msps, runs, path, want
 
 
-def cli_run(torch, ff, pf, cli_main, argv: list[str]) -> tuple[float, dict]:
+def cli_run(torch, cli_main, argv: list[str]) -> tuple[float, dict]:
     """One CLI run with every kernel count set to 0 just before it; returns
     (seconds, the counts just after)."""
-    from csdr_tpu_torch.ops.cuda import fft_fir as fx
-    from csdr_tpu_torch.ops.cuda import fir_valid as fv
 
     torch.cuda.synchronize()
-    reset_counts(ff, pf, fv, fx)
+    reset_counts()
     t0 = time.perf_counter()
     rc = cli_main(argv)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     check(rc == 0, f"CLI {' '.join(argv[-8:])}: exit code {rc}")
-    return dt, read_counts(ff, pf, fv, fx)
+    return dt, read_counts()
 
 
 def check_counts(counts: dict, want, what: str):
@@ -719,7 +753,7 @@ def write_agc_capture(torch, ct, dev, card, tmp) -> str:
     return agc_path
 
 
-def phase_main_path_pfb(torch, ct, ff, pf, dev, card, tmp, capture, runs, want_bins):
+def phase_main_path_pfb(torch, ct, dev, card, tmp, capture, runs, want_bins):
     """4b. The K3 and K4 flows through the CLI at 64 channels."""
     from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
 
@@ -730,7 +764,7 @@ def phase_main_path_pfb(torch, ct, ff, pf, dev, card, tmp, capture, runs, want_b
 
     # K3: --backend pfb_fused against phase 4's fused and eager runs
     prefix = os.path.join(tmp, "pfb_fused")
-    dt, counts = cli_run(torch, ff, pf, cli_main, ["--filename", capture, "-c", str(nch),
+    dt, counts = cli_run(torch, cli_main, ["--filename", capture, "-c", str(nch),
                                                    "-o", prefix, "--demod", f"DeNBFM {KF} F32",
                                                    "--backend", "pfb_fused", *common])
     check_counts(counts, "pfb_fm_fused", "CLI pfb_fused")
@@ -753,7 +787,7 @@ def phase_main_path_pfb(torch, ct, ff, pf, dev, card, tmp, capture, runs, want_b
     agc = {}
     for backend in ("pfb_fused", "eager"):
         prefix = os.path.join(tmp, f"agc_{backend}")
-        dt, counts = cli_run(torch, ff, pf, cli_main, [
+        dt, counts = cli_run(torch, cli_main, [
             "--filename", agc_path, "-c", str(nch), "-o", prefix, "--demod", f"DeNBFM {KF} F32",
             "-a", str(AGC_T), "--backend", backend, *common])
         check_counts(counts, "pfb_channelize_fused" if backend == "pfb_fused" else None,
@@ -782,7 +816,7 @@ def phase_main_path_pfb(torch, ct, ff, pf, dev, card, tmp, capture, runs, want_b
     split = {}
     for backend in ("pfb_fused", "eager"):
         prefix = os.path.join(tmp, f"raw_{backend}")
-        dt, counts = cli_run(torch, ff, pf, cli_main, [
+        dt, counts = cli_run(torch, cli_main, [
             "--filename", capture, "-c", "4", "-o", prefix, "--demod", "DeNo",
             "--backend", backend, *common])
         check_counts(counts, "pfb_channelize_fused" if backend == "pfb_fused" else None,
@@ -806,7 +840,7 @@ def phase_main_path_pfb(torch, ct, ff, pf, dev, card, tmp, capture, runs, want_b
     return out, agc_path
 
 
-def phase_cli_rates(torch, ff, pf, card, tmp, capture, agc_path):
+def phase_cli_rates(torch, card, tmp, capture, agc_path):
     """5b. The CLI flows' end-to-end rates, each backend run in turns
     (A, B, B, A) so that neither pays alone for the first run's pinned
     buffers and file creation; the median per backend."""
@@ -827,7 +861,7 @@ def phase_cli_rates(torch, ff, pf, card, tmp, capture, agc_path):
         secs = {b: [] for b in backends}
         for b in order:
             prefix = os.path.join(tmp, "rate")
-            dt, counts = cli_run(torch, ff, pf, cli_main,
+            dt, counts = cli_run(torch, cli_main,
                                  argv + ["-o", prefix, "--backend", b, *common])
             check_counts(counts, backends[b], f"CLI {flow} {b}")
             secs[b].append(dt)
@@ -1120,12 +1154,10 @@ def plain_k5():
         fir_ops.fir_valid = fv.fir_valid
 
 
-def phase_main_path_fir(torch, ff, pf, dev, card, tmp):
+def phase_main_path_fir(torch, dev, card, tmp):
     """4c. The DeCW, DeAM and library K6 paths on a 2^25-sample capture."""
     import csdr_tpu_torch as ct
     from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
-    from csdr_tpu_torch.ops.cuda import fft_fir as fx
-    from csdr_tpu_torch.ops.cuda import fir_valid as fv
 
     nch = 64
     frames = CAPTURE // nch
@@ -1145,7 +1177,7 @@ def phase_main_path_fir(torch, ff, pf, dev, card, tmp):
                                  ("plain_k5", "eager", None)):
         prefix = os.path.join(tmp, f"cw_{label}")
         with plain_k5() if label == "plain_k5" else contextlib.nullcontext():
-            dt, counts = cli_run(torch, ff, pf, cli_main, [
+            dt, counts = cli_run(torch, cli_main, [
                 "--filename", path, "-c", str(nch), "-o", prefix, "--demod",
                 f"DeCW {CW_BW:g} {CW_PITCH:g} WAV", "--backend", backend, *common])
         check_counts(counts, want, f"CLI -c 64 DeCW {label}")
@@ -1180,7 +1212,7 @@ def phase_main_path_fir(torch, ff, pf, dev, card, tmp):
     single = {}
     for label in ("kernel", "plain_k5"):
         with plain_k5() if label == "plain_k5" else contextlib.nullcontext():
-            dt, counts = cli_run(torch, ff, pf, cli_main, [
+            dt, counts = cli_run(torch, cli_main, [
                 "--filename", path, "-c", "1", "--offset", repr(offset), "-b", "48000",
                 "-o", prefix, "--demod", f"DeCW {CW_BW:g} {CW_PITCH:g} WAV", "--device",
                 "cuda", "--blocksize", str(BLOCK), "-n", str(n48)])
@@ -1206,7 +1238,7 @@ def phase_main_path_fir(torch, ff, pf, dev, card, tmp):
     am = {}
     for device, n, block in (("cuda", CAPTURE, BLOCK), ("cpu", n_cpu, n_cpu)):
         prefix = os.path.join(tmp, f"am_{device}")
-        dt, counts = cli_run(torch, ff, pf, cli_main, [
+        dt, counts = cli_run(torch, cli_main, [
             "--filename", path, "-c", "1", "-o", prefix, "--demod", "DeAM WAV",
             "-a", str(AM_T), "--device", device, "--blocksize", str(block), "-n", str(n)])
         check_counts(counts, None, f"CLI -c 1 DeAM -a {device}")
@@ -1230,12 +1262,12 @@ def phase_main_path_fir(torch, ff, pf, dev, card, tmp):
         pipe = ct.Pipeline(g, block_size=BLOCK, device=dev)
         sink = ct.CollectSink()
         torch.cuda.synchronize()
-        reset_counts(ff, pf, fv, fx)
+        reset_counts()
         t0 = time.perf_counter()
         total = pipe.run(ct.cu8_file_source(path, BLOCK), sink)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = read_counts(ff, pf, fv, fx)
+        counts = read_counts()
         check_counts(counts, want, f"library FIRFilter {strategy}")
         check(total == CAPTURE, f"library FIRFilter {strategy}: {total} samples")
         lib[strategy] = (sink.concat(), dt, counts)
@@ -1254,7 +1286,7 @@ def phase_main_path_fir(torch, ff, pf, dev, card, tmp):
     return out, rates, path
 
 
-def phase_timing_fir(torch, ff, pf, dev, card, tmp, cw_path):
+def phase_timing_fir(torch, dev, card, tmp, cw_path):
     """5c. K5 and K6 alone against their plain versions and the "fft"
     strategy at the shapes of 3c, one block each, in turns (plain, kernel,
     kernel, plain); then the -c 64 DeCW CLI backends in turns."""
@@ -1285,7 +1317,7 @@ def phase_timing_fir(torch, ff, pf, dev, card, tmp, cw_path):
     order = ["eager", "pfb_fused", "pfb_fused", "eager"]
     for b in order:
         prefix = os.path.join(tmp, "rate_cw")
-        dt, counts = cli_run(torch, ff, pf, cli_main, common + ["-o", prefix, "--backend", b])
+        dt, counts = cli_run(torch, cli_main, common + ["-o", prefix, "--backend", b])
         check_counts(counts, ("fir_valid",) if b == "eager" else
                      ("fir_valid", "pfb_channelize_fused"), f"CLI DeCW rate {b}")
         secs[b].append(dt)
@@ -1295,12 +1327,12 @@ def phase_timing_fir(torch, ff, pf, dev, card, tmp, cw_path):
     return medians, rates
 
 
-def cli_flow(torch, ff, pf, cli_main, argv: list[str], samples: int, want, what: str) -> dict:
+def cli_flow(torch, cli_main, argv: list[str], samples: int, want, what: str) -> dict:
     """One CLI flow: a run timed on the host clock with every kernel count
     set to 0 just before it and read just after (its kernels in ``want``
     launched, no other), then the same run under torch.profiler for the
     device-idle share (``idle_share``)."""
-    dt, counts = cli_run(torch, ff, pf, cli_main, argv)
+    dt, counts = cli_run(torch, cli_main, argv)
     check_counts(counts, want, what)
     return dict(seconds=dt, msps=samples / dt / 1e6, launches=counts,
                 **idle_share({"cli": argv}))
@@ -1333,7 +1365,7 @@ def tone_fit(a: np.ndarray, f: float, rate: float) -> tuple[float, float]:
     return amp, float(10 * np.log10(amp ** 2 / 2 / np.mean(err ** 2)))
 
 
-def phase_wbfm(torch, ff, pf, dev, card, tmp) -> dict:
+def phase_wbfm(torch, dev, card, tmp) -> dict:
     """6a. BASELINE config 1 through the CLI: a 1 kHz FM tone at DC of a
     2.56 MS/s cu8 capture, resampled to 200 kHz, WBFM-demodulated,
     de-emphasised and decimated by 8 into a mono WAV."""
@@ -1357,7 +1389,7 @@ def phase_wbfm(torch, ff, pf, dev, card, tmp) -> dict:
     argv = lambda n, device: ["--filename", path, "-s", "2560000", "-b", str(int(FM_BW)),  # noqa: E731
                               "-n", str(n), "--demod", f"DeWBFM {decim} WAV", "-o", prefix,
                               "--device", device]
-    flow = cli_flow(torch, ff, pf, cli_main, argv(n, "cuda"), CAPTURE, None, "CLI DeWBFM")
+    flow = cli_flow(torch, cli_main, argv(n, "cuda"), CAPTURE, None, "CLI DeWBFM")
     audio = read_wav(prefix + ".wav", 1, n // decim, rate)[0]
     check(bool(np.isfinite(audio).all()), "CLI DeWBFM: non-finite audio")
     # the de-emphasised message is the tone scaled by the de-emphasis gain
@@ -1366,7 +1398,7 @@ def phase_wbfm(torch, ff, pf, dev, card, tmp) -> dict:
     amp, snr = tone_fit(audio[rate // 10:], WBFM_TONE, rate)
     # the same flow on the CPU over the first 2^22 capture samples
     n_cpu = min(1 << 22, CAPTURE) * 5 // 64
-    dt_cpu, _ = cli_run(torch, ff, pf, cli_main, argv(n_cpu, "cpu"))
+    dt_cpu, _ = cli_run(torch, cli_main, argv(n_cpu, "cpu"))
     cpu = read_wav(prefix + ".wav", 1, n_cpu // decim, rate)[0]
     rel = float(np.abs(audio[:len(cpu)].astype(np.float64) - cpu).max() / np.abs(cpu).max())
     emit(dict(phase="wbfm", flow="-s 2560000 -b 200000 DeWBFM 8 WAV", wire="cu8",
@@ -1404,20 +1436,21 @@ def stereo_capture(torch, dev, n: int, seed: int):
     return to_cu8(torch, torch.polar(torch.ones_like(ph), ph).to(torch.complex64))
 
 
-def fms_graph(decim: int = 8):
-    """The graph of the CLI's DeFMS --rds behind its front end, and the
-    samples per block its Pipeline runs at the CLI's default block size."""
+def fms_graph(decim: int = 8, pll_mode: str = "closed_form"):
+    """The graph of the CLI's DeFMS --rds behind its front end (its stereo
+    decoder's subcarrier from ``pll_mode``), and the samples per block its
+    Pipeline runs at the CLI's default block size."""
     import csdr_tpu_torch as ct
     from csdr_tpu_torch.apps.soapy_sdr_cli import build_parser
     from csdr_tpu_torch.models.rds import rds_receiver
     from csdr_tpu_torch.models.stereo import stereo_fm_decoder
 
     g = ct.chain(ct.dc_blocker(), ct.fm_demodulator(0.8),
-                 ct.Tee(stereo_fm_decoder(FM_BW, decim), rds_receiver(FM_BW)))
+                 ct.Tee(stereo_fm_decoder(FM_BW, decim, pll_mode=pll_mode), rds_receiver(FM_BW)))
     return g, (build_parser().get_default("blocksize") // g.granule) * g.granule
 
 
-def phase_stereo_rds(torch, ff, pf, dev, card, tmp) -> dict:
+def phase_stereo_rds(torch, dev, card, tmp) -> dict:
     """6b. DeFMS 8 --rds: one Pipeline, the composite into a Tee of the
     stereo decoder and the RDS receiver, whose data filter runs on K5 (held
     against its plain version at this shape in 3c)."""
@@ -1431,7 +1464,7 @@ def phase_stereo_rds(torch, ff, pf, dev, card, tmp) -> dict:
     prefix = os.path.join(tmp, "stereo")
     argv = ["--filename", path, "-b", str(int(FM_BW)), "-n", str(n), "--demod",
             f"DeFMS {decim} WAV", "--rds", "-o", prefix, "--device", "cuda"]
-    flow = cli_flow(torch, ff, pf, cli_main, argv, CAPTURE, "fir_valid", "CLI DeFMS --rds")
+    flow = cli_flow(torch, cli_main, argv, CAPTURE, "fir_valid", "CLI DeFMS --rds")
     # the CLI's graph behind the front end, for its block count and flush
     g, block = fms_graph(decim)
     total = n + g.flush_len()
@@ -1461,7 +1494,7 @@ def phase_stereo_rds(torch, ff, pf, dev, card, tmp) -> dict:
     return flow
 
 
-def phase_mix(torch, ff, pf, dev, card, tmp) -> dict:
+def phase_mix(torch, dev, card, tmp) -> dict:
     """6c. BASELINE config 4: -c 16 -m DeNBFM 0.3 on every backend, and with
     -a (K4); each mixed WAV against the sum of the same flow's per-channel
     files, the per-channel runs against eager."""
@@ -1489,10 +1522,10 @@ def phase_mix(torch, ff, pf, dev, card, tmp) -> dict:
         prefix = os.path.join(tmp, "mix")
         # the per-channel run first: it also warms the backend's first use
         # of nch 16, so the timed -m run below is a warm one
-        _, counts = cli_run(torch, ff, pf, cli_main, common + ["-o", prefix])
+        _, counts = cli_run(torch, cli_main, common + ["-o", prefix])
         check_counts(counts, want, f"CLI -c {nch} {label}")
         per = read_wavs(prefix, nch, frames).astype(np.float64)
-        flow = cli_flow(torch, ff, pf, cli_main, common + ["-m", "-o", prefix], CAPTURE, want,
+        flow = cli_flow(torch, cli_main, common + ["-m", "-o", prefix], CAPTURE, want,
                         f"CLI -c {nch} -m {label}")
         mixed = read_wav(prefix + ".wav", 1, frames, rate)[0].astype(np.float64)
         check(bool(np.isfinite(mixed).all()), f"CLI -m {label}: non-finite audio")
@@ -1527,13 +1560,11 @@ def checkpoint_pipeline(ct, backend: str, dev):
                        block_size=BLOCK, device=dev)
 
 
-def phase_checkpoint(torch, ct, ff, pf, dev, card, capture) -> dict:
+def phase_checkpoint(torch, ct, dev, card, capture) -> dict:
     """6d. Checkpoint and resume through the library, -c 64 DeNBFM, fused
     (K1) and eager, on phase 4's capture: the whole run, then the first
     half, save_pipeline, a new Pipeline, resume_pipeline and skip_n.  The
     resumed output must equal the whole run's second half bit for bit."""
-    from csdr_tpu_torch.ops.cuda import fft_fir as fx
-    from csdr_tpu_torch.ops.cuda import fir_valid as fv
 
     nch, half = 64, CAPTURE // 2
     out = {}
@@ -1544,12 +1575,12 @@ def phase_checkpoint(torch, ct, ff, pf, dev, card, capture) -> dict:
             src = lambda: ct.cu8_file_source(capture, BLOCK)  # noqa: E731
             whole = ct.CollectSink()
             torch.cuda.synchronize()
-            reset_counts(ff, pf, fv, fx)
+            reset_counts()
             t0 = time.perf_counter()
             total = make().run(src(), whole)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            counts = read_counts(ff, pf, fv, fx)
+            counts = read_counts()
             check_counts(counts, want, f"library -c 64 {backend}")
             idle = idle_share({"checkpoint": backend, "capture": capture})
             first = ct.CollectSink()
@@ -1828,7 +1859,7 @@ PACKET_DEMOD = {"DeADSB": "DeADSB", "DeAIS": "DeAIS", "DeAPRS": "DeAPRS 0.5",
 PACKET_KERNELS = {"DeRTTY": "fir_valid"}     # the kernels each flow must launch
 
 
-def phase_packet(torch, ct, ff, pf, dev, card, tmp, samples: int = CAPTURE) -> dict:
+def phase_packet(torch, ct, dev, card, tmp, samples: int = CAPTURE) -> dict:
     """8. The packet receivers: each CLI flow on a seeded cu8 capture on the
     card, every injected message decoded and nothing else, its .txt equal
     to the same flow's --device cpu run's, its kernels' launches (K5 in
@@ -1856,10 +1887,10 @@ def phase_packet(torch, ct, ff, pf, dev, card, tmp, samples: int = CAPTURE) -> d
         suffix = cli.PACKET_SUFFIX[kind]
         # the CLI prints every decoded message: thousands of lines
         with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
-            dt, counts = cli_run(torch, ff, pf, cli.main,
+            dt, counts = cli_run(torch, cli.main,
                                  common + ["-o", prefix["cuda"], "--device", "cuda"])
             check_counts(counts, PACKET_KERNELS.get(kind), f"CLI {kind}")
-            dt_cpu, _ = cli_run(torch, ff, pf, cli.main,
+            dt_cpu, _ = cli_run(torch, cli.main,
                                 common + ["-o", prefix["cpu"], "--device", "cpu"])
         with open(prefix["cuda"] + suffix) as f:
             got = f.read()
@@ -1889,18 +1920,16 @@ def phase_packet(torch, ct, ff, pf, dev, card, tmp, samples: int = CAPTURE) -> d
     gen_s = time.perf_counter() - t0
     del x
     from csdr_tpu_torch.models import pocsag
-    from csdr_tpu_torch.ops.cuda import fft_fir as fx
-    from csdr_tpu_torch.ops.cuda import fir_valid as fv
 
     def band_run(backend, kern):
         sink = ct.CollectSink()
         torch.cuda.synchronize()
-        reset_counts(ff, pf, fv, fx)
+        reset_counts()
         t0 = time.perf_counter()
         band_pipeline(ct, backend, dev).run(ct.cu8_file_source(band_path, BLOCK), sink)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = read_counts(ff, pf, fv, fx)
+        counts = read_counts()
         check_counts(counts, kern, f"band monitor {backend}")
         return dt, counts, sink
 
@@ -1976,6 +2005,7 @@ SYNC_FE_BLOCK = 1 << 16        # the -c 1 flow's --blocksize; the CPU run takes 
 # float order picks (record_ties: a phase-rounding tie, or a window position
 # at an integer), of its output of the other pick
 SYNC_TOL, SYNC_TIE = 2e-3, 0.01
+SCAN_SETTLE = 20               # symbols: SymSyncScan's loop time constant, 1/lf_bw
 TRACK_K, TRACK_M = 4, 3        # the tracker's RRC-shaped packets (tests/test_modem.py)
 TRACK_SNR = {"qpsk": 20.0, "qam16": 26.0}
 TRACK_PACKETS, TRACK_BITS, TRACK_TRAIN = 64, 512, 2048
@@ -2032,6 +2062,88 @@ def record_ties(width: float = SYNC_TIE):
         yield log
     finally:
         SymSync._interp = interp
+
+
+def scan_ties(taus, loop, npfb: int, width: float = SYNC_TIE) -> np.ndarray:
+    """Outputs of a ``SymSyncScan`` run (its twin's per-output τ, ``trace``)
+    whose window start or bank row lies within ``width`` bank steps of a
+    rounding boundary: where τ ± width/npfb samples gives another (floor of
+    the position, bank row) than τ, in the kernel's float32 order.  There
+    two right implementations in another float order may pick apart, and
+    the pick feeds back through the loop.  An output at the initial τ = 0
+    (before the loop first moves τ) is no tie: every run holds exactly 0
+    there.  Bool (…, nout) as numpy."""
+    import torch
+
+    from csdr_tpu_torch.ops.cuda.symsync_scan import picks
+
+    j = torch.arange(taus.shape[-1], dtype=torch.float32, device=taus.device)
+    d = np.float32(width / npfb)
+    at = picks(taus, j, loop, npfb)
+    tie = torch.zeros(taus.shape, dtype=torch.bool, device=taus.device)
+    for t in (taus - d, taus + d):
+        other = picks(t, j, loop, npfb)
+        tie |= (other[0] != at[0]) | (other[1] != at[1])
+    return (tie & (taus != 0)).cpu().numpy()
+
+
+def scan_agree(got: np.ndarray, want: np.ndarray, ties: np.ndarray, block: int = 0) -> dict:
+    """A ``SymSyncScan`` output (…, nout) against the reference run ``want``
+    with its ``scan_ties``: within SYNC_TOL of the largest output up to each
+    row's first tie; after it the two runs must decode the same symbols:
+    the signs of their centre samples (even outputs, real parts) equal,
+    block by block (``block`` outputs each; 0: one block) under one
+    whole-symbol shift per block, 0 in the block of the first tie, changing
+    by at most one symbol at each later block's start: there τ's wrap by
+    ±k moves one run's output grid by a symbol when the parted runs sit on
+    either side of ±k/2.  The grid moves by k samples, not by the runs'
+    τ difference, so after a change of shift the first SCAN_SETTLE centres
+    (the loop's time constant, 1/lf_bw symbols) sample other points of the
+    eye and are not compared.  Returns {"max_err": the
+    worst error before the first tie, "first_tie": the earliest first tie,
+    "sign_mismatches": centre samples after it whose signs differ under
+    their block's best shift, "centres_after": how many were compared,
+    "shifts": the nonzero shifts (row, block, symbols), "max_err_all": the
+    worst error anywhere, "outputs"}."""
+    got, want, ties = (np.atleast_2d(v) for v in (got, want, ties))
+    n = got.shape[-1]
+    block = block or n
+    out = dict(max_err=0.0, first_tie=n, sign_mismatches=0, centres_after=0, shifts=[],
+               max_err_all=0.0, outputs=int(got.size))
+    rows = zip(got.reshape(-1, n), want.reshape(-1, n), ties.reshape(-1, n))
+    for r, (g, w, t) in enumerate(rows):
+        err = np.abs(g.astype(np.complex128) - w) / (np.abs(w).max() + 1e-12)
+        first = int(np.argmax(t)) if t.any() else n
+        out["max_err"] = max(out["max_err"], float(err[:first].max(initial=0.0)))
+        out["max_err_all"] = max(out["max_err_all"], float(err.max()))
+        out["first_tie"] = min(out["first_tie"], first)
+        prev = None
+        for b0 in range(first - first % block, n, block):
+            c0 = max(b0, first + first % 2)
+            sg = np.sign(g[c0:b0 + block:2].real)
+            sw = np.sign(w[b0:b0 + block:2].real)
+            i0 = (c0 - b0) // 2
+            best = None
+            # none in the block of the first tie; then ±1 at each block's end,
+            # past which the first SCAN_SETTLE centres are not compared
+            for shift in ([0] if prev is None else (prev - 1, prev, prev + 1)):
+                skip = SCAN_SETTLE if prev is not None and shift != prev else 0
+                lo, hi = max(0, i0 + shift + skip), min(len(sw), i0 + len(sg) + shift)
+                if hi - lo < len(sg) - skip - 3:
+                    continue
+                bad = int((sg[lo - i0 - shift:hi - i0 - shift] != sw[lo:hi]).sum())
+                if best is None or bad < best[0]:
+                    best = (bad, shift, hi - lo)
+            out["sign_mismatches"] += best[0]
+            out["centres_after"] += best[2]
+            prev = best[1]
+            if prev:
+                out["shifts"].append((r, b0 // block, prev))
+    return out
+
+
+def scan_ok(agree: dict) -> bool:
+    return agree["max_err"] < SYNC_TOL and agree["sign_mismatches"] == 0
 
 
 def heli_text(ch: int) -> str:
@@ -2129,7 +2241,7 @@ def sync_graph(ct, backend: str):
                                                         backend=backend))
 
 
-def phase_sync(torch, ct, ff, pf, dev, card, tmp) -> dict:
+def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
     """9. DeNBFMSync, the coded modem and the beacon (no new kernel).
 
     9a. K4 at the DeNBFMSync graph's block (its granule nch·tileF·k/… rounds
@@ -2222,18 +2334,18 @@ def phase_sync(torch, ct, ff, pf, dev, card, tmp) -> dict:
     kern = {"pfb_fused": "pfb_channelize_fused", "eager": None}
     runs = {b: dict(secs=[]) for b in kern}
     with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
-        _, counts = cli_run(torch, ff, pf, cli.main, argv("pfb_fused"))
+        _, counts = cli_run(torch, cli.main, argv("pfb_fused"))
         check_counts(counts, kern["pfb_fused"], "9b pfb_fused")
         check(counts["pfb_channelize_fused"] == nblocks,
               f"9b: K4 launched {counts['pfb_channelize_fused']} times for {nblocks} blocks")
         runs["pfb_fused"]["launches"] = counts
         with record_ties(SYNC_TIE) as rec:
-            _, counts = cli_run(torch, ff, pf, cli.main, argv("eager"))
+            _, counts = cli_run(torch, cli.main, argv("eager"))
         check_counts(counts, None, "9b eager")
         runs["eager"]["launches"] = counts
         order = ["pfb_fused", "eager", "eager", "pfb_fused"]
         for b in order:
-            dt, counts = cli_run(torch, ff, pf, cli.main, argv(b))
+            dt, counts = cli_run(torch, cli.main, argv(b))
             check_counts(counts, kern[b], f"9b {b}")
             runs[b]["secs"].append(dt)
     nout = CAPTURE * 2 // (SYNC_NCH * SYNC_K)
@@ -2333,10 +2445,10 @@ def phase_sync(torch, ct, ff, pf, dev, card, tmp) -> dict:
                             f"DeNBFMSync {SYNC_FE_K}", "--blocksize", str(SYNC_FE_BLOCK),
                             "-o", fe_prefix[d], "--device", d]
     with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
-        fe_dt, counts = cli_run(torch, ff, pf, cli.main, fe_argv("cuda", n_out))
+        fe_dt, counts = cli_run(torch, cli.main, fe_argv("cuda", n_out))
         check_counts(counts, None, "9c")
         with record_ties(SYNC_TIE) as rec:
-            cpu_dt, _ = cli_run(torch, ff, pf, cli.main, fe_argv("cpu", n_cpu))
+            cpu_dt, _ = cli_run(torch, cli.main, fe_argv("cpu", n_cpu))
     card_y = np.fromfile(fe_prefix["cuda"] + ".f32", np.float32)
     cpu_y = np.fromfile(fe_prefix["cpu"] + ".f32", np.float32)
     check(card_y.shape == (n_out * 2 // SYNC_FE_K,) and cpu_y.shape == (n_cpu * 2 // SYNC_FE_K,),
@@ -2362,7 +2474,7 @@ def phase_sync(torch, ct, ff, pf, dev, card, tmp) -> dict:
     os.unlink(path)
     del x
 
-    out["9d"] = phase_sync_library(torch, ct, ff, pf, dev, card)
+    out["9d"] = phase_sync_library(torch, ct, dev, card)
     return out
 
 
@@ -2452,13 +2564,11 @@ def viterbi_acs_on_card(torch, llr):
     return bits[: T - 6]
 
 
-def phase_sync_library(torch, ct, ff, pf, dev, card) -> dict:
+def phase_sync_library(torch, ct, dev, card) -> dict:
     """9d: the tracker and the coded packet link, the beacon, FSKDemod."""
     from csdr_tpu_torch.blocks import fsk_demodulator
     from csdr_tpu_torch.models import beacon, modem, symsync
     from csdr_tpu_torch.ops import fec
-    from csdr_tpu_torch.ops.cuda import fft_fir as fx
-    from csdr_tpu_torch.ops.cuda import fir_valid as fv
 
     out = {}
     for i, ms in enumerate(("qpsk", "qam16")):
@@ -2466,12 +2576,12 @@ def phase_sync_library(torch, ct, ff, pf, dev, card) -> dict:
         tracker = symsync.sym_tracker(TRACK_M, TRACK_K, ms=ms)
         sink = ct.CollectSink()
         torch.cuda.synchronize()
-        reset_counts(ff, pf, fv, fx)
+        reset_counts()
         t0 = time.perf_counter()
         ct.Pipeline(tracker, block_size=TRACK_BLOCK, device=dev).run(iter([x]), sink)
         torch.cuda.synchronize()
         track_s = time.perf_counter() - t0
-        check_counts(read_counts(ff, pf, fv, fx), None, f"9d tracker {ms}")
+        check_counts(read_counts(), None, f"9d tracker {ms}")
         y = sink.concat()
         check(y.shape == (len(x) // TRACK_K,) and bool(np.isfinite(y).all()),
               f"9d tracker {ms}: output {y.shape}")
@@ -2591,23 +2701,21 @@ def recording_tracks(app):
         app.collect = collect
 
 
-def app_run(torch, ff, pf, app, argv: list[str]) -> dict:
+def app_run(torch, app, argv: list[str]) -> dict:
     """One offline-decoder run (``app.main(argv)``) with every kernel count
     set to 0 just before it; its seconds, the counts, the track it decoded
     and what it printed."""
-    from csdr_tpu_torch.ops.cuda import fft_fir as fx
-    from csdr_tpu_torch.ops.cuda import fir_valid as fv
 
     buf = io.StringIO()
     torch.cuda.synchronize()
-    reset_counts(ff, pf, fv, fx)
+    reset_counts()
     with recording_tracks(app) as tracks, contextlib.redirect_stdout(buf):
         t0 = time.perf_counter()
         rc = app.main(argv)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     check(rc == 0, f"{app.__name__} {' '.join(argv)}: exit code {rc}: {buf.getvalue()}")
-    return dict(seconds=dt, counts=read_counts(ff, pf, fv, fx), track=tracks[0],
+    return dict(seconds=dt, counts=read_counts(), track=tracks[0],
                 out=buf.getvalue().strip())
 
 
@@ -2671,7 +2779,7 @@ def image_error(got: np.ndarray, want: np.ndarray) -> tuple[float, float]:
     return float(np.median(err)), float(np.quantile(err, 0.95))
 
 
-def imagery_case(torch, ff, pf, tmp, card, name, app, path, argv, samples, first,
+def imagery_case(torch, tmp, card, name, app, path, argv, samples, first,
                  info_of, want_img) -> dict:
     """One app on the card and on the CPU over the same file: the tracks
     within GOLDEN_REL of the CPU's largest value (from output ``first``),
@@ -2681,7 +2789,7 @@ def imagery_case(torch, ff, pf, tmp, card, name, app, path, argv, samples, first
     runs = {}
     for dev in ("cuda", "cpu"):
         out = os.path.join(tmp, f"{name}_{dev}")
-        r = app_run(torch, ff, pf, app, [path, *argv, "-o", out, "--device", dev])
+        r = app_run(torch, app, [path, *argv, "-o", out, "--device", dev])
         check_counts(r["counts"], None, f"10a {name} --device {dev}")
         r["image"] = read_pnm(out)
         os.unlink(out)
@@ -2709,7 +2817,7 @@ def imagery_case(torch, ff, pf, tmp, card, name, app, path, argv, samples, first
     return res
 
 
-def phase_imagery(torch, ff, pf, dev, card, tmp) -> dict:
+def phase_imagery(torch, dev, card, tmp) -> dict:
     """10a. The imagery apps on the card and on the CPU at the sizes users
     decode, inputs made by the port's own modulators."""
     from csdr_tpu_torch.apps import apt_decode, sstv_decode, wefax_decode
@@ -2739,7 +2847,7 @@ def phase_imagery(torch, ff, pf, dev, card, tmp) -> dict:
     path = os.path.join(tmp, "apt.cf32")
     iq.tofile(path)
     out["apt_cf32"] = imagery_case(
-        torch, ff, pf, tmp, card, "apt_cf32", apt_decode, path, ["-s", str(APT_FS)], len(iq), 0,
+        torch, tmp, card, "apt_cf32", apt_decode, path, ["-s", str(APT_FS)], len(iq), 0,
         apt_info, lambda got, info: apt_error(got, info, img[:APT_CF32_LINES]))
     # the idle share of the 120-line pass: a profiler window over the whole
     # pass (~340 launches per block) takes longer to read back than the rest
@@ -2753,7 +2861,7 @@ def phase_imagery(torch, ff, pf, dev, card, tmp) -> dict:
     os.unlink(path)
     path = os.path.join(tmp, "apt.f32")
     audio.tofile(path)
-    out["apt"] = imagery_case(torch, ff, pf, tmp, card, "apt", apt_decode, path,
+    out["apt"] = imagery_case(torch, tmp, card, "apt", apt_decode, path,
                               ["-s", str(APT_FS)], len(audio), 0, apt_info, apt_error)
     os.unlink(path)
     del audio, part, iq
@@ -2773,7 +2881,7 @@ def phase_imagery(torch, ff, pf, dev, card, tmp) -> dict:
     audio = sstv.sstv_modulate(pic, SSTV_FS, mode="martin1")
     path = os.path.join(tmp, "sstv.f32")
     audio.tofile(path)
-    out["sstv"] = imagery_case(torch, ff, pf, tmp, card, "sstv", sstv_decode, path,
+    out["sstv"] = imagery_case(torch, tmp, card, "sstv", sstv_decode, path,
                                ["-s", str(SSTV_FS)], len(audio), IMG_WARMUP, sstv_info,
                                sstv_error)
     os.unlink(path)
@@ -2792,7 +2900,7 @@ def phase_imagery(torch, ff, pf, dev, card, tmp) -> dict:
     audio = wefax.wefax_modulate(chart, WEFAX_FS)
     path = os.path.join(tmp, "wefax.f32")
     audio.tofile(path)
-    out["wefax"] = imagery_case(torch, ff, pf, tmp, card, "wefax", wefax_decode, path,
+    out["wefax"] = imagery_case(torch, tmp, card, "wefax", wefax_decode, path,
                                 ["-s", str(WEFAX_FS)], len(audio), IMG_WARMUP, wefax_info,
                                 wefax_error)
     os.unlink(path)
@@ -2821,7 +2929,7 @@ def wav_if_capture(torch, dev, n: int, seed: int) -> np.ndarray:
     return x.to(torch.float32).cpu().numpy()
 
 
-def phase_wav(torch, ff, pf, dev, card, tmp) -> dict:
+def phase_wav(torch, dev, card, tmp) -> dict:
     """10b. A mono WAV through wav_iq_source, card against CPU, then the
     CLI's -c 64 DeNBFM on it under fused (K1) against eager."""
     import csdr_tpu_torch as ct
@@ -2846,7 +2954,7 @@ def phase_wav(torch, ff, pf, dev, card, tmp) -> dict:
         argv = ["--filename", path, "-s", "48000", "-n", str(n_iq), "-c", "64", "--demod",
                 "DeNBFM 0.6 F32", "--backend", backend, "--blocksize", str(BLOCK // 2),
                 "-o", prefix]
-        dt, counts = cli_run(torch, ff, pf, cli_main, argv)
+        dt, counts = cli_run(torch, cli_main, argv)
         check_counts(counts, "flagship_fused" if backend == "fused" else None,
                      f"10b -c 64 WAV {backend}")
         runs[backend] = dict(seconds=dt, msps_iq=n_iq / dt / 1e6,
@@ -2885,7 +2993,7 @@ def plot_arrays(path: str) -> list[np.ndarray]:
     return [np.array(pts, float)]
 
 
-def phase_file_surface(torch, ff, pf, dev, card, tmp) -> dict:
+def phase_file_surface(torch, dev, card, tmp) -> dict:
     """10c. -c 64 --backend pfb_fused --profile on a cf32 capture (K3 once
     per block, the stage table printed, the files bit-equal to the run
     without --profile); 10d. -c 1 DeAM AU behind a device front end, read
@@ -2907,7 +3015,7 @@ def phase_file_surface(torch, ff, pf, dev, card, tmp) -> dict:
                 "-o", prefix] + (["--profile"] if prof else [])
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            dt, counts = cli_run(torch, ff, pf, cli_main, argv)
+            dt, counts = cli_run(torch, cli_main, argv)
         check_counts(counts, "pfb_fm_fused", f"10c --profile={prof}")
         check(counts["pfb_fm_fused"] == blocks,
               f"10c --profile={prof}: pfb_fm_fused launched {counts['pfb_fm_fused']} times, "
@@ -2939,7 +3047,7 @@ def phase_file_surface(torch, ff, pf, dev, card, tmp) -> dict:
         prefix = os.path.join(tmp, f"am_{name}")
         argv = fe + ["--demod", f"DeAM {fmt}", "-o", prefix, "--device", dev_] + (
             ["--spectrum", "--constellation"] if plots else [])
-        dt, counts = cli_run(torch, ff, pf, cli_main, argv)
+        dt, counts = cli_run(torch, cli_main, argv)
         check_counts(counts, None, f"10d DeAM {fmt} on {dev_}")
         if fmt == "AU":
             audio, rate = read_au(prefix + ".au")
@@ -2970,13 +3078,13 @@ def phase_file_surface(torch, ff, pf, dev, card, tmp) -> dict:
     return res
 
 
-def phase_imagery_and_files(torch, ff, pf, dev, card, tmp) -> dict:
+def phase_imagery_and_files(torch, dev, card, tmp) -> dict:
     """Phase 10: 10a, 10b, then 10c and 10d."""
     res, secs = {}, {}
     for name, fn in (("imagery", phase_imagery), ("wav", phase_wav),
                      ("files", phase_file_surface)):
         t0 = time.perf_counter()
-        res[name] = fn(torch, ff, pf, dev, card, tmp)
+        res[name] = fn(torch, dev, card, tmp)
         secs[name] = time.perf_counter() - t0
     emit(dict(phase="imagery_and_files", seconds=sum(secs.values()), by_part=secs, **card))
     return res
@@ -3031,7 +3139,7 @@ def env_var(name: str, value: str):
             os.environ[name] = old
 
 
-def phase_device_rtl(torch, ff, pf, dev, card, tmp) -> dict:
+def phase_device_rtl(torch, dev, card, tmp) -> dict:
     """11a. The slice's main path: the port's rtl_tcp_server (a process of
     its own) serves a 2^25-sample cu8 capture of phase 4's kind; the CLI
     reads it with --devname rtl_tcp and runs -c 64 DeNBFM on K1.  Its 64
@@ -3065,7 +3173,7 @@ def phase_device_rtl(torch, ff, pf, dev, card, tmp) -> dict:
         if src == "rtl_tcp":
             with rtl_server(cu8_path, tmp, 1) as (port, proc, log), \
                     env_var("CSDR_RTLTCP_ADDR", f"127.0.0.1:{port}"):
-                dt, counts = cli_run(torch, ff, pf, cli_main, dev_argv + ["-o", out])
+                dt, counts = cli_run(torch, cli_main, dev_argv + ["-o", out])
                 proc.wait(timeout=60)
                 text = open(log).read()
             check(proc.returncode == 0, f"11a: rtl_tcp_server exit code {proc.returncode}")
@@ -3074,7 +3182,7 @@ def phase_device_rtl(torch, ff, pf, dev, card, tmp) -> dict:
             check(cmds == [want_log], f"11a: the server's command log {cmds}, want {want_log}")
             check("served 1 client(s)" in text, f"11a: server log {text[-500:]}")
         else:
-            dt, counts = cli_run(torch, ff, pf, cli_main, ["--filename", cf32_path, *common,
+            dt, counts = cli_run(torch, cli_main, ["--filename", cf32_path, *common,
                                                            "-o", out])
         check_counts(counts, "flagship_fused", f"11a {src} run")
         secs[src].append(dt)
@@ -3088,7 +3196,7 @@ def phase_device_rtl(torch, ff, pf, dev, card, tmp) -> dict:
     check(np.array_equal(audio["rtl_tcp"], audio["cf32"]),
           "11a: the rtl_tcp run differs from the CF32 file run of the same samples")
     out = os.path.join(tmp, "live_cu8")
-    dt_cu8, counts = cli_run(torch, ff, pf, cli_main, ["--filename", cu8_path, *common,
+    dt_cu8, counts = cli_run(torch, cli_main, ["--filename", cu8_path, *common,
                                                        "-o", out])
     check_counts(counts, "flagship_fused", "11a cu8 run")
     cu8_max, cu8_rms = errors_np(read_channels(out, "f32", np.float32, nch, frames * 4),
@@ -3116,7 +3224,7 @@ def phase_device_rtl(torch, ff, pf, dev, card, tmp) -> dict:
     return res
 
 
-def phase_device_synthetic(torch, ff, pf, dev, card, tmp) -> dict:
+def phase_device_synthetic(torch, dev, card, tmp) -> dict:
     """11b. --devname synthetic -s 2.56e6 -n 2^24 -c 64 DeNBFM on pfb_fused
     (K3) and eager: each run's files equal the --filename run of the
     synthetic samples saved as CF32 bit for bit; K3 against eager within
@@ -3138,7 +3246,7 @@ def phase_device_synthetic(torch, ff, pf, dev, card, tmp) -> dict:
         for how, argv in (("device", ["--devname", "synthetic", "-s", "2.56e6"]),
                           ("file", ["--filename", path])):
             out = os.path.join(tmp, f"syn_{backend}_{how}")
-            dt, counts = cli_run(torch, ff, pf, cli_main, argv + common + ["--backend", backend,
+            dt, counts = cli_run(torch, cli_main, argv + common + ["--backend", backend,
                                                                           "-o", out])
             check_counts(counts, kern, f"11b {backend} {how} run")
             got[how] = read_channels(out, "f32", np.float32, nch, n // nch * 4)
@@ -3202,7 +3310,7 @@ def phase_native(torch, card, tmp) -> dict:
     return res
 
 
-def phase_autotune(torch, ff, pf, dev, card, tmp) -> dict:
+def phase_autotune(torch, ff, dev, card, tmp) -> dict:
     """11d. K1's tileF swept at nch 64 on cu8 2^23-sample steps through
     utils/autotune.sweep into a temporary cache (TILES; a tile the kernel's
     own checks refuse is recorded as infeasible); each tile's step ms from
@@ -3210,8 +3318,6 @@ def phase_autotune(torch, ff, pf, dev, card, tmp) -> dict:
     winner, and its output stays within MAX_ERR and RMS_ERR of the
     default tile's."""
     from csdr_tpu_torch.blocks.fused_blocks import FlagshipFused
-    from csdr_tpu_torch.ops.cuda import fft_fir as fx
-    from csdr_tpu_torch.ops.cuda import fir_valid as fv
     from csdr_tpu_torch.utils import autotune
 
     u8 = to_cu8(torch, occupied_band(torch, dev, 64, BLOCK, SEED + 1103))
@@ -3227,7 +3333,7 @@ def phase_autotune(torch, ff, pf, dev, card, tmp) -> dict:
         return BLOCK / step_ms[t] / 1e3
 
     with env_var(AUTOTUNE_ENV, os.path.join(tmp, "autotune.json")):
-        reset_counts(ff, pf, fv, fx)
+        reset_counts()
         best, results = autotune.sweep("flagship_fused", 64, TILES, bench)
         sweep_launches = ff.launches
         blk = FlagshipFused(64, kf=KF)
@@ -3247,13 +3353,13 @@ def phase_autotune(torch, ff, pf, dev, card, tmp) -> dict:
     return res
 
 
-def phase_device(torch, ff, pf, dev, card, tmp) -> dict:
+def phase_device(torch, ff, dev, card, tmp) -> dict:
     """Phase 11: 11a–11d."""
     res, secs = {}, {}
-    for name, fn in (("11a", lambda: phase_device_rtl(torch, ff, pf, dev, card, tmp)),
-                     ("11b", lambda: phase_device_synthetic(torch, ff, pf, dev, card, tmp)),
+    for name, fn in (("11a", lambda: phase_device_rtl(torch, dev, card, tmp)),
+                     ("11b", lambda: phase_device_synthetic(torch, dev, card, tmp)),
                      ("11c", lambda: phase_native(torch, card, tmp)),
-                     ("11d", lambda: phase_autotune(torch, ff, pf, dev, card, tmp))):
+                     ("11d", lambda: phase_autotune(torch, ff, dev, card, tmp))):
         t0 = time.perf_counter()
         res[name] = fn()
         secs[name] = time.perf_counter() - t0
@@ -3284,10 +3390,7 @@ def mesh_rank(device, capture: str, agc_path: str, world: int) -> dict:
     import torch.distributed as dist
 
     import csdr_tpu_torch as ct
-    from csdr_tpu_torch.ops.cuda import fft_fir as fx
-    from csdr_tpu_torch.ops.cuda import fir_valid as fv
     from csdr_tpu_torch.ops.cuda import flagship_fused as ff
-    from csdr_tpu_torch.ops.cuda import pfb_fused as pf
     from csdr_tpu_torch.parallel import (ShardedChannelizedFM, ShardedFlagship,
                                          ShardedPipeline, build_mesh)
 
@@ -3301,7 +3404,7 @@ def mesh_rank(device, capture: str, agc_path: str, world: int) -> dict:
         sink = ct.CollectSink() if rank == 0 else None
         torch.cuda.synchronize()
         dist.barrier()
-        reset_counts(ff, pf, fv, fx)
+        reset_counts()
         t0 = time.perf_counter()
         pipe = ShardedPipeline(sh)
         ends = []
@@ -3311,7 +3414,7 @@ def mesh_rank(device, capture: str, agc_path: str, world: int) -> dict:
             ends.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = read_counts(ff, pf, fv, fx)
+        counts = read_counts()
         audio = sink.concat() if sink else None
         return audio, pipe.state, counts, 0 if audio is None else audio.shape[1], secs, ends
 
@@ -3562,10 +3665,6 @@ def channel_layout_rank(torch, ct, device, world: int, captures: dict) -> dict:
     the serial port Pipeline of the same graph on its card."""
     import torch.distributed as dist
 
-    from csdr_tpu_torch.ops.cuda import fft_fir as fx
-    from csdr_tpu_torch.ops.cuda import fir_valid as fv
-    from csdr_tpu_torch.ops.cuda import flagship_fused as ff
-    from csdr_tpu_torch.ops.cuda import pfb_fused as pf
     from csdr_tpu_torch.parallel import ShardedChain, ShardedPipeline, build_mesh
 
     rank = dist.get_rank()
@@ -3631,12 +3730,12 @@ def channel_layout_rank(torch, ct, device, world: int, captures: dict) -> dict:
                 sink = ct.CollectSink() if rank == 0 else None
                 torch.cuda.synchronize()
                 dist.barrier()
-                reset_counts(ff, pf, fv, fx)
+                reset_counts()
                 t0 = time.perf_counter()
                 total = ShardedPipeline(sh).run(
                     ct.cu8_file_source(captures[cap], BLOCK) if rank == 0 else None, sink)
                 torch.cuda.synchronize()
-                runs.append((time.perf_counter() - t0, read_counts(ff, pf, fv, fx), sink))
+                runs.append((time.perf_counter() - t0, read_counts(), sink))
             (secs, counts, _), (warm, warm_counts, sink) = runs
             r.update(launches=counts, seconds=secs, msps=CAPTURE / secs / 1e6,
                      warm_launches=warm_counts, warm_seconds=warm,
@@ -3684,10 +3783,6 @@ def chain_rank(device, capture: str, world: int, mix_path: str, specs: list) -> 
     import torch.distributed as dist
 
     import csdr_tpu_torch as ct
-    from csdr_tpu_torch.ops.cuda import fft_fir as fx
-    from csdr_tpu_torch.ops.cuda import fir_valid as fv
-    from csdr_tpu_torch.ops.cuda import flagship_fused as ff
-    from csdr_tpu_torch.ops.cuda import pfb_fused as pf
     from csdr_tpu_torch.parallel import ShardedChain, ShardedPipeline, build_mesh
 
     rank = dist.get_rank()
@@ -3749,12 +3844,12 @@ def chain_rank(device, capture: str, world: int, mix_path: str, specs: list) -> 
             sink = ct.CollectSink() if rank == 0 else None
             torch.cuda.synchronize()
             dist.barrier()
-            reset_counts(ff, pf, fv, fx)
+            reset_counts()
             t0 = time.perf_counter()
             total = ShardedPipeline(sh).run(
                 ct.cu8_file_source(capture, BLOCK) if rank == 0 else None, sink)
             torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t0, read_counts(ff, pf, fv, fx), sink))
+            runs.append((time.perf_counter() - t0, read_counts(), sink))
         (secs, counts, _), (warm, warm_counts, sink) = runs
         r.update(launches=counts, seconds=secs, msps=CAPTURE / secs / 1e6,
                  warm_launches=warm_counts, warm_seconds=warm, warm_msps=CAPTURE / warm / 1e6)
@@ -3813,6 +3908,18 @@ def flow_graph(ct, label: str):
     return sync_graph(ct, "eager")
 
 
+def front_end_cf32(ct, dev, path: str, fs: float, offset: float, bw: float, out: str):
+    """A cu8 capture through the CLI's front end (``--offset``, ``-b``) on
+    its own Pipeline on ``dev``, written as CF32 to ``out``: (out, samples)."""
+    g = ct.chain(ct.u8_to_iq(), *ct.front_end(fs, offset, bw))
+    sink = ct.CollectSink()
+    ct.Pipeline(g, block_size=round_block(BLOCK, g.granule), device=dev).run(
+        ct.cu8_file_source(path, BLOCK), sink)
+    y = sink.concat()
+    y.astype(np.complex64).tofile(out)
+    return out, len(y)
+
+
 def flow_specs(torch, ct, dev, tmp, world: int) -> list[dict]:
     """12e's cases and their inputs, made as phases 6, 8 and 9 make theirs:
     the stereo capture (6b) and the helicopter capture (9) at 2^25 samples,
@@ -3825,14 +3932,7 @@ def flow_specs(torch, ct, dev, tmp, world: int) -> list[dict]:
     from csdr_tpu_torch.apps import soapy_sdr_cli as cli
 
     def front(path, fs, offset, bw, name):
-        g = ct.chain(ct.u8_to_iq(), *ct.front_end(fs, offset, bw))
-        sink = ct.CollectSink()
-        ct.Pipeline(g, block_size=round_block(BLOCK, g.granule), device=dev).run(
-            ct.cu8_file_source(path, BLOCK), sink)
-        y = sink.concat()
-        out = os.path.join(tmp, f"{name}.cf32")
-        y.astype(np.complex64).tofile(out)
-        return out, len(y)
+        return front_end_cf32(ct, dev, path, fs, offset, bw, os.path.join(tmp, f"{name}.cf32"))
 
     specs = []
     t0 = time.perf_counter()
@@ -3890,22 +3990,18 @@ def flow_serial(torch, ct, device, spec) -> dict:
     """The serial port Pipeline of a 12e graph over its input on this card,
     at the spec's block: the collected output (and for the sync the other
     picks of ``record_ties``), seconds and kernel launches."""
-    from csdr_tpu_torch.ops.cuda import fft_fir as fx
-    from csdr_tpu_torch.ops.cuda import fir_valid as fv
-    from csdr_tpu_torch.ops.cuda import flagship_fused as ff
-    from csdr_tpu_torch.ops.cuda import pfb_fused as pf
 
     graph = flow_graph(ct, spec["label"])
     src = (ct.cu8_file_source if spec["wire"] == "cu8" else ct.cf32_file_source)(
         spec["path"], spec["block"])
     sink = ct.CollectSink()
     torch.cuda.synchronize()
-    reset_counts(ff, pf, fv, fx)
+    reset_counts()
     t0 = time.perf_counter()
     with record_ties(SYNC_TIE) as rec:
         ct.Pipeline(graph, block_size=spec["block"], device=device).run(src, sink)
     torch.cuda.synchronize()
-    out = dict(seconds=time.perf_counter() - t0, launches=read_counts(ff, pf, fv, fx),
+    out = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
                y=sink.concat())
     if rec:
         out["codes"], out["other"] = (np.concatenate([r[i] for r in rec], axis=-1)
@@ -3973,10 +4069,6 @@ def flow_rank(torch, ct, device, world: int, specs: list) -> dict:
     once per case) by ``flow_compare``."""
     import torch.distributed as dist
 
-    from csdr_tpu_torch.ops.cuda import fft_fir as fx
-    from csdr_tpu_torch.ops.cuda import fir_valid as fv
-    from csdr_tpu_torch.ops.cuda import flagship_fused as ff
-    from csdr_tpu_torch.ops.cuda import pfb_fused as pf
     from csdr_tpu_torch.parallel import ShardedChain, ShardedPipeline, build_mesh
 
     rank = dist.get_rank()
@@ -4055,12 +4147,12 @@ def flow_rank(torch, ct, device, world: int, specs: list) -> dict:
             sink = ct.CollectSink() if rank == 0 else None
             torch.cuda.synchronize()
             dist.barrier()
-            reset_counts(ff, pf, fv, fx)
+            reset_counts()
             t0 = time.perf_counter()
             total = ShardedPipeline(sh).run(source(spec["path"], block) if rank == 0 else None,
                                             sink)
             torch.cuda.synchronize()
-            r.update(seconds=time.perf_counter() - t0, launches=read_counts(ff, pf, fv, fx),
+            r.update(seconds=time.perf_counter() - t0, launches=read_counts(),
                      total=total)
             r["msps"] = spec["samples"] / r["seconds"] / 1e6
             if rank == 0:
@@ -4077,7 +4169,7 @@ def flow_rank(torch, ct, device, world: int, specs: list) -> dict:
     return out
 
 
-def phase_chain_flows(torch, ff, pf, card, tmp, world: int, specs: list, ranks: list) -> dict:
+def phase_chain_flows(torch, card, tmp, world: int, specs: list, ranks: list) -> dict:
     """12e, the ranks' results of ``flow_rank`` checked, each against the
     serial Pipeline; 12f, the CLI's --mesh Wx1 DeFMS 8 --rds, DeAIS and -c 64
     DeNBFMSync 10, each mesh run in a process of its own, against the serial
@@ -4132,7 +4224,7 @@ def phase_chain_flows(torch, ff, pf, card, tmp, world: int, specs: list, ranks: 
         prefix = {k: os.path.join(tmp, f"flow_cli_{k}") for k in ("serial", "mesh")}
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf), record_ties(SYNC_TIE) as rec:
-            main_serial, serial_counts = cli_run(torch, ff, pf, cli_main, common + [
+            main_serial, serial_counts = cli_run(torch, cli_main, common + [
                 "-o", prefix["serial"], "--device", "cuda", "-v"])
         m = re.search(thru, buf.getvalue())
         check(m is not None, f"serial CLI {label} output: {buf.getvalue()[-2000:]}")
@@ -4240,7 +4332,7 @@ def run_stamped(argv: list[str], timeout: float = 600.0):
             wall, stamps)
 
 
-def phase_chain(torch, ff, pf, card, tmp, capture) -> dict:
+def phase_chain(torch, card, tmp, capture) -> dict:
     """12. The generic sharded chain (ShardedChain) on NCCL, world =
     min(cards, CHAIN_MAX), over phase 4's capture: 12a the time-layout
     library graphs in ``chain_rank`` (every rank's kernel counts from 0);
@@ -4290,7 +4382,7 @@ def phase_chain(torch, ff, pf, card, tmp, capture) -> dict:
     prefix = os.path.join(tmp, "chain_serial")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        main_serial, counts = cli_run(torch, ff, pf, cli_main,
+        main_serial, counts = cli_run(torch, cli_main,
                                       common + ["-o", prefix, "--device", "cuda", "-v"])
     # each CLI's own clock from its first block to its last (-v's
     # Throughput line), the set-up before it left out on both sides
@@ -4373,7 +4465,7 @@ def phase_chain(torch, ff, pf, card, tmp, capture) -> dict:
         prefix = os.path.join(tmp, "chain_ch_serial")
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            main_serial, serial_counts = cli_run(torch, ff, pf, cli_main, common + [
+            main_serial, serial_counts = cli_run(torch, cli_main, common + [
                 "--backend", "eager", "-o", prefix, "--device", "cuda", "-v"])
         m = re.search(thru, buf.getvalue())
         check(m is not None, f"serial CLI {label} output: {buf.getvalue()[-2000:]}")
@@ -4415,11 +4507,484 @@ def phase_chain(torch, ff, pf, card, tmp, capture) -> dict:
             check(c["finite"] and rel < bound_rel, f"{what} vs serial CLI: rel {rel}")
             res["channel_cli"][f"{label} {mesh}"] = c
         del serial
-    res.update(phase_chain_flows(torch, ff, pf, card, tmp, world, specs, ranks))
+    res.update(phase_chain_flows(torch, card, tmp, world, specs, ranks))
     os.unlink(mix_path)
     res["seconds"] = time.perf_counter() - t_start
     emit(dict(phase="chain", part="seconds", seconds=res["seconds"], **card))
     return res
+
+
+SCAN_PLL_N = 1 << 16            # 13a: K7 on one row, two state-chained blocks of 2^15
+SCAN_PLAIN_N = 1 << 14          # 13a: the samples the twins are timed at on the card
+SCAN_SYNC_ROWS, SCAN_SYNC_N = 4, 1 << 14   # 13a: K8 on 4 rows, three blocks of 2^14
+SCAN_CHECK_N = 1 << 16         # 13b: K7's outputs at the flow's shape held against the twin
+SCAN_SEP_DB = 15.0    # the scan PLL's separation after pull-in (tests/test_symsync_stereo.py:222)
+
+
+def sync_rows(rows: int, n: int, k: int, seed: int, cplx: bool) -> np.ndarray:
+    """Rows of the JAX package's own symbol-sync test signals
+    (tests/test_symsync_stereo.py:33-61), each with its own bits, timing
+    phase and symbol clock within ±100 ppm (read off a k-samples/symbol
+    grid by linear interpolation): real, NRZ smoothed by a 7-tap Hann
+    window (float32); complex, RRC (β 0.5, m 3) BPSK (complex64)."""
+    from csdr_tpu_torch.utils import firdes
+
+    rng = np.random.default_rng(seed)
+    out = np.empty((rows, n), np.complex64 if cplx else np.float32)
+    for r in range(rows):
+        eps, d0 = rng.uniform(-1e-4, 1e-4), rng.uniform(0, k)
+        nsym = int(n * (1 + 2e-4) / k) + 8
+        bits = rng.integers(0, 2, nsym) * 2.0 - 1.0
+        if cplx:
+            up = np.zeros(nsym * k)
+            up[::k] = bits
+            xs = np.convolve(up, firdes.rrc(k, 3, 0.5))[:nsym * k] * np.sqrt(k)
+        else:
+            xs = np.convolve(np.repeat(bits, k), np.hanning(7) / np.hanning(7).sum(), "same")
+        t = (np.arange(n) + d0) * (1 + eps)
+        out[r] = np.interp(t, np.arange(len(xs)), xs)
+    return out
+
+
+def pll_constants():
+    """K7's (ω, α, β) at the DeFMS flow's 200 kHz quad rate."""
+    bw = 9.0 / FM_BW
+    return 2 * np.pi * 19000.0 / FM_BW, 4.0 * bw, 4.0 * bw * bw
+
+
+def pll_bound(rows: int, n: int) -> dict:
+    """K7: p read once (8 B), sub38 written once (8 B) per sample; per
+    sample the complex product (6 FLOP), the loop update (5), and one each
+    for the two sincosf, the atan2f and the mod."""
+    return bound(16 * rows * n + 16 * rows, 15 * rows * n)
+
+
+def sync_scan_bound(rows: int, L: int, nout: int, W: int, npfb: int, cplx: bool) -> dict:
+    """K8: each row of xfull read once, each output written once, the bank
+    once; per output W multiply-adds (2 FLOP, 4 complex) and ~12 for the
+    position and the loop."""
+    dt = 8 if cplx else 4
+    return bound(rows * (dt * L + dt * nout) + 4 * npfb * W,
+                 rows * nout * (W * (4 if cplx else 2) + 12))
+
+
+def phase_scan_kernels(torch, dev, card) -> dict:
+    """13a. K7 and K8 against their plain twins (on the CPU): K7 on one
+    noisy 19 kHz pilot row of SCAN_PLL_N samples in two state-chained
+    blocks (2e-3, θ within 1e-4); K8 through SymSyncScan on SCAN_SYNC_ROWS
+    rows of the reference tests' signals (``sync_rows``), real k = 10
+    (kaiser, W = 81) and complex k = 4, m = 3 (rnyquist, W = 25), three
+    blocks of SCAN_SYNC_N: every output within 2e-3 of the largest, τ
+    within 1e-4 (the twin sums each window in the kernel's order, so the
+    two pick alike and feed back alike).  Each kernel launches once per
+    block.
+    Then each twin's time on the card at SCAN_PLAIN_N samples beside its
+    kernel's."""
+    from csdr_tpu_torch.models import symsync
+    from csdr_tpu_torch.ops.cuda import pll_scan as k7
+    from csdr_tpu_torch.ops.cuda import symsync_scan as k8
+
+    out = {}
+    cpu = torch.device("cpu")
+    omega, alpha, beta = pll_constants()
+    rng = np.random.default_rng(SEED + 1300)
+    t = np.arange(SCAN_PLL_N)
+    p = (0.1 * np.exp(1j * (2 * np.pi * 19004.0 / FM_BW * t + 2.0))
+         + 0.02 * (rng.normal(size=SCAN_PLL_N) + 1j * rng.normal(size=SCAN_PLL_N)))
+    p = torch.from_numpy(p.astype(np.complex64).reshape(1, -1))
+    cg = (torch.zeros(1, device=dev), torch.zeros(1, device=dev))
+    cc = (torch.zeros(1), torch.zeros(1))
+    before, errs, th = k7.launches, [], []
+    half = SCAN_PLL_N // 2
+    for b in range(2):
+        pb = p[:, b * half:(b + 1) * half].contiguous()
+        cg, yg = k7.pll_scan(pb.to(dev), cg, omega, alpha, beta)
+        cc, yc = k7.pll_scan(pb, cc, omega, alpha, beta)
+        errs.append(float((yg.cpu() - yc).abs().max()))
+        th.append(float((cg[0].cpu() - cc[0]).abs().max()))
+    torch.cuda.synchronize()
+    out["pll"] = dict(max_abs_err=max(errs), theta_err=max(th), launches=k7.launches - before)
+    check(out["pll"]["launches"] == 2, f"13a: K7 launched {out['pll']['launches']} times")
+    check(max(errs) < SYNC_TOL and max(th) < 1e-4, f"13a: K7 vs twin {out['pll']}")
+
+    for kind in ("real", "complex"):
+        blk = (symsync.sym_sync_r(SYNC_K, 4, 0.0, 64, mode="scan") if kind == "real"
+               else symsync.sym_sync_c(3, 4, mode="scan"))
+        x = sync_rows(SCAN_SYNC_ROWS, 3 * SCAN_SYNC_N, blk.k, SEED + 1310, kind == "complex")
+        sg = tuple(torch.zeros((SCAN_SYNC_ROWS, *leaf.shape), dtype=leaf.dtype, device=dev)
+                   for leaf in blk.init(dev))
+        sc = tuple(leaf.cpu() for leaf in sg)
+        before, errs = k8.launches, []
+        for b in range(3):
+            xb = torch.from_numpy(np.ascontiguousarray(x[:, b * SCAN_SYNC_N:(b + 1) * SCAN_SYNC_N]))
+            sg, yg = blk.apply(sg, xb.to(dev))
+            sc, yc = blk.apply(sc, xb)
+            errs.append(float((yg.cpu() - yc).abs().max() / yc.abs().max()))
+        torch.cuda.synchronize()
+        agree = dict(max_err=max(errs), launches=k8.launches - before,
+                     tau_err=float((sg[1].cpu() - sc[1]).abs().max()), k=blk.k, W=blk.W,
+                     npfb=blk.npfb)
+        out[f"sync_{kind}"] = agree
+        check(agree["launches"] == 3, f"13a: K8 {kind} launched {agree['launches']} times")
+        check(agree["max_err"] < SYNC_TOL and agree["tau_err"] < 1e-4,
+              f"13a: K8 {kind} vs twin {agree}")
+
+    # the twins' time on the card beside the kernels', at SCAN_PLAIN_N samples
+    pn = p[:, :SCAN_PLAIN_N].to(dev)
+    c0 = (torch.zeros(1, device=dev), torch.zeros(1, device=dev))
+    out["pll"]["plain_ms"] = min(time_steps(
+        torch, lambda: k7.pll_scan_ref(pn, c0, omega, alpha, beta), steps=1, warmup=0))
+    out["pll"]["ms_at_plain_shape"] = statistics.median(time_steps(
+        torch, lambda: k7.pll_scan(pn, c0, omega, alpha, beta), steps=5, warmup=1))
+    out["pll"]["plain_shape"] = f"(1, {SCAN_PLAIN_N}) complex64"
+    blk = symsync.sym_sync_r(SYNC_K, 4, 0.0, 64, mode="scan")
+    xs = torch.from_numpy(sync_rows(SCAN_SYNC_ROWS, SCAN_PLAIN_N, SYNC_K, SEED + 1313,
+                                    False)).to(dev)
+    xf = torch.cat([torch.zeros(SCAN_SYNC_ROWS, blk.H, device=dev), xs], dim=-1)
+    bank = symsync._bank_on(blk.k, blk.m, blk.npfb, blk.ftype, blk.beta, dev)
+    z = torch.zeros(SCAN_SYNC_ROWS, device=dev)
+    loop = blk.loop(SCAN_PLAIN_N)
+    out["sync_real"]["plain_ms"] = min(time_steps(
+        torch, lambda: k8.symsync_scan_ref(xf, bank, (z, z, z, z), loop), steps=1, warmup=0))
+    out["sync_real"]["ms_at_plain_shape"] = statistics.median(time_steps(
+        torch, lambda: k8.symsync_scan(xf, bank, (z, z, z, z), loop), steps=5, warmup=1))
+    out["sync_real"]["plain_shape"] = f"({SCAN_SYNC_ROWS}, {blk.H + SCAN_PLAIN_N}) float32"
+    emit(dict(phase="scan_kernels", **out, **card))
+    return out
+
+
+@contextlib.contextmanager
+def kernel_inputs(mod, name: str):
+    """Within: ``mod.<name>``, a kernel's wrapper that the models import at
+    each call, runs as before and keeps the arguments of its first call in
+    the yielded list."""
+    fn, seen = getattr(mod, name), []
+
+    def keep(*args):
+        if not seen:
+            seen.append(args)
+        return fn(*args)
+
+    setattr(mod, name, keep)
+    try:
+        yield seen
+    finally:
+        setattr(mod, name, fn)
+
+
+def scan_step(torch, graph, x, dev, steps: int) -> dict:
+    """One block of ``graph`` on the device-resident input x: the step's
+    median ms (CUDA events, after one warm-up), its peak memory above what
+    was allocated before it, and its device kernels (launches and ms per
+    step) from one profiler window of ``steps`` steps."""
+    box = {"s": graph.init(dev)}
+
+    def step():
+        box["s"], _ = graph.apply(box["s"], x)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    ms = statistics.median(time_steps(torch, step, steps=steps, warmup=0))
+    kern = profile_kernels(torch, step, steps)
+    port = {}
+    for k, v in kern.items():
+        if m := PORT_KERNEL.search(k):
+            c = port.setdefault(m.group(1), [0.0, 0.0])
+            c[0] += v["count"] / steps
+            c[1] += v["device_us"] / steps / 1e3
+    return dict(step_ms=ms, step_peak_mib=peak,
+                launches_per_step=sum(v["count"] for v in kern.values()) / steps,
+                device_ms=sum(v["device_us"] for v in kern.values()) / steps / 1e3,
+                device_ms_by_kernel={k[:60]: v["device_us"] / steps / 1e3
+                                     for k, v in sorted(kern.items(),
+                                                        key=lambda kv: -kv[1]["device_us"])[:4]},
+                port_kernels_per_step=port)
+
+
+def tracker_graph(ct, mode: str):
+    """The CLI's -c 64 DeNBFMSync graph behind the cu8 reader on pfb_fused
+    (K4), its per-channel symbol sync in ``mode``."""
+    from csdr_tpu_torch.models.receivers import channelized_receiver
+    from csdr_tpu_torch.models.symsync import sym_sync_r
+
+    inner = ct.chain(ct.fm_demodulator(0.02 * SYNC_K), sym_sync_r(SYNC_K, 4, 0.0, 64, mode=mode))
+    return ct.chain(ct.u8_to_iq(), channelized_receiver(SYNC_NCH, inner, backend="pfb_fused"))
+
+
+def phase_scan_flows(torch, ct, dev, card, tmp) -> dict:
+    """13b. The scan modes at full width through the library.
+
+    DeFMS 8 --rds with pll_mode="scan": phase 6b's capture through the
+    CLI's front end, then ``fms_graph(8, "scan")`` on a Pipeline at the
+    CLI's block: L/R separation > SCAN_SEP_DB on the second half (after the
+    9 Hz loop's pull-in), PI and PS decoded, K7 once per block and K5 at
+    least once per block, no other kernel.  The -c 64 DeNBFMSync 10 tracker
+    with mode="scan" behind K4 on phase 9's capture: K8 and K4 once per
+    block and nothing else; helidecode finds only the sent coordinate on
+    each occupied channel, at least every one sent after the first block
+    (each τ wrap at a block's end may cost the frame across it, in the JAX
+    package too: tests/test_torch_scan.py), and nothing on the empty ones.
+    For each, one block's step ms, device ms, launches and peak memory,
+    beside the default mode's (closed_form, block), and the kernel's ns per
+    serial step.  Each kernel is then launched alone on the arguments the
+    flow's first block hands it (``kernel_inputs``), timed there, and held
+    against its twin on the CPU: K7's first SCAN_CHECK_N outputs and θ at
+    the cut within 2e-3, K8's every output within 2e-3 of the largest and
+    τ within 1e-4 (the twin sums in the kernel's order and picks alike)."""
+    from csdr_tpu_torch.models import rds
+    from csdr_tpu_torch.models import symsync
+    from csdr_tpu_torch.ops.cuda import pll_scan as k7
+    from csdr_tpu_torch.ops.cuda import symsync_scan as k8
+
+    out = {}
+    # DeFMS --rds, pll_mode="scan"
+    t0 = time.perf_counter()
+    cu8 = os.path.join(tmp, "scan_stereo.cu8")
+    stereo_capture(torch, dev, CAPTURE, SEED + 500).cpu().numpy().tofile(cu8)
+    fe, n = front_end_cf32(ct, dev, cu8, 2.56e6, 0.0, FM_BW, os.path.join(tmp, "scan_fe.cf32"))
+    os.unlink(cu8)
+    g, block = fms_graph(FMS_DECIM, "scan")
+    sink = ct.CollectSink()
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    ct.Pipeline(g, block_size=block, device=dev).run(ct.cf32_file_source(fe, block), sink)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    counts = read_counts()
+    audio, bits = sink.concat()
+    blocks = -(-(n + g.flush_len()) // block)
+    rate = FM_BW / FMS_DECIM
+    sep = []
+    for ch, (fw, fo) in enumerate(((FMS_L, FMS_R), (FMS_R, FMS_L))):
+        y = audio[ch, audio.shape[-1] // 2:].astype(np.float64)
+        spec = np.abs(np.fft.rfft(y * np.hanning(len(y)))) ** 2
+        f = np.fft.rfftfreq(len(y), 1.0 / rate)
+        band = lambda f0: spec[(f > f0 - 100) & (f < f0 + 100)].max()  # noqa: E731
+        sep.append(float(10 * np.log10(band(fw) / band(fo))))
+    info = rds.decode_groups(bits)
+    x = torch.from_numpy(np.fromfile(fe, np.complex64, count=block)).to(dev)
+    steps = {mode: scan_step(torch, fms_graph(FMS_DECIM, mode)[0], x, dev, 3)
+             for mode in ("scan", "closed_form")}
+    k7_launches, k7_dev = steps["scan"]["port_kernels_per_step"].get("pll_scan_rows", [0, 0.0])
+    # K7 alone on the pilot the flow's first block hands it: timed at the
+    # flow's shape, and its first SCAN_CHECK_N outputs held against the twin
+    # (the loop is causal) with θ at the cut
+    g = fms_graph(FMS_DECIM, "scan")[0]
+    with kernel_inputs(k7, "pll_scan") as seen:
+        g.apply(g.init(dev), x)
+    del x
+    os.unlink(fe)
+    p_a, c0, *consts = seen[0]
+    k7_ms = statistics.median(time_steps(torch, lambda: k7.pll_scan(p_a, c0, *consts),
+                                         steps=3, warmup=1))
+    _, sub = k7.pll_scan(p_a, c0, *consts)
+    (th, _), sub_c = k7.pll_scan_ref(p_a[..., :SCAN_CHECK_N].cpu(), tuple(c.cpu() for c in c0),
+                                     *consts)
+    sub = sub.cpu()
+    full = dict(max_abs_err=float((sub[..., :SCAN_CHECK_N] - sub_c).abs().max()),
+                theta_cut_err=float((sub[..., SCAN_CHECK_N]
+                                     - torch.complex(torch.cos(2 * th), torch.sin(2 * th)))
+                                    .abs().max()),
+                checked=f"the first {SCAN_CHECK_N} of {p_a.shape[-1]} outputs")
+    out["DeFMS"] = dict(samples=n, block=block, blocks=blocks, seconds=run_s,
+                        msps=n / run_s / 1e6, launches=counts, separation_db=sep,
+                        pi=info["pi"], ps=info["ps"], steps=steps, k7_ms=k7_ms,
+                        k7_vs_twin=full, k7_launches_per_step=k7_launches, k7_device_ms=k7_dev,
+                        k7_ns_per_step=k7_dev * 1e6 / p_a.shape[-1],
+                        k7_shape=f"{tuple(p_a.shape)} complex64 -> {tuple(sub.shape)} complex64",
+                        **pll_bound(int(np.prod(p_a.shape[:-1])), p_a.shape[-1]))
+    del p_a, sub, seen
+    emit(dict(phase="scan_flows", flow="DeFMS 8 --rds, pll_mode scan", wire="cf32",
+              capture_seconds=t1 - t0, **out["DeFMS"], **card))
+    check_counts(counts, ("pll_scan", "fir_valid"), "13b DeFMS scan")
+    check(counts["pll_scan"] == blocks, f"13b DeFMS: K7 launched {counts['pll_scan']} times in "
+                                        f"{blocks} blocks")
+    check(counts["fir_valid"] >= blocks, f"13b DeFMS: K5 launched {counts['fir_valid']} times")
+    check(bool(np.isfinite(audio).all()), "13b DeFMS: non-finite audio")
+    check(min(sep) > SCAN_SEP_DB, f"13b DeFMS: L/R separation {sep} dB")
+    check(k7_launches == 1, f"13b DeFMS: {k7_launches} K7 launches per profiled step")
+    check(info["pi"] == RDS_PI and info["ps"] == RDS_PS, f"13b DeFMS: RDS {info}")
+    check(full["max_abs_err"] < SYNC_TOL and full["theta_cut_err"] < SYNC_TOL,
+          f"13b DeFMS: K7 at the flow's shape vs twin {full}")
+
+    # the -c 64 DeNBFMSync 10 tracker, mode="scan", behind K4
+    t0 = time.perf_counter()
+    xh, texts, eps_of = sync_capture(torch, dev, CAPTURE, SEED + 1000)
+    path = os.path.join(tmp, "scan_heli.cu8")
+    to_cu8(torch, xh).cpu().numpy().tofile(path)
+    del xh
+    g = tracker_graph(ct, "scan")
+    block = BLOCK // g.granule * g.granule
+    blocks = -(-CAPTURE // block)
+    sink = ct.CollectSink()
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    ct.Pipeline(g, block_size=block, device=dev).run(ct.cu8_file_source(path, block), sink)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    counts = read_counts()
+    y = sink.concat()
+    check(y.shape == (SYNC_NCH, CAPTURE * 2 // (SYNC_NCH * SYNC_K)) and bool(np.isfinite(y).all()),
+          f"13b tracker: output {y.shape}")
+    coords = []
+    for ch in range(SYNC_NCH):
+        f32 = os.path.join(tmp, f"scan_heli_ch{ch + 1}.f32")
+        y[ch].astype(np.float32).tofile(f32)
+        coords.append(heli_decode(f32))
+        os.unlink(f32)
+    # the coordinates of the frames sent wholly after the first block
+    after_first = 2 * ((CAPTURE - block) // (SYNC_K * SYNC_NCH * 730) - 1)
+    u8 = torch.from_numpy(np.fromfile(path, np.uint8, count=2 * block).reshape(block, 2)).to(dev)
+    os.unlink(path)
+    steps = {mode: scan_step(torch, tracker_graph(ct, mode), u8, dev, 3)
+             for mode in ("scan", "block")}
+    # K8 alone on the panel the tracker's first block hands it: timed at
+    # the flow's shape, and every output held against the twin on the CPU
+    g = tracker_graph(ct, "scan")
+    with kernel_inputs(k8, "symsync_scan") as seen:
+        g.apply(g.init(dev), u8)
+    del u8
+    xf, bank, carry, loop = seen[0]
+    k8_ms = statistics.median(time_steps(
+        torch, lambda: k8.symsync_scan(xf, bank, carry, loop), steps=5, warmup=1))
+    t2 = time.perf_counter()
+    (tau, *_), yk = k8.symsync_scan(xf, bank, carry, loop)
+    (tau_c, *_), yc = k8.symsync_scan_ref(xf.cpu(), bank.cpu(), tuple(c.cpu() for c in carry),
+                                          loop)
+    yk = yk.cpu()
+    full = dict(max_err=float((yk - yc).abs().max() / yc.abs().max()),
+                tau_err=float((tau.cpu() - tau_c).abs().max()), outputs=int(yc.numel()),
+                twin_seconds=time.perf_counter() - t2)
+    k8_launches, k8_dev = steps["scan"]["port_kernels_per_step"].get("symsync_scan_rows",
+                                                                      [0, 0.0])
+    blk = symsync.sym_sync_r(SYNC_K, 4, 0.0, 64, mode="scan")
+    out["tracker"] = dict(
+        samples=CAPTURE, block=block, blocks=blocks, seconds=run_s, msps=CAPTURE / run_s / 1e6,
+        launches=counts, coords_per_channel={ch: len(coords[ch]) for ch in SYNC_CHANNELS},
+        coords_after_first_block=after_first,
+        coords_on_empty_channels=sum(len(coords[ch]) for ch in range(SYNC_NCH)
+                                     if ch not in SYNC_CHANNELS),
+        clock_ppm={ch: e * 1e6 for ch, e in eps_of.items()}, steps=steps,
+        k8_shape=f"{tuple(xf.shape)} {str(xf.dtype)[6:]} -> {tuple(yk.shape)}",
+        k8_ms=k8_ms, k8_vs_twin=full, k8_launches_per_step=k8_launches, k8_device_ms=k8_dev,
+        k8_ns_per_step=k8_dev * 1e6 / loop.nout,
+        **sync_scan_bound(int(np.prod(xf.shape[:-1])), xf.shape[-1], loop.nout, blk.W, blk.npfb,
+                          xf.is_complex()))
+    del xf, seen, yk
+    emit(dict(phase="scan_flows", flow=f"-c {SYNC_NCH} DeNBFMSync {SYNC_K}, mode scan, "
+                                       "pfb_fused", wire="cu8", capture_seconds=t1 - t0,
+              **out["tracker"], **card))
+    check_counts(counts, ("pfb_channelize_fused", "symsync_scan"), "13b tracker")
+    check(k8_launches == 1, f"13b tracker: {k8_launches} K8 launches per profiled step")
+    check(counts["symsync_scan"] == blocks and counts["pfb_channelize_fused"] == blocks,
+          f"13b tracker: K8 {counts['symsync_scan']}, K4 {counts['pfb_channelize_fused']} "
+          f"launches in {blocks} blocks")
+    for ch in SYNC_CHANNELS:
+        want = heli_coord(texts[ch])
+        check(set(coords[ch]) == {want} and len(coords[ch]) >= after_first,
+              f"13b tracker channel {ch}: {len(coords[ch])} coordinates {set(coords[ch])}, "
+              f"want {want}, at least {after_first}")
+    check(full["max_err"] < SYNC_TOL and full["tau_err"] < 1e-4,
+          f"13b tracker: K8 at the flow's shape vs twin {full}")
+    check(out["tracker"]["coords_on_empty_channels"] == 0,
+          f"13b tracker: {out['tracker']['coords_on_empty_channels']} coordinates on empty "
+          "channels")
+    return out
+
+
+def phase_bundle(torch, card, tmp, capture: str, fused_audio: np.ndarray) -> dict:
+    """13c. The port's bundle (``apps/package_app.build_bundle``, not
+    self-contained, the kernel library it carried removed) runs phase 4's -c 64
+    --backend fused --device cuda flow through its launcher in a process of
+    its own: its kernel library is built from the sources inside the
+    zipapp into the bundle's build directory, K1 launches once per block
+    and no other kernel, and its 64 files equal the repo CLI's bit for
+    bit."""
+    from csdr_tpu_torch.apps.package_app import build_bundle
+    from csdr_tpu_torch.ops.cuda import _build
+
+    t0 = time.perf_counter()
+    dist = build_bundle(os.path.join(tmp, "dist"))
+    bundle_s = time.perf_counter() - t0
+    built = os.path.join(dist, "build")
+    # the repo's library is built by now, and the bundle carries it: take it
+    # out, so that the bundle builds its own from the zipapp's sources
+    carried = sorted(os.listdir(built))
+    check(carried == [_build.library_path().name],
+          f"13c: the bundle carries {carried}, want the built {_build.library_path().name}")
+    for f in carried:
+        os.unlink(os.path.join(built, f))
+    check(os.listdir(built) == [], f"13c: the bundle's build directory holds {os.listdir(built)}")
+    prefix = os.path.join(tmp, "bundle")
+    env = {k: v for k, v in os.environ.items() if k != _build.BUILD_ENV}
+    env["PATH"] = os.path.dirname(sys.executable) + os.pathsep + env.get("PATH", "")
+    argv = [os.path.join(dist, "csdr"), "soapy-sdr", "--filename", capture, "-n", str(CAPTURE),
+            "-c", "64", "-o", prefix, "--demod", f"DeNBFM {KF} F32", "--backend", "fused",
+            "--device", "cuda", "--blocksize", str(BLOCK), "-v"]
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, capture_output=True, text=True, timeout=600, cwd=tmp, env=env)
+    run_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"13c: the bundle's CLI exit code {r.returncode}: "
+                             f"{r.stderr.strip()[-2000:]}")
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("Kernel launches: ")]
+    counts = json.loads(line[-1].split(": ", 1)[1]) if line else {}
+    lib = os.path.join(built, _build.library_path().name)
+    log = os.path.join(built, _build.library_path().name.replace("libcsdr_kernels-", "nvcc-")
+                       .replace(".so", ".log"))
+    blocks = CAPTURE // BLOCK
+    equal = all(np.array_equal(np.fromfile(f"{prefix}_ch{k + 1}.f32", np.float32), fused_audio[k])
+                for k in range(64))
+    out = dict(bundle_seconds=bundle_s, run_seconds=run_s, msps=CAPTURE / run_s / 1e6,
+               carried=carried,
+               launches=counts, library=os.path.relpath(lib, tmp),
+               library_built_in_bundle=os.path.exists(lib) and os.path.exists(log),
+               files_equal_repo_cli=equal)
+    emit(dict(phase="bundle", flow="-c 64 DeNBFM fused through the bundle's launcher", **out,
+              **card))
+    for k in range(64):
+        os.unlink(f"{prefix}_ch{k + 1}.f32")
+    check(out["library_built_in_bundle"], f"13c: no kernel library built in {built}: "
+                                          f"{os.listdir(built)}")
+    check(counts.get("flagship_fused") == blocks
+          and all(v == 0 for k, v in counts.items() if k != "flagship_fused"),
+          f"13c: the bundle's kernel launches {counts}, want K1 {blocks} times")
+    check(equal, "13c: the bundle's files differ from the repo CLI's")
+    shutil.rmtree(dist)
+    return out
+
+
+def phase_scan(torch, ct, dev, card, tmp, capture: str, fused_audio) -> dict:
+    """13. The scan kernels against their twins (13a), the scan modes'
+    full-width library runs (13b), the bundle (13c)."""
+    out = {"13a": timed("scan_kernels", phase_scan_kernels, torch, dev, card)}
+    out["13b"] = timed("scan_flows", phase_scan_flows, torch, ct, dev, card, tmp)
+    out["13c"] = timed("bundle", phase_bundle, torch, card, tmp, capture, fused_audio)
+    return out
+
+
+def fused_reference(torch, tmp, capture: str) -> np.ndarray:
+    """Phase 4's fused -c 64 CLI run on ``capture`` (for --scan-only): the
+    64 channels' audio."""
+    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
+
+    prefix = os.path.join(tmp, "fused")
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        _, counts = cli_run(torch, cli_main, [
+            "--filename", capture, "-n", str(CAPTURE), "-c", "64", "-o", prefix, "--demod",
+            f"DeNBFM {KF} F32", "--backend", "fused", "--device", "cuda", "--blocksize",
+            str(BLOCK)])
+    check_counts(counts, "flagship_fused", "4 (reference)")
+    audio = np.stack([np.fromfile(f"{prefix}_ch{k + 1}.f32", np.float32) for k in range(64)])
+    for k in range(64):
+        os.unlink(f"{prefix}_ch{k + 1}.f32")
+    return audio
 
 
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12   # H100 SXM data sheet
@@ -4604,41 +5169,114 @@ def launch_calls(prof) -> int:
                if not on_device and name.startswith(("cudaLaunch", "cuLaunch")))
 
 
+IDLE_POOL = 6          # idle-share children started together, each then measures one flow
+_POOL: list = []       # children imported and waiting for their flow: (process, stderr file)
+
+
+def _answer(p, err, what: str) -> str:
+    """The next stdout line of idle-share child ``p`` (600 s at most); the
+    script fails with the child's stderr where none comes."""
+    ready, _, _ = select.select([p.stdout], [], [], 600)
+    line = p.stdout.readline() if ready else ""
+    if not line:
+        p.kill()
+        p.wait()
+        err.seek(0)
+        fail(f"idle share ({what}): no answer (exit code {p.returncode}): "
+             f"{err.read().strip()[-2000:]}")
+    return line
+
+
+def stop_idle_pool():
+    """Close the waiting idle-share children (at exit)."""
+    while _POOL:
+        p, err = _POOL.pop()
+        p.stdin.close()
+        try:
+            p.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        err.close()
+
+
 def idle_share(spec: dict) -> dict:
     """Device idle share of one run of a flow, 1 − (device kernel time ÷
     wall time) under torch.profiler (PERF.md §2), measured by
-    ``idle_child`` in a process of its own: later profiler sessions of a
-    long process dropped kernel records, which read as idle.  ``spec`` is
-    {"cli": argv}, {"app": module of csdr_tpu_torch.apps, "argv": argv},
-    {"band_monitor": backend, "capture": path} or {"checkpoint": backend,
-    "capture": path}."""
-    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--idle-share",
-                        json.dumps(spec)], capture_output=True, text=True, timeout=600, cwd=HERE)
-    check(r.returncode == 0, f"idle share of {spec}: exit code {r.returncode}: "
-                             f"{r.stderr.strip()[-2000:]}")
-    return json.loads(r.stdout.strip().splitlines()[-1])
+    ``idle_child`` in a fresh process: later profiler sessions of a long
+    process drop kernel records, which read as idle (a child that measured
+    several flows in turn lost 8 of 21).  ``spec`` is {"cli": argv},
+    {"app": module of csdr_tpu_torch.apps, "argv": argv}, {"band_monitor":
+    backend, "capture": path} or {"checkpoint": backend, "capture": path}.
+    Children are started IDLE_POOL at a time, side by side, while this
+    process waits for their imports (6–8 s each, a third of a child's
+    time); each then waits, idle and off the card, for one flow.  The spec
+    carries this process's CSDR_* environment."""
+    t0 = time.perf_counter()
+    if not _POOL:
+        started = []
+        for _ in range(IDLE_POOL):
+            err = tempfile.TemporaryFile(mode="w+")
+            started.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--idle-share"],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err, text=True,
+                cwd=HERE), err))
+        for p, err in started:
+            _answer(p, err, "imports")
+        _POOL.extend(started)
+    p, err = _POOL.pop()
+    env = {k: v for k, v in os.environ.items() if k.startswith("CSDR_")}
+    p.stdin.write(json.dumps(dict(spec, env=env)) + "\n")
+    p.stdin.close()
+    out = json.loads(_answer(p, err, str(spec)))
+    p.wait()
+    err.close()
+    check(p.returncode == 0, f"idle share of {spec}: exit code {p.returncode}")
+    out["idle_session"]["child_s"] = time.perf_counter() - t0
+    return out
 
 
 PORT_KERNEL = re.compile(r"(dc_chunk|carry_scan|channel_tile|pfb_tile<[^>]*>|fir_valid_tile|"
-                         r"fft_fir_segment)")
+                         r"fft_fir_segment|pll_scan_rows|symsync_scan_rows)")
 
 
-def idle_child(spec: dict, tries: int = 3) -> int:
-    """The process behind ``idle_share``: one unprofiled run of the flow,
-    then profiled runs until one whose trace holds a device kernel for
-    every launch call (at most ``tries``).  Prints {"device_idle_share",
-    "device_ms", "device_ms_by_kernel", "port_kernels", "idle_session"};
-    the share is null where every session lost records."""
+def idle_child(tries: int = 3) -> int:
+    """The process behind ``idle_share``: its imports, then a {"ready"}
+    line; then it reads its flow's JSON spec line from stdin (with the
+    parent's CSDR_* environment; EOF: exits), makes its CUDA context, runs
+    the flow once unprofiled, then profiled until a session whose trace
+    holds a device kernel for every launch call (at most ``tries``), and
+    prints {"device_idle_share", "device_ms", "device_ms_by_kernel",
+    "port_kernels", "idle_session"}; the share is null where every session
+    lost records; "idle_session" also holds the seconds to import, warm
+    up, trace and read.  It touches the card only once it has its flow:
+    children that had set up CUDA and the profiler while they waited lost
+    the kernel records of 9 of 21 flows."""
+    t_start = time.perf_counter()
     import torch
 
     sys.path.insert(0, HERE)
     import csdr_tpu_torch as ct
+    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
 
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
+    stamps = {"import_s": time.perf_counter() - t_start}
+    emit({"ready": True})
+    line = sys.stdin.readline()
+    if line:
+        spec = json.loads(line)
+        for k in [k for k in os.environ if k.startswith("CSDR_")]:
+            del os.environ[k]
+        os.environ.update(spec.pop("env", {}))
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        idle_measure(torch, ct, cli_main, dev, spec, tries, stamps)
+    return 0
+
+
+def idle_measure(torch, ct, cli_main, dev, spec: dict, tries: int, stamps: dict):
+    """One flow of ``idle_child``: its unprofiled run, its profiled ones,
+    the answer line."""
     if "cli" in spec:
-        from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
-
         def fn():
             # a packet flow prints every decoded message
             with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
@@ -4659,11 +5297,16 @@ def idle_child(spec: dict, tries: int = 3) -> int:
         def fn():
             checkpoint_pipeline(ct, spec["checkpoint"], dev).run(
                 ct.cu8_file_source(spec["capture"], BLOCK), ct.NullSink())
+    t0 = time.perf_counter()
     fn()
+    stamps["warm_run_s"] = time.perf_counter() - t0
     for t in range(1, tries + 1):
+        t0 = time.perf_counter()
         prof, wall = traced(torch, fn)
+        t1 = time.perf_counter()
         kern = device_kernels(prof)
         n_dev, n_host = sum(v["count"] for v in kern.values()), launch_calls(prof)
+        stamps.update(traced_s=t1 - t0, read_s=time.perf_counter() - t1)
         if n_dev == n_host:
             break
     busy_s = sum(v["device_us"] for v in kern.values()) * 1e-6
@@ -4675,8 +5318,7 @@ def idle_child(spec: dict, tries: int = 3) -> int:
               port_kernels={m.group(1): (v["count"], v["device_us"] * 1e-3)
                             for k, v in kern.items() if (m := PORT_KERNEL.search(k))},
               idle_session=dict(device_kernels=n_dev, launch_calls=n_host, sessions=t,
-                                wall_s=wall)))
-    return 0
+                                wall_s=wall, **stamps)))
 
 
 def phase_profile(torch, dev, card):
@@ -4751,20 +5393,23 @@ def timed(label: str, fn, *args):
 
 
 def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = False,
-         device_only: bool = False, chain_only: bool = False) -> int:
+         device_only: bool = False, chain_only: bool = False, scan_only: bool = False) -> int:
     """Every phase; with ``mesh_only`` (``--mesh-only``) identity, build,
     phase 4's CLI runs (the serial reference) and phase 7 alone, for a
     call on several cards; with ``sync_only`` (``--sync-only``) identity,
     build and phase 9; with ``imagery_only`` (``--imagery-only``) identity,
     build and phase 10; with ``device_only`` (``--device-only``) identity,
     build and phase 11; with ``chain_only`` (``--chain-only``) identity,
-    build, phase 4's capture and phase 12."""
+    build, phase 4's capture and phase 12; with ``scan_only``
+    (``--scan-only``) identity, build, phase 4's capture and fused CLI run,
+    and phase 13."""
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script runs on a CUDA card")
     if not os.path.isdir(os.path.join(HERE, "csdr_tpu_torch")):
         fail(f"no csdr_tpu_torch package beside {__file__}: run from a checkout")
+    atexit.register(stop_idle_pool)
     sys.path.insert(0, HERE)
     import csdr_tpu_torch as ct
     from csdr_tpu_torch.ops.cuda import _build
@@ -4792,28 +5437,36 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
 
     if sync_only:
         with tempfile.TemporaryDirectory() as tmp:
-            timed("sync", phase_sync, torch, ct, ff, pf, dev, card, tmp)
+            timed("sync", phase_sync, torch, ct, pf, dev, card, tmp)
         print(smi, flush=True)
         emit({"sync_only": True, "ok": True})
         return 0
     if imagery_only:
         with tempfile.TemporaryDirectory() as tmp:
-            timed("imagery_and_files", phase_imagery_and_files, torch, ff, pf, dev, card, tmp)
+            timed("imagery_and_files", phase_imagery_and_files, torch, dev, card, tmp)
         print(smi, flush=True)
         emit({"imagery_only": True, "ok": True})
         return 0
     if device_only:
         with tempfile.TemporaryDirectory() as tmp:
-            timed("device", phase_device, torch, ff, pf, dev, card, tmp)
+            timed("device", phase_device, torch, ff, dev, card, tmp)
         print(smi, flush=True)
         emit({"device_only": True, "ok": True})
         return 0
     if chain_only:
         with tempfile.TemporaryDirectory() as tmp:
             capture, _ = main_capture(torch, dev, tmp)
-            chain = timed("chain", phase_chain, torch, ff, pf, card, tmp, capture)
+            chain = timed("chain", phase_chain, torch, card, tmp, capture)
         print(smi, flush=True)
         emit({"chain_only": True, "world": chain["world"], "ok": True})
+        return 0
+    if scan_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            capture, _ = main_capture(torch, dev, tmp)
+            fused = fused_reference(torch, tmp, capture)
+            timed("scan", phase_scan, torch, ct, dev, card, tmp, capture, fused)
+        print(smi, flush=True)
+        emit({"scan_only": True, "ok": True})
         return 0
     if mesh_only:
         with tempfile.TemporaryDirectory() as tmp:
@@ -4837,29 +5490,31 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
     with tempfile.TemporaryDirectory() as tmp:
         launches, fused_msps, eager_msps, runs, capture, bins = timed(
             "main_path", phase_main_path, torch, ff, pf, dev, card, tmp)
-        pfb_runs, agc_path = timed("main_path_pfb", phase_main_path_pfb, torch, ct, ff, pf, dev,
+        pfb_runs, agc_path = timed("main_path_pfb", phase_main_path_pfb, torch, ct, dev,
                                    card, tmp, capture, runs, bins)  # 4b
         mesh = timed("mesh", phase_mesh, torch, card, tmp, capture, agc_path, runs["fused"])  # 7
-        chain = timed("chain", phase_chain, torch, ff, pf, card, tmp, capture)  # 12
+        chain = timed("chain", phase_chain, torch, card, tmp, capture)  # 12
+        scan = timed("scan", phase_scan, torch, ct, dev, card, tmp, capture,
+                     runs["fused"])  # 13
         del runs
-        rates = timed("cli_rates", phase_cli_rates, torch, ff, pf, card, tmp, capture,
+        rates = timed("cli_rates", phase_cli_rates, torch, card, tmp, capture,
                       agc_path)  # 5b
-        ckpt = timed("checkpoint", phase_checkpoint, torch, ct, ff, pf, dev, card, capture)  # 6d
+        ckpt = timed("checkpoint", phase_checkpoint, torch, ct, dev, card, capture)  # 6d
         for f in (capture, agc_path):
             os.unlink(f)
-        fir_runs, fir_rates, cw_path = timed("main_path_fir", phase_main_path_fir, torch, ff,
-                                             pf, dev, card, tmp)  # 4c
-        fir_med, cw_rates = timed("timing_fir", phase_timing_fir, torch, ff, pf, dev, card, tmp,
+        fir_runs, fir_rates, cw_path = timed("main_path_fir", phase_main_path_fir, torch, dev,
+                                             card, tmp)  # 4c
+        fir_med, cw_rates = timed("timing_fir", phase_timing_fir, torch, dev, card, tmp,
                                   cw_path)  # 5c
         os.unlink(cw_path)
-        wbfm = timed("wbfm", phase_wbfm, torch, ff, pf, dev, card, tmp)  # 6a
-        fms = timed("stereo_rds", phase_stereo_rds, torch, ff, pf, dev, card, tmp)  # 6b
-        mix = timed("mix", phase_mix, torch, ff, pf, dev, card, tmp)  # 6c
-        pkt = timed("packet", phase_packet, torch, ct, ff, pf, dev, card, tmp)  # 8
-        sync = timed("sync", phase_sync, torch, ct, ff, pf, dev, card, tmp)  # 9
-        img = timed("imagery_and_files", phase_imagery_and_files, torch, ff, pf, dev, card,
+        wbfm = timed("wbfm", phase_wbfm, torch, dev, card, tmp)  # 6a
+        fms = timed("stereo_rds", phase_stereo_rds, torch, dev, card, tmp)  # 6b
+        mix = timed("mix", phase_mix, torch, dev, card, tmp)  # 6c
+        pkt = timed("packet", phase_packet, torch, ct, dev, card, tmp)  # 8
+        sync = timed("sync", phase_sync, torch, ct, pf, dev, card, tmp)  # 9
+        img = timed("imagery_and_files", phase_imagery_and_files, torch, dev, card,
                     tmp)  # 10
-        live = timed("device", phase_device, torch, ff, pf, dev, card, tmp)  # 11
+        live = timed("device", phase_device, torch, ff, dev, card, tmp)  # 11
         emit(dict(phase="broadcast_and_mix_flows", msps={
             "DeWBFM": wbfm["msps"], "DeFMS --rds": fms["msps"],
             **{f"-c {MIX_NCH} -m {k}": v["msps"] for k, v in mix.items()},
@@ -4895,6 +5550,7 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
             "msps_in_turns", "real_time_factor_vs_3_2_msps", "device_idle_share",
             "vs_cu8_run_max")},
         "launches_autotune_sweep": live["11d"]["sweep_launches"],
+        "launches_bundle_run": scan["13c"]["launches"].get("flagship_fused"),
         "autotune_sweep_step_ms": live["11d"]["step_ms"],
         "autotune_best_tileF": live["11d"]["best_tileF"],
         "launches_mesh_run_per_rank": [c["flagship_fused"]
@@ -4969,6 +5625,7 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
             "pfb_channelize_fused"],
         "launches_denbfmsync_run": sync["9b"]["runs"]["pfb_fused"]["launches"][
             "pfb_channelize_fused"],
+        "launches_scan_tracker_run": scan["13b"]["tracker"]["launches"]["pfb_channelize_fused"],
         "denbfmsync": {
             "shape": f"({sync['9b']['block'] // 64 + 13}, 64) complex64 -> "
                      f"(64, {sync['9b']['block'] // 64}) complex64",
@@ -5011,6 +5668,7 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         "launches_pfb_fused_run": fir_runs["fir_valid"]["launches_pfb_fused"],
         "launches_single_channel_run": fir_runs["fir_valid_single"],
         "launches_rds_run": fms["launches"]["fir_valid"],
+        "launches_rds_scan_pll_run": scan["13b"]["DeFMS"]["launches"]["fir_valid"],
         "launches_rtty_run": pkt["DeRTTY"]["launches"]["fir_valid"],
         "launches_sharded_chain_per_rank": [c["fir_valid"]
                                             for c in chain["DeCW"]["launches_per_rank"]],
@@ -5120,6 +5778,57 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         "device_ms": per_step["fft_fir"][1],
         "library_ms": lib_ms["fft_fir"],
         **fft_fir_bound(1, BLOCK, 1826, True, True),
+    }, {
+        "name": "pll_scan",
+        "route": "cuda",
+        "source": "csdr_tpu_torch/csrc/pll_scan.cu",
+        "replaces": "csdr_tpu/models/stereo.py:39",
+        "note": "K7, no Pallas counterpart: fms_pll_scan's lax.scan (csdr_tpu/models/"
+                "stereo.py:62), StereoFMDecoder(pll_mode='scan'); ms, device_ms, the bound "
+                "and max_abs_err (against the twin, over the first 2^16 outputs) on the pilot "
+                "of the DeFMS 8 --rds scan flow's block (13b), max_abs_err_13a over 13a's two "
+                "chained blocks, plain_ms (the per-sample twin on the card) at plain_shape "
+                "beside ms_at_plain_shape (13a)",
+        "launches": scan["13b"]["DeFMS"]["launches"]["pll_scan"],
+        "max_abs_err": scan["13b"]["DeFMS"]["k7_vs_twin"]["max_abs_err"],
+        "max_abs_err_13a": scan["13a"]["pll"]["max_abs_err"],
+        "ms": scan["13b"]["DeFMS"]["k7_ms"],
+        "plain_ms": scan["13a"]["pll"]["plain_ms"],
+        "plain_shape": scan["13a"]["pll"]["plain_shape"],
+        "ms_at_plain_shape": scan["13a"]["pll"]["ms_at_plain_shape"],
+        "shape": scan["13b"]["DeFMS"]["k7_shape"],
+        "launches_per_step": scan["13b"]["DeFMS"]["k7_launches_per_step"],
+        "device_ms": scan["13b"]["DeFMS"]["k7_device_ms"],
+        "ns_per_step": scan["13b"]["DeFMS"]["k7_ns_per_step"],
+        "flow_step_ms": {m: st["step_ms"] for m, st in scan["13b"]["DeFMS"]["steps"].items()},
+        "library_ms": None,
+        **pll_bound(1, scan["13b"]["DeFMS"]["block"]),
+    }, {
+        "name": "symsync_scan",
+        "route": "cuda",
+        "source": "csdr_tpu_torch/csrc/symsync_scan.cu",
+        "replaces": "csdr_tpu/models/symsync.py:281",
+        "note": "K8, no Pallas counterpart: SymSyncScan's lax.scan (csdr_tpu/models/"
+                "symsync.py:362), sym_sync_r/sym_sync_c(mode='scan'); ms, device_ms, the "
+                "bound and max_abs_err (against the twin, every output, relative to the "
+                "largest) on the -c 64 DeNBFMSync 10 scan tracker's (64, F) panel (13b), "
+                "max_abs_err_13a over 13a's real and complex rows, plain_ms at plain_shape "
+                "beside ms_at_plain_shape",
+        "launches": scan["13b"]["tracker"]["launches"]["symsync_scan"],
+        "max_abs_err": scan["13b"]["tracker"]["k8_vs_twin"]["max_err"],
+        "max_abs_err_13a": max(scan["13a"][f"sync_{k}"]["max_err"] for k in ("real", "complex")),
+        "ms": scan["13b"]["tracker"]["k8_ms"],
+        "plain_ms": scan["13a"]["sync_real"]["plain_ms"],
+        "plain_shape": scan["13a"]["sync_real"]["plain_shape"],
+        "ms_at_plain_shape": scan["13a"]["sync_real"]["ms_at_plain_shape"],
+        "shape": scan["13b"]["tracker"]["k8_shape"],
+        "launches_per_step": scan["13b"]["tracker"]["k8_launches_per_step"],
+        "device_ms": scan["13b"]["tracker"]["k8_device_ms"],
+        "ns_per_step": scan["13b"]["tracker"]["k8_ns_per_step"],
+        "flow_step_ms": {m: st["step_ms"] for m, st in scan["13b"]["tracker"]["steps"].items()},
+        "library_ms": None,
+        **{k: scan["13b"]["tracker"][k] for k in ("bound_ms", "bound_by", "bound_bytes",
+                                                   "bound_flops")},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -5128,9 +5837,10 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--idle-share"]:
-        sys.exit(idle_child(json.loads(sys.argv[2])))
+        sys.exit(idle_child())
     sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh-only"],
                   sync_only=sys.argv[1:2] == ["--sync-only"],
                   imagery_only=sys.argv[1:2] == ["--imagery-only"],
                   device_only=sys.argv[1:2] == ["--device-only"],
-                  chain_only=sys.argv[1:2] == ["--chain-only"]))
+                  chain_only=sys.argv[1:2] == ["--chain-only"],
+                  scan_only=sys.argv[1:2] == ["--scan-only"]))

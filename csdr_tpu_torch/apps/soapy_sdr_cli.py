@@ -643,6 +643,8 @@ def run_opts(opts) -> int:
         n_in = total / graph.rate
         print(f"Throughput: {int(n_in)} samples into the flow in {dt:.3f} s "
               f"({n_in / dt / 1e6:.2f} MSPS)")
+    if opts.verbose:
+        print(f"Kernel launches: {json.dumps(kernel_launches())}")
     if opts.profile:
         print("Per-stage budget (device time per block, barriers around each stage):")
         print(pipe.profile_report())
@@ -748,12 +750,35 @@ def _run_mesh(opts, demod, agc_t) -> int:
     return 0
 
 
+def _kernel_modules() -> tuple:
+    """The modules of the hand-written kernels.  Each counts its launches in
+    ``launches``: an int, or (pfb_fused) a dict of one count per kernel."""
+    from ..ops.cuda import fft_fir, fir_valid, flagship_fused, pfb_fused, pll_scan, symsync_scan
+
+    return pfb_fused, flagship_fused, fir_valid, fft_fir, pll_scan, symsync_scan
+
+
+def kernel_launches() -> dict:
+    """Each hand-written kernel's launch count in this process."""
+    out = {}
+    for mod in _kernel_modules():
+        counts = mod.launches
+        out.update(counts if isinstance(counts, dict) else {mod.__name__.rsplit(".", 1)[1]: counts})
+    return out
+
+
+def reset_kernel_launches() -> None:
+    """Set every hand-written kernel's launch count to 0."""
+    for mod in _kernel_modules():
+        if isinstance(mod.launches, dict):
+            mod.launches.update(dict.fromkeys(mod.launches, 0))
+        else:
+            mod.launches = 0
+
+
 def _mesh_rank(device: torch.device, opts, demod, agc_t) -> int:
     """One rank of the --mesh flow; rank 0 reads the capture (through the
     front end, on its own device) and writes the files."""
-    from ..ops.cuda import fft_fir as fx
-    from ..ops.cuda import fir_valid as fv
-    from ..ops.cuda import flagship_fused as ff
     from ..ops.cuda import pfb_fused as pf
     from ..parallel import (ShardedChain, ShardedChannelizedFM, ShardedFlagship,
                             ShardedPipeline, build_mesh)
@@ -828,8 +853,7 @@ def _mesh_rank(device: torch.device, opts, demod, agc_t) -> int:
         elif collected is not None:
             _report_rds(opts, collected.concat())
     if opts.verbose:
-        counts = dict(pf.launches, flagship_fused=ff.launches, fir_valid=fv.launches,
-                      fft_fir=fx.launches)
+        counts = kernel_launches()
         # one write, so that concurrent ranks' lines do not interleave
         sys.stdout.write(f"Kernel launches on rank {rank}: {json.dumps(counts)}\n")
         sys.stdout.flush()

@@ -27,7 +27,8 @@ from typing import Iterator
 
 import numpy as np
 
-__all__ = ["load_lib", "available", "native_cf32_source", "NativeRawFileSink", "BUILD_DIR"]
+__all__ = ["build", "load_lib", "available", "native_cf32_source", "NativeRawFileSink",
+           "BUILD_DIR"]
 
 _ROOT = Path(__file__).resolve().parents[2]
 _SOURCE = _ROOT / "native" / "csdr_io.cpp"
@@ -38,7 +39,7 @@ _lib = None
 _lock = threading.Lock()
 
 
-def _build() -> Path:
+def build() -> Path:
     """Compile the source unless a library for its hash exists; the path."""
     cxx = os.environ.get("CXX", "g++")
     h = hashlib.sha256(_SOURCE.read_bytes())
@@ -74,7 +75,7 @@ def load_lib() -> ctypes.CDLL:
         so = os.environ.get("CSDR_NATIVE_LIB")
         if so and not os.path.exists(so):
             raise RuntimeError(f"native csdr_io: CSDR_NATIVE_LIB={so} does not exist")
-        lib = ctypes.CDLL(so or str(_build()))
+        lib = ctypes.CDLL(so or str(build()))
         u8pp = ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))
         lib.reader_open.restype = ctypes.c_void_p
         lib.reader_open.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int]

@@ -18,8 +18,10 @@ the FIR histories, the group-delay line and the decimators' histories from
 the left neighbour, the de-emphasis poles through ``ShardCtx.linrec``.  The
 output is a (2, n′) panel on a mesh with one ch rank.
 
-The JAX package's serial per-sample PLL (``pll_mode="scan"``) is not
-ported; asking for it raises.
+``pll_mode="scan"`` regenerates the subcarrier with the JAX package's
+per-sample second-order PLL (``fms_pll_scan``, the reference's liquid
+fmsPll) instead, on its own kernel (``ops/cuda/pll_scan.py``, K7); its
+carry is the state's ``pll`` leaf.  That mode does not shard.
 """
 
 from __future__ import annotations
@@ -37,25 +39,45 @@ from ..ops import nco as nco_ops
 from ..ops.nco import _ramp_on, phase_increment
 from ..utils import firdes, iirdes
 
-__all__ = ["StereoFMDecoder", "stereo_fm_decoder", "pilot_subcarrier"]
+__all__ = ["StereoFMDecoder", "stereo_fm_decoder", "pilot_subcarrier", "fms_pll_scan"]
 
 _TWO_PI = 2.0 * np.pi
+PLL_MODES = ("closed_form", "scan")
 
 
-def pilot_subcarrier(omega19: float, gdelay: float, theta0: torch.Tensor, c: torch.Tensor,
-                     h_pilot: np.ndarray, pilot_hist: torch.Tensor, fir_fn=fir_ops.fir_stream):
+def pilot_analytic(omega19: float, gdelay: float, theta0: torch.Tensor, c: torch.Tensor,
+                   h_pilot: np.ndarray, pilot_hist: torch.Tensor, fir_fn=fir_ops.fir_stream):
     """The pilot's mix-down (its NCO at ``theta0`` on the block's first
-    sample) and low-pass (``fir_fn``) on one block, and its normalized
-    analytic phasor u at the group-delayed time base, e^{j(ω19(n−gd)+θp)}.
-    Returns (new pilot_hist, u); shared by the stereo and RDS decoders."""
+    sample) and low-pass (``fir_fn``) on one block, and its analytic form
+    p_a at the group-delayed time base, |p|·e^{j(ω19(n−gd)+θp)}.  Returns
+    (new pilot_hist, p_a)."""
     n = c.shape[-1]
     theta = theta0 + _ramp_on(float(omega19), int(n), c.device)
     m19 = c.to(torch.complex64) * torch.polar(torch.ones_like(theta), -theta)
     pilot_hist, pilot_bb = fir_fn(h_pilot, pilot_hist, m19)
     gd_phase = np.float32(np.mod(omega19 * gdelay, _TWO_PI))
     rot = theta - gd_phase
-    p_a = pilot_bb * torch.polar(torch.ones_like(rot), rot)
+    return pilot_hist, pilot_bb * torch.polar(torch.ones_like(rot), rot)
+
+
+def pilot_subcarrier(omega19: float, gdelay: float, theta0: torch.Tensor, c: torch.Tensor,
+                     h_pilot: np.ndarray, pilot_hist: torch.Tensor, fir_fn=fir_ops.fir_stream):
+    """``pilot_analytic``'s phasor normalized, u = p_a/|p_a|: (new
+    pilot_hist, u); shared by the stereo and RDS decoders."""
+    pilot_hist, p_a = pilot_analytic(omega19, gdelay, theta0, c, h_pilot, pilot_hist, fir_fn)
     return pilot_hist, p_a / (p_a.abs() + 1e-12)
+
+
+def fms_pll_scan(p_a: torch.Tensor, state, omega: float, bw: float):
+    """The reference's per-sample pilot PLL (liquid fmsPll): a second-order
+    loop tracking the analytic pilot p_a, with the JAX package's gains
+    α = 4·bw, β = 4·bw² in float32.  Returns ((θ, freq), e^{2jθ[n]}), the
+    regenerated 38 kHz subcarrier; K7 on the card, its plain loop on the
+    CPU."""
+    from ..ops.cuda.pll_scan import pll_scan
+
+    return pll_scan(p_a, state, np.float32(omega), np.float32(4.0 * bw),
+                    np.float32(4.0 * bw * bw))
 
 
 def pilot_phases(omega19: float, phase19: torch.Tensor, n: int, ctx=None):
@@ -93,10 +115,8 @@ class StereoFMDecoder(Block):
                  pilot_fir_halfband_hz: float = 800.0, audio_cutoff_hz: float = 15000.0,
                  deemph_order: int = 2, deemph_cutoff_hz: float = 5000.0,
                  stereo_gain: float = 2.0, pll_mode: str = "closed_form"):
-        if pll_mode != "closed_form":
-            raise NotImplementedError(
-                f"StereoFMDecoder pll_mode={pll_mode!r} is not yet ported in csdr_tpu_torch; "
-                "use the closed-form default")
+        if pll_mode not in PLL_MODES:
+            raise ValueError(f"StereoFMDecoder pll_mode={pll_mode!r}: use one of {PLL_MODES}")
         self.quad_rate = quad_rate
         self.decim = decim
         self.omega19 = _TWO_PI * pilot_hz / quad_rate
@@ -105,6 +125,8 @@ class StereoFMDecoder(Block):
         self.h_audio = firdes.kaiser_lowpass(nfir, audio_cutoff_hz / quad_rate, 60.0)
         self.gdelay = int(round(firdes.group_delay(self.h_pilot, 100.0 / quad_rate)))
         self.stereo_gain = stereo_gain
+        self.pll_mode = pll_mode
+        self.pll_bw = 9.0 / quad_rate  # the reference's 9 Hz loop bandwidth
         self.deemph = iirdes.sos_to_onepole(
             iirdes.butter_sos(deemph_order, deemph_cutoff_hz / quad_rate), real_io=True)
         self.h_decim = firdes.firdecim_kaiser(decim, 10, 60.0) if decim > 1 else None
@@ -123,8 +145,8 @@ class StereoFMDecoder(Block):
             lmr_hist=z(Ka - 1, torch.complex64),
             deemph_l=iir_ops.onepole_cascade_init(self.deemph, False, device),
             deemph_r=iir_ops.onepole_cascade_init(self.deemph, False, device),
-            # the JAX package's scan-PLL carry (theta, freq): kept so states
-            # convert one to one; the closed-form path leaves it unchanged
+            # the scan PLL's carry (theta, freq); the closed-form path
+            # leaves it unchanged
             pll=(torch.zeros((), dtype=torch.float32, device=device),
                  torch.zeros((), dtype=torch.float32, device=device)),
         )
@@ -152,10 +174,14 @@ class StereoFMDecoder(Block):
         passes the streaming forms, ``shard_apply`` their ``ShardCtx``
         ones; the arithmetic is the same."""
         s = dict(state)
-        s["pilot_hist"], u = pilot_subcarrier(self.omega19, self.gdelay, theta0, c,
+        s["pilot_hist"], p_a = pilot_analytic(self.omega19, self.gdelay, theta0, c,
                                               self.h_pilot, s["pilot_hist"], fir_fn)
         s["phase19"] = new_phase
-        sub38 = u * u  # e^{j(2ω19(n−gd)+2θp)}: the regenerated 38 kHz subcarrier
+        if self.pll_mode == "scan":
+            s["pll"], sub38 = fms_pll_scan(p_a, s["pll"], self.omega19, self.pll_bw)
+        else:
+            u = p_a / (p_a.abs() + 1e-12)
+            sub38 = u * u  # e^{j(2ω19(n−gd)+2θp)}: the regenerated 38 kHz subcarrier
 
         # the composite delayed by the pilot filter's group delay
         s["delay_buf"], cd = delay_fn(s["delay_buf"], c)
@@ -197,6 +223,10 @@ class StereoFMDecoder(Block):
                              lambda buf, x: shard_delay_line(ctx, buf, x), deemph_fn, decim_fn)
 
     def shard_validate(self, nloc, ctx):
+        if self.pll_mode == "scan":
+            raise NotImplementedError(
+                f"{self.name}: pll_mode='scan' is a per-sample feedback loop and cannot be "
+                f"time-sharded; use the closed-form default")
         if ctx.dc != 1:
             raise ValueError(f"{self.name}: stereo output (2, n) shards over time only: use a "
                              f"mesh with ch=1")

@@ -18,8 +18,12 @@ global sub-windows it owns, the window sums are gathered over the time
 ranks, every rank fits the same global line and interpolates its own
 outputs against its segment between a left and a right halo.
 
-The closed-loop per-sample variant (``mode="scan"``, the JAX package's
-``SymSyncScan``) is not ported.
+``SymSyncScan`` (``mode="scan"``) is the closed-loop variant: a Gardner
+timing detector and PI loop per output tick, the reference's liquid
+symsync dynamics, for clock drift that varies within a block.  Its loop
+runs on a kernel of its own (``ops/cuda/symsync_scan.py``, K8), one stream
+per row, so inside ``PerChannel`` every channel runs its own loop; it does
+not shard.
 """
 
 from __future__ import annotations
@@ -34,9 +38,11 @@ from .. import blocks as B
 from ..core.block import Block, chain
 from ..utils import firdes
 
-__all__ = ["SymSync", "sym_sync_r", "sym_sync_c", "sym_tracker", "fm_dem_with_sync"]
+__all__ = ["SymSync", "SymSyncScan", "sym_sync_r", "sym_sync_c", "sym_tracker",
+           "fm_dem_with_sync"]
 
 _TWO_PI = 2.0 * np.pi
+MODES = ("block", "scan")
 _CHUNK = 1 << 24     # elements of one gathered (…, nout, taps) window panel
 
 
@@ -317,29 +323,87 @@ class SymSync(Block):
         return y
 
 
-def _scan_refused(mode: str):
-    if mode != "block":
-        raise NotImplementedError(
-            f"symbol sync mode={mode!r} (the per-sample SymSyncScan) is not yet ported in "
-            "csdr_tpu_torch; use the block-parallel default")
+class SymSyncScan(Block):
+    """Closed-loop symbol synchronizer: k samples/symbol in, ``out_per_sym``
+    out, a Gardner timing detector and PI loop per output tick (the JAX
+    package's ``SymSyncScan``).  Serial per output; the block-parallel
+    ``SymSync`` is the default on wide paths.
+
+    State ``(hist (…, H), tau (…), eta (…), prev_c (…), edge (…))``: the
+    input history (H = W + 2k), the timing offset τ in samples, the loop
+    integrator η, the previous centre sample and the pending edge sample
+    (of the input's dtype).  τ is wrapped into [−k/2, k/2) at each block's
+    end, so the outputs depend on the block size."""
+
+    def __init__(self, k: int, m: int, beta: float, npfb: int, complex_input: bool,
+                 ftype: str, lf_bw: float = 0.05, out_per_sym: int = 2,
+                 name: str = "symsync_scan"):
+        self.k, self.m, self.beta, self.npfb = k, m, beta, npfb
+        self.complex_input = complex_input
+        self.ftype = ftype
+        self.out_per_sym = out_per_sym
+        self.rate = Fraction(out_per_sym, k)
+        self.granule = k
+        self.W = 2 * m * k + 1
+        self.H = self.W + 2 * k
+        # PI gains from the loop bandwidth (reference lf_bw 0.05): the
+        # Gardner error is in symbol units and τ in samples, so both gains
+        # scale by k/2 (kp so the loop has the bandwidth lf_bw promises, ki
+        # linearly: a squared scale drives it into jitter on sharp NRZ)
+        self.kp = np.float32(2.0 * lf_bw * (k / 2.0))
+        self.ki = np.float32(lf_bw * lf_bw * (k / 2.0))
+        self.name = f"{name}(k={k})"
+
+    def init(self, device: torch.device):
+        dt = torch.complex64 if self.complex_input else torch.float32
+        z = lambda *shape, d=torch.float32: torch.zeros(shape, dtype=d, device=device)  # noqa: E731
+        return (z(self.H, d=dt), z(), z(), z(d=dt), z(d=dt))
+
+    def loop(self, n: int):
+        """The loop's constants (``ops/cuda/symsync_scan.ScanLoop``) for a
+        block of n samples."""
+        from ..ops.cuda.symsync_scan import ScanLoop
+
+        k, m = self.k, self.m
+        return ScanLoop(mk=m * k, start=self.H - (m * k + k), half=k / self.out_per_sym,
+                        kp=float(self.kp), ki=float(self.ki), nout=(n // k) * self.out_per_sym)
+
+    def apply(self, state, x):
+        from ..ops.cuda.symsync_scan import symsync_scan
+
+        hist, tau, eta, prev_c, edge = state
+        k = self.k
+        xfull = torch.cat([hist, x], dim=-1)
+        bank = _bank_on(k, self.m, self.npfb, self.ftype, self.beta, x.device)
+        (tau, eta, prev_c, edge), y = symsync_scan(xfull, bank, (tau, eta, prev_c, edge),
+                                                   self.loop(x.shape[-1]))
+        # keep τ bounded: whole-symbol wraps are absorbed by re-centering
+        half = np.float32(k / 2.0)
+        tau = torch.remainder(tau + half, np.float32(k)) - half
+        return (xfull[..., -self.H:].clone(), tau, eta, prev_c, edge), y
+
+
+def _sync_class(mode: str):
+    if mode not in MODES:
+        raise ValueError(f"symbol sync mode={mode!r}: use one of {MODES}")
+    return SymSyncScan if mode == "scan" else SymSync
 
 
 def sym_sync_r(k: int, m: int = 4, beta: float = 0.0, npfb: int = 64,
                mode: str = "block") -> Block:
     """Real symbol sync (reference symSyncR k m beta nf, kaiser matched
-    filter)."""
-    _scan_refused(mode)
-    return SymSync(k, max(m, 1), beta, npfb, complex_input=False, ftype="kaiser",
-                   name="symsync_r")
+    filter); mode="scan" selects the closed-loop Gardner/PI ``SymSyncScan``."""
+    return _sync_class(mode)(k, max(m, 1), beta, npfb, complex_input=False, ftype="kaiser",
+                             name="symsync_r")
 
 
 def sym_sync_c(m: int, k: int, beta: float = 0.5, npfb: int = 32,
                mode: str = "block") -> Block:
     """Complex symbol sync (reference symSyncC m k: rnyquist β = 0.5, 32
-    filters); the argument order (m, k) is the reference's."""
-    _scan_refused(mode)
-    return SymSync(k, max(m, 1), beta, npfb, complex_input=True, ftype="rnyquist",
-                   name="symsync_c")
+    filters); the argument order (m, k) is the reference's; mode="scan"
+    selects ``SymSyncScan``."""
+    return _sync_class(mode)(k, max(m, 1), beta, npfb, complex_input=True, ftype="rnyquist",
+                             name="symsync_c")
 
 
 def fm_dem_with_sync(k: int) -> Block:

@@ -2,17 +2,24 @@
 
 ``nvcc`` compiles every ``csdr_tpu_torch/csrc/*.cu`` for ``sm_90a`` — one
 process per source, all started together — and links the objects into
-``build/csdr_tpu_torch/libcsdr_kernels-<hash>.so`` at the root of the
-checkout, keyed on a hash of the sources; the library is loaded with
-``ctypes``.  The sources expose a plain C interface and include no PyTorch
-header, so a build takes seconds.  Nothing here runs at import time: the
-CPU-only test suite imports the package with no CUDA toolchain.
+``libcsdr_kernels-<hash>.so``, keyed on a hash of the sources; the library
+is loaded with ``ctypes``.  The sources expose a plain C interface and
+include no PyTorch header, so a build takes seconds.
+
+The sources are read as package resources (``importlib.resources``), so
+they are found inside a zipapp too, and copied into the build directory
+before ``nvcc`` runs.  The build directory is ``$CSDR_TPU_TORCH_BUILD_DIR``
+where that is set (a bundle's launcher sets it), else
+``build/csdr_tpu_torch/`` at the root of the checkout.  Nothing here runs
+at import time: the CPU-only test suite imports the package with no CUDA
+toolchain.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.resources
 import os
 import re
 import shutil
@@ -21,10 +28,9 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["build", "load_library", "source_ints", "CSRC", "BUILD_DIR"]
+__all__ = ["build", "build_dir", "library_path", "load_library", "source_ints", "BUILD_ENV"]
 
-CSRC = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "csdr_tpu_torch"
+BUILD_ENV = "CSDR_TPU_TORCH_BUILD_DIR"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
@@ -35,7 +41,7 @@ def source_ints(source: str, *names: str) -> tuple[int, ...]:
     """The values of ``constexpr int <name> = <integer>;`` in ``csrc/<source>``,
     so a wrapper that lays out a kernel's operands reads the kernel's own
     constants (no toolchain needed); raises if one is missing."""
-    text = (CSRC / source).read_text()
+    text = (_csrc() / source).read_text()
     out = []
     for name in names:
         m = re.search(rf"^constexpr int {name} = (\d+);", text, re.M)
@@ -45,8 +51,43 @@ def source_ints(source: str, *names: str) -> tuple[int, ...]:
     return tuple(out)
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _csrc():
+    """The package's ``csrc`` directory as a resource (a directory in a
+    checkout, a zip member in a bundle)."""
+    return importlib.resources.files("csdr_tpu_torch") / "csrc"
+
+
+def _sources() -> dict[str, bytes]:
+    """Every ``*.cu`` and ``*.cuh`` of ``csrc``, name → bytes."""
+    return {p.name: p.read_bytes() for p in sorted(_csrc().iterdir(), key=lambda p: p.name)
+            if p.name.endswith((".cu", ".cuh"))}
+
+
+def build_dir() -> Path:
+    """``$CSDR_TPU_TORCH_BUILD_DIR``, else ``build/csdr_tpu_torch`` at the
+    root of the checkout."""
+    env = os.environ.get(BUILD_ENV)
+    if env:
+        return Path(env)
+    root = Path(__file__).resolve().parents[3]
+    if not root.is_dir():   # the package sits in a zipapp
+        raise RuntimeError(f"csdr_tpu_torch runs from {root}: set {BUILD_ENV} to a writable "
+                           f"directory for the CUDA kernels (a bundle's launcher does)")
+    return root / "build" / "csdr_tpu_torch"
+
+
+def _key(sources: dict[str, bytes]) -> str:
+    h = hashlib.sha256()
+    for name, data in sources.items():
+        h.update(name.encode())
+        h.update(data)
+    h.update(" ".join(ARCH_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    """Where the library for the current sources is (or would be) built."""
+    return build_dir() / f"libcsdr_kernels-{_key(_sources())}.so"
 
 
 def _nvcc() -> str:
@@ -66,23 +107,22 @@ def build() -> Path:
     exists; return its path.  The compiler's report (``-Xptxas -v``:
     registers, shared memory, spills per kernel) is kept beside it as
     ``nvcc-<hash>.log``."""
-    srcs = _sources()
-    h = hashlib.sha256()
-    for p in srcs + sorted(CSRC.glob("*.cuh")):
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    h.update(" ".join(ARCH_FLAGS).encode())
-    key = h.hexdigest()[:16]
-    out = BUILD_DIR / f"libcsdr_kernels-{key}.so"
+    sources = _sources()
+    key = _key(sources)
+    bdir = build_dir()
+    out = bdir / f"libcsdr_kernels-{key}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    bdir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    # compile into a private directory and rename the library into place:
-    # concurrent builds never load a half-written library
-    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    # copy the sources and compile in a private directory, then rename the
+    # library into place: concurrent builds never load a half-written one
+    work = Path(tempfile.mkdtemp(dir=bdir))
     try:
-        objs = [work / f"{p.stem}.o" for p in srcs]
+        for name, data in sources.items():
+            (work / name).write_bytes(data)
+        srcs = [work / name for name in sources if name.endswith(".cu")]
+        objs = [p.with_suffix(".o") for p in srcs]
         procs = [subprocess.Popen([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                                    "-Xptxas", "-v", "-c", "-o", str(o), str(p)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -96,7 +136,7 @@ def build() -> Path:
             logs.append(link.stdout + link.stderr)
             if link.returncode != 0:
                 failed.append(("the link", link.returncode, logs[-1]))
-        (BUILD_DIR / f"nvcc-{key}.log").write_text("".join(logs))
+        (bdir / f"nvcc-{key}.log").write_text("".join(logs))
         if failed:
             what, rc, log = failed[0]
             raise RuntimeError(f"nvcc failed on {what} ({rc}):\n{log[-4000:]}")

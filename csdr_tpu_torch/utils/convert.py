@@ -48,7 +48,8 @@ def from_jax_chain_state(state, device: torch.device):
     map key for key; ``RDSBitSlicer`` carries (MF hist (15,), previous raw
     bit), the bit uint32 in the JAX package and uint8 here, the one leaf
     whose dtype changes.  ``SymSync`` carries ``(hist (H,), tau (), valid
-    () bool)``, and ``sym_tracker``'s stages their own: the AGC's pair, the
+    () bool)``, ``SymSyncScan`` ``(hist (H,), tau (), eta (), prev_c (),
+    edge ())`` (prev_c and edge of the input's dtype), and ``sym_tracker``'s stages their own: the AGC's pair, the
     sync's triple, the power normalizer's ``(p, valid)``, the carrier
     phase, the equalizer's ``(w (T,) complex64, hist (T − 1,))``; inside
     ``PerChannel`` each gains the leading channel axis that the JAX vmap

@@ -24,7 +24,12 @@ picks (tests/test_torch_symsync.py).  The Hilbert blocks and the imagery
 chains (no kernel of their own) against the CPU: 2e-5 relative to the
 largest output (tests/test_golden.py), the SSTV and WEFAX frequency tracks
 from output 180 (the FIR's start-up, tests/test_sstv.py:97-102); a
-profiled Pipeline equal to the unprofiled one bit for bit.
+profiled Pipeline equal to the unprofiled one bit for bit.  The scan
+kernels against their twins: K7 (``pll_scan``) 2e-3 relative to the
+largest output (tests/test_sharding_generic.py:60), θ within 1e-4; K8
+(``symsync_scan``) 2e-3 of the largest output on every output and τ within
+1e-4: its twin sums each window in the kernel's order, so the two take the
+same picks.
 """
 
 import numpy as np
@@ -712,3 +717,63 @@ def test_sharded_defms_rds_on_two_cards_launches_k5(dev):
         assert np.array_equal(got_bits, bits.cpu().numpy())
     for _, launches in ranks:
         assert launches == [1, 1, 1]
+
+
+def _pilot_rows(rows, n, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    w = 2 * np.pi * rng.uniform(18990.0, 19010.0, (rows, 1)) / 192000.0
+    p = 0.1 * np.exp(1j * (w * t + rng.uniform(0, 6, (rows, 1))))
+    p += 0.01 * (rng.normal(size=(rows, n)) + 1j * rng.normal(size=(rows, n)))
+    return p.astype(np.complex64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 3])
+def test_pll_scan_kernel_matches_twin(dev, rows):
+    """K7 on rows of 5,000 samples (across kChunk boundaries), two
+    state-chained blocks, against its twin on the CPU; one launch per
+    block."""
+    from csdr_tpu_torch.ops.cuda import pll_scan as k7
+
+    p = _pilot_rows(rows, 10000, rows)
+    omega, alpha, beta = 2 * np.pi * 19000.0 / 192000.0, 4 * 9.0 / 192e3, 4 * (9.0 / 192e3) ** 2
+    cg = (torch.full((rows,), 0.5, device=dev), torch.zeros(rows, device=dev))
+    cc = tuple(c.cpu() for c in cg)
+    before = k7.launches
+    for b in range(2):
+        pb = torch.from_numpy(np.ascontiguousarray(p[:, b * 5000:(b + 1) * 5000]))
+        cg, yg = k7.pll_scan(pb.to(dev), cg, omega, alpha, beta)
+        cc, yc = k7.pll_scan(pb, cc, omega, alpha, beta)
+        torch.cuda.synchronize()
+        assert _rel(yg.cpu(), yc) < 2e-3
+        assert (cg[0].cpu() - cc[0]).abs().max() < 1e-4
+    assert k7.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,rows", [("real", 5), ("complex", 3)])
+def test_symsync_scan_kernel_matches_twin(dev, kind, rows):
+    """K8 through SymSyncScan (real k = 10, kaiser; complex k = 4, m = 3,
+    rnyquist) on ragged row counts (kWarps = 4 rows per block) of the JAX
+    sync tests' signals, three state-chained blocks, against its twin on
+    the CPU; one launch per block."""
+    from chip_smoke import sync_rows
+    from csdr_tpu_torch.models import symsync
+    from csdr_tpu_torch.ops.cuda import symsync_scan as k8
+
+    blk = (symsync.sym_sync_r(10, 4, 0.0, 64, mode="scan") if kind == "real"
+           else symsync.sym_sync_c(3, 4, mode="scan"))
+    x = sync_rows(rows, 3 * 4000, blk.k, 7, kind == "complex")
+    sg = tuple(torch.zeros((rows, *leaf.shape), dtype=leaf.dtype, device=dev)
+               for leaf in blk.init(dev))
+    sc = tuple(leaf.cpu() for leaf in sg)
+    before = k8.launches
+    for b in range(3):
+        xb = torch.from_numpy(np.ascontiguousarray(x[:, b * 4000:(b + 1) * 4000]))
+        sg, yg = blk.apply(sg, xb.to(dev))
+        sc, yc = blk.apply(sc, xb)
+        torch.cuda.synchronize()
+        assert _rel(yg.cpu(), yc) < 2e-3, b
+        assert (sg[1].cpu() - sc[1]).abs().max() < 1e-4
+    assert k8.launches == before + 3

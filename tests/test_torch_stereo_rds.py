@@ -162,8 +162,12 @@ def test_rds_protocol_layer_equals_jax():
 
 
 def test_scan_pll_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        StereoFMDecoder(200000.0, 8, pll_mode="scan")
+    """pll_mode="scan" builds the ported per-sample PLL (tests/test_torch_scan.py
+    holds it to the JAX package); a mode other than "closed_form" or "scan"
+    raises, where the JAX package takes it as "closed_form"."""
+    assert StereoFMDecoder(200000.0, 8, pll_mode="scan").pll_mode == "scan"
+    with pytest.raises(ValueError, match="use one of"):
+        StereoFMDecoder(200000.0, 8, pll_mode="loop")
 
 
 # --- Tee, Delay, flush and multi-rate trim ----------------------------------

@@ -275,11 +275,15 @@ def test_jax_state_hands_over_mid_stream():
     assert np.abs(py.numpy() - jys[2]).max() / np.abs(jys[2]).max() < TOL
 
 
-@pytest.mark.parametrize("make", [lambda: symsync.sym_sync_r(10, mode="scan"),
-                                  lambda: symsync.sym_sync_c(3, 4, mode="scan")])
+@pytest.mark.parametrize("make", [lambda mode: symsync.sym_sync_r(10, mode=mode),
+                                  lambda mode: symsync.sym_sync_c(3, 4, mode=mode)])
 def test_scan_mode_is_not_ported(make):
-    with pytest.raises(NotImplementedError, match="not yet ported in csdr_tpu_torch"):
-        make()
+    """mode="scan" builds the ported ``SymSyncScan`` (tests/test_torch_scan.py
+    holds it to the JAX package); a mode other than "block" or "scan"
+    raises, where the JAX package takes it as "block"."""
+    assert isinstance(make("scan"), symsync.SymSyncScan)
+    with pytest.raises(ValueError, match="use one of"):
+        make("closed_loop")
 
 
 # ---- helidecode -------------------------------------------------------------
