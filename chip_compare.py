@@ -15,7 +15,11 @@ steps on the same seeded inputs with ``chip_smoke.py``'s ``time_steps``
 script's own directory:
 
   kernels alone, one 2^23-sample block: K1/K2 (cu8, nch 64), K3 and K4 on
-  the block's panels, K5 at (64, 2^17) complex x 585 taps;
+  the block's panels, K5 at (64, 2^17) complex x 585 taps; the serial
+  recurrences at their flows' shapes: K7 on one seeded noisy 19 kHz pilot
+  row of 1,046,400 samples (the DeFMS 8 block at 200 kHz) and K8 on 64
+  seeded rows of the JAX sync tests' real signal, (64, 130,981) with k = 10
+  (the -c 64 DeNBFMSync 10 tracker's panel);
   paths, one 2^23-sample block per state-chained step: the pfb_fused and
   eager DeNBFM receivers (f32, chip_smoke.py 5b's path), and the graphs the
   CLI builds, cu8 in, for -c 64 -a -48 DeNBFM (pfb_fused), -c 64 DeCW
@@ -36,6 +40,8 @@ import os
 import statistics
 import subprocess
 import sys
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -58,7 +64,8 @@ def _cli_graph(ct, argv: list[str]):
     demod = cli.parse_demod(opts.demod)
     agc_t = opts.agc if opts.agc != 0.0 else None
     return ct.chain(ct.u8_to_iq(),
-                    cli._graph(opts, demod, agc_t, opts.bandwidth or opts.samplerate))
+                    cli._graph(opts, demod, agc_t, opts.bandwidth or opts.samplerate,
+                               opts.backend))
 
 
 def worker(root: str, turn: int) -> None:
@@ -69,7 +76,10 @@ def worker(root: str, turn: int) -> None:
     import csdr_tpu_torch as ct
     from csdr_tpu_torch.ops.cuda import fir_valid as fv
     from csdr_tpu_torch.ops.cuda import flagship_fused as ff
+    from csdr_tpu_torch.models import symsync
     from csdr_tpu_torch.ops.cuda import pfb_fused as pf
+    from csdr_tpu_torch.ops.cuda import pll_scan as k7
+    from csdr_tpu_torch.ops.cuda import symsync_scan as k8
 
     package = os.path.dirname(os.path.abspath(ct.__file__))
     if os.path.dirname(package) != os.path.abspath(root):
@@ -100,6 +110,21 @@ def worker(root: str, turn: int) -> None:
             ct.u8_to_iq(), ct.fir_filter(sm.usb_taps(), True, strategy="pallas_fft"),
             ct.Lambda(lambda v: v.real.contiguous(), name="re")), u8.view(B, 2)),
     }
+    # K7: a noisy pilot at the DeFMS quad rate; K8: the tracker's panel shape
+    rng = np.random.default_rng(sm.SEED + 1750)
+    n7 = 1046400
+    t7 = np.arange(n7)
+    p7 = torch.from_numpy((0.1 * np.exp(1j * (2 * np.pi * 19004.0 / sm.FM_BW * t7 + 2.0))
+                           + 0.02 * (rng.normal(size=n7) + 1j * rng.normal(size=n7)))
+                          .astype(np.complex64).reshape(1, -1)).to(dev)
+    c7 = (torch.zeros(1, device=dev), torch.zeros(1, device=dev))
+    blk8 = symsync.sym_sync_r(sm.SYNC_K, 4, 0.0, 64, mode="scan")
+    n8 = 130880
+    x8 = torch.from_numpy(sm.sync_rows(sm.SYNC_NCH, n8, sm.SYNC_K, sm.SEED + 1751, False)).to(dev)
+    x8 = torch.cat([torch.zeros(sm.SYNC_NCH, blk8.H, device=dev), x8], dim=-1).contiguous()
+    bank8 = symsync._bank_on(blk8.k, blk8.m, blk8.npfb, blk8.ftype, blk8.beta, dev)
+    z8 = torch.zeros(sm.SYNC_NCH, device=dev)
+    carry8, loop8 = (z8, z8, z8, z8), blk8.loop(n8)
     box = {"k1": ff.flagship_fused_init(64, dev)}
     box.update({name: g.init(dev) for name, (g, _) in graphs.items()})
 
@@ -118,10 +143,13 @@ def worker(root: str, turn: int) -> None:
         "K3 pfb_fm_fused": lambda: pf.pfb_fm_fused(v3, taps, W, nch=64, L=14, kf=sm.KF),
         "K4 pfb_channelize_fused": lambda: pf.pfb_channelize_fused(v4, taps, W, nch=64, L=14),
         "K5 fir_valid (64, 2^17) complex x 585": lambda: fv.fir_valid(x5, cw64),
+        "K7 pll_scan (1, 1046400) complex64": lambda: k7.pll_scan(p7, c7, *sm.pll_constants()),
+        "K8 symsync_scan (64, 130981) float32 k 10":
+            lambda: k8.symsync_scan(x8, bank8, carry8, loop8),
         **{name: path(name) for name in graphs},
     }
     for name, fn in steps.items():
-        ms = sm.time_steps(torch, fn)
+        ms = sm.time_steps(torch, fn, steps=5 if name.startswith("K7") else sm.STEPS)
         kern = sm.profile_kernels(torch, fn, 5)
         top = sorted(kern.items(), key=lambda kv: -kv[1]["device_us"])[:5]
         print(json.dumps(dict(

@@ -242,11 +242,13 @@ K8 symsync_scan, the port's own kernels with no Pallas counterpart; K4, K5
 and K1 on their paths):
 
   13. 13a K7 against its twin (one noisy pilot row of 2^16 samples, two
-      state-chained blocks: 2e-3, θ within 1e-4) and K8 through SymSyncScan
-      against its twin (4 rows of the JAX sync tests' signals with their
-      own clocks, real k = 10 and complex k = 4, three blocks of 2^14: every
-      output within 2e-3 of the largest, τ within 1e-4: the twin sums each
-      window in the kernel's order); each twin timed on the card at 2^14 samples beside its
+      state-chained blocks, then with runs of exact zeros and from carries
+      of θ = ±20, freq = 0.5: 2e-3, θ within 1e-4) and K8 through
+      SymSyncScan against its twin (4 rows of the JAX sync tests' signals
+      with their own clocks, real k = 10 and complex k = 4, three blocks of
+      2^14, and a carried η of −30 that runs τ back through the row: every
+      output and τ bit for bit, the twin stepping and summing in the
+      kernel's order); each twin timed on the card at 2^14 samples beside its
       kernel.  13b the scan modes at full width through the library: DeFMS 8
       --rds with pll_mode="scan" on phase 6b's capture behind the CLI's
       front end (L/R separation > 15 dB on the second half, PI and PS,
@@ -257,10 +259,10 @@ and K1 on their paths):
       after the first block, nothing on the empty ones); for each one
       block's step ms, device ms, launches and peak memory beside the
       default mode's; K7/K8 alone on the arguments the flow's first block
-      hands them, timed there with their ns per serial step, and held
-      against their twins on the CPU at that shape (K7 over the first 2^16
-      outputs and θ at the cut, 2e-3; K8 over every output, 2e-3 of the
-      largest, τ within 1e-4).  13c the port's bundle (apps/package_app,
+      hands them, timed there with their ns per serial step and the
+      dependent chain's floor, and held against their twins on the CPU at
+      that shape (K7 over the first 2^16 outputs and θ at the cut, 1e-5; K8
+      over every output and τ, bit for bit).  13c the port's bundle (apps/package_app,
       not self-contained, its kernel library removed) runs phase 4's -c 64
       --backend fused --device cuda flow through its launcher in a process
       of its own: its kernel library is built from the zipapp's sources in
@@ -4519,6 +4521,16 @@ SCAN_PLAIN_N = 1 << 14          # 13a: the samples the twins are timed at on the
 SCAN_SYNC_ROWS, SCAN_SYNC_N = 4, 1 << 14   # 13a: K8 on 4 rows, three blocks of 2^14
 SCAN_CHECK_N = 1 << 16         # 13b: K7's outputs at the flow's shape held against the twin
 SCAN_SEP_DB = 15.0    # the scan PLL's separation after pull-in (tests/test_symsync_stereo.py:222)
+SCAN_FLOW_TOL = 1e-5  # K7 at the DeFMS block against its twin (the φ pass's atan2f vs the CPU's)
+# An estimate, not a reading: the dependent chain per serial step that the
+# designs count, in cycles, for the phase record's chain_floor_est_ms. K7 per sample,
+# nine dependent FP32 instructions (d = φ − θ, the e wrap's compare and
+# predicated add, β·e, freq, (θ + ω) + freq, + α·e, the mod's compare and
+# select) at ~4.5 cycles; K8 per pair of outputs, the position to the bank
+# row (~44: add, floor, add, mul, the rint add, int clamps, the address),
+# the shared-memory loads (~30), four dependent multiply-adds (~16), five
+# shuffle levels (~135) and the TED and PI update (~36).
+PLL_CHAIN_CYCLES, SYNC_CHAIN_CYCLES = 40, 290
 
 
 def sync_rows(rows: int, n: int, k: int, seed: int, cplx: bool) -> np.ndarray:
@@ -4568,16 +4580,33 @@ def sync_scan_bound(rows: int, L: int, nout: int, W: int, npfb: int, cplx: bool)
                  rows * nout * (W * (4 if cplx else 2) + 12))
 
 
+def sm_clock_mhz() -> dict:
+    """The SM clock nvidia-smi reports: now and its maximum, MHz."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    now, top = (float(v) for v in r.stdout.splitlines()[0].split(","))
+    return dict(sm_mhz=now, sm_max_mhz=top)
+
+
+def chain_floor_est_ms(cycles_per_step: float, steps: int, mhz: float) -> float:
+    """An estimate of the dependent chain's least time from the design's
+    counted cycles per serial step: cycles × steps ÷ the clock."""
+    return cycles_per_step * steps / (mhz * 1e3)
+
+
 def phase_scan_kernels(torch, dev, card) -> dict:
     """13a. K7 and K8 against their plain twins (on the CPU): K7 on one
     noisy 19 kHz pilot row of SCAN_PLL_N samples in two state-chained
-    blocks (2e-3, θ within 1e-4); K8 through SymSyncScan on SCAN_SYNC_ROWS
-    rows of the reference tests' signals (``sync_rows``), real k = 10
-    (kaiser, W = 81) and complex k = 4, m = 3 (rnyquist, W = 25), three
-    blocks of SCAN_SYNC_N: every output within 2e-3 of the largest, τ
-    within 1e-4 (the twin sums each window in the kernel's order, so the
-    two pick alike and feed back alike).  Each kernel launches once per
-    block.
+    blocks (2e-3, θ within 1e-4), then on the same row with runs of exact
+    zeros (e from the rotated product's signed zeros) and from carries of
+    θ = ±20, freq = 0.5 (the rotated product and the floored mod): 2e-3, θ
+    within 1e-4; K8 through SymSyncScan on SCAN_SYNC_ROWS rows of the
+    reference tests' signals (``sync_rows``), real k = 10 (kaiser, W = 81)
+    and complex k = 4, m = 3 (rnyquist, W = 25), three blocks of
+    SCAN_SYNC_N: every output and τ bit for bit (the twin steps and sums
+    in the kernel's order), and once with a carried η of −30 that runs τ
+    back through the row, so the window ring is re-seated and pairs read
+    the row: bit for bit.  Each kernel launches once per block.
     Then each twin's time on the card at SCAN_PLAIN_N samples beside its
     kernel's."""
     from csdr_tpu_torch.models import symsync
@@ -4606,6 +4635,20 @@ def phase_scan_kernels(torch, dev, card) -> dict:
     out["pll"] = dict(max_abs_err=max(errs), theta_err=max(th), launches=k7.launches - before)
     check(out["pll"]["launches"] == 2, f"13a: K7 launched {out['pll']['launches']} times")
     check(max(errs) < SYNC_TOL and max(th) < 1e-4, f"13a: K7 vs twin {out['pll']}")
+    # the rare branches: runs of exact zeros, carries outside the loop's range
+    pz = p.clone()
+    pz[:, 9000:9600] = 0
+    pz[:, -300:] = 0
+    for name, pr, th0, fr0 in (("zeros", pz, 1.0, 0.0), ("carry_high", p, 20.0, 0.5),
+                               ("carry_low", p, -20.0, 0.5)):
+        c0 = (torch.full((1,), th0), torch.full((1,), fr0))
+        (tg, _), yg = k7.pll_scan(pr.to(dev), tuple(c.to(dev) for c in c0), omega, alpha, beta)
+        (tc, _), yc = k7.pll_scan(pr, c0, omega, alpha, beta)
+        torch.cuda.synchronize()
+        r = dict(max_abs_err=float((yg.cpu() - yc).abs().max()),
+                 theta_err=float((tg.cpu() - tc).abs().max()))
+        out["pll"][name] = r
+        check(r["max_abs_err"] < SYNC_TOL and r["theta_err"] < 1e-4, f"13a: K7 {name} vs twin {r}")
 
     for kind in ("real", "complex"):
         blk = (symsync.sym_sync_r(SYNC_K, 4, 0.0, 64, mode="scan") if kind == "real"
@@ -4614,19 +4657,33 @@ def phase_scan_kernels(torch, dev, card) -> dict:
         sg = tuple(torch.zeros((SCAN_SYNC_ROWS, *leaf.shape), dtype=leaf.dtype, device=dev)
                    for leaf in blk.init(dev))
         sc = tuple(leaf.cpu() for leaf in sg)
-        before, errs = k8.launches, []
+        before, errs, equal = k8.launches, [], True
         for b in range(3):
             xb = torch.from_numpy(np.ascontiguousarray(x[:, b * SCAN_SYNC_N:(b + 1) * SCAN_SYNC_N]))
             sg, yg = blk.apply(sg, xb.to(dev))
             sc, yc = blk.apply(sc, xb)
             errs.append(float((yg.cpu() - yc).abs().max() / yc.abs().max()))
+            equal &= torch.equal(yg.cpu(), yc) and all(torch.equal(a.cpu(), c)
+                                                        for a, c in zip(sg[1:], sc[1:]))
         torch.cuda.synchronize()
-        agree = dict(max_err=max(errs), launches=k8.launches - before,
+        agree = dict(max_err=max(errs), bit_equal=equal, launches=k8.launches - before,
                      tau_err=float((sg[1].cpu() - sc[1]).abs().max()), k=blk.k, W=blk.W,
                      npfb=blk.npfb)
+        # a carried η of −30 runs τ back through the row: re-seats, row reads
+        xf = torch.cat([torch.zeros((SCAN_SYNC_ROWS, blk.H), dtype=xb.dtype), xb], dim=-1)
+        bank = symsync._bank_on(blk.k, blk.m, blk.npfb, blk.ftype, blk.beta, cpu)
+        z = torch.zeros(SCAN_SYNC_ROWS, dtype=xb.dtype)
+        carry = (torch.full((SCAN_SYNC_ROWS,), np.float32(3000.3)),
+                 torch.full((SCAN_SYNC_ROWS,), np.float32(-30.0)), z, z)
+        loop = blk.loop(SCAN_SYNC_N)
+        cg, yg = k8.symsync_scan(xf.to(dev), bank.to(dev), tuple(c.to(dev) for c in carry), loop)
+        cc, yc = k8.symsync_scan_ref(xf, bank, carry, loop)
+        torch.cuda.synchronize()
+        agree["ring_paths_bit_equal"] = torch.equal(yg.cpu(), yc) and all(
+            torch.equal(a.cpu(), c) for a, c in zip(cg, cc))
         out[f"sync_{kind}"] = agree
         check(agree["launches"] == 3, f"13a: K8 {kind} launched {agree['launches']} times")
-        check(agree["max_err"] < SYNC_TOL and agree["tau_err"] < 1e-4,
+        check(agree["bit_equal"] and agree["ring_paths_bit_equal"],
               f"13a: K8 {kind} vs twin {agree}")
 
     # the twins' time on the card beside the kernels', at SCAN_PLAIN_N samples
@@ -4734,8 +4791,11 @@ def phase_scan_flows(torch, ct, dev, card, tmp) -> dict:
     serial step.  Each kernel is then launched alone on the arguments the
     flow's first block hands it (``kernel_inputs``), timed there, and held
     against its twin on the CPU: K7's first SCAN_CHECK_N outputs and θ at
-    the cut within 2e-3, K8's every output within 2e-3 of the largest and
-    τ within 1e-4 (the twin sums in the kernel's order and picks alike)."""
+    the cut within SCAN_FLOW_TOL, K8's every output and τ bit for bit (the
+    twin steps and sums in the kernel's order).  Each kernel's record has
+    its ns per serial step and the dependent chain's floor (the design's
+    cycles per step × steps ÷ the SM clock nvidia-smi reports) beside the
+    byte bound."""
     from csdr_tpu_torch.models import rds
     from csdr_tpu_torch.models import symsync
     from csdr_tpu_torch.ops.cuda import pll_scan as k7
@@ -4792,11 +4852,15 @@ def phase_scan_flows(torch, ct, dev, card, tmp) -> dict:
                                      - torch.complex(torch.cos(2 * th), torch.sin(2 * th)))
                                     .abs().max()),
                 checked=f"the first {SCAN_CHECK_N} of {p_a.shape[-1]} outputs")
+    clock = sm_clock_mhz()
     out["DeFMS"] = dict(samples=n, block=block, blocks=blocks, seconds=run_s,
                         msps=n / run_s / 1e6, launches=counts, separation_db=sep,
                         pi=info["pi"], ps=info["ps"], steps=steps, k7_ms=k7_ms,
                         k7_vs_twin=full, k7_launches_per_step=k7_launches, k7_device_ms=k7_dev,
                         k7_ns_per_step=k7_dev * 1e6 / p_a.shape[-1],
+                        k7_chain_floor_est_ms=chain_floor_est_ms(
+                            PLL_CHAIN_CYCLES, p_a.shape[-1], clock["sm_max_mhz"]),
+                        k7_chain_cycles_per_step=PLL_CHAIN_CYCLES, **clock,
                         k7_shape=f"{tuple(p_a.shape)} complex64 -> {tuple(sub.shape)} complex64",
                         **pll_bound(int(np.prod(p_a.shape[:-1])), p_a.shape[-1]))
     del p_a, sub, seen
@@ -4810,7 +4874,7 @@ def phase_scan_flows(torch, ct, dev, card, tmp) -> dict:
     check(min(sep) > SCAN_SEP_DB, f"13b DeFMS: L/R separation {sep} dB")
     check(k7_launches == 1, f"13b DeFMS: {k7_launches} K7 launches per profiled step")
     check(info["pi"] == RDS_PI and info["ps"] == RDS_PS, f"13b DeFMS: RDS {info}")
-    check(full["max_abs_err"] < SYNC_TOL and full["theta_cut_err"] < SYNC_TOL,
+    check(full["max_abs_err"] < SCAN_FLOW_TOL and full["theta_cut_err"] < SCAN_FLOW_TOL,
           f"13b DeFMS: K7 at the flow's shape vs twin {full}")
 
     # the -c 64 DeNBFMSync 10 tracker, mode="scan", behind K4
@@ -4861,6 +4925,7 @@ def phase_scan_flows(torch, ct, dev, card, tmp) -> dict:
     yk = yk.cpu()
     full = dict(max_err=float((yk - yc).abs().max() / yc.abs().max()),
                 tau_err=float((tau.cpu() - tau_c).abs().max()), outputs=int(yc.numel()),
+                bit_equal=torch.equal(yk, yc) and torch.equal(tau.cpu(), tau_c),
                 twin_seconds=time.perf_counter() - t2)
     k8_launches, k8_dev = steps["scan"]["port_kernels_per_step"].get("symsync_scan_rows",
                                                                       [0, 0.0])
@@ -4874,7 +4939,10 @@ def phase_scan_flows(torch, ct, dev, card, tmp) -> dict:
         clock_ppm={ch: e * 1e6 for ch, e in eps_of.items()}, steps=steps,
         k8_shape=f"{tuple(xf.shape)} {str(xf.dtype)[6:]} -> {tuple(yk.shape)}",
         k8_ms=k8_ms, k8_vs_twin=full, k8_launches_per_step=k8_launches, k8_device_ms=k8_dev,
-        k8_ns_per_step=k8_dev * 1e6 / loop.nout,
+        k8_ns_per_step=k8_dev * 1e6 / loop.nout, k8_ns_per_pair=k8_dev * 2e6 / loop.nout,
+        k8_chain_floor_est_ms=chain_floor_est_ms(SYNC_CHAIN_CYCLES, loop.nout // 2 + 1,
+                                                 sm_clock_mhz()["sm_max_mhz"]),
+        k8_chain_cycles_per_pair=SYNC_CHAIN_CYCLES,
         **sync_scan_bound(int(np.prod(xf.shape[:-1])), xf.shape[-1], loop.nout, blk.W, blk.npfb,
                           xf.is_complex()))
     del xf, seen, yk
@@ -4891,8 +4959,7 @@ def phase_scan_flows(torch, ct, dev, card, tmp) -> dict:
         check(set(coords[ch]) == {want} and len(coords[ch]) >= after_first,
               f"13b tracker channel {ch}: {len(coords[ch])} coordinates {set(coords[ch])}, "
               f"want {want}, at least {after_first}")
-    check(full["max_err"] < SYNC_TOL and full["tau_err"] < 1e-4,
-          f"13b tracker: K8 at the flow's shape vs twin {full}")
+    check(full["bit_equal"], f"13b tracker: K8 at the flow's shape vs twin {full}")
     check(out["tracker"]["coords_on_empty_channels"] == 0,
           f"13b tracker: {out['tracker']['coords_on_empty_channels']} coordinates on empty "
           "channels")
@@ -5784,11 +5851,17 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         "source": "csdr_tpu_torch/csrc/pll_scan.cu",
         "replaces": "csdr_tpu/models/stereo.py:39",
         "note": "K7, no Pallas counterpart: fms_pll_scan's lax.scan (csdr_tpu/models/"
-                "stereo.py:62), StereoFMDecoder(pll_mode='scan'); ms, device_ms, the bound "
-                "and max_abs_err (against the twin, over the first 2^16 outputs) on the pilot "
-                "of the DeFMS 8 --rds scan flow's block (13b), max_abs_err_13a over 13a's two "
-                "chained blocks, plain_ms (the per-sample twin on the card) at plain_shape "
-                "beside ms_at_plain_shape (13a)",
+                "stereo.py:62), StereoFMDecoder(pll_mode='scan'). One block of three warps "
+                "per row: warp 1 writes phi = atan2(p) for chunk t, lane 0 of warp 0 runs "
+                "the loop on chunk t - 1 (e = wrap(phi - theta) and the mod 2pi as selects, "
+                "32 steps between branches, a flagged group rerun with the rotated product "
+                "and the floored mod), warp 2 stores e^{2j theta} of chunk t - 2; bound by "
+                "the loop's dependent chain (13b's k7_chain_floor_est_ms estimates it), "
+                "not bytes (bound_ms). ms, "
+                "device_ms, the bound and max_abs_err (against the twin, over the first "
+                "2^16 outputs) on the pilot of the DeFMS 8 --rds scan flow's block (13b), "
+                "max_abs_err_13a over 13a's two chained blocks, plain_ms (the per-sample "
+                "twin on the card) at plain_shape beside ms_at_plain_shape (13a)",
         "launches": scan["13b"]["DeFMS"]["launches"]["pll_scan"],
         "max_abs_err": scan["13b"]["DeFMS"]["k7_vs_twin"]["max_abs_err"],
         "max_abs_err_13a": scan["13a"]["pll"]["max_abs_err"],
@@ -5809,11 +5882,18 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         "source": "csdr_tpu_torch/csrc/symsync_scan.cu",
         "replaces": "csdr_tpu/models/symsync.py:281",
         "note": "K8, no Pallas counterpart: SymSyncScan's lax.scan (csdr_tpu/models/"
-                "symsync.py:362), sym_sync_r/sym_sync_c(mode='scan'); ms, device_ms, the "
-                "bound and max_abs_err (against the twin, every output, relative to the "
-                "largest) on the -c 64 DeNBFMSync 10 scan tracker's (64, F) panel (13b), "
-                "max_abs_err_13a over 13a's real and complex rows, plain_ms at plain_shape "
-                "beside ms_at_plain_shape",
+                "symsync.py:362), sym_sync_r/sym_sync_c(mode='scan'). One warp per row: "
+                "each edge output and the centre after it share tau, so both windows are "
+                "summed in one pass (two shuffle trees interleaved) before one loop "
+                "update; the windows are read from a ring of the row in shared memory "
+                "that cp.async keeps a chunk ahead (a window outside it from the row, same "
+                "order), the bank rows padded to whole lanes; bit for bit equal to the "
+                "twin; bound by the dependent chain per pair (13b's k8_chain_floor_est_ms "
+                "estimates it), not bytes (bound_ms). ms, device_ms, the bound and "
+                "max_abs_err (against the twin, every output, relative to the largest) "
+                "on the -c 64 DeNBFMSync 10 scan "
+                "tracker's (64, F) panel (13b), max_abs_err_13a over 13a's real and "
+                "complex rows, plain_ms at plain_shape beside ms_at_plain_shape",
         "launches": scan["13b"]["tracker"]["launches"]["symsync_scan"],
         "max_abs_err": scan["13b"]["tracker"]["k8_vs_twin"]["max_err"],
         "max_abs_err_13a": max(scan["13a"][f"sync_{k}"]["max_err"] for k in ("real", "complex")),

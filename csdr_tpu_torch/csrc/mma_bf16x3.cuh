@@ -1,6 +1,6 @@
 // Tensor-core pieces shared by fir_valid.cu (K5) and pfb_fused.cu (K3/K4):
 // the bf16x3 split, ldmatrix, wgmma with A in registers and B in shared
-// memory, and cp.async with zero fill.
+// memory, and cp.async with zero fill (which symsync_scan.cu, K8, uses too).
 //
 // bf16x3 (the JAX package's csdr_tpu/ops/pallas/bf16x3.py): x_hi = bf16(x),
 // x_lo = bf16(x − x_hi), both rounded to nearest even, and

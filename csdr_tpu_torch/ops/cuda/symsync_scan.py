@@ -16,11 +16,22 @@ by L, then the start is clamped), then on centre ticks (j even)
 e = −clip(Re(edge·conj(y − prev)), −1, 1), η += ki·e, τ = (τ + kp·e) + η,
 prev = y, and on the others edge = y.  The carry (τ, η, prev, edge) has
 the rows' shape (…); τ and η are float32, prev and edge of xfull's dtype
-(float32 or complex64), the bank's taps real.  On a CUDA tensor
-``symsync_scan`` launches the kernel of ``csrc/symsync_scan.cu`` or raises;
-only a tensor on the CPU takes the plain version ``symsync_scan_ref``, a
-Python loop over outputs.
-``launches`` counts the calls that launched the kernel.
+(float32 or complex64), the bank's taps real.
+
+What bounds the kernel (``csrc/symsync_scan.cu``) is the dependent chain
+from one τ to the next, not bytes.  It shortens the chain three ways: the
+edge output 2i+1 and the centre output 2i+2, which share τ, are computed
+in one pass and followed by one loop update (half the serial steps); the
+windows are read from a ring of the row in shared memory that cp.async
+keeps a chunk ahead (a window outside it is read from device memory in
+the same order, so nothing depends on τ staying in range); the bank rows
+sit in shared memory padded to whole lanes.  Each window is still summed
+as lane l adding taps l, l + 32, … in order, then the xor tree (16, 8, 4,
+2, 1), which ``_lane_sum`` reproduces, so kernel and twin agree bit for
+bit, τ included.  On a CUDA tensor ``symsync_scan`` launches that kernel or
+raises; only a tensor on the CPU takes the plain version
+``symsync_scan_ref``, a Python loop over outputs.  ``launches`` counts the
+calls that launched the kernel.
 """
 
 from __future__ import annotations
@@ -35,6 +46,9 @@ import torch
 __all__ = ["ScanLoop", "picks", "symsync_scan", "symsync_scan_ref", "launches"]
 
 _SMEM_LIMIT = 232448   # bytes of shared memory a Hopper block may use
+_RING = 4096           # the kernel's window ring, in samples (kRing)
+_MAX_TAPS = 1024       # the kernel's longest window (kMaxTaps)
+_MAX_ROW = 1 << 30     # rows are indexed with int32
 
 launches = 0
 
@@ -99,8 +113,10 @@ def _lane_sum(prod: torch.Tensor) -> torch.Tensor:
 
 def symsync_scan_ref(xfull: torch.Tensor, bank: torch.Tensor, carry, loop: ScanLoop,
                      trace: bool = False):
-    """Plain K8: (carry, y (…, nout)) by a Python loop over the outputs,
-    every row at once, each window summed in the kernel's order
+    """Plain K8: (carry, y (…, nout)) by a Python loop in the kernel's steps,
+    every row at once: output 0 (a centre tick) alone, then each edge
+    output and the centre after it at one τ, both windows in one gather,
+    then one loop update; each window summed in the kernel's order
     (``_lane_sum``), so the twin and the kernel pick alike.  With ``trace`` it
     also returns the τ each output was interpolated at, (…, nout) float32,
     from which ``picks`` gives its window and bank row."""
@@ -112,25 +128,32 @@ def symsync_scan_ref(xfull: torch.Tensor, bank: torch.Tensor, carry, loop: ScanL
     taps = torch.arange(W, device=xfull.device)
     y = torch.empty((*xfull.shape[:-1], loop.nout), dtype=xfull.dtype, device=xfull.device)
     taus = torch.empty(y.shape, dtype=torch.float32, device=xfull.device) if trace else None
-    for j in range(loop.nout):
+    # the kernel's steps: [0], [1, 2], [3, 4], …, and a last edge alone
+    steps = [range(0, min(1, loop.nout))] + [range(j, min(j + 2, loop.nout))
+                                             for j in range(1, loop.nout, 2)]
+    for js in steps:
         if trace:
-            taus[..., j] = tau
-        ipos, ph = picks(tau, j, loop, npfb)
+            taus[..., js.start:js.stop] = tau[..., None]
+        jf = torch.arange(js.start, js.stop, dtype=torch.float32, device=xfull.device)
+        ipos, ph = picks(tau[..., None], jf, loop, npfb)
         # lax.dynamic_slice's start: a negative one wraps once by L, then
         # the start is clamped into [0, L − W]
         s = ipos - loop.mk
         s = torch.where(s < 0, s + L, s).clamp(0, L - W)
-        out = _lane_sum(torch.gather(xfull, -1, s[..., None] + taps) * bank[ph])
-        if j % 2 == 0:
-            d = out - prev
-            e = (edge.real * d.real + edge.imag * d.imag) if out.is_complex() else edge * d
-            e = -e.clamp(-1.0, 1.0)
-            eta = eta + ki * e
-            tau = (tau + kp * e) + eta
-            prev = out
-        else:
-            edge = out
-        y[..., j] = out
+        rows = xfull.unsqueeze(-2).expand(*xfull.shape[:-1], len(js), L)
+        outs = _lane_sum(torch.gather(rows, -1, s[..., None] + taps) * bank[ph])
+        y[..., js.start:js.stop] = outs
+        for i, j in enumerate(js):
+            out = outs[..., i]
+            if j % 2 == 0:
+                d = out - prev
+                e = (edge.real * d.real + edge.imag * d.imag) if out.is_complex() else edge * d
+                e = -e.clamp(-1.0, 1.0)
+                eta = eta + ki * e
+                tau = (tau + kp * e) + eta
+                prev = out
+            else:
+                edge = out
     carry = (tau, eta, prev, edge)
     return (carry, y, taus) if trace else (carry, y)
 
@@ -158,10 +181,15 @@ def symsync_scan(xfull: torch.Tensor, bank: torch.Tensor, carry, loop: ScanLoop)
         raise ValueError(f"symsync_scan runs on cuda or cpu tensors, got {xfull.device} "
                          f"with a bank on {bank.device}")
     npfb, W = bank.shape
-    smem = 4 * npfb * W
+    wp = 32 * -(-W // 32)   # bank rows padded to whole lanes
+    smem = (_RING + wp) * xfull.element_size() + 4 * npfb * wp
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"symsync_scan: a {npfb} x {W} bank takes {smem} B of shared memory "
-                         f"(limit {_SMEM_LIMIT})")
+        raise ValueError(f"symsync_scan: a {npfb} x {W} bank and the window ring take {smem} B "
+                         f"of shared memory (limit {_SMEM_LIMIT})")
+    if W > _MAX_TAPS or xfull.shape[-1] >= _MAX_ROW:
+        raise ValueError(f"symsync_scan: the kernel takes windows of at most {_MAX_TAPS} taps "
+                         f"and rows shorter than {_MAX_ROW} samples, got {W} and "
+                         f"{xfull.shape[-1]}")
     rows = int(np.prod(xfull.shape[:-1], dtype=np.int64))
     if rows > 2 ** 31 - 1:
         raise ValueError(f"symsync_scan: {rows} rows is more than the grid takes")

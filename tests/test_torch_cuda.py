@@ -26,10 +26,11 @@ largest output (tests/test_golden.py), the SSTV and WEFAX frequency tracks
 from output 180 (the FIR's start-up, tests/test_sstv.py:97-102); a
 profiled Pipeline equal to the unprofiled one bit for bit.  The scan
 kernels against their twins: K7 (``pll_scan``) 2e-3 relative to the
-largest output (tests/test_sharding_generic.py:60), θ within 1e-4; K8
-(``symsync_scan``) 2e-3 of the largest output on every output and τ within
-1e-4: its twin sums each window in the kernel's order, so the two take the
-same picks.
+largest output (tests/test_sharding_generic.py:60), θ within 1e-4 (the
+φ pass's atan2f and the CPU's atan2 may differ by an ulp), with a run of
+exact zeros and carries outside the loop's range; K8 (``symsync_scan``)
+bit for bit, every output and τ, through the ring, the re-seats and the
+reads from the row: its twin steps and sums in the kernel's order.
 """
 
 import numpy as np
@@ -774,6 +775,66 @@ def test_symsync_scan_kernel_matches_twin(dev, kind, rows):
         sg, yg = blk.apply(sg, xb.to(dev))
         sc, yc = blk.apply(sc, xb)
         torch.cuda.synchronize()
-        assert _rel(yg.cpu(), yc) < 2e-3, b
-        assert (sg[1].cpu() - sc[1]).abs().max() < 1e-4
+        assert torch.equal(yg.cpu(), yc), b
+        assert all(torch.equal(a.cpu(), c) for a, c in zip(sg[1:], sc[1:]))
     assert k8.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zeros", "carry_high", "carry_low"])
+def test_pll_scan_kernel_rare_branches_match_twin(dev, case):
+    """K7's rare branches on the card: a row with runs of exact zeros (e
+    from the rotated product's signed zeros) and carries of θ = ±20, freq =
+    0.5 (the rotated product, then the floored mod), against the twin on
+    the CPU, 2e-3 and θ within 1e-4; one launch."""
+    from csdr_tpu_torch.ops.cuda import pll_scan as k7
+
+    p = _pilot_rows(2, 6000, 12)
+    if case == "zeros":
+        p[:, 1000:1300] = 0
+        p[1, 5990:] = 0
+    th0, fr0 = {"zeros": (1.0, 0.0), "carry_high": (20.0, 0.5), "carry_low": (-20.0, 0.5)}[case]
+    omega, alpha, beta = 2 * np.pi * 19000.0 / 192000.0, 4 * 9.0 / 192e3, 4 * (9.0 / 192e3) ** 2
+    cc = (torch.full((2,), th0), torch.full((2,), fr0))
+    before = k7.launches
+    (tg, fg), yg = k7.pll_scan(torch.from_numpy(p).to(dev), tuple(c.to(dev) for c in cc), omega,
+                               alpha, beta)
+    (tc, fc), yc = k7.pll_scan(torch.from_numpy(p), cc, omega, alpha, beta)
+    torch.cuda.synchronize()
+    assert _rel(yg.cpu(), yc) < 2e-3
+    assert (tg.cpu() - tc).abs().max() < 1e-4 and (fg.cpu() - fc).abs().max() < 1e-6
+    assert k7.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,case", [("real", "wrap"), ("real", "wrap+1"), ("real", "jump"),
+                                       ("complex", "wrap")])
+def test_symsync_scan_kernel_ring_paths_match_twin(dev, kind, case):
+    """K8 where the window leaves its shared-memory ring: a τ that puts the
+    first windows before the row's start (their wrapped starts clamp to
+    its end), the same one output later (a pair's edge and centre on either
+    side), and a carried η of −30 that runs τ back through a 12,000-sample
+    row (re-seats chunk after chunk, pairs straddling the ring's edge read
+    from the row); against the twin on the CPU, bit for bit, every output
+    and τ."""
+    from chip_smoke import sync_rows
+    from csdr_tpu_torch.models import symsync
+    from csdr_tpu_torch.ops.cuda import symsync_scan as k8
+
+    blk = (symsync.sym_sync_r(10, 4, 0.0, 64, mode="scan") if kind == "real"
+           else symsync.sym_sync_c(3, 4, mode="scan"))
+    n = 12000 if case == "jump" else 4000
+    x = torch.from_numpy(sync_rows(2, n, blk.k, 13, kind == "complex"))
+    xf = torch.cat([torch.zeros((2, blk.H), dtype=x.dtype), x], dim=-1)
+    bank = symsync._bank_on(blk.k, blk.m, blk.npfb, blk.ftype, blk.beta, torch.device("cpu"))
+    loop = blk.loop(n)
+    tau0 = {"wrap": -(blk.H + 3 * blk.k + 0.25), "wrap+1": -(blk.H + 3 * blk.k + 0.25) - loop.half,
+            "jump": 3000.3}[case]
+    z = torch.zeros(2, dtype=x.dtype)
+    carry = (torch.full((2,), np.float32(tau0)),
+             torch.full((2,), np.float32(-30.0 if case == "jump" else 0.0)), z, z)
+    cg, yg = k8.symsync_scan(xf.to(dev), bank.to(dev), tuple(c.to(dev) for c in carry), loop)
+    cc, yc = k8.symsync_scan(xf, bank, carry, loop)
+    torch.cuda.synchronize()
+    assert torch.equal(yg.cpu(), yc)
+    assert all(torch.equal(a.cpu(), c) for a, c in zip(cg, cc))

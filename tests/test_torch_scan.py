@@ -163,43 +163,194 @@ def test_floored_fmod_is_jnp_mod():
     assert not np.array_equal(np.fmod(x, y), got)
 
 
+_PI32, _TWO_PI32 = np.float32(np.pi), np.float32(2 * np.pi)
+_THREE_PI32, _FOUR_PI32 = np.float32(3 * np.pi), np.float32(4 * np.pi)
+
+
+def _rotated_angle_np(v, theta):
+    """angle(p·e^{−jθ}) as the JAX scan (and K7's rare branch) computes it:
+    the product (pr + j·pi)(cos θ − j sin θ) rounded term by term, then
+    atan2 of its signed parts."""
+    f32 = np.float32
+    s, c = np.sin(theta), np.cos(theta)
+    re = f32(f32(v.real * c) + f32(v.imag * s))
+    im = f32(f32(v.imag * c) - f32(v.real * s))
+    return np.arctan2(im, re)
+
+
 def _pll_transcribed(p, theta, freq, omega, alpha, beta):
-    """K7's order in numpy float32: chunks of kChunk staged, lane 0's serial
-    loop leaving θ, then every lane's e^{2jθ}."""
-    (chunk,) = source_ints("pll_scan.cu", "kChunk")
+    """K7's order in numpy float32: the φ pass (p = 0 flagged as NaN);
+    chunks of kChunk; in each, groups of kGroup steps with the cheap wraps
+    as selects and a flag where d leaves (−3π, π] or x leaves (−2π, 4π),
+    a flagged group and the chunk's tail run again by the careful loop (the
+    rotated product for e, the floored mod for θ); then every e^{2jθ}.
+    Returns ((θ, freq), sub38, e and θ_out per step)."""
+    chunk, group = source_ints("pll_scan.cu", "kChunk", "kGroup")
     f32 = np.float32
     theta, freq = f32(theta), f32(freq)
     omega, alpha, beta = f32(omega), f32(alpha), f32(beta)
-    sub = np.empty(len(p), np.complex64)
-    for c0 in range(0, len(p), chunk):
-        ps = p[c0:c0 + chunk]
-        th = np.empty(len(ps), np.float32)
-        for i, v in enumerate(ps):
-            s, c = np.sin(theta), np.cos(theta)
-            re = f32(v.real * c) + f32(v.imag * s)
-            im = f32(v.imag * c) - f32(v.real * s)
-            e = np.arctan2(im, re)
-            th[i] = theta
+    with np.errstate(invalid="ignore"):
+        phi = np.where((p.real == 0) & (p.imag == 0), np.float32(np.nan),
+                       np.arctan2(p.imag, p.real)).astype(np.float32)
+    th = np.empty(len(p), np.float32)
+    es = np.empty(len(p), np.float32)
+
+    def careful(i0, i1, theta, freq):
+        for i in range(i0, i1):
+            d = f32(phi[i] - theta)
+            if d > -_THREE_PI32 and d <= _PI32:
+                e = f32(d + _TWO_PI32) if d <= -_PI32 else d
+            else:
+                e = _rotated_angle_np(p[i], theta)
+            th[i], es[i] = theta, e
             freq = f32(freq + f32(beta * e))
-            theta = _floor_mod_np(f32(f32(f32(theta + omega) + freq) + f32(alpha * e)),
-                                  f32(2 * np.pi))[()]
-        two = f32(2) * th
-        sub[c0:c0 + len(ps)] = np.cos(two) + 1j * np.sin(two)
-    return (theta, freq), sub
+            x = f32(f32(f32(theta + omega) + freq) + f32(alpha * e))
+            if x > -_TWO_PI32 and x < _FOUR_PI32:
+                theta = f32(x + _TWO_PI32) if x < 0 else (f32(x - _TWO_PI32) if x >= _TWO_PI32
+                                                          else x)
+            else:
+                theta = _floor_mod_np(x, _TWO_PI32)[()]
+        return theta, freq
+
+    for c0 in range(0, len(p), chunk):
+        c1 = min(c0 + chunk, len(p))
+        g = c0
+        while g + group <= c1:
+            theta0, freq0, rare = theta, freq, False
+            with np.errstate(invalid="ignore"):
+                for i in range(g, g + group):
+                    d = f32(phi[i] - theta)
+                    rare |= not (d > -_THREE_PI32 and d <= _PI32)
+                    e = f32(d + _TWO_PI32) if d <= -_PI32 else d
+                    th[i], es[i] = theta, e
+                    freq = f32(freq + f32(beta * e))
+                    x = f32(f32(f32(theta + omega) + freq) + f32(alpha * e))
+                    rare |= not (x > -_TWO_PI32 and x < _FOUR_PI32)
+                    theta = f32(x + _TWO_PI32) if x < 0 else (
+                        f32(x - _TWO_PI32) if x >= _TWO_PI32 else x)
+            if rare:
+                theta, freq = careful(g, g + group, theta0, freq0)
+            g += group
+        theta, freq = careful(g, c1, theta, freq)
+    two = f32(2) * th
+    return (theta, freq), (np.cos(two) + 1j * np.sin(two)).astype(np.complex64), es, th
 
 
-def test_pll_kernel_order_matches_twin():
-    """K7's order of operations, transcribed in numpy (chunking, the
-    explicit product and sum order, atan2, the floored mod), against the
-    twin across a chunk boundary and from a negative θ."""
+def _pll_constants():
+    return 2 * np.pi * 19000.0 / QUAD, 4 * 9.0 / QUAD, 4 * (9.0 / QUAD) ** 2
+
+
+@pytest.mark.parametrize("case", ["noisy", "zeros", "carry_high", "carry_low"])
+def test_pll_kernel_order_matches_twin(case):
+    """K7's order of operations, transcribed in numpy (the φ pass, chunks
+    and branch-free groups, the cheap wraps, the careful rerun of a flagged
+    group with the rotated product and the floored mod), against the twin
+    across chunk and group boundaries: from a negative θ, with a run of
+    exact zeros, and from carries of θ ±20 and freq 0.5."""
     n = 2500
     p = _pilot(n, 4)
-    omega, alpha, beta = 2 * np.pi * 19000.0 / QUAD, 4 * 9.0 / QUAD, 4 * (9.0 / QUAD) ** 2
-    (th, fr), sub = _pll_transcribed(p, -0.3, 2e-5, omega, alpha, beta)
-    (tt, tf), tsub = k7.pll_scan(torch.from_numpy(p), (torch.tensor(-0.3), torch.tensor(2e-5)),
-                                 omega, alpha, beta)
+    theta0, freq0 = {"noisy": (-0.3, 2e-5), "zeros": (1.0, 0.0), "carry_high": (20.0, 0.5),
+                     "carry_low": (-20.0, 0.5)}[case]
+    if case == "zeros":
+        p[1030:1100] = 0
+    omega, alpha, beta = _pll_constants()
+    (th, fr), sub, _, _ = _pll_transcribed(p, theta0, freq0, omega, alpha, beta)
+    (tt, tf), tsub = k7.pll_scan(torch.from_numpy(p), (torch.tensor(theta0),
+                                                       torch.tensor(freq0)), omega, alpha, beta)
     assert np.abs(tsub.numpy() - sub).max() < 1e-5
     assert abs(float(tt) - th) < 1e-5 and abs(float(tf) - fr) < 1e-8
+
+
+@pytest.mark.parametrize("case", ["mod", "wrap", "carry_high", "carry_low"])
+def test_pll_cheap_wraps_are_exact_and_rare_branches_take_over(case):
+    """The loop's cheap forms against JAX.  mod: x + 2π (x < 0), x − 2π
+    (x ≥ 2π) or x equals jnp.mod(x, 2π) bit for bit on (−2π, 4π), its ends
+    and ±0 included, and the range test sends the rest to the floored mod.
+    wrap: for d = φ − θ in (−3π, π], d + 2π (d ≤ −π) or d is the exact
+    wrap of d into (−π, π] (Sterbenz: the add rounds nothing), and within
+    1e-6 of jnp.angle of the rotated product, as JAX computes e, away from
+    ±π (where the two may fall on either side).  carry: from θ = ±20 and
+    freq = 0.5 the first steps take the rare branches (the rotated product,
+    the floored mod), and the twin stays within 2e-3 of the JAX scan over
+    two chained blocks, θ within 1e-4."""
+    rng = np.random.default_rng(11)
+    if case == "mod":
+        ulp = np.spacing(_TWO_PI32)
+        x = np.concatenate([rng.uniform(-2 * np.pi, 4 * np.pi, 20000),
+                            [-_TWO_PI32 + ulp, -np.float32(1e-30), -0.0, 0.0, 1e-30,
+                             _TWO_PI32 - ulp, _TWO_PI32, _TWO_PI32 + ulp,
+                             _FOUR_PI32 - np.spacing(_FOUR_PI32)]]).astype(np.float32)
+        x = x[(x > -_TWO_PI32) & (x < _FOUR_PI32)]
+        cheap = torch.where(torch.from_numpy(x) < 0, torch.from_numpy(x) + _TWO_PI32,
+                            torch.where(torch.from_numpy(x) >= _TWO_PI32,
+                                        torch.from_numpy(x) - _TWO_PI32, torch.from_numpy(x)))
+        want = np.asarray(jnp.mod(jnp.asarray(x), _TWO_PI32))
+        assert np.array_equal(cheap.numpy().view(np.int32), want.view(np.int32))
+        outside = np.array([-_TWO_PI32, -7.0, _FOUR_PI32, 20.0, -20.0], np.float32)
+        assert not np.any((outside > -_TWO_PI32) & (outside < _FOUR_PI32))
+        assert np.array_equal(_floor_mod_np(outside, _TWO_PI32),
+                              np.asarray(jnp.mod(jnp.asarray(outside), _TWO_PI32)))
+        return
+    omega, alpha, beta = _pll_constants()
+    if case == "wrap":
+        n = 20000
+        p = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
+        theta = rng.uniform(0, 2 * np.pi, n).astype(np.float32)
+        d = (np.arctan2(p.imag, p.real).astype(np.float32) - theta).astype(np.float32)
+        assert np.all((d > -_THREE_PI32) & (d <= _PI32))
+        e = np.where(d <= -_PI32, (d + _TWO_PI32).astype(np.float32), d)
+        exact = np.float64(d) + 2 * np.float64(_PI32) * (np.float64(d) <= -np.float64(_PI32))
+        assert np.array_equal(e.astype(np.float64), exact)
+        assert np.all((e > -_PI32 - 1e-6) & (e <= _PI32))
+        angle = np.asarray(jnp.angle(jnp.asarray(p) * jnp.exp(-1j * jnp.asarray(theta))
+                                     .astype(jnp.complex64)))
+        away = np.abs(angle) < np.pi - 1e-5
+        assert away.mean() > 0.99
+        assert np.abs(e - angle)[away].max() < 1e-6
+        return
+    theta0 = 20.0 if case == "carry_high" else -20.0
+    n = 4096
+    p = _pilot(2 * n, 6)
+    _, _, es, _ = _pll_transcribed(p[:8], theta0, 0.5, omega, alpha, beta)
+    assert es[0] == _rotated_angle_np(p[0], np.float32(theta0))
+    js = (jnp.float32(theta0), jnp.float32(0.5))
+    ts = (torch.tensor(theta0), torch.tensor(0.5))
+    bw = 9.0 / QUAD
+    for b in range(2):
+        js, jy = j_stereo.fms_pll_scan(jnp.asarray(p[b * n:(b + 1) * n]), js, omega, bw)
+        ts, ty = stereo.fms_pll_scan(torch.from_numpy(p[b * n:(b + 1) * n]), ts, omega, bw)
+        assert _rel(ty.numpy(), np.asarray(jy)) < TOL
+        assert abs(float(ts[0]) - float(js[0])) < 1e-4
+
+
+def test_pll_zero_run_takes_the_rotated_product():
+    """A pilot row with runs of exact zeros (the zero-padded last block once
+    the pilot FIR's history drains): at p = 0 the loop's e is the rotated
+    product's, atan2 of its signed zeros (0 or ±π by the signs of cos θ and
+    sin θ), as JAX computes it, not wrap(atan2(0, 0) − θ) = −θ; the twin
+    stays within 2e-3 of the JAX scan over two chained blocks, θ within
+    1e-4."""
+    omega, alpha, beta = _pll_constants()
+    n = 4096
+    p = _pilot(2 * n, 9)
+    for a, b in ((700, 760), (4000, 4500), (8000, 8192)):
+        p[a:b] = 0
+    _, _, es, th = _pll_transcribed(p, 0.0, 0.0, omega, alpha, beta)
+    zero = np.flatnonzero((p.real == 0) & (p.imag == 0))
+    want = np.array([_rotated_angle_np(np.complex64(0), t) for t in th[zero]], np.float32)
+    assert np.array_equal(es[zero], want)
+    assert np.all(np.isin(np.abs(want), [0.0, _PI32]))
+    # wrap(atan2(0, 0) − θ) would be −θ (wrapped), another e on almost every one
+    naive = np.where(-th[zero] <= -_PI32, -th[zero] + _TWO_PI32, -th[zero])
+    assert np.mean(naive != want) > 0.9
+    js = (jnp.float32(0.0), jnp.float32(0.0))
+    ts = (torch.tensor(0.0), torch.tensor(0.0))
+    bw = 9.0 / QUAD
+    for b in range(2):
+        js, jy = j_stereo.fms_pll_scan(jnp.asarray(p[b * n:(b + 1) * n]), js, omega, bw)
+        ts, ty = stereo.fms_pll_scan(torch.from_numpy(p[b * n:(b + 1) * n]), ts, omega, bw)
+        assert _rel(ty.numpy(), np.asarray(jy)) < TOL
+        assert abs(float(ts[0]) - float(js[0])) < 1e-4
 
 
 def test_pll_rows_and_refusals():
@@ -574,69 +725,158 @@ def test_scan_modes_refuse_to_shard_as_jax(case):
 
 
 def _scan_transcribed(xfull, bank, carry, loop):
-    """K8's order in numpy float32 for one row: every lane's position, the
-    clamped window start, lane l's taps l, l + 32, … summed in order, the
-    __shfl_xor_sync tree (16, 8, 4, 2, 1), the loop update."""
+    """K8's order in numpy float32 for one row: output 0 alone, then each
+    edge output and the centre after it at one τ, a last edge alone; every
+    lane's position (rint as the low bits of v + 1.5·2^23, the start from
+    the floor of the position clamped to ±2^30); the window read from the
+    ring of kRingChunks chunks (the first Wp = 32·⌈W/32⌉ samples mirrored
+    past its end, chunks cb and cb + 1 landed) where it holds the window,
+    else from the row; lane l's taps l, l + 32, … summed in order, the
+    __shfl_xor_sync tree (16, 8, 4, 2, 1); the loop update; the ring kept a
+    chunk behind the centre window, re-seated where the window is far from
+    it.  Returns ((τ, η, prev, edge), y, counts of windows read from the row
+    and of re-seats)."""
+    chunk, nchunks = source_ints("symsync_scan.cu", "kChunk", "kRingChunks")
     f32 = np.float32
     npfb, W = bank.shape
     L = len(xfull)
+    ring_n, wp = chunk * nchunks, 32 * -(-W // 32)
     tau, eta, prev, edge = carry
     tau, eta = f32(tau), f32(eta)
     kp, ki = f32(loop.kp), f32(loop.ki)
     cplx = np.iscomplexobj(xfull)
     lanes = np.arange(32)
-    y = np.empty(loop.nout, xfull.dtype)
-    for j in range(loop.nout):
+    ring = np.full(ring_n + wp, np.nan, xfull.dtype)
+    counts = {"slow": 0, "seats": 0}
+    state = {"cb": 0}
+
+    def issue(c):
+        g = c * chunk + np.arange(chunk)
+        slot = (c % nchunks) * chunk
+        ring[slot:slot + chunk] = np.where(g < L, xfull[np.minimum(g, L - 1)], 0)
+        if c % nchunks == 0:
+            ring[ring_n:] = np.where(g[:wp] < L, xfull[np.minimum(g[:wp], L - 1)], 0)
+
+    def seat(c):
+        state["cb"] = c
+        counts["seats"] += 1
+        for q in range(nchunks):
+            issue(c + q)
+
+    def pick(j):
         pos = f32(f32(f32(loop.start) + f32(f32(j) * f32(loop.half))) + tau)
-        fl = np.floor(pos)
-        ph = int(np.clip(np.rint(f32(f32(pos - fl) * f32(npfb))), 0, npfb - 1))
-        s = int(fl) - loop.mk
-        s = int(np.clip(s + L if s < 0 else s, 0, L - W))
+        v = f32(f32(pos - np.floor(pos)) * f32(npfb))
+        ph = int(np.clip(int(np.array(f32(v + f32(12582912.0))).view(np.int32)) - 0x4B400000,
+                         0, npfb - 1))
+        si = int(np.floor(np.clip(pos, f32(-2.0 ** 30), f32(2.0 ** 30)))) - loop.mk
+        return int(np.clip(si + L if si < 0 else si, 0, L - W)), ph
+
+    def covered(s):
+        lo = state["cb"] * chunk
+        return s >= lo and s + W <= lo + 2 * chunk
+
+    def window(s, ph):
+        fast = covered(s)
+        counts["slow"] += not fast
         parts = []
-        for plane in ((xfull.real, xfull.imag) if cplx else (xfull,)):
+        src = ring[(s % ring_n) + np.arange(wp)] if fast else xfull[np.minimum(s + np.arange(wp),
+                                                                               L - 1)]
+        for plane in ((src.real, src.imag) if cplx else (src,)):
             acc = np.zeros(32, np.float32)
             for t0 in range(0, W, 32):
                 t = t0 + lanes
                 on = t < W
-                prod = (plane[s + t[on]].astype(np.float32) * bank[ph, t[on]]).astype(np.float32)
+                prod = (plane[t[on]].astype(np.float32) * bank[ph, t[on]]).astype(np.float32)
                 acc[on] = (acc[on] + prod).astype(np.float32)
             for off in (16, 8, 4, 2, 1):
                 acc = (acc + acc[lanes ^ off]).astype(np.float32)
             assert np.all(acc == acc[0])   # the tree leaves the same bits in every lane
             parts.append(acc[0])
-        out = np.complex64(parts[0] + 1j * parts[1]) if cplx else parts[0]
-        if j % 2 == 0:
-            if cplx:
-                e = f32(f32(f32(edge.real) * f32(out.real - prev.real))
-                        + f32(f32(edge.imag) * f32(out.imag - prev.imag)))
-            else:
-                e = f32(edge * f32(out - prev))
-            e = -min(max(e, f32(-1)), f32(1))
-            eta = f32(eta + f32(ki * e))
-            tau = f32(f32(tau + f32(kp * e)) + eta)
-            prev = out
+        return np.complex64(parts[0] + 1j * parts[1]) if cplx else parts[0]
+
+    def update(out):
+        nonlocal tau, eta, prev
+        if cplx:
+            e = f32(f32(f32(edge.real) * f32(out.real - prev.real))
+                    + f32(f32(edge.imag) * f32(out.imag - prev.imag)))
         else:
-            edge = out
-        y[j] = out
-    return (tau, eta, prev, edge), y
+            e = f32(edge * f32(out - prev))
+        e = -min(max(e, f32(-1)), f32(1))
+        eta = f32(eta + f32(ki * e))
+        tau = f32(f32(tau + f32(kp * e)) + eta)
+        prev = out
+
+    def follow(s):
+        lo = state["cb"] * chunk
+        if lo <= s < lo + chunk:
+            return
+        if lo <= s < lo + 2 * chunk:
+            issue(state["cb"] + nchunks)
+            state["cb"] += 1
+        else:
+            seat(s // chunk)
+
+    y = np.empty(loop.nout, xfull.dtype)
+    s, ph = pick(0)
+    seat(s // chunk)
+    y[0] = window(s, ph)
+    update(y[0])
+    j = 1
+    while j + 1 < loop.nout:
+        (se, phe), (sc, phc) = pick(j), pick(j + 1)
+        y[j], y[j + 1] = window(se, phe), window(sc, phc)
+        edge = y[j]
+        update(y[j + 1])
+        follow(sc)
+        j += 2
+    if j < loop.nout:
+        s, ph = pick(j)
+        y[j] = edge = window(s, ph)
+    return (tau, eta, prev, edge), y, counts
 
 
-@pytest.mark.parametrize("kind", ["real", "complex"])
-def test_scan_kernel_order_matches_twin(kind):
-    """K8's order of operations, transcribed in numpy (the lane split and
-    shuffle tree, rintf, the wrapped and clamped window), against the twin
-    over one block: the twin sums in the kernel's order, so bit for bit."""
-    _, x = _real_nrz(nsym=300) if kind == "real" else _complex_bpsk(nsym=600)
+@pytest.mark.parametrize("kind,tau0", [("real", 0.0), ("complex", 0.0), ("real", "wrap"),
+                                       ("real", "wrap+1"), ("complex", "wrap"),
+                                       ("complex", "wrap+1"), ("real", "jump")])
+def test_scan_kernel_order_matches_twin(kind, tau0):
+    """K8's order of operations, transcribed in numpy (the paired outputs,
+    the window ring and its mirror, the lane split and shuffle tree, rint,
+    the wrapped and clamped window), against the twin over one block: the
+    twin sums in the kernel's order, so bit for bit.  From τ = 0, and from
+    the τ of ``test_scan_window_clamps_and_rounds_as_jax`` that puts the
+    first windows before xfull's start (their wrapped starts clamp to its
+    end, far from the ring), and one output later (the edge and the centre
+    of a pair then fall on either side): the ring is re-seated, and a
+    window it does not hold is read from the row.  And a τ that runs back
+    through a long row (a carried η of −30): the ring is re-seated behind
+    it, chunk after chunk, and the pairs that straddle its edge read the
+    row."""
+    _, x = _real_nrz(nsym=1200 if tau0 == "jump" else 300) if kind == "real" else \
+        _complex_bpsk(nsym=600)
     _, pb = _pair(kind)
     st = pb.init(CPU)
     xfull = torch.cat([st[0], torch.from_numpy(x)])
     bank = symsync._bank_on(pb.k, pb.m, pb.npfb, pb.ftype, pb.beta, CPU)
     loop = pb.loop(len(x))
-    carry, want = k8.symsync_scan_ref(xfull, bank, st[1:], loop)
-    got_carry, got = _scan_transcribed(xfull.numpy(), bank.numpy(),
-                                       tuple(c.numpy()[()] for c in st[1:]), loop)
+    t0 = {0.0: 0.0, "wrap": -(pb.H + 3 * pb.k + 0.25),
+          "wrap+1": -(pb.H + 3 * pb.k + 0.25) - loop.half, "jump": 3000.3}[tau0]
+    # "jump": a carried η of −30 sends τ back ~30 samples a centre tick, so
+    # the windows run back through the row, wrap past its start to its end
+    # and run back again
+    eta0 = np.float32(-30.0 if tau0 == "jump" else 0.0)
+    carry0 = (torch.tensor(np.float32(t0)), torch.tensor(eta0), *st[3:])
+    carry, want = k8.symsync_scan_ref(xfull, bank, carry0, loop)
+    got_carry, got, counts = _scan_transcribed(xfull.numpy(), bank.numpy(),
+                                               tuple(c.numpy()[()] for c in carry0), loop)
     assert np.array_equal(got, want.numpy())
     assert got_carry[0] == carry[0].numpy() and got_carry[1] == carry[1].numpy()
+    if tau0 == 0.0:
+        assert counts == {"slow": 0, "seats": 1}, counts
+    elif tau0 in ("wrap", "wrap+1"):
+        assert counts["seats"] >= 2, counts
+    else:
+        assert counts["seats"] >= 2 and counts["slow"] > 0, counts
+    print(kind, tau0, counts)
 
 
 @pytest.mark.parametrize("kind", ["real", "complex"])
@@ -673,8 +913,8 @@ def test_scan_window_clamps_and_rounds_as_jax(kind):
         assert _rel(py.numpy(), np.asarray(jy)) < 1e-5, tau
         xfull = np.concatenate([hist, x])
         bank = symsync._interp_bank(k, m, npfb, pb.ftype, pb.beta)
-        _, ty = _scan_transcribed(xfull, bank, (tau, np.float32(0), dt(0), dt(0)),
-                                  pb.loop(n))
+        _, ty, _ = _scan_transcribed(xfull, bank, (tau, np.float32(0), dt(0), dt(0)),
+                                     pb.loop(n))
         assert _rel(ty, np.asarray(jy)) < 1e-5, tau
     # the half-even pick itself: rint(5.5) = 6, rint(6.5) = 6; 63.75 clips to 63
     loop = pb.loop(n)
