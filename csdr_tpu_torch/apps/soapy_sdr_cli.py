@@ -70,9 +70,11 @@ ranks.
 The host-side options: ``--spectrum [FILE]`` and ``--constellation [FILE]``
 tap the stream after the front end (before the DC blocker) into a Welch PSD
 and a scatter-plot Octave script; ``--play [CMD]`` tees single-stream audio
-into a live player (``io/sinks.PlaybackSink``); ``--profile`` runs each
-stage of the main graph as its own step between device barriers and prints
-the per-stage table.
+into a live player (``io/sinks.PlaybackSink``); ``--profile`` records the
+main Pipeline's spans (``utils/prof``, no device barrier) and prints the
+per-stage table: each stage's device interval on a card (its host span on
+the CPU) and host ms, the Pipeline's own spans (staging, H2D, drain wait,
+trim, the sink's file writes) and the MB copied per block.
 
     python -m csdr_tpu_torch.apps.soapy_sdr_cli --filename cap.cu8 -n 33554432 \\
         -c 64 --demod "DeCW 500 700 WAV" --backend pfb_fused --device cuda
@@ -198,8 +200,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Also play single-stream audio live (pacat/aplay/play found on the "
                         "PATH, or this command; float32le PCM on its stdin)")
     p.add_argument("--profile", action="store_true",
-                   help="Run each stage of the main graph as its own step between device "
-                        "barriers and print the per-stage time table")
+                   help="Record the main pipeline's spans (no device barrier) and print "
+                        "the per-stage table: device interval and host ms per stage, the "
+                        "pipeline's own spans, MB copied per block")
     p.add_argument("--mesh", default=None, metavar="TxC",
                    help="Run the flow on a device mesh of T time × C channel ranks, e.g. "
                         "'4x1' (one process per device); DeFMS and the packet flows on "
@@ -646,7 +649,8 @@ def run_opts(opts) -> int:
     if opts.verbose:
         print(f"Kernel launches: {json.dumps(kernel_launches())}")
     if opts.profile:
-        print("Per-stage budget (device time per block, barriers around each stage):")
+        print("Per-stage budget (device interval per stage on a card, host span on the "
+              "CPU; no barriers):")
         print(pipe.profile_report())
     if demod[0] in PACKET_SUFFIX:
         _report_packet(opts, demod, bits.concat(), out_bw)

@@ -41,6 +41,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from ..utils import prof
 from .sharding import CH, TIME
 
 __all__ = ["Block", "Chain", "chain", "TailStateBlock", "Lambda", "PerChannel", "MixChannels",
@@ -157,7 +158,8 @@ class Chain(Block):
     def apply(self, state, x):
         new_states = []
         for b, s in zip(self.blocks, state):
-            s, x = b.apply(s, x)
+            with prof.stage(b, x):   # a span per stage while the recorder is on
+                s, x = b.apply(s, x)
             new_states.append(s)
         return tuple(new_states), x
 

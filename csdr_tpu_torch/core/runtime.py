@@ -21,21 +21,29 @@ Host→device copies go from pinned buffers with ``non_blocking=True``; each
 block's output leaves come back the same way into fresh pinned buffers, and
 are handed to the sink one step later, after the next block was queued.
 
-``Pipeline(profile=True)`` runs each stage of a ``Chain`` as its own step
-with a device barrier around it and keeps a ``StageStat`` per stage
-(``stage_stats``, ``profile_report``); its output equals the unprofiled
-run's bit for bit.
+Tracing (``utils/prof``): while a ``torch.profiler`` session is active or
+inside ``prof.recording()``, each step records its spans on the profiler's
+clock (``pipeline.block``, the step's root, over ``pipeline.stage`` — the
+pinned buffer and the host copy into it —, ``pipeline.h2d``,
+``pipeline.apply`` with a span per graph stage below it, ``pipeline.d2h``,
+``pipeline.drain_wait`` — the wait for the previous block's copies — and
+``pipeline.trim``; then ``pipeline.sink`` and ``pipeline.checkpoint``) and
+counts the bytes handed to the device and back (``pipeline.h2d_bytes``,
+``pipeline.d2h_bytes``); otherwise each site costs one flag test.
+``Pipeline(profile=True)`` records into a recorder of its own, with no
+barrier, and folds it into a ``StageStat`` per stage (``stage_stats``,
+``profile_report``); its output equals the unprofiled run's bit for bit.
 """
 
 from __future__ import annotations
 
-import time
 from fractions import Fraction
 from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
 
+from ..utils import prof
 from .block import Block, Chain, _map_tree
 
 __all__ = ["Pipeline", "rechunk", "take_n", "skip_n", "append_flush", "DEFAULT_BLOCK"]
@@ -107,10 +115,12 @@ def skip_n(chunks: Iterable[np.ndarray], n: int) -> Iterator[np.ndarray]:
 class Pipeline:
     """Streaming executor for a Block graph on one explicit device.
 
-    ``profile=True`` times every stage of a ``Chain`` (a lone block is one
-    stage) on its own: a device barrier before the block and after each
-    stage, the host clock between them, the stage's input samples counted
-    at its own rate; the first call of each stage is counted apart."""
+    ``profile=True`` records the Pipeline's spans (``utils/prof``) into a
+    recorder of its own, with no barrier, and folds them into a
+    ``StageStat`` per stage of a ``Chain`` (a lone block is one stage): the
+    stage's device interval on a card, its host span on the CPU, its input
+    samples counted at its own rate; the first call of each stage is counted
+    apart."""
 
     def __init__(self, block: Block, block_size: int = DEFAULT_BLOCK, *,
                  device: torch.device | str, profile: bool = False):
@@ -122,65 +132,91 @@ class Pipeline:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.state = block.init(self.device)
         self.profile = profile
-        self.stage_stats: list = []
+        self._chain = isinstance(block, Chain)
+        self._rec = prof.Recorder() if profile else None
         if profile:
-            from ..utils.prof import StageStat
-
-            self._stages = list(block.blocks) if isinstance(block, Chain) else [block]
+            stages = list(block.blocks) if self._chain else [block]
             self._stage_in_rate, acc = [], Fraction(1)
-            for b in self._stages:
+            for b in stages:
                 self._stage_in_rate.append(acc)
                 acc *= b.rate
-            self.stage_stats = [StageStat(b.name or type(b).__name__) for b in self._stages]
+            self._stats = [prof.StageStat(b.name or type(b).__name__) for b in stages]
+            self._pipe_s: dict[str, float] = {}   # span name -> host seconds, step 0 apart
+            self._applied = self._applied_later = 0   # blocks applied: all; past step 0
+
+    def _recording(self):
+        """The Pipeline's own recorder while ``profile=True``."""
+        return prof.recording(self._rec) if self._rec is not None else prof.OFF
 
     def _to_device(self, chunk: np.ndarray) -> torch.Tensor:
         cuda = self.device.type == "cuda"
-        dtype = torch.from_numpy(np.empty(0, chunk.dtype)).dtype
-        stage = torch.empty(chunk.shape, dtype=dtype, pin_memory=cuda)
-        stage.numpy()[...] = chunk
-        # the pinned allocator keeps the buffer until the async copy is done
-        return stage.to(self.device, non_blocking=True) if cuda else stage
+        with prof.span("pipeline.stage"):
+            dtype = torch.from_numpy(np.empty(0, chunk.dtype)).dtype
+            stage = torch.empty(chunk.shape, dtype=dtype, pin_memory=cuda)
+            stage.numpy()[...] = chunk
+            prof.count_bytes("pipeline.h2d_bytes", chunk)
+        if not cuda:
+            return stage
+        with prof.span("pipeline.h2d"):
+            # the pinned allocator keeps the buffer until the async copy is done
+            return stage.to(self.device, non_blocking=True)
 
     def process_block(self, x: np.ndarray):
         """One graph step on a host block; returns the output (a tensor, or a
         tuple of them) on the device."""
-        if self.profile:
-            return self._process_profiled(self._to_device(x))
-        self.state, y = self.block.apply(self.state, self._to_device(x))
+        with self._recording():
+            x = self._to_device(x)
+            with prof.span("pipeline.apply", timed=True):
+                if self._chain:
+                    self.state, y = self.block.apply(self.state, x)
+                else:   # a lone block is one stage
+                    with prof.stage(self.block, x):
+                        self.state, y = self.block.apply(self.state, x)
         return y
 
-    def _barrier(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    @property
+    def stage_stats(self) -> list:
+        """The ``StageStat`` per stage of a ``profile=True`` Pipeline (empty
+        without), read after the run."""
+        if self._rec is None:
+            return []
+        self._fold(self._rec.read(pop=True))
+        return self._stats
 
-    def _process_profiled(self, x: torch.Tensor):
-        """The same stages as ``Chain.apply``, in the same order, each timed
-        between two device barriers."""
-        split = isinstance(self.block, Chain)
-        states = list(self.state) if split else [self.state]
-        n_in = x.shape[0]
-        self._barrier()
-        y = x
-        for i, b in enumerate(self._stages):
-            t0 = time.perf_counter()
-            states[i], y = b.apply(states[i], y)
-            self._barrier()
-            r = self._stage_in_rate[i]
-            self.stage_stats[i].add(time.perf_counter() - t0, n_in * r.numerator // r.denominator)
-        self.state = tuple(states) if split else states[0]
-        return y
+    def _fold(self, spans: list):
+        """Fold read-out spans into the stage statistics and the Pipeline's
+        own spans' totals (its first step apart)."""
+        kids: dict = {}
+        for s in spans:
+            kids.setdefault(s.parent, []).append(s)
+        for s in spans:
+            if s.name == "pipeline.apply":
+                self._applied += 1
+                self._applied_later += s.block != 0
+                for st, r, sp in zip(self._stats, self._stage_in_rate, kids.get(s.id, ())):
+                    dt = sp.ms if sp.device_ms is None else sp.device_ms
+                    st.add(dt / 1e3, self.block_size * r.numerator // r.denominator,
+                           sp.ms / 1e3)
+            if s.name.startswith("pipeline.") and s.block != 0:
+                self._pipe_s[s.name] = self._pipe_s.get(s.name, 0.0) + s.ms / 1e3
 
     def profile_report(self) -> str:
-        """The per-stage budget table of a ``profile=True`` run."""
-        from ..utils.prof import stage_table
-
-        if not self.stage_stats:
+        """The per-stage budget table of a ``profile=True`` run, with the
+        Pipeline's own spans (host ms per block, step 0 apart) and the MB
+        copied per block."""
+        if self._rec is None:
             return "(profiling disabled: construct Pipeline(profile=True))"
-        return stage_table(self.stage_stats)
+        stats = self.stage_stats
+        n, later = self._applied, self._applied_later
+        pipe_ms = {k: 1e3 * t / later for k, t in self._pipe_s.items()} if later else None
+        mb = {k.removeprefix("pipeline.").removesuffix("_bytes"): v / n / 1e6
+              for k, v in self._rec.counters.items()} if n else None
+        return prof.stage_table(stats, pipe_ms, mb)
 
     def _to_host(self, y):
         """Queue the device→host copy of every output leaf; returns (host
         tree, event that marks the copies done)."""
+        prof.count_bytes("pipeline.d2h_bytes", y)
         if self.device.type != "cuda":
             return y, None
 
@@ -189,38 +225,53 @@ class Pipeline:
             host.copy_(leaf, non_blocking=True)
             return host
 
-        host = _map_tree(copy, y)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
+        with prof.span("pipeline.d2h"):
+            host = _map_tree(copy, y)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
         return host, done
 
     def _steps(self, source: Iterable[np.ndarray], checkpoint_every: int = 0):
-        """The feed/drain loop: yields (count, host output) per block, count
-        being the first output leaf's trimmed sample count, one step late.
-        With ``checkpoint_every`` (input samples) it also yields
-        (None, position) once every output of the ``position`` input samples
+        """The feed/drain loop: yields (step, count, host output) per block,
+        count being the first output leaf's trimmed sample count, one step
+        late: step k feeds block k and drains block k−1.  With
+        ``checkpoint_every`` (input samples) it also yields (step, None,
+        position) once every output of the ``position`` input samples
         consumed so far was yielded and before the next block is queued:
-        the one moment the state and the drained output agree."""
+        the one moment the state and the drained output agree.  Each step's
+        work is the span ``pipeline.block``; what the caller does with a
+        yield lies outside it."""
         n = self.block_size
         rate = self.block.rate_tree()
         pending = None  # (host output, copy-done event, valid input rows)
         total_in = last_ckpt = 0
-        for chunk in rechunk(source, n):
+        k = -1
+        for k, chunk in enumerate(rechunk(source, n)):
             valid = len(chunk)
             if valid < n:
                 chunk = np.pad(chunk, [(0, n - valid)] + [(0, 0)] * (chunk.ndim - 1))
-            host, done = self._to_host(self.process_block(chunk))
-            if pending is not None:
-                yield _finish(*pending, rate)
-            pending = (host, done, valid)
-            total_in += valid
-            if checkpoint_every and total_in - last_ckpt >= checkpoint_every:
-                yield _finish(*pending, rate)
-                pending = None
-                yield None, total_in
+            mark = len(self._rec) if self._rec is not None else 0
+            with self._recording(), prof.span("pipeline.block", block=k):
+                host, done = self._to_host(self.process_block(chunk))
+                outs = [] if pending is None else [_finish(*pending, rate)]
+                pending = (host, done, valid)
+                total_in += valid
+                ckpt = checkpoint_every and total_in - last_ckpt >= checkpoint_every
+                if ckpt:
+                    outs.append(_finish(*pending, rate))
+                    pending = None
+            if self._rec is not None:
+                # every step before this one is drained: its events are done
+                self._fold(self._rec.read(mark, pop=True))
+            for out in outs:
+                yield (k, *out)
+            if ckpt:
+                yield k, None, total_in
                 last_ckpt = total_in
         if pending is not None:
-            yield _finish(*pending, rate)
+            with self._recording(), prof.span("pipeline.block", block=k + 1):
+                out = _finish(*pending, rate)
+            yield (k + 1, *out)
 
     def stream(self, source: Iterable[np.ndarray]) -> Iterator:
         """Stream source → graph, yielding each block's host output (numpy,
@@ -228,7 +279,7 @@ class Pipeline:
         one step late so host I/O overlaps the next block.  The final short
         block is zero-padded to the static block size.  No flush: ``run``
         appends it, and a front-end pipeline that feeds another owes none."""
-        for _, out in self._steps(source):
+        for _, _, out in self._steps(source):
             yield out
 
     def run(self, source: Iterable[np.ndarray], sink: Callable, num_samples: int | None = None,
@@ -250,13 +301,15 @@ class Pipeline:
             it = append_flush(it, nflush)
         every = checkpoint_every if checkpoint_path else 0
         total_out = 0
-        for k, out in self._steps(it, every):
+        for step, k, out in self._steps(it, every):
             if k is None:
                 from . import checkpoint
 
-                checkpoint.save_pipeline(checkpoint_path, self, position=out)
+                with self._recording(), prof.span("pipeline.checkpoint", block=step):
+                    checkpoint.save_pipeline(checkpoint_path, self, position=out)
                 continue
-            sink(out)
+            with self._recording(), prof.span("pipeline.sink", block=step):
+                sink(out)
             total_out += k
         return total_out
 
@@ -276,7 +329,9 @@ def _trim_tree(tree, rate, valid_in: int):
 
 def _finish(host, done, valid_in: int, rate):
     """Wait for one output's copies and trim it; returns (count, output)."""
-    if done is not None:
-        done.synchronize()
-    out, k = _trim_tree(_map_tree(lambda t: t.numpy(), host), rate, valid_in)
+    with prof.span("pipeline.drain_wait"):
+        if done is not None:
+            done.synchronize()
+    with prof.span("pipeline.trim"):
+        out, k = _trim_tree(_map_tree(lambda t: t.numpy(), host), rate, valid_in)
     return k, out

@@ -24,7 +24,8 @@ picks (tests/test_torch_symsync.py).  The Hilbert blocks and the imagery
 chains (no kernel of their own) against the CPU: 2e-5 relative to the
 largest output (tests/test_golden.py), the SSTV and WEFAX frequency tracks
 from output 180 (the FIR's start-up, tests/test_sstv.py:97-102); a
-profiled Pipeline equal to the unprofiled one bit for bit.  The scan
+profiled or recorded Pipeline equal to the plain one bit for bit, with no
+device barrier.  The scan
 kernels against their twins: K7 (``pll_scan``) 2e-3 relative to the
 largest output (tests/test_sharding_generic.py:60), θ within 1e-4 (the
 φ pass's atan2f and the CPU's atan2 may differ by an ulp), with a run of
@@ -512,6 +513,57 @@ def test_profiled_pfb_fused_pipeline_matches_unprofiled(dev):
     assert np.array_equal(outs[0], outs[1])
     assert [s.calls for s in pipe.stage_stats] == [3, 3]
     assert "pfb_fused_fm(64)" in pipe.profile_report()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile", [False, True], ids=["recording", "profile"])
+def test_stage_spans_carry_device_intervals_without_a_barrier(dev, monkeypatch, profile):
+    """The recorder on the card (``utils/prof``): each stage span of
+    ``Chain.apply`` in a Pipeline step reads a device interval from its CUDA
+    events (outside a step, none), the Pipeline's copies are spans of their
+    own and counted, and neither ``prof.recording()`` nor ``profile=True``
+    calls a device barrier; the output is the unrecorded run's bit for
+    bit."""
+    from csdr_tpu_torch.models.receivers import channelized_fm_receiver
+    from csdr_tpu_torch.utils import prof
+
+    nch = 64
+    block = nch * 64 * 16
+    x = occupied_band(nch, block * 3, seed=14, per_frame=True)
+
+    def run_once():
+        outs = []
+        pipe = ct.Pipeline(channelized_fm_receiver(nch), block_size=block, device=dev,
+                           profile=profile)
+        pipe.run(iter([x]), outs.append)
+        return pipe, np.concatenate(outs, axis=-1)
+
+    _, plain = run_once()
+    barriers = []
+    real_sync = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: barriers.append(a) or real_sync(*a))
+    with prof.recording() as rec:
+        pipe, got = run_once()
+    assert barriers == [] and np.array_equal(plain, got)
+    if profile:
+        stats = pipe.stage_stats
+        assert [s.calls for s in stats] == [3, 3, 3]
+        assert all(s.seconds > 0 and s.host_seconds > 0 for s in stats)
+        assert "pipeline.h2d" in pipe.profile_report()
+        return
+    spans = rec.read()
+    applies = {s.id for s in spans if s.name == "pipeline.apply"}
+    stages = [s for s in spans if s.parent in applies]
+    assert len(stages) == 9 and all(s.device_ms is not None and s.device_ms > 0 for s in stages)
+    assert {"pipeline.h2d", "pipeline.d2h"} <= {s.name for s in spans}
+    assert rec.counters["pipeline.h2d_bytes"] == 3 * block * 8
+    assert rec.counters["pipeline.d2h_bytes"] == 3 * block * 4
+    # outside a Pipeline step a stage span records no CUDA events
+    graph = channelized_fm_receiver(nch)
+    with prof.recording() as rec:
+        graph.apply(graph.init(dev), torch.from_numpy(x[:block]).to(dev))
+    spans = rec.read()
+    assert len(spans) == 3 and all(s.device_ms is None for s in spans)
 
 
 @pytest.mark.cuda

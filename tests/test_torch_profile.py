@@ -63,17 +63,6 @@ def test_stage_stat_rates_follow_the_graph():
     assert [s.samples for s in pipe.stage_stats] == [2 * 4096, 2 * 1024]
 
 
-def test_meter_and_timed_steps():
-    m = prof.Meter("x")
-    m.start()
-    m.tick(1000)
-    assert m.samples == 1000 and m.seconds >= 0 and "x: 1000 samples" in m.report()
-    blk = ct.fm_demodulator(0.6)
-    x = torch.from_numpy(fm_iq(4096))
-    secs, state = prof.timed_steps(blk.apply, blk.init(CPU), x, iters=3)
-    assert secs > 0 and state.shape == (1,)
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     with prof.trace(str(tmp_path / "tr")):
         wbfm_graph().apply(wbfm_graph().init(CPU), torch.from_numpy(fm_iq(4096)))
