@@ -19,7 +19,9 @@ script's own directory:
   recurrences at their flows' shapes: K7 on one seeded noisy 19 kHz pilot
   row of 1,046,400 samples (the DeFMS 8 block at 200 kHz) and K8 on 64
   seeded rows of the JAX sync tests' real signal, (64, 130,981) with k = 10
-  (the -c 64 DeNBFMSync 10 tracker's panel);
+  (the -c 64 DeNBFMSync 10 tracker's panel); the block sync on 64 such rows
+  of 262,080 samples, the heli64.served cell's panel (K9 where the root has
+  it, its eager ops where not);
   paths, one 2^23-sample block per state-chained step: the pfb_fused and
   eager DeNBFM receivers (f32, chip_smoke.py 5b's path), and the graphs the
   CLI builds, cu8 in, for -c 64 -a -48 DeNBFM (pfb_fused), -c 64 DeCW
@@ -125,11 +127,19 @@ def worker(root: str, turn: int) -> None:
     bank8 = symsync._bank_on(blk8.k, blk8.m, blk8.npfb, blk8.ftype, blk8.beta, dev)
     z8 = torch.zeros(sm.SYNC_NCH, device=dev)
     carry8, loop8 = (z8, z8, z8, z8), blk8.loop(n8)
-    box = {"k1": ff.flagship_fused_init(64, dev)}
+    # the block sync at the heli64 cell's panel: K9, or eager ops in a root
+    # without it
+    blk9 = ct.PerChannel(symsync.sym_sync_r(sm.SYNC_K, 4, 0.0, 64), sm.SYNC_NCH)
+    x9 = torch.from_numpy(sm.sync_rows(sm.SYNC_NCH, 262080, sm.SYNC_K, sm.SEED + 1752,
+                                       False)).to(dev)
+    box = {"k1": ff.flagship_fused_init(64, dev), "k9": blk9.init(dev)}
     box.update({name: g.init(dev) for name, (g, _) in graphs.items()})
 
     def k1():
         box["k1"], _ = ff.flagship_fused_step(box["k1"], u8, nch=64, kf=sm.KF)
+
+    def k9():
+        box["k9"], _ = blk9.apply(box["k9"], x9)
 
     def path(name):
         g, xin = graphs[name]
@@ -146,6 +156,7 @@ def worker(root: str, turn: int) -> None:
         "K7 pll_scan (1, 1046400) complex64": lambda: k7.pll_scan(p7, c7, *sm.pll_constants()),
         "K8 symsync_scan (64, 130981) float32 k 10":
             lambda: k8.symsync_scan(x8, bank8, carry8, loop8),
+        "K9 symsync_block (64, 262080) float32 k 10": k9,
         **{name: path(name) for name in graphs},
     }
     for name, fn in steps.items():

@@ -123,8 +123,8 @@ and for the packet receivers (models/ais, aprs, adsb, pocsag, rtty):
       channels' scores, and every page decoded on its channel.  MSPS per
       flow; the idle share and device time of each in a process of its own.
 
-and for symbol sync, the coded modem and the beacon (no new kernel; K4 on
-the DeNBFMSync path):
+and for symbol sync, the coded modem and the beacon (K4 and the block
+sync's K9 on the DeNBFMSync path):
 
   9.  a seeded 2^25-sample cu8 capture with helicopter 2-FSK frames (4,000
       baud, own coordinates, start phase and a clock within ±100 ppm) on 8
@@ -132,7 +132,9 @@ the DeNBFMSync path):
       samples, F = 130,880) against its plain version, timed there, and
       PerChannel(fm_dem_with_sync(10)) on the card against the CPU on the
       occupied channels; 9b -c 64 "DeNBFMSync 10" under pfb_fused (K4 once
-      per block, no other kernel) and eager in turns, the occupied channels
+      and K9 twice per block, no other kernel) and eager (K9 alone) in
+      turns, K9 alone at the flow's panel against its plain version (ms,
+      plain ms, either pick, the bound), the occupied channels
       against each other, helidecode's coordinates on every occupied
       channel on both backends (the same count) and none on the empty
       ones, MSPS, idle share, the step's time and peak memory; 9c -c 1
@@ -2016,10 +2018,11 @@ BEACONS, BEACON_SNR_DB = 32, -13.0   # tests/test_beacon.py:31-45
 BEACON_REFUSED = [19]          # the CRC refuses this one in both packages (the mode's limit)
 
 
-def other_pick(sync, xfull, nout: int, tm, slope, cm, width: float):
+def other_pick(sync, bank, xfull, nout: int, tm, slope, cm, width: float):
     """Where float order picks a SymSync output, the output of the other
-    pick: (codes int8, other outputs) as numpy (…, nout), for the step that
-    interpolated ``nout`` outputs of ``xfull`` on the line (tm, slope, cm).
+    pick: (codes int8, other outputs) as numpy (…, nout), for the step with
+    constants ``sync`` (``BlockSync``) and ``bank`` that interpolated
+    ``nout`` outputs of ``xfull`` on the line (tm, slope, cm).
 
       * code 1: round(frac·npfb) lies within ``width`` of a rounding tie;
         the other pick is the neighbouring bank phase;
@@ -2030,9 +2033,11 @@ def other_pick(sync, xfull, nout: int, tm, slope, cm, width: float):
       * code 0: no other pick (the output itself)."""
     import torch
 
-    ipos, ph, f = sync._positions(nout, tm, slope, cm)
+    from csdr_tpu_torch.ops.cuda import symsync_block as k9
+
+    npfb = bank.shape[0]
+    ipos, ph, f = k9.positions(sync, npfb, nout, tm, slope, cm)
     ipos, ph, f = (v.expand(*xfull.shape[:-1], nout) for v in (ipos, ph, f))
-    npfb = sync.npfb
     lo, hi = f < width, f > npfb - width
     tie = (torch.abs(f - torch.floor(f) - 0.5) < width) & ~lo & ~hi
     ph_tie = torch.where(ph == torch.floor(f).to(torch.int64), ph + 1, ph - 1)
@@ -2040,7 +2045,8 @@ def other_pick(sync, xfull, nout: int, tm, slope, cm, width: float):
     ph_alt = torch.where(lo, npfb - 1, torch.where(hi, 0, torch.where(
         tie, ph_tie.clamp(0, npfb - 1), ph)))
     code = torch.where(lo | hi, 2, tie.to(torch.int64)).to(torch.int8)
-    return code.cpu().numpy(), sync._bank_sum(xfull, ipos_alt, ph_alt).cpu().numpy()
+    return code.cpu().numpy(), k9.bank_sum(xfull, ipos_alt, ph_alt, bank,
+                                           sync.m * sync.k).cpu().numpy()
 
 
 @contextlib.contextmanager
@@ -2048,22 +2054,29 @@ def record_ties(width: float = SYNC_TIE):
     """For holding two implementations of the symbol sync against each
     other: inside the block every ``SymSync`` step of the port appends
     ``other_pick``'s (codes, other outputs) for its outputs to the yielded
-    list.  It wraps ``SymSync._interp`` for the block's duration."""
-    from csdr_tpu_torch.models.symsync import SymSync
+    list, on the line the step interpolated on (K9's own on a card).  It
+    wraps ``ops/cuda/symsync_block.symsync_block`` for the block's
+    duration."""
+    import torch
+
+    from csdr_tpu_torch.ops.cuda import symsync_block as k9
 
     log: list = []
-    interp = SymSync._interp
+    route = k9.symsync_block
 
-    def recording(self, xfull, nout, tm, slope, cm):
-        y = interp(self, xfull, nout, tm, slope, cm)
-        log.append(other_pick(self, xfull, nout, tm, slope, cm, width))
-        return y
+    def recording(x, bank, rot, state, sync):
+        fit: list = []
+        out = route(x, bank, rot, state, sync, fit)
+        n = x.shape[-1]
+        log.append(other_pick(sync, bank, torch.cat([state[0], x], dim=-1),
+                              (n // sync.k) * sync.out_per_sym, *fit[0], width))
+        return out
 
-    SymSync._interp = recording
+    k9.symsync_block = recording
     try:
         yield log
     finally:
-        SymSync._interp = interp
+        k9.symsync_block = route
 
 
 def scan_ties(taus, loop, npfb: int, width: float = SYNC_TIE) -> np.ndarray:
@@ -2244,7 +2257,7 @@ def sync_graph(ct, backend: str):
 
 
 def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
-    """9. DeNBFMSync, the coded modem and the beacon (no new kernel).
+    """9. DeNBFMSync, the coded modem and the beacon (K4; K9, the block sync).
 
     9a. K4 at the DeNBFMSync graph's block (its granule nch·tileF·k/… rounds
         2^23 down to 8,376,320 samples, F = 130,880 frames) against its plain
@@ -2252,11 +2265,12 @@ def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
         PerChannel(fm_dem_with_sync(10)) on K4's output on the card against
         the same graph on the CPU, on the occupied channels.
     9b. -c 64 "DeNBFMSync 10" on a 2^25-sample cu8 capture with helicopter
-        frames on 8 channels, pfb_fused (K4 once per block, no other
-        kernel) and eager (none), in turns: occupied channels against each
-        other, helidecode's coordinates on both (every occupied channel,
-        the same count, nothing on the empty ones); MSPS, idle share, the
-        step's time and peak memory, and the sync step's.
+        frames on 8 channels, pfb_fused (K4 once and K9 twice per block, no
+        other kernel) and eager (K9 alone), in turns: occupied channels
+        against each other, helidecode's coordinates on both (every occupied
+        channel, the same count, nothing on the empty ones); MSPS, idle
+        share, the step's time and peak memory, the sync step's, and K9
+        alone at the flow's panel against its plain version on the card.
     9c. -c 1 --offset F -b 48000 "DeNBFMSync 12" on one of those channels,
         on the card and on the CPU (2 blocks): samples and coordinates.
     9d. The library: coded qpsk and qam16 packets through sym_tracker →
@@ -2265,6 +2279,7 @@ def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
     from csdr_tpu_torch.apps import soapy_sdr_cli as cli
     from csdr_tpu_torch.core.block import PerChannel
     from csdr_tpu_torch.models import symsync
+    from csdr_tpu_torch.ops.cuda import symsync_block as k9
 
     out = {}
     graph = sync_graph(ct, "pfb_fused")
@@ -2333,7 +2348,8 @@ def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
     argv = lambda b: ["--filename", path, "-n", str(CAPTURE), "-c", str(SYNC_NCH),  # noqa: E731
                       "--demod", f"DeNBFMSync {SYNC_K}", "--backend", b,
                       "--blocksize", str(block), "-o", prefix[b], "--device", "cuda"]
-    kern = {"pfb_fused": "pfb_channelize_fused", "eager": None}
+    # K4 on pfb_fused; K9, the sync, twice a block on both
+    kern = {"pfb_fused": ("pfb_channelize_fused", "symsync_block"), "eager": "symsync_block"}
     runs = {b: dict(secs=[]) for b in kern}
     with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
         _, counts = cli_run(torch, cli.main, argv("pfb_fused"))
@@ -2343,8 +2359,11 @@ def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
         runs["pfb_fused"]["launches"] = counts
         with record_ties(SYNC_TIE) as rec:
             _, counts = cli_run(torch, cli.main, argv("eager"))
-        check_counts(counts, None, "9b eager")
+        check_counts(counts, kern["eager"], "9b eager")
         runs["eager"]["launches"] = counts
+        for b in kern:
+            got = runs[b]["launches"]["symsync_block"]
+            check(got == 2 * nblocks, f"9b {b}: K9 launched {got} times for {nblocks} blocks")
         order = ["pfb_fused", "eager", "eager", "pfb_fused"]
         for b in order:
             dt, counts = cli_run(torch, cli.main, argv(b))
@@ -2405,18 +2424,45 @@ def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
     torch.cuda.synchronize()
     sync_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
     sync_ms = statistics.median(time_steps(torch, sync_step, steps=10))
-    del u8, panel, box
+    # K9 alone on the panel the main path's sync hands it (the first block,
+    # no carried τ): timed against its plain version's eager ops on the
+    # card, and held to them on the occupied channels
+    with kernel_inputs(k9, "symsync_block") as seen:
+        sync.apply(sync.init(dev), panel)
+    x9, bank9, rot9, st9, c9 = seen[0]
+    k9_ms = statistics.median(time_steps(
+        torch, lambda: k9.symsync_block(x9, bank9, rot9, st9, c9), steps=10))
+    k9_plain_ms = statistics.median(time_steps(
+        torch, lambda: k9.symsync_block_ref(x9, bank9, rot9, st9, c9), steps=3, warmup=1))
+    (_, tau9, _), y9 = k9.symsync_block(x9, bank9, rot9, st9, c9)
+    line9: list = []
+    (_, tau9_plain, _), y9_plain = k9.symsync_block_ref(x9, bank9, rot9, st9, c9, line9)
+    codes9, other9 = other_pick(c9, bank9, torch.cat([st9[0], x9], dim=-1), y9.shape[-1],
+                                *line9[0], SYNC_TIE)
+    y9, y9_plain = y9.cpu().numpy(), y9_plain.cpu().numpy()
+    k9_run = dict(
+        ms=k9_ms, plain_ms=k9_plain_ms,
+        shape=f"{tuple(x9.shape)} {str(x9.dtype)[6:]} -> {tuple(y9.shape)}",
+        vs_plain=sync_agree([sync_close(y9[ch], y9_plain[ch], (codes9[ch], other9[ch]))
+                             for ch in occ]),
+        tau_err=float((tau9 - tau9_plain)[occ].abs().max()),
+        **sync_scan_bound(x9.shape[0], st9[0].shape[-1] + x9.shape[-1], y9.shape[-1],
+                          bank9.shape[1], bank9.shape[0], x9.is_complex()))
+    del u8, panel, box, seen, x9, st9, y9, y9_plain, other9
     for b in kern:
         runs[b].update(idle_share({"cli": argv(b)}))
     out["9b"] = dict(runs=runs, order=order, pfb_vs_eager_occupied=worst,
                      pfb_vs_eager_occupied_padded_block=last, block=block,
-                     sync_step_ms=sync_ms, sync_step_peak_mib=sync_peak)
+                     sync_step_ms=sync_ms, sync_step_peak_mib=sync_peak, k9=k9_run)
     emit(dict(phase="sync_main_path", flow=f"-c {SYNC_NCH} DeNBFMSync {SYNC_K}", wire="cu8",
               samples=CAPTURE, block=block, blocks=nblocks, order=order,
               pfb_fused_vs_eager_occupied=worst, compared_outputs_per_channel=full,
               pfb_fused_vs_eager_occupied_padded_block=last, frames_per_channel=frames,
-              sync_step_ms=sync_ms, sync_step_peak_mib=sync_peak,
+              sync_step_ms=sync_ms, sync_step_peak_mib=sync_peak, k9=k9_run,
               **{b: {k: v for k, v in r.items()} for b, r in runs.items()}, **card))
+    check(k9_run["vs_plain"][0] < SYNC_TOL and k9_run["tau_err"] < 1e-3,
+          f"9b: K9 vs its plain version {k9_run['vs_plain']} (max, other pick, ties, "
+          f"crossings, of), tau {k9_run['tau_err']}")
     check(worst[0] < SYNC_TOL, f"9b: pfb_fused vs eager on the occupied channels {worst} "
                                "(max, other pick, ties, crossings, of)")
     for ch in occ:
@@ -2448,7 +2494,7 @@ def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
                             "-o", fe_prefix[d], "--device", d]
     with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
         fe_dt, counts = cli_run(torch, cli.main, fe_argv("cuda", n_out))
-        check_counts(counts, None, "9c")
+        check_counts(counts, "symsync_block", "9c")
         with record_ties(SYNC_TIE) as rec:
             cpu_dt, _ = cli_run(torch, cli.main, fe_argv("cpu", n_cpu))
     card_y = np.fromfile(fe_prefix["cuda"] + ".f32", np.float32)
@@ -2583,7 +2629,7 @@ def phase_sync_library(torch, ct, dev, card) -> dict:
         ct.Pipeline(tracker, block_size=TRACK_BLOCK, device=dev).run(iter([x]), sink)
         torch.cuda.synchronize()
         track_s = time.perf_counter() - t0
-        check_counts(read_counts(), None, f"9d tracker {ms}")
+        check_counts(read_counts(), "symsync_block", f"9d tracker {ms}")
         y = sink.concat()
         check(y.shape == (len(x) // TRACK_K,) and bool(np.isfinite(y).all()),
               f"9d tracker {ms}: output {y.shape}")
@@ -3974,12 +4020,13 @@ def flow_specs(torch, ct, dev, tmp, world: int) -> list[dict]:
     g = flow_graph(ct, "-c 1 DeNBFMSync")
     specs.append(dict(label="-c 1 DeNBFMSync", path=fe, wire="cf32", samples=n,
                       rate=float(SYNC_FE_RATE), block=round_block(FLOW_BLOCK, 4 * 8 * g.granule),
-                      bound=SYNC_TOL, kernel=None, per_block=0, sync=True, channels=[0],
+                      bound=SYNC_TOL, kernel="symsync_block", per_block=2, sync=True,
+                      channels=[0],
                       meshes=[[world, 1]]))
     g = flow_graph(ct, "-c 64 DeNBFMSync")
     specs.append(dict(label="-c 64 DeNBFMSync", path=heli, wire="cu8", samples=CAPTURE,
                       rate=2.56e6, block=round_block(BLOCK, 4 * 8 * g.granule),
-                      bound=SYNC_TOL, kernel=None, per_block=0, sync=True,
+                      bound=SYNC_TOL, kernel="symsync_block", per_block=2, sync=True,
                       channels=list(SYNC_CHANNELS), texts=texts,
                       meshes=[[world, 1]] + ([[2, 2]] if world == 4 else [])))
     emit(dict(phase="chain", part="flow_captures", seconds=time.perf_counter() - t0,
@@ -4201,7 +4248,7 @@ def phase_chain_flows(torch, card, tmp, world: int, specs: list, ranks: list) ->
             if kernel:
                 check(counts[kernel] == want_n,
                       f"{what}: {counts[kernel]} {kernel} launches, want {want_n}")
-        if kernel:
+        if kernel == "fir_valid":
             check(r0["k5_launches_per_step"] == spec["per_block"],
                   f"{what}: K5 {r0['k5_launches_per_step']} launches per profiled step")
         res["flows"][key] = dict(r0, launches_per_rank=per_rank)
@@ -4221,7 +4268,7 @@ def phase_chain_flows(torch, card, tmp, world: int, specs: list, ranks: list) ->
         ("-c 64 DeNBFMSync", CAPTURE, ["--filename", heli["path"], "-n", str(CAPTURE),
                                        "-c", str(SYNC_NCH), "--demod", f"DeNBFMSync {SYNC_K}",
                                        "--backend", "eager", "--blocksize", str(heli["block"])],
-         None)]
+         "symsync_block")]
     for label, samples_in, common, kernel in cases:
         prefix = {k: os.path.join(tmp, f"flow_cli_{k}") for k in ("serial", "mesh")}
         buf = io.StringIO()
@@ -4246,7 +4293,7 @@ def phase_chain_flows(torch, card, tmp, world: int, specs: list, ranks: list) ->
             check_counts(counts, kernel, what)
             if kernel:
                 check(counts[kernel] == serial_counts[kernel],
-                      f"{what}: {counts[kernel]} K5 launches, the serial CLI "
+                      f"{what}: {counts[kernel]} {kernel} launches, the serial CLI "
                       f"{serial_counts[kernel]}")
         c = dict(samples_in=samples_in, msps=samples_in / float(mm.group(1)) / 1e6,
                  serial_msps=samples_in / float(m.group(1)) / 1e6,
@@ -5909,6 +5956,30 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         "library_ms": None,
         **{k: scan["13b"]["tracker"][k] for k in ("bound_ms", "bound_by", "bound_bytes",
                                                    "bound_flops")},
+    }, {
+        "name": "symsync_block",
+        "route": "cuda",
+        "source": "csdr_tpu_torch/csrc/symsync_block.cu",
+        "replaces": "csdr_tpu/models/symsync.py:180",
+        "note": "K9, no Pallas counterpart: SymSync.apply's jnp gathers (block mode), "
+                "DeNBFMSync, sym_sync_r/sym_sync_c and sym_tracker's sync. Two launches a "
+                "block: sync_tone (the timing tone's fixed partial sums) and sync_interp "
+                "(the line fit, the positions, the staged window span and the W-tap sum "
+                "against the bank in shared memory); bound by bytes (bound_ms). launches "
+                "read the -c 64 DeNBFMSync 10 pfb_fused CLI run (9b, 2 a block); ms, "
+                "plain_ms (the plain version's eager ops on the card), max_abs_err (either "
+                "pick, relative to the largest output, occupied channels), tau_err and the "
+                "bound at that flow's (64, F) panel",
+        "launches": sync["9b"]["runs"]["pfb_fused"]["launches"]["symsync_block"],
+        "launches_eager_run": sync["9b"]["runs"]["eager"]["launches"]["symsync_block"],
+        "max_abs_err": sync["9b"]["k9"]["vs_plain"][0],
+        "tau_err": sync["9b"]["k9"]["tau_err"],
+        "ms": sync["9b"]["k9"]["ms"],
+        "plain_ms": sync["9b"]["k9"]["plain_ms"],
+        "shape": sync["9b"]["k9"]["shape"],
+        "library_ms": None,
+        **{k: sync["9b"]["k9"][k] for k in ("bound_ms", "bound_by", "bound_bytes",
+                                            "bound_flops")},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

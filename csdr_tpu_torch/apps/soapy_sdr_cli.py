@@ -757,9 +757,10 @@ def _run_mesh(opts, demod, agc_t) -> int:
 def _kernel_modules() -> tuple:
     """The modules of the hand-written kernels.  Each counts its launches in
     ``launches``: an int, or (pfb_fused) a dict of one count per kernel."""
-    from ..ops.cuda import fft_fir, fir_valid, flagship_fused, pfb_fused, pll_scan, symsync_scan
+    from ..ops.cuda import (fft_fir, fir_valid, flagship_fused, pfb_fused, pll_scan,
+                            symsync_block, symsync_scan)
 
-    return pfb_fused, flagship_fused, fir_valid, fft_fir, pll_scan, symsync_scan
+    return pfb_fused, flagship_fused, fir_valid, fft_fir, pll_scan, symsync_scan, symsync_block
 
 
 def kernel_launches() -> dict:

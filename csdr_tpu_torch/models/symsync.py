@@ -11,7 +11,11 @@ block, a weighted line τ(n) is fitted through their phases (unwrapped
 against the carried estimate), and every output is interpolated at once
 against a polyphase matched-filter bank.  Every op works along the last
 axis with per-row timing, so inside ``PerChannel`` a (nch, n) panel syncs
-each channel on its own line fit.
+each channel on its own line fit.  On a card a block runs on a kernel of
+its own (``ops/cuda/symsync_block.py``, K9: the tone, then the fit and the
+interpolation, two launches); on the CPU its plain version in eager ops
+(the same module).  This module holds the design: the matched-filter bank
+and the timing rotator both routes use.
 
 Time-sharded (``shard_apply``), each rank sums the timing tone over the
 global sub-windows it owns, the window sums are gathered over the time
@@ -36,6 +40,7 @@ import torch
 
 from .. import blocks as B
 from ..core.block import Block, chain
+from ..ops.cuda import symsync_block as k9
 from ..utils import firdes
 
 __all__ = ["SymSync", "SymSyncScan", "sym_sync_r", "sym_sync_c", "sym_tracker",
@@ -43,7 +48,6 @@ __all__ = ["SymSync", "SymSyncScan", "sym_sync_r", "sym_sync_c", "sym_tracker",
 
 _TWO_PI = 2.0 * np.pi
 MODES = ("block", "scan")
-_CHUNK = 1 << 24     # elements of one gathered (…, nout, taps) window panel
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,14 +95,6 @@ def _rotator_on(k: int, n: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_timing_rotator(k, n), device=device)
 
 
-@functools.lru_cache(maxsize=32)
-def _centers_on(n: int, nw: int, device: torch.device) -> torch.Tensor:
-    """float32 centers of the nw timing sub-windows of an n-sample block
-    (cached on the device: a pageable upload would wait for the stream)."""
-    return torch.as_tensor(((np.arange(nw) + 0.5) * (n // nw)).astype(np.float32),
-                           device=device)
-
-
 def _rrc_continuous(ts: np.ndarray, beta: float) -> np.ndarray:
     """Root-raised-cosine impulse response at arbitrary times (in symbols)."""
     out = np.empty_like(ts)
@@ -139,6 +135,7 @@ class SymSync(Block):
         # history: the filter span plus a slack of B + k samples each side
         self.B = 5 * k
         self.H = 2 * m * k + 2 * k + 2 * self.B
+        self.constants = k9.BlockSync(k, m, out_per_sym, self.B, self.H)
         self.name = f"{name}(k={k})"
 
     def init(self, device: torch.device):
@@ -147,77 +144,33 @@ class SymSync(Block):
                 torch.zeros((), dtype=torch.float32, device=device),
                 torch.zeros((), dtype=torch.bool, device=device))
 
-    @staticmethod
-    def _nw(n: int, k: int) -> int:
-        return max(1, min(8, n // (64 * k)))  # sub-windows (≥ 64 symbols each)
-
-    def _energy(self, d: torch.Tensor) -> torch.Tensor:
-        return d.abs() ** 2 if self.complex_input else d * d
+    def _bank(self, device: torch.device) -> torch.Tensor:
+        return _bank_on(self.k, self.m, self.npfb, self.ftype, self.beta, device)
 
     def apply(self, state, x):
-        hist, tau_prev, tau_valid = state
-        k = self.k
-        n = x.shape[-1]
-        nout = (n // k) * self.out_per_sym
-        xfull = torch.cat([hist, x], dim=-1)
-
-        # transition-energy timing tone, per sub-window; it peaks at symbol
-        # boundaries, the centers sit k/2 later
-        s = self._energy(x[..., 1:] - x[..., :-1])
-        s = torch.cat([s[..., :1], s], dim=-1)  # keep length n for the rotator
-        z = s.to(torch.complex64) * _rotator_on(k, n, x.device)
-        nw = self._nw(n, k)
-        wlen = n // nw
-        Tw = z[..., : nw * wlen].reshape(*x.shape[:-1], nw, wlen).sum(dim=-1)   # (…, nw)
-        tm, slope, cm, tau_carry = self._fit_line(Tw, n, tau_prev, tau_valid)
-
-        y = self._interp(xfull, nout, tm, slope, cm)
-        return (xfull[..., -self.H:].clone(), tau_carry, torch.ones_like(tau_valid)), y
+        """One block: K9 (``ops/cuda/symsync_block``) on a card, its plain
+        version on the CPU."""
+        rot = _rotator_on(self.k, x.shape[-1], x.device)
+        return k9.symsync_block(x, self._bank(x.device), rot, state, self.constants)
 
     # ---- sharded: the global line fit on every rank ---------------------------
     def shard_apply(self, state, x, ctx):
         """The same global arithmetic as ``apply`` on a block of dt·nloc
         samples: each rank sums the timing tone over the global sub-windows
         it owns (they align with the ranks' segments, ``shard_validate``),
-        the (…, nw) window sums are gathered over 'time', every rank fits
-        the same line and interpolates its own outputs against [left halo
-        H | x | right halo m·k + k + B]; the last rank's right halo repeats
-        its final sample, as the serial gather clamps there."""
-        hist, tau_prev, tau_valid = state
-        k = self.k
-        nloc = x.shape[-1]
-        n = nloc * ctx.dt
-        nout_loc = (nloc // k) * self.out_per_sym
-
-        s_inner = self._energy(x[..., 1:] - x[..., :-1])
-        # rank 0 repeats the block head's term, as serial does; the others
-        # take the true difference across the segment boundary
-        prev1 = ctx.left_halo(x, x[..., :1], 1)
-        s0 = s_inner[..., :1] if ctx.ti == 0 else self._energy(x[..., :1] - prev1)
-        s = torch.cat([s0, s_inner], dim=-1)
-        # each rank's rotator starts at a multiple of 2π (k | nloc)
-        z = s.to(torch.complex64) * _rotator_on(k, nloc, x.device)
-        nw = self._nw(n, k)
-        nw_loc, wlen = nw // ctx.dt, n // nw
-        Tw_loc = z[..., : nw_loc * wlen].reshape(*x.shape[:-1], nw_loc, wlen).sum(dim=-1)
-        Tw = torch.movedim(ctx.all_gather_time(Tw_loc), 0, -2).reshape(*x.shape[:-1], nw)
-        tm, slope, cm, tau_carry = self._fit_line(Tw, n, tau_prev, tau_valid)
-
-        ext = torch.cat([ctx.left_halo(x, hist, self.H), x,
-                         ctx.right_halo(x, self.m * k + k + self.B)], dim=-1)
-        ipos, ph, _ = self._positions(nout_loc, tm, slope, cm, j0=ctx.ti * nout_loc)
-        lead = x.shape[:-1]
-        y = self._bank_sum(ext, (ipos - ctx.ti * nloc).expand(*lead, nout_loc),
-                           ph.expand(*lead, nout_loc))
-        new_hist = ctx.from_last_time(x[..., -self.H:].contiguous())
-        return (new_hist, tau_carry, torch.ones_like(tau_valid)), y
+        the window sums are gathered over 'time', every rank fits the same
+        line and interpolates its own outputs against [left halo H | x |
+        right halo m·k + k + B]; the last rank's right halo repeats its
+        final sample, as the serial gather clamps there."""
+        rot = _rotator_on(self.k, x.shape[-1], x.device)
+        return k9.symsync_block_shard(x, self._bank(x.device), rot, state, self.constants, ctx)
 
     def shard_validate(self, nloc, ctx):
         k = self.k
         n = nloc * ctx.dt
         if nloc % k:
             raise ValueError(f"{self.name}: local segment {nloc} not a multiple of k={k}")
-        nw = self._nw(n, k)
+        nw = k9.windows(n, k)
         if nw % ctx.dt:
             raise ValueError(f"{self.name}: {nw} timing sub-windows cannot align with {ctx.dt} "
                              f"time shards: grow block_size (needs >= {64 * k * ctx.dt} "
@@ -230,97 +183,6 @@ class SymSync(Block):
         if nloc < halo:
             raise ValueError(f"{self.name}: local segment {nloc} shorter than halo {halo}")
         return (nloc // k) * self.out_per_sym
-
-    def _fit_line(self, Tw: torch.Tensor, n: int, tau_prev, tau_valid):
-        """Weighted least-squares τ(n) line through the per-window timing
-        estimates, one per row, and the bounded end-of-block carry."""
-        k = self.k
-        kf, half = np.float32(k), np.float32(k / 2.0)
-        nw = Tw.shape[-1]
-        tau_w = -torch.angle(Tw) * np.float32(k / _TWO_PI)                  # mod k
-        # unwrap: the first window against the carried estimate, then
-        # window to window
-        t0 = torch.remainder(tau_w[..., 0], kf)
-        d0 = torch.remainder(t0 - tau_prev + half, kf) - half
-        t0 = torch.where(tau_valid, tau_prev + d0, t0)
-        steps = torch.remainder(tau_w[..., 1:] - tau_w[..., :-1] + half, kf) - half
-        tau_seq = t0[..., None] + torch.cat([torch.zeros_like(tau_w[..., :1]),
-                                             torch.cumsum(steps, dim=-1)], dim=-1)
-        centers = _centers_on(n, nw, Tw.device)
-        wgt = Tw.abs() + np.float32(1e-12)
-        wsum = wgt.sum(dim=-1)
-        cm = (wgt * centers).sum(dim=-1) / wsum
-        tm = (wgt * tau_seq).sum(dim=-1) / wsum
-        dc = centers - cm[..., None]
-        var = (wgt * dc ** 2).sum(dim=-1) + np.float32(1e-6)
-        if nw > 1:
-            slope = (wgt * dc * (tau_seq - tm[..., None])).sum(dim=-1) / var
-        else:
-            slope = torch.zeros_like(tm)
-        slope = slope.clamp(-0.2, 0.2)  # sanity: ≤ 0.2 samples of drift per sample
-
-        tau_carry = tm + slope * (np.float32(n) - cm)  # τ at the block end
-        # bounded carry with hysteresis: only once |τ| leaves the slack does
-        # it snap back by whole symbols (a re-centering every block would
-        # slip a symbol at every boundary)
-        over = torch.clamp(tau_carry.abs() - np.float32(self.B), min=0.0)
-        slip_syms = torch.ceil(over / kf)
-        tau_carry = tau_carry - slip_syms * kf * torch.sign(tau_carry)
-        return tm, slope, cm, tau_carry
-
-    def _positions(self, nout: int, tm, slope, cm, j0: int = 0):
-        """Window centers in xfull and bank phases of the outputs j = j0 ..
-        j0 + nout − 1, int64 (…, nout), and frac·npfb, float32.
-
-        A position is an exact integer grid point plus a small float32
-        residual (one float32 position loses the polyphase fraction past
-        ~2^22 samples); the residual's float32 ops run in the JAX package's
-        order, and ``torch.round`` rounds half to even, as ``jnp.round``."""
-        k, ops = self.k, self.out_per_sym
-        # constant processing delay, centered in the slack: τ may roam
-        # ±(B + k) samples before the window leaves the data
-        start = self.H - (self.m * k + k + self.B)
-        num = torch.arange(j0, j0 + nout, device=tm.device) * k
-        base_int = start + torch.div(num, ops, rounding_mode="floor")
-        base_frac = (num % ops).to(torch.float32) / np.float32(ops)
-        # τ(n) = tm + slope·(n − cm) marks boundaries; centers are k/2 later
-        bdiff = (base_int.to(torch.float32) - cm[..., None]) + base_frac
-        delta = tm[..., None] + slope[..., None] * bdiff + np.float32(k / 2.0) + base_frac
-        dlo = torch.floor(delta)
-        ipos = base_int + dlo.to(torch.int64)
-        f = (delta - dlo) * self.npfb
-        ph = torch.round(f).to(torch.int64).clamp(0, self.npfb - 1)
-        return ipos, ph, f
-
-    def _interp(self, xfull: torch.Tensor, nout: int, tm, slope, cm) -> torch.Tensor:
-        """Interpolate every output against the polyphase matched-filter
-        bank.  Bank row p holds g(l − mk + p/npfb), so the output sits at
-        ipos − p/npfb, not at the fitted ipos + frac: the JAX package's
-        convention, kept (ROADMAP Queue C)."""
-        ipos, ph, _ = self._positions(nout, tm, slope, cm)
-        lead = xfull.shape[:-1]
-        return self._bank_sum(xfull, ipos.expand(*lead, nout), ph.expand(*lead, nout))
-
-    def _bank_sum(self, xfull: torch.Tensor, ipos, ph) -> torch.Tensor:
-        """Per output, the (2mk+1)-sample window of xfull around ipos times
-        bank row ph, gathered and summed in chunks of taps so that a panel
-        stays under _CHUNK elements.  Out-of-range window samples read as
-        ``jnp`` indexing reads them (a negative index wraps once, the rest
-        clamps to the ends)."""
-        k, m = self.k, self.m
-        bank = _bank_on(k, m, self.npfb, self.ftype, self.beta, xfull.device)
-        W = bank.shape[1]
-        lead, L = xfull.shape[:-1], xfull.shape[-1]
-        c = max(1, min(W, _CHUNK // max(1, ipos.numel())))
-        y = None
-        for l0 in range(0, W, c):
-            offs = torch.arange(l0 - m * k, min(l0 + c, W) - m * k, device=xfull.device)
-            idx = ipos[..., None] + offs                                   # (…, nout, c)
-            idx = torch.where(idx < 0, idx + L, idx).clamp_(0, L - 1)
-            win = torch.gather(xfull, -1, idx.reshape(*lead, -1)).reshape(idx.shape)
-            part = (win * bank[:, l0:l0 + c][ph]).sum(dim=-1)
-            y = part if y is None else y + part
-        return y
 
 
 class SymSyncScan(Block):

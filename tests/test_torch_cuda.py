@@ -18,9 +18,11 @@ differs by exactly 2π/(2π·kf).  The FIR kernels, relative to the largest
 output: K5 (``fir_valid``) 1e-4, tighter than the JAX package's 2e-3
 (tests/test_pallas_fir.py:21,32) because its bf16x3 products read ~1e-5 and
 one product left out reads ~2e-3 (tests/test_torch_fir.py); K6
-(``fft_fir``) 2e-4 (tests/test_fftfir.py:36,51).  The symbol sync (no
-kernel of its own) against the CPU: 2e-3 of either pick where float order
-picks (tests/test_torch_symsync.py).  The Hilbert blocks and the imagery
+(``fft_fir``) 2e-4 (tests/test_fftfir.py:36,51).  The block symbol sync
+(K9, ``symsync_block``) against the CPU's plain version: 2e-3 of either
+pick where float order picks (tests/test_torch_symsync.py), τ within 1e-3;
+two runs on the card bit for bit, and the sharded step bit for bit the
+serial one on the card.  The Hilbert blocks and the imagery
 chains (no kernel of their own) against the CPU: 2e-5 relative to the
 largest output (tests/test_golden.py), the SSTV and WEFAX frequency tracks
 from output 180 (the FIR's start-up, tests/test_sstv.py:97-102); a
@@ -367,57 +369,202 @@ def test_pocsag_band_monitor_pfb_fused_matches_eager(dev):
     assert msgs == pocsag.decode_channels(out["eager"], rate)
 
 
-def _nrz_rows(rows, n, k, seed, smooth):
+def _nrz_rows(rows, n, k, seed, smooth, cplx=False):
     """Bipolar NRZ rows at k·(1 + ε) samples/symbol, each with its own clock
     offset ε (±100 ppm: under 2 samples of drift per timing window, far from
     the ±k/2 the unwrap allows) and timing phase, read at the rows' sample
     times from an 8× dense grid: the step train itself (``smooth`` False:
     every transition falls between two samples, so the timing tone fits
     near-integer timing and many outputs sit where the window position
-    crosses an integer) or its one-symbol moving average."""
+    crosses an integer) or its one-symbol moving average.  With ``cplx``
+    complex64 rows, I and Q of their own bits on the row's one clock."""
     rng = np.random.default_rng(seed)
-    out = np.empty((rows, n), np.float32)
+    out = np.empty((rows, n), np.complex64 if cplx else np.float32)
     L = 8 * k
     for r in range(rows):
         eps, d0 = rng.uniform(-1e-4, 1e-4), rng.uniform(0, k)
         t = (np.arange(n) + d0) * (1 + eps) * 8
-        bits = rng.integers(0, 2, int(t[-1] // L) + 3) * 2.0 - 1.0
-        if smooth:
-            c = np.concatenate([[0.0], np.cumsum(np.repeat(bits, L))])
-            out[r] = np.interp(t, np.arange(len(c) - L), (c[L:] - c[:-L]) / L)
-        else:
-            out[r] = np.interp(t, np.arange(len(bits) * L), np.repeat(bits, L))
+        lanes = []
+        for _ in range(2 if cplx else 1):
+            bits = rng.integers(0, 2, int(t[-1] // L) + 3) * 2.0 - 1.0
+            if smooth:
+                c = np.concatenate([[0.0], np.cumsum(np.repeat(bits, L))])
+                lanes.append(np.interp(t, np.arange(len(c) - L), (c[L:] - c[:-L]) / L))
+            else:
+                lanes.append(np.interp(t, np.arange(len(bits) * L), np.repeat(bits, L)))
+        out[r] = lanes[0] + 1j * lanes[1] if cplx else lanes[0]
     return out
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("smooth", [False, True], ids=["steps", "smoothed"])
-def test_sym_sync_on_card_matches_cpu(dev, smooth):
-    """PerChannel(sym_sync_r(8)) on 64 rows of 2^17 samples, two
-    state-chained blocks, on the card against the CPU: 2e-3 relative to the
-    largest output (tests/test_sharding_generic.py:346) of the CPU's output
-    or, where float order picks (``chip_smoke.record_ties`` at 0.01), of the
-    CPU's output of the other pick (tests/test_torch_symsync.py); the
-    carried τ within 1e-3 samples."""
-    from chip_smoke import record_ties
+def _sync_case(case):
+    """(block, blocks of input (…, n) as numpy, a state edit or None) of a
+    ``test_sym_sync_on_card_matches_cpu`` case."""
     from csdr_tpu_torch.core.block import PerChannel
     from csdr_tpu_torch.models import symsync
 
-    x = _nrz_rows(64, 2 << 17, 8, 5, smooth)
-    blk = PerChannel(symsync.sym_sync_r(8, 4, 0.0, 64), 64)
+    r8 = lambda rows: PerChannel(symsync.sym_sync_r(8, 4, 0.0, 64), rows)  # noqa: E731
+    split = lambda x, n: [x[..., b * n:(b + 1) * n] for b in range(x.shape[-1] // n)]  # noqa: E731
+    if case in ("steps", "smoothed"):
+        return r8(64), split(_nrz_rows(64, 2 << 17, 8, 5, case == "smoothed"), 1 << 17), None
+    if case in ("complex", "tracker"):
+        # complex NRZ at k = 4: I and Q of their own bits, one clock a row
+        x = _nrz_rows(16, 2 << 15, 4, 6, True, cplx=True)
+        blk = (symsync.sym_sync_c(3, 4) if case == "complex" else
+               symsync.SymSync(4, 3, 0.25, 32, complex_input=True, ftype="rrc",
+                               out_per_sym=1, name="symtrack_sync"))
+        return PerChannel(blk, 16), split(x, 1 << 15), None
+    if case == "single_row":
+        return symsync.sym_sync_r(8, 4, 0.0, 64), split(_nrz_rows(1, 2 << 16, 8, 8, True)[0],
+                                                        1 << 16), None
+    if case == "one_window":      # n < 128·k: one timing window
+        return r8(16), split(_nrz_rows(16, 3 * 960, 8, 9, True), 960), None
+    # carried states: per row, (τ, valid) of the first block
+    rows = 16
+    x = split(_nrz_rows(rows, 2 << 14, 8, 10, True), 1 << 14)
+    if case == "invalid_tau":     # a carried τ marked invalid is not read
+        tau = np.where(np.arange(rows) % 2 == 0, 1e6, 2.7)
+        valid = np.arange(rows) % 2 == 1
+    elif case == "slip":          # carries past B = 40 slip back by whole symbols
+        tau = np.linspace(-47.0, 47.0, rows)
+        valid = np.ones(rows, bool)
+    else:                         # "edges": windows leave the row at both ends
+        tau = np.where(np.arange(rows) % 2 == 0, -300.0, 300.0)
+        valid = np.ones(rows, bool)
+    return r8(rows), x, (tau.astype(np.float32), valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["steps", "smoothed", "complex", "tracker", "single_row",
+                                  "one_window", "invalid_tau", "slip", "edges"])
+def test_sym_sync_on_card_matches_cpu(dev, case):
+    """The block sync on the card (K9, two launches a block) against the
+    CPU's plain version, state-chained blocks: 2e-3 relative to the
+    largest output (tests/test_sharding_generic.py:346) of the CPU's output
+    or, where float order picks (``chip_smoke.record_ties`` at 0.01), of the
+    CPU's output of the other pick (tests/test_torch_symsync.py); the
+    carried τ within 1e-3 samples.  Real (kaiser, npfb 64) and complex
+    (rnyquist npfb 32 two outputs a symbol; ``sym_tracker``'s RRC sync, one)
+    panels, one un-batched row, one timing window, an invalid carried τ,
+    carries that slip past B and windows that leave the row at both ends
+    (a carried τ of ±300 samples)."""
+    from chip_smoke import record_ties
+    from csdr_tpu_torch.ops.cuda import symsync_block as k9
+
+    blk, xs, edit = _sync_case(case)
     sg, sc = blk.init(dev), blk.init(torch.device("cpu"))
-    for b in range(2):
-        xb = torch.from_numpy(np.ascontiguousarray(x[:, b << 17:(b + 1) << 17]))
+    if edit is not None:
+        tau, valid = (torch.from_numpy(v) for v in edit)
+        sg, sc = (sg[0], tau.to(dev), valid.to(dev)), (sc[0], tau, valid)
+    before = k9.launches
+    for b, xb in enumerate(xs):
+        xb = torch.from_numpy(np.ascontiguousarray(xb))
         sg, yg = blk.apply(sg, xb.to(dev))
         with record_ties(0.01) as rec:
             sc, yc = blk.apply(sc, xb)
-        yg, yc = yg.cpu().numpy(), yc.numpy()
-        assert yg.shape == yc.shape == (64, (1 << 17) // 8 * 2)
+        yg, yc = np.atleast_2d(yg.cpu().numpy()), np.atleast_2d(yc.numpy())
+        assert yg.shape == yc.shape, (case, b, yg.shape, yc.shape)
         codes, other = rec[0]
         scale = np.abs(yc).max(axis=1, keepdims=True)
-        err = np.minimum(np.abs(yg - yc), np.abs(yg - other)) / scale
-        assert err.max() < 2e-3, (b, float(err.max()), np.bincount(codes.ravel(), minlength=3))
-        assert np.abs(sg[1].cpu().numpy() - sc[1].numpy()).max() < 1e-3
+        err = np.minimum(np.abs(yg - yc), np.abs(yg - np.atleast_2d(other))) / scale
+        assert err.max() < 2e-3, (case, b, float(err.max()),
+                                  np.bincount(np.ravel(codes), minlength=3))
+        assert np.abs(sg[1].cpu().numpy() - sc[1].numpy()).max() < 1e-3, (case, b)
+        assert torch.equal(sg[0].cpu(), sc[0]) and bool(sg[2].all())
+    assert k9.launches - before == 2 * len(xs)
+    if case == "slip":
+        assert np.abs(sc[1].numpy()).max() <= 40.0
+
+
+@pytest.mark.cuda
+def test_denbfmsync_block_on_card_is_bit_identical_run_to_run(dev):
+    """PerChannel(fm_dem_with_sync(10)) over the same 64-row block twice
+    from the same state on the card: every output and τ bit for bit (the
+    tone's partial sums take a fixed order, with no atomics)."""
+    from csdr_tpu_torch.core.block import PerChannel
+    from csdr_tpu_torch.models import symsync
+
+    x = occupied_band(64, 64 * 40960, seed=11, per_frame=True).reshape(40960, 64).T.copy()
+    blk = PerChannel(symsync.fm_dem_with_sync(10), 64)
+    xg = torch.from_numpy(x).to(dev)
+    runs = []
+    for _ in range(2):
+        st = blk.init(dev)
+        for _ in range(2):
+            st, y = blk.apply(st, xg)
+        runs.append((y.cpu(), st[1][1].cpu()))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+class _ThreadTimeCtx:
+    """Time rank ``ti`` of ``dt`` ranks run as threads of one process on one
+    card: the ``ShardCtx`` exchanges the sync's sharded step uses, through a
+    shared board and a barrier (the ranks enqueue on one stream, so a
+    tensor a rank hands over is written before the other's later launch
+    reads it)."""
+
+    def __init__(self, ti, dt, board):
+        self.ti, self.dt, self.board = ti, dt, board
+
+    def _swap(self, t):
+        self.board["slots"][self.ti] = t
+        self.board["barrier"].wait(timeout=60)
+        got = list(self.board["slots"])
+        self.board["barrier"].wait(timeout=60)
+        return got
+
+    def left_halo(self, x, carried, h):
+        got = self._swap(x[..., -h:])
+        return carried if self.ti == 0 else got[self.ti - 1]
+
+    def right_halo(self, x, r):
+        got = self._swap(x[..., :r])
+        if self.ti == self.dt - 1:
+            return x[..., -1:].expand(tuple(x.shape[:-1]) + (r,))
+        return got[self.ti + 1]
+
+    def all_gather_time(self, t):
+        return torch.stack(self._swap(t))
+
+    def from_last_time(self, val):
+        return self._swap(val)[-1]
+
+
+@pytest.mark.cuda
+def test_sharded_sym_sync_on_card_equals_serial_kernel(dev):
+    """``SymSync.shard_apply`` on the card over two time ranks (threads of
+    this process) against serial ``apply`` on the card, two state-chained
+    blocks of 16 rows × 2^16: the ranks' tone partials are the serial
+    step's window by window and every rank fits the same line, so the
+    outputs, τ and the history equal the serial ones bit for bit."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from csdr_tpu_torch.core.block import PerChannel
+    from csdr_tpu_torch.models import symsync
+
+    rows, n, dt = 16, 1 << 16, 2
+    blk = PerChannel(symsync.sym_sync_r(8, 4, 0.0, 64), rows)
+    sync = blk.inner
+    x = torch.from_numpy(_nrz_rows(rows, 2 * n, 8, 12, True)).to(dev)
+    ss = blk.init(dev)
+    sh = [blk.init(dev) for _ in range(dt)]
+    board = dict(slots=[None] * dt, barrier=threading.Barrier(dt))
+    for b in range(2):
+        xb = x[:, b * n:(b + 1) * n]
+        ss, ys = blk.apply(ss, xb.contiguous())
+        nloc = n // dt
+
+        def rank(ti, b=b, xb=xb, nloc=nloc):
+            ctx = _ThreadTimeCtx(ti, dt, board)
+            return sync.shard_apply(sh[ti], xb[:, ti * nloc:(ti + 1) * nloc].contiguous(), ctx)
+
+        with ThreadPoolExecutor(dt) as pool:
+            outs = [f.result(timeout=120) for f in [pool.submit(rank, ti) for ti in range(dt)]]
+        sh = [o[0] for o in outs]
+        y = torch.cat([o[1] for o in outs], dim=-1)
+        assert torch.equal(y, ys), (b, float((y - ys).abs().max()))
+        for st in sh:
+            assert torch.equal(st[1], ss[1]) and torch.equal(st[0], ss[0])
 
 
 @pytest.mark.cuda

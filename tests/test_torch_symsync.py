@@ -286,6 +286,90 @@ def test_scan_mode_is_not_ported(make):
         make("closed_loop")
 
 
+# ---- the K9 wrapper's routes and refusals ------------------------------------
+
+def test_cpu_tensor_takes_the_plain_route_and_counts_its_bytes():
+    """A CPU block goes through ``symsync_block_ref`` (the eager ops):
+    no kernel launch, and under ``prof.recording()`` the plain route's
+    counter holds the output's bytes and the kernel's is absent."""
+    from csdr_tpu_torch.ops.cuda import symsync_block as k9
+    from csdr_tpu_torch.utils import prof
+
+    blk = PerChannel(symsync.sym_sync_r(10, 4, 0.0, 64), 4)
+    x = torch.from_numpy(np.stack([offset_stream(0.0, 700, s) for s in range(4)])[:, :6400])
+    before = k9.launches
+    with prof.recording() as rec:
+        st, y = blk.apply(blk.init(CPU), x)
+        st, y = blk.apply(st, x)
+    assert k9.launches == before
+    assert y.shape == (4, 6400 // 10 * 2)
+    assert rec.counters["symsync.plain_out_bytes"] == 2 * y.numel() * 4
+    assert "symsync.kernel_out_bytes" not in rec.counters
+    sync = blk.inner
+    _, y_ref = k9.symsync_block_ref(x, sync._bank(CPU), symsync._rotator_on(10, 6400, CPU), st,
+                                    sync.constants)
+    _, y_route = blk.apply(st, x)
+    assert torch.equal(y_ref, y_route)
+
+
+def test_profile_report_counts_the_sync_route():
+    """``Pipeline(profile=True)`` prints the sync's output bytes a block
+    under its route's counter, apart from the MB copied."""
+    import csdr_tpu_torch as ct
+
+    x = offset_stream(0.0, 2000, 3)[:16000]
+    pipe = ct.Pipeline(symsync.sym_sync_r(10, 4, 0.0, 64), 4000, device=CPU, profile=True)
+    pipe.run(iter([x]), ct.CollectSink())
+    rep = pipe.profile_report()
+    assert "MB counted per block: symsync.plain_out 0.003" in rep, rep
+    assert "symsync" not in rep.split("MB copied per block: ")[1].split("\n")[0]
+
+
+@pytest.mark.parametrize("case,match", [
+    ("dtype", "must be float32 or complex64"),
+    ("history_dtype", "must be float32 or complex64"),
+    ("taps", "at most 1024 taps"),
+    ("short_row", r"rows of 12 samples are shorter than the 81-tap window"),
+    ("rows", "must have the same rows"),
+    ("rotator", r"the rotator must be complex64 \(640,\)"),
+    ("bank", r"the bank must be float32 \(npfb, W\)"),
+])
+def test_symsync_block_refuses_what_the_kernel_does_not_take(case, match):
+    """The wrapper's checks, on either device: x of another dtype than
+    float32 / complex64 or than its history, a window above MAX_TAPS, rows
+    [hist | x] shorter than the window, history rows that do not match, a
+    rotator that is not x's length (both routes rotate by the caller's
+    tensor) and a bank that is not float32."""
+    from csdr_tpu_torch.ops.cuda import symsync_block as k9
+
+    sync = symsync.sym_sync_r(10, 4, 0.0, 64)
+    hist, tau, valid = sync.init(CPU)
+    x = torch.zeros(640)
+    if case == "dtype":
+        x = x.double()
+    elif case == "history_dtype":
+        hist = hist.to(torch.complex64)
+    elif case == "taps":
+        sync = symsync.sym_sync_r(128, 4, 0.0, 64)          # W = 1,025
+        hist, tau, valid = sync.init(CPU)
+        x = torch.zeros(1280)
+    elif case == "short_row":
+        hist, x = hist[:2], torch.zeros(10)
+    elif case == "rows":
+        x = torch.zeros(3, 640)
+    else:
+        bank, rot = sync._bank(CPU), symsync._rotator_on(10, 640, CPU)
+        if case == "rotator":
+            rot = rot[:-10]
+        else:
+            bank = bank.double()
+        with pytest.raises(ValueError, match=match):
+            k9.symsync_block(x, bank, rot, (hist, tau, valid), sync.constants)
+        return
+    with pytest.raises(ValueError, match=match):
+        sync.apply((hist, tau, valid), x)
+
+
 # ---- helidecode -------------------------------------------------------------
 
 def heli_levels(k=10, reps=10, seed=None):
