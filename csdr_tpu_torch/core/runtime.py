@@ -17,19 +17,22 @@ What it drops: the JAX package's complex-free jit boundary (``CEnc``,
 ``encode_tree``) and the jit itself — PyTorch runs eagerly, and its CUDA
 transfers carry complex64 as is.
 
-Host→device copies go from pinned buffers with ``non_blocking=True``; each
+Host→device copies go with ``non_blocking=True`` from two pinned staging
+buffers that take turns (``_Staging``), filled by torch's parallel copy; each
 block's output leaves come back the same way into fresh pinned buffers, and
 are handed to the sink one step later, after the next block was queued.
 
 Tracing (``utils/prof``): while a ``torch.profiler`` session is active or
 inside ``prof.recording()``, each step records its spans on the profiler's
 clock (``pipeline.block``, the step's root, over ``pipeline.stage`` — the
-pinned buffer and the host copy into it —, ``pipeline.h2d``,
-``pipeline.apply`` with a span per graph stage below it, ``pipeline.d2h``,
-``pipeline.drain_wait`` — the wait for the previous block's copies — and
-``pipeline.trim``; then ``pipeline.sink`` and ``pipeline.checkpoint``) and
-counts the bytes handed to the device and back (``pipeline.h2d_bytes``,
-``pipeline.d2h_bytes``); otherwise each site costs one flag test.
+pinned buffer, any wait for its last H2D copy, and the host copy into it —,
+``pipeline.h2d``, ``pipeline.apply`` with a span per graph stage below it,
+``pipeline.d2h``, ``pipeline.drain_wait`` — the wait for the previous
+block's copies — and ``pipeline.trim``; then ``pipeline.sink`` and
+``pipeline.checkpoint``) and counts the bytes handed to the device and back
+(``pipeline.h2d_bytes``, ``pipeline.d2h_bytes``) and those staged into a
+reused pinned buffer (``pipeline.stage_reused_bytes``); otherwise each site
+costs one flag test.
 ``Pipeline(profile=True)`` records into a recorder of its own, with no
 barrier, and folds it into a ``StageStat`` per stage (``stage_stats``,
 ``profile_report``); its output equals the unprofiled run's bit for bit.
@@ -37,6 +40,7 @@ barrier, and folds it into a ``StageStat`` per stage (``stage_stats``,
 
 from __future__ import annotations
 
+import warnings
 from fractions import Fraction
 from typing import Callable, Iterable, Iterator
 
@@ -112,6 +116,72 @@ def skip_n(chunks: Iterable[np.ndarray], n: int) -> Iterator[np.ndarray]:
     yield from it
 
 
+def _host_view(chunk: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over ``chunk``'s own memory, strides and all.  A
+    read-only array (``np.frombuffer`` of the sources' bytes) is viewed
+    too: the staging copy only reads it, so torch's warning that it is not
+    writable does not apply.  Torch views no negative stride, so such an
+    array is copied first."""
+    if min(chunk.strides, default=0) < 0:
+        chunk = chunk.copy()
+    if chunk.flags.writeable:
+        return torch.from_numpy(chunk)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+        return torch.from_numpy(chunk)
+
+
+class _Staging:
+    """Host blocks onto one device, the staging step of ``Pipeline`` and of
+    ``ShardedPipeline``'s rank 0.
+
+    Each block is copied by ``Tensor.copy_``, which splits a large copy over
+    torch's intra-op threads, into a contiguous tensor of its shape and
+    dtype.  On the CPU that tensor is fresh for every block, since a graph
+    may keep views of its input in its carried state.  On a card it is one
+    of two pinned buffers that take turns: a buffer is refilled only after
+    the event recorded behind its last H2D copy, queued two blocks earlier.
+    A block of another shape or dtype gets a fresh buffer, which then takes
+    its place in the ring.
+
+    Spans and counters (``utils/prof``): ``pipeline.stage`` (the buffer, any
+    wait for its event, and the copy), ``pipeline.h2d``; the bytes of every
+    block (``pipeline.h2d_bytes``) and of those staged into a reused buffer
+    (``pipeline.stage_reused_bytes``)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.ring: list = [None, None]   # (pinned buffer, its H2D copy's event) per turn
+        self._turn = 0
+
+    def __call__(self, chunk: np.ndarray) -> torch.Tensor:
+        cuda = self.device.type == "cuda"
+        with prof.span("pipeline.stage"):
+            src = _host_view(chunk)
+            slot = self._slot(src) if cuda else None
+            buf = torch.empty(src.shape, dtype=src.dtype) if slot is None else slot[0]
+            buf.copy_(src)
+            prof.count_bytes("pipeline.h2d_bytes", chunk)
+        if not cuda:
+            return buf
+        with prof.span("pipeline.h2d"):
+            x = buf.to(self.device, non_blocking=True)
+            slot[1].record(torch.cuda.current_stream(self.device))
+        return x
+
+    def _slot(self, src: torch.Tensor) -> tuple:
+        """The ring's slot whose turn it is, its buffer free to refill."""
+        k, self._turn = self._turn, 1 - self._turn
+        slot = self.ring[k]
+        if slot is not None and slot[0].shape == src.shape and slot[0].dtype == src.dtype:
+            slot[1].synchronize()
+            prof.count_bytes("pipeline.stage_reused_bytes", src)
+            return slot
+        self.ring[k] = (torch.empty(src.shape, dtype=src.dtype, pin_memory=True),
+                        torch.cuda.Event())
+        return self.ring[k]
+
+
 class Pipeline:
     """Streaming executor for a Block graph on one explicit device.
 
@@ -131,6 +201,7 @@ class Pipeline:
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.state = block.init(self.device)
+        self._staging = _Staging(self.device)
         self.profile = profile
         self._chain = isinstance(block, Chain)
         self._rec = prof.Recorder() if profile else None
@@ -148,24 +219,11 @@ class Pipeline:
         """The Pipeline's own recorder while ``profile=True``."""
         return prof.recording(self._rec) if self._rec is not None else prof.OFF
 
-    def _to_device(self, chunk: np.ndarray) -> torch.Tensor:
-        cuda = self.device.type == "cuda"
-        with prof.span("pipeline.stage"):
-            dtype = torch.from_numpy(np.empty(0, chunk.dtype)).dtype
-            stage = torch.empty(chunk.shape, dtype=dtype, pin_memory=cuda)
-            stage.numpy()[...] = chunk
-            prof.count_bytes("pipeline.h2d_bytes", chunk)
-        if not cuda:
-            return stage
-        with prof.span("pipeline.h2d"):
-            # the pinned allocator keeps the buffer until the async copy is done
-            return stage.to(self.device, non_blocking=True)
-
     def process_block(self, x: np.ndarray):
         """One graph step on a host block; returns the output (a tensor, or a
         tuple of them) on the device."""
         with self._recording():
-            x = self._to_device(x)
+            x = self._staging(x)
             with prof.span("pipeline.apply", timed=True):
                 if self._chain:
                     self.state, y = self.block.apply(self.state, x)

@@ -6,7 +6,8 @@ Counterpart of ``csdr_tpu/parallel/runner.py`` (``ShardedPipeline``) on
 (or iterates ``stream``) together.  Rank 0 alone reads the source: it
 re-blocks it (``rechunk``, ``take_n``, and in ``run`` the graph's
 end-of-stream flush allowance, ``append_flush``), zero-pads the last short
-block, stages each block in pinned memory and scatters its time segments
+block, stages each block as the serial ``Pipeline`` does (``_Staging``: two
+pinned buffers that take turns on a card) and scatters its time segments
 over the 'time' group in the source's own wire type (cu8 as uint8 (n, 2)
 rows, complex64 as float32 (n, 2) planes, a real stream, such as an FM
 composite, as float32 (n, 1)); each ch group broadcasts its segment from
@@ -27,7 +28,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.block import _leaves, _map_tree
-from ..core.runtime import _trim_tree, append_flush, rechunk, take_n
+from ..core.runtime import _Staging, _trim_tree, append_flush, rechunk, take_n
 from ..core.sharding import CH, _from_wire, _to_wire
 
 __all__ = ["ShardedPipeline"]
@@ -51,6 +52,7 @@ class ShardedPipeline:
         self.device = sharded.device
         self.rank = dist.get_rank()
         self.state = sharded.init()
+        self._staging = _Staging(self.device)
 
     def _host_blocks(self, source: Iterable[np.ndarray], num_samples: int | None):
         """Rank 0: (block padded to block_size, valid samples) per block."""
@@ -76,13 +78,7 @@ class ShardedPipeline:
         else:
             raise TypeError(f"source blocks must be complex, float32 or cu8 (n, 2) uint8 rows, "
                             f"got {chunk.dtype} {chunk.shape}")
-        dtype, width = _WIRE[code]
-        wire = wire.reshape(self.block_size, width)
-        if self.device.type != "cuda":
-            return torch.from_numpy(wire.copy()), code
-        stage = torch.empty(wire.shape, dtype=dtype, pin_memory=True)
-        stage.numpy()[...] = wire
-        return stage.to(self.device, non_blocking=True), code
+        return self._staging(wire.reshape(self.block_size, _WIRE[code][1])), code
 
     def _segment(self, block: torch.Tensor | None, code: int) -> torch.Tensor:
         """This rank's time segment of the block: scattered over the 'time'

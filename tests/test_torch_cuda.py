@@ -27,7 +27,9 @@ chains (no kernel of their own) against the CPU: 2e-5 relative to the
 largest output (tests/test_golden.py), the SSTV and WEFAX frequency tracks
 from output 180 (the FIR's start-up, tests/test_sstv.py:97-102); a
 profiled or recorded Pipeline equal to the plain one bit for bit, with no
-device barrier.  The scan
+device barrier; the staging ring of ``Pipeline`` and of ``ShardedPipeline``
+(``core/runtime._Staging``) equal to a fresh buffer a block bit for bit,
+with the host staging ahead of the copies still queued.  The scan
 kernels against their twins: K7 (``pll_scan``) 2e-3 relative to the
 largest output (tests/test_sharding_generic.py:60), θ within 1e-4 (the
 φ pass's atan2f and the CPU's atan2 may differ by an ulp), with a run of
@@ -1037,3 +1039,135 @@ def test_symsync_scan_kernel_ring_paths_match_twin(dev, kind, case):
     torch.cuda.synchronize()
     assert torch.equal(yg.cpu(), yc)
     assert all(torch.equal(a.cpu(), c) for a, c in zip(cg, cc))
+
+
+# ---- the Pipeline's staging ring (core/runtime._Staging) ---------------------
+
+STAGE_BLOCK = 1 << 15
+
+
+def _hold_stream(cycles: int):
+    """A stage that holds the card's stream for ``cycles`` clock cycles
+    ahead of the rest of the graph, then passes its input on."""
+    return ct.Lambda(lambda x: (torch.cuda._sleep(cycles), x)[1], "hold")
+
+
+def _staging_graph(cycles: int = 0):
+    stages = [ct.u8_to_iq(), ct.dc_blocker(), ct.fm_demodulator(0.6)]
+    return ct.chain(_hold_stream(cycles), *stages) if cycles else ct.chain(*stages)
+
+
+def _staging_blocks(nblocks: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (STAGE_BLOCK, 2), dtype=np.uint8) for _ in range(nblocks)]
+
+
+def _fresh_staging(device):
+    """The staging step without a ring: each block in a fresh tensor."""
+    return lambda chunk: torch.from_numpy(np.array(chunk)).to(device)
+
+
+@pytest.mark.cuda
+def test_staging_ring_waits_for_h2d_copies_still_queued(dev):
+    """A stage that holds the stream ~10 ms a block ahead of the graph,
+    blocks fed by ``process_block`` with no drain: the host stages block
+    k + 2 while block k's H2D copy is still queued behind the hold, so the
+    ring must wait on that copy's event before it refills the buffer.  Every
+    output equals a fresh buffer's for each block, bit for bit, and every
+    block past the first two is staged into a reused buffer."""
+    from csdr_tpu_torch.utils import prof
+
+    blocks = _staging_blocks(8, seed=41)
+    pipe = ct.Pipeline(_staging_graph(cycles=20_000_000), STAGE_BLOCK, device=dev)
+    with prof.recording() as rec:
+        got = [pipe.process_block(b) for b in blocks]
+    ref = ct.Pipeline(_staging_graph(), STAGE_BLOCK, device=dev)
+    ref._staging = _fresh_staging(dev)
+    want = [ref.process_block(b) for b in blocks]
+    torch.cuda.synchronize()
+    for j, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), j
+    nbytes = blocks[0].nbytes
+    assert rec.counters["pipeline.h2d_bytes"] == 8 * nbytes
+    assert rec.counters["pipeline.stage_reused_bytes"] == 6 * nbytes
+
+
+@pytest.mark.cuda
+def test_staging_ring_keeps_two_buffers_over_a_run(dev):
+    """``Pipeline.run`` over 50 blocks: the ring's two pinned buffers are
+    the ones the first two blocks filled, every later block is staged into
+    one of them (``pipeline.stage_reused_bytes`` = ``pipeline.h2d_bytes``
+    less the first two blocks' bytes), and the output equals a fresh
+    buffer's for each block, bit for bit."""
+    from csdr_tpu_torch.utils import prof
+
+    blocks = _staging_blocks(50, seed=42)
+    pipe = ct.Pipeline(_staging_graph(), STAGE_BLOCK, device=dev)
+    first, got = [], []
+
+    def sink(out):
+        got.append(out)
+        if not first:   # block 1 is staged when block 0 drains
+            first.extend(s[0].data_ptr() for s in pipe._staging.ring)
+
+    with prof.recording() as rec:
+        pipe.run(iter(blocks), sink)
+    ring = pipe._staging.ring
+    assert all(s is not None and s[0].is_pinned() for s in ring)
+    assert [s[0].data_ptr() for s in ring] == first and first[0] != first[1]
+    nbytes = blocks[0].nbytes
+    assert rec.counters["pipeline.h2d_bytes"] == 50 * nbytes
+    assert rec.counters["pipeline.stage_reused_bytes"] == 48 * nbytes
+    ref = ct.Pipeline(_staging_graph(), STAGE_BLOCK, device=dev)
+    ref._staging = _fresh_staging(dev)
+    want = []
+    ref.run(iter(blocks), want.append)
+    assert len(got) == len(want) == 50
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def _staging_rank(device, blocks):
+    """Rank 0 of a one-card mesh: ``ShardedPipeline`` over ``blocks`` with
+    the staging ring, then with a fresh tensor for each block; both runs'
+    outputs, the ring's buffers after the first two blocks and after the
+    last, and the ring run's counters."""
+    from csdr_tpu_torch.parallel import ShardedChain, ShardedPipeline, build_mesh
+    from csdr_tpu_torch.utils import prof
+
+    mesh = build_mesh(1, 1, "cuda")
+    runner = ShardedPipeline(ShardedChain(_staging_graph(), mesh, STAGE_BLOCK))
+    got, first = [], []
+
+    def sink(out):
+        got.append(out)
+        if len(got) == 2:
+            first.extend(s[0].data_ptr() for s in runner._staging.ring)
+
+    with prof.recording() as rec:
+        runner.run(iter(blocks), sink)
+    last = [s[0].data_ptr() for s in runner._staging.ring]
+    fresh = ShardedPipeline(ShardedChain(_staging_graph(), mesh, STAGE_BLOCK))
+    fresh._staging = _fresh_staging(device)
+    want = []
+    fresh.run(iter(blocks), want.append)
+    return (got, want), first, last, dict(rec.counters)
+
+
+@pytest.mark.cuda
+def test_sharded_pipeline_stages_through_the_ring(dev):
+    """Rank 0 of ``ShardedPipeline`` (a one-card NCCL mesh) stages through
+    the same ring: its two buffers stay the ones the first two blocks
+    filled over 50 blocks, every later block is staged into one of them,
+    and the output equals a fresh tensor's for each block, bit for bit."""
+    from csdr_tpu_torch.parallel import spawn
+
+    blocks = _staging_blocks(50, seed=43)
+    [(runs, first, last, counters)] = spawn(_staging_rank, 1, "cuda", args=(blocks,),
+                                            timeout=600.0)
+    assert last == first and len(set(first)) == 2
+    nbytes = blocks[0].nbytes
+    assert counters["pipeline.h2d_bytes"] == 50 * nbytes
+    assert counters["pipeline.stage_reused_bytes"] == 48 * nbytes
+    got, want = runs
+    assert len(got) == len(want) == 50
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
