@@ -4,15 +4,17 @@ in turns, with one yardstick.
 
     python3 chip_compare.py ROOT [ROOT ...] [--turns 2] [--out FILE]
 
+This is the repo's one timer of kernels and paths alone; ``portbench/``
+measures the port end to end and ``chip_smoke.py`` checks it on the card.
 Each ROOT is a directory holding a ``csdr_tpu_torch`` package: a checkout,
 or ``git archive <commit> csdr_tpu_torch`` unpacked into a directory that
 .gitignore lists.  The roots run forward, then backward (A, B, B, A for two
 roots and two turns), each turn in a process of its own that imports that
 root's package and builds its kernels there.  Every turn times the same
-steps on the same seeded inputs with ``chip_smoke.py``'s ``time_steps``
-(CUDA events, the steps queued behind a spin of the card) and
-``profile_kernels`` (torch.profiler device time), both loaded from this
-script's own directory:
+steps on the same seeded inputs with ``time_steps`` (CUDA events, the steps
+queued behind a spin of the card) and ``profile_kernels`` (torch.profiler
+device time); the inputs come from ``chip_smoke.py`` of this script's own
+directory (its signal generators, and through it ``tests/torch_oracles.py``):
 
   kernels alone, one 2^23-sample block: K1/K2 (cu8, nch 64), K3 and K4 on
   the block's panels, K5 at (64, 2^17) complex x 585 taps; the serial
@@ -42,15 +44,106 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+STEPS = 20               # timed steps per measurement (after warm-up)
+
+
+def time_steps(torch, step, steps: int = STEPS, warmup: int = 3) -> list[float]:
+    """Per-step milliseconds from CUDA events around each of ``steps``
+    state-chained calls of ``step()``, after ``warmup`` calls.  The card
+    first spins for twice the host's time to enqueue the steps, so every
+    step is queued before the card reaches it and the events time the card,
+    not the host's launch gaps."""
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(0.5, 2 * steps * enqueue_s + 1e-3) * 2e9))
+    evs = []
+    for _ in range(steps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        step()
+        b.record()
+        evs.append((a, b))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in evs]
+
+
+def profile_kernels(torch, fn, steps: int, want: int | None = None, tries: int = 5) -> dict:
+    """Device kernels of ``steps`` calls of ``fn()`` (after one unprofiled
+    call), from torch.profiler: kernel name → dict(count, device_us), both
+    summed over the steps.  The tracer now and then loses a kernel record,
+    even in a process's first session: a session that traced fewer device
+    kernels than launch calls, or other than ``want`` per step, is run
+    again, up to ``tries`` times."""
+    fn()
+    for _ in range(tries):
+        prof, _ = traced(torch, lambda: [fn() for _ in range(steps)])
+        kern = device_kernels(prof)
+        n = sum(v["count"] for v in kern.values())
+        if n == launch_calls(prof) and (want is None or n == want * steps):
+            break
+    return kern
+
+
+def traced(torch, fn):
+    """torch.profiler around one call of ``fn()``; returns (profiler, fn's
+    wall seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def trace_events(prof) -> list[tuple[str, bool, float]]:
+    """(name, on the device, duration µs) of every event of a torch.profiler
+    run, read once from its Kineto results and kept on ``prof``: the events
+    ``key_averages`` sums, without building the profiler's FunctionEvent
+    tree."""
+    if not hasattr(prof, "_csdr_events"):
+        prof._csdr_events = [(e.name(), str(e.device_type()).endswith("CUDA"),
+                              e.duration_ns() / 1e3)
+                             for e in prof.profiler.kineto_results.events()]
+    return prof._csdr_events
+
+
+def device_kernels(prof) -> dict:
+    """Kernel name → dict(count, device_us) of a torch.profiler run: the
+    device events, less copies, sets and the ranges ProcessGroupNCCL
+    records around its kernels ("nccl:broadcast", …)."""
+    kern = {}
+    for name, on_device, us in trace_events(prof):
+        if on_device and "ProfilerStep" not in name and not name.startswith(
+                ("aten::", "Memcpy", "Memset", "nccl:")):
+            k = kern.setdefault(name, dict(count=0, device_us=0.0))
+            k["count"] += 1
+            k["device_us"] += us
+    return kern
+
+
+def launch_calls(prof) -> int:
+    """Kernel launches the host made in a torch.profiler run: the CUDA
+    runtime's and driver's launch calls in its trace."""
+    return sum(1 for name, on_device, _ in trace_events(prof)
+               if not on_device and name.startswith(("cudaLaunch", "cuLaunch")))
 
 
 def _smoke():
     """chip_smoke.py of this directory, loaded by path (a root may hold its
-    own)."""
+    own): the steps' inputs."""
     spec = importlib.util.spec_from_file_location("chip_smoke_here",
                                                   os.path.join(HERE, "chip_smoke.py"))
     mod = importlib.util.module_from_spec(spec)
@@ -160,8 +253,8 @@ def worker(root: str, turn: int) -> None:
         **{name: path(name) for name in graphs},
     }
     for name, fn in steps.items():
-        ms = sm.time_steps(torch, fn, steps=5 if name.startswith("K7") else sm.STEPS)
-        kern = sm.profile_kernels(torch, fn, 5)
+        ms = time_steps(torch, fn, steps=5 if name.startswith("K7") else STEPS)
+        kern = profile_kernels(torch, fn, 5)
         top = sorted(kern.items(), key=lambda kv: -kv[1]["device_us"])[:5]
         print(json.dumps(dict(
             root=root, turn=turn, step=name, steps=len(ms), median_ms=statistics.median(ms),

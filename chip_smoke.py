@@ -1,13 +1,22 @@
 #!/usr/bin/env python3
-"""Smoke run of csdr_tpu_torch on one CUDA card.
+"""Check csdr_tpu_torch on one CUDA card: every kernel and flow against its
+plain version, the eager graph, the CPU or the serial run.
 
     python3 chip_smoke.py          # from the root of a checkout
+
+This script checks and does not time: ``portbench/`` measures the port end
+to end (``python3 portbench/run.py --workload <cell> ...``) and
+``chip_compare.py`` times kernels and paths alone, in turns across
+checkouts.  The oracles it shares with the tier-1 tests (the sync's
+either-pick rule, the scan rule, the helicopter frames, the beacons) live
+in ``tests/torch_oracles.py``.
 
 Phases, each of which asserts; any failure exits non-zero before the last
 line is printed:
 
   1. identity: the card's name and power limit (nvidia-smi);
-  2. build: nvcc compiles csdr_tpu_torch/csrc/*.cu for sm_90a;
+  2. build: nvcc compiles csdr_tpu_torch/csrc/*.cu for sm_90a (the ptxas
+     report: registers, stack frame, spills);
   3. kernel vs plain: the fused CUDA kernel against its plain PyTorch twin
      and the eager graph, over 3 consecutive blocks of the main path's size,
      at nch 64, 20 and 32, for complex64, interleaved cu8 and cu8 planes;
@@ -15,15 +24,6 @@ line is printed:
      2^25-sample cu8 capture, once fused and once eager; the kernel's launch
      count must move in the fused run, the two runs must agree, and every
      channel must demodulate its own FM tone;
-  5. timings: CUDA-event medians of state-chained 2^23-sample steps, queued
-     behind a spin of the card so the events time the card and not the
-     host's launch gaps, kernel against plain versions, and the CLI runs'
-     end-to-end rate; the peak
-     device memory of one K1 step; a torch.profiler window over each
-     kernel's step that counts its CUDA launches per step and splits its
-     device time by kernel (run right after 3, before any other profiler
-     window: later in the process the tracer dropped kernel records; a
-     session that lost one is run again).
 
 and for the PFB kernels K3 (pfb_fm_fused) and K4 (pfb_channelize_fused):
 
@@ -37,9 +37,6 @@ and for the PFB kernels K3 (pfb_fm_fused) and K4 (pfb_channelize_fused):
       (K4), pfb_fused against eager.  Every kernel count is set to 0 before
       each run and read after it: a run's own kernels must have launched,
       no other kernel may have;
-  5b. timings: K3 and K4 alone against their plain versions, the
-      PFBFusedFM path (eager DC blocker + NCO + K3) against the eager graph,
-      and the CLI flows' rates with the backends run in turns.
 
 and for the FIR kernels K5 (fir_valid) and K6 (fft_fir):
 
@@ -47,9 +44,9 @@ and for the FIR kernels K5 (fir_valid) and K6 (fft_fir):
       (its hist carried), K5 at (64, 2^17) complex x 585 taps, (64, 2^17)
       real x 585, (1, 2^23) complex x 3,651 taps and, at 6b's shape, one
       real row of 1,046,400 samples x the 333-tap RDS data filter; K6 at (1, 2^23)
-      complex x the 1,826-tap USB band-pass, real x real 3,651 taps and,
-      for the K5/K6 crossover, K5's two complex shapes (64, 2^17) x 585
-      and (1, 2^23) x 3,651; and K6 against the "fft" strategy;
+      complex x the 1,826-tap USB band-pass, real x real 3,651 taps and
+      K5's two complex shapes (64, 2^17) x 585 and (1, 2^23) x 3,651; and
+      each against the "fft" strategy;
   4c. main paths on a 2^25-sample cu8 capture with keyed CW carriers in
       the even channels of a 64-way split: -c 64 DeCW under --backend
       eager (K5) and pfb_fused (K4 + K5), held against the same flow with
@@ -60,15 +57,9 @@ and for the FIR kernels K5 (fir_valid) and K6 (fft_fir):
       strategy="pallas_fft") against strategy="fft".  Every kernel count
       is set to 0 before each run: a run's own kernels must launch, no
       other;
-  5c. timings: K5 and K6 against their plain versions and the "fft"
-      strategy at the shapes of 3c (K5 and K6 at the same two shapes: the
-      crossover), and the 4c flows' rates (the DeCW backends in turns).
 
 and for the broadcast-FM flows, the mixed sink and checkpoints (no new
-kernel; each flow's run is timed with every kernel count set to 0 before
-it, then run again under torch.profiler, in a process of its own, for its
-device-idle share; a session that traced fewer device kernels than launch
-calls lost records and is run again, and after three the share is null):
+kernel; every kernel count set to 0 before each run and read after it):
 
   6a. BASELINE config 1: -s 2560000 -b 200000 DeWBFM 8 over a cu8 capture
       of a 1 kHz FM tone at DC: exactly n/8 frames at 25 kHz, the tone at
@@ -92,15 +83,14 @@ and ShardedFlagship runs with force_full):
 
   7a. ShardedFlagship (K1 on every rank) over phase 4's capture through
       ShardedPipeline, against the serial K1 (share of |d| > 0.01 < 0.005,
-      99th percentile < 1e-4, carried state < 2e-5); the sharded step's
-      time against the serial K1 step's; K1's launches and the NCCL
-      kernels' device time per step from one profiler window;
+      99th percentile < 1e-4, carried state < 2e-5); K1 once per sharded
+      step on every rank;
   7b. ShardedChannelizedFM on mesh (W, 1) and, at 4 cards, (2, 2): eager,
       K3 and K4 with -a, against the eager single-device graphs (2e-3,
       5e-3 from frame 1, 5e-3);
   7c. the CLI's -c 64 --mesh Wx1 --backend fused in a process of its own,
-      its rate and each rank's K1 launches, every channel's file against
-      phase 4's fused run.
+      each rank's K1 launches, every channel's file against phase 4's
+      fused run.
   Every rank's kernel counts are set to 0 before each run and read after
   it.  ``python3 chip_smoke.py --mesh-only`` runs identity, build, phase 4
   and phase 7 alone.
@@ -120,8 +110,7 @@ and for the packet receivers (models/ais, aprs, adsb, pocsag, rtty):
       DeRTTY) and no other; then the band monitor (pocsag_band_monitor, 64
       channels x 38.4 kHz, pages on four channels) through the library,
       pfb_fused (K4) against eager: 2e-3 on the envelopes and on the paged
-      channels' scores, and every page decoded on its channel.  MSPS per
-      flow; the idle share and device time of each in a process of its own.
+      channels' scores, and every page decoded on its channel.
 
 and for symbol sync, the coded modem and the beacon (K4 and the block
 sync's K9 on the DeNBFMSync path):
@@ -129,21 +118,18 @@ sync's K9 on the DeNBFMSync path):
   9.  a seeded 2^25-sample cu8 capture with helicopter 2-FSK frames (4,000
       baud, own coordinates, start phase and a clock within ±100 ppm) on 8
       of 64 channels: 9a K4 at the DeNBFMSync graph's block (8,376,320
-      samples, F = 130,880) against its plain version, timed there, and
+      samples, F = 130,880) against its plain version, and
       PerChannel(fm_dem_with_sync(10)) on the card against the CPU on the
       occupied channels; 9b -c 64 "DeNBFMSync 10" under pfb_fused (K4 once
-      and K9 twice per block, no other kernel) and eager (K9 alone) in
-      turns, K9 alone at the flow's panel against its plain version (ms,
-      plain ms, either pick, the bound), the occupied channels
-      against each other, helidecode's coordinates on every occupied
-      channel on both backends (the same count) and none on the empty
-      ones, MSPS, idle share, the step's time and peak memory; 9c -c 1
-      --offset -b 48000 "DeNBFMSync 12" (4,000 baud at 48 kHz) on the card
-      and the CPU; 9d the library: 64 coded qpsk and 64 qam16 packets
-      through sym_tracker and coded_packet_demodulate on the card (the
-      Viterbi, on the host, timed beside its add-compare-select run as
-      tensor ops on the card), 32 beacons at −13 dB through beacon_decode,
-      FSKDemod against the CPU.
+      and K9 twice per block, no other kernel) and eager (K9 alone), K9
+      alone at the flow's panel against its plain version (either pick,
+      τ), the occupied channels against each other, helidecode's
+      coordinates on every occupied channel on both backends (the same
+      count) and none on the empty ones; 9c -c 1 --offset -b 48000
+      "DeNBFMSync 12" (4,000 baud at 48 kHz) on the card and the CPU; 9d
+      the library: 64 coded qpsk and 64 qam16 packets through sym_tracker
+      and coded_packet_demodulate on the card, 32 beacons at −13 dB through
+      beacon_decode, FSKDemod against the CPU.
       The sync outputs are held to 2e-3 of the reference's output or, where
       float order picks (a phase-rounding tie, a window at an integer), of
       its output of the other pick.
@@ -160,13 +146,12 @@ on WAV input and K3 under --profile):
       within 2e-5 of the CPU's largest value (the Hz tracks from output 180,
       the FIR's start-up), the same lines and sync positions, the images
       within 1 LSB, the error against the transmitted image within the JAX
-      tests' bounds; samples per second on both, the .cf32 APT app's idle
-      share.
+      tests' bounds.
       10b a mono float32 WAV of 2^24 samples (an FM carrier in every channel
       of the IQ it lifts to): wav_iq_source card against CPU over the first
       2^20 outputs (2e-5), then -c 64 "DeNBFM 0.6 F32" --backend fused (K1)
-      against eager at K1's bounds from frame 1, MSPS, the fused run's idle
-      share.  10c -c 64 --backend pfb_fused --profile on a 2^24-sample cf32
+      against eager at K1's bounds from frame 1.  10c -c 64 --backend
+      pfb_fused --profile on a 2^24-sample cf32
       capture: the stage table, K3 once per block, the 64 files bit-equal
       to the run without --profile.  10d -c 1 --offset -b DeAM AU read back
       with read_au equal to the F32 run, and its --spectrum and
@@ -174,42 +159,39 @@ on WAV input and K3 under --profile):
       ``python3 chip_smoke.py --imagery-only`` runs identity, build and 10.
 
 and for the live-device path (no new kernel; K1 on the rtl_tcp flow and the
-tile sweep, K3 on the synthetic device):
+tile candidates, K3 on the synthetic device):
 
   11. 11a the port's rtl_tcp_server, a process of its own, serves a seeded
       2^25-sample cu8 capture of phase 4's kind; the CLI runs --devname
       rtl_tcp -s 2.56e6 -f 100e6 --ppm 3 -n 2^25 -c 64 "DeNBFM 0.6 F32"
       --backend fused on it: its 64 files bit-equal to the --filename run of
       the same samples as CF32 (the client's own conversion) and within
-      U8_ERR of the cu8 file run, every channel on its tone, the server's
-      command log (rate, frequency, gain mode 0, ppm 3); MSPS against the
-      CF32 run in turns, the real-time factor against 3.2 MS/s, the idle
-      share from a child process, K1's launches.  11b --devname synthetic
+      U8_ERR of the cu8 file run, each source's two runs equal, every
+      channel on its tone, the server's command log (rate, frequency, gain
+      mode 0, ppm 3), K1's launches.  11b --devname synthetic
       -n 2^24 -c 64 on pfb_fused (K3) and eager, each bit-equal to the
       --filename run of the synthetic samples saved, K3 against eager on the
       four occupied channels.  11c native_cf32_source against
-      cf32_file_source on a 2^25-sample CF32 file (bytes, MB/s each) and
-      NativeRawFileSink's round trip.  11d K1's tileF swept at nch 64 on cu8
-      2^23 (utils/autotune.sweep, a temporary cache), each tile's step ms;
-      FlagshipFused(tileF=None) takes the winner, within K1's bounds of the
-      default tile.  ``python3 chip_smoke.py --device-only`` runs identity,
-      build and 11.
+      cf32_file_source on a 2^25-sample CF32 file (the same bytes) and
+      NativeRawFileSink's round trip.  11d K1 at every tileF candidate at
+      nch 64 on cu8 2^23 (a tile the wrapper's own checks refuse is
+      recorded as infeasible) within K1's bounds of the default tile.
+      ``python3 chip_smoke.py --device-only`` runs identity, build and 11.
 
 and for the generic sharded chain (csdr_tpu_torch/parallel/generic.py, the
 time layout; K5 on every rank; NCCL, world = min(cards, 4), one rank per
 card, trivial exchanges at one card):
 
   12. 12a the library ShardedChain over phase 4's capture through
-      ShardedPipeline in 2^23-sample blocks: u8_to_iq >> dc_blocker >>
+      ShardedPipeline in 2^23-sample blocks (twice: the second run on the
+      same communicators): u8_to_iq >> dc_blocker >>
       cw_demodulator at the -c 1 -b 48000 "DeCW 500 700" design (its
       701-tap low-pass on K5) and the -b 200000 DeWBFM 8 chain, each
       against the serial port Pipeline on rank 0's card (K5's 1e-4, 2e-3),
-      K5 once per block on every rank, no other kernel; the sharded step's
-      time against the serial step's, and one profiler window (K5 and
-      NCCL device time per step).  12b the CLI's -c 1 --offset -b 48000
-      --mesh Wx1 "DeCW 500 700 WAV" -v in a process of its own, in 2^17-
-      sample blocks so every rank's segment holds samples, against the
-      serial CLI's file (1e-4), its MSPS and each rank's launches (K5 once
+      K5 once per block on every rank, no other kernel.  12b the CLI's -c 1
+      --offset -b 48000 --mesh Wx1 "DeCW 500 700 WAV" -v in a process of
+      its own, in 2^17-sample blocks so every rank's segment holds samples,
+      against the serial CLI's file (1e-4), each rank's launches (K5 once
       per block).  12c the channel layout through the library, on (W, 1)
       and, on four cards, (2, 2): u8_to_iq >> dc_blocker >>
       firpfbch_channelizer(64) >> PerChannel(cw_demodulator) at the -c 64
@@ -218,12 +200,11 @@ card, trivial exchanges at one card):
       against the serial Pipeline (1e-4), K5 once per block on every rank
       and nothing else of K1-K6; and the -c 16 -m DeNBFM mixed monitor
       (>> PerChannel(fm_demodulator) >> MixChannels) on a 16-channel
-      capture (2e-3, no kernel); the sharded step against the serial one,
-      one profiler window each (K5 and NCCL device time per step).  12d
+      capture (2e-3, no kernel).  12d
       the CLI's -c 64 --mesh Wx1 (and 2x2 on four cards) "DeCW 500 700
       WAV" and -c 16 -m --mesh Wx1 "DeNBFM 0.6 WAV", each in a process of
       its own, against the serial --backend eager CLI's files (1e-4 and
-      2e-3), MSPS on each CLI's -v clock, K5 launches per rank.  12e the
+      2e-3), K5 launches per rank.  12e the
       library ShardedChain over the inputs that phases 6b, 8 and 9 make
       (the stereo and helicopter captures at 2^25 samples, the AIS, APRS and
       RTTY ones at 2^23, each behind its front end): the DeFMS 8 --rds Tee
@@ -232,8 +213,7 @@ card, trivial exchanges at one card):
       DeNBFMSync 12 at 48 kHz and the -c 64 DeNBFMSync 10 channel graph on
       (W, 1) and, on four cards, (2, 2), each against the serial Pipeline at
       the same block (K5's 1e-4, 2e-3, bits and decoded messages equal, the
-      sync within 2e-3 of either pick on full blocks), step times, the
-      step's peak memory per rank, a profiler window.  12f the CLI's
+      sync within 2e-3 of either pick on full blocks).  12f the CLI's
       --mesh Wx1 "DeFMS 8 WAV" --rds, DeAIS and -c 64 "DeNBFMSync 10",
       each in a process of its own, against the serial CLI's files.
       ``python3 chip_smoke.py --chain-only`` runs identity, build, phase
@@ -250,21 +230,20 @@ and K1 on their paths):
       with their own clocks, real k = 10 and complex k = 4, three blocks of
       2^14, and a carried η of −30 that runs τ back through the row: every
       output and τ bit for bit, the twin stepping and summing in the
-      kernel's order); each twin timed on the card at 2^14 samples beside its
-      kernel.  13b the scan modes at full width through the library: DeFMS 8
+      kernel's order).  13b the scan modes at full width through the
+      library: DeFMS 8
       --rds with pll_mode="scan" on phase 6b's capture behind the CLI's
       front end (L/R separation > 15 dB on the second half, PI and PS,
       K7 once per block, K5 at least once, nothing else), and the -c 64
       DeNBFMSync 10 tracker with mode="scan" behind K4 on phase 9's capture
       (K8 and K4 once per block, nothing else; helidecode finds only the
       sent coordinate on each occupied channel, at least every one sent
-      after the first block, nothing on the empty ones); for each one
-      block's step ms, device ms, launches and peak memory beside the
-      default mode's; K7/K8 alone on the arguments the flow's first block
-      hands them, timed there with their ns per serial step and the
-      dependent chain's floor, and held against their twins on the CPU at
-      that shape (K7 over the first 2^16 outputs and θ at the cut, 1e-5; K8
-      over every output and τ, bit for bit).  13c the port's bundle (apps/package_app,
+      after the first block, nothing on the empty ones); K7/K8 alone on
+      the arguments the flow's first block hands them (``kernel_inputs``;
+      that block launches each once), held against their twins on the CPU
+      at that shape (K7 over the first 2^16 outputs and θ at the cut,
+      1e-5; K8 over every output and τ, bit for bit).  13c the port's
+      bundle (apps/package_app,
       not self-contained, its kernel library removed) runs phase 4's -c 64
       --backend fused --device cuda flow through its launcher in a process
       of its own: its kernel library is built from the zipapp's sources in
@@ -275,28 +254,20 @@ and K1 on their paths):
       ({"phase": "seconds", ...}).
 
 Prints one JSON object per result, then the nvidia-smi line, the kernels
-line and, last, {"ok": true, "device": {...}}.  Each kernels entry carries
-bound_ms: the larger of the bytes the function must move (each input read
-once, each output written once) over 3.35 TB/s and its operations over the
-67 TFLOP/s FP32 peak (H100 SXM data sheet), counted from this run's shapes
-(bound_by says which), and library_ms: one PyTorch call computing the same
-function (a conv1d for the FIRs, TF32 off), or null where there is none.
-The tensor-core kernels K3/K4 and K5 add their ptxas report (registers,
-stack frame, spills); K5's entry adds the K5/K6 crossover at its two
-complex shapes.  Nothing here imports JAX.
+line (per kernel: what it replaces, its launches on the flows that run it,
+its largest error against its plain version, its shape; K3/K4 and K5 add
+their ptxas report) and, last, {"ok": true, "device": {...}}.  Nothing
+here imports JAX.
 """
 
 from __future__ import annotations
 
-import atexit
 import contextlib
 import io
 import json
 import os
 import re
-import select
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -306,10 +277,13 @@ from collections import Counter
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SEED = 20261016
-BLOCK = 1 << 23          # the bench's block: 64 MB of CF32 in, 32 MB of audio out
+sys.path.insert(0, os.path.join(HERE, "tests"))
+from torch_oracles import (BEACON_REFUSED, BEACONS, BEACON_SNR_DB, SEED, SYNC_TIE,  # noqa: E402
+                           SYNC_TOL, beacon_set, heli_coord, heli_decode, heli_levels,
+                           heli_text, other_pick, record_ties, sync_rows)
+
+BLOCK = 1 << 23          # the main path's block: 64 MB of CF32 in, 32 MB of audio out
 CAPTURE = 1 << 25        # main-path capture: 64 MB of cu8, four blocks
-STEPS = 20               # timed steps per measurement (after warm-up)
 KF = 0.6
 # bounds (tests/test_flagship_fused_wide.py:66-67, tests/test_flagship_fused.py:70)
 MAX_ERR, RMS_ERR, U8_ERR = 1.2e-3, 4e-5, 2e-4
@@ -400,31 +374,6 @@ def errors_np(a: np.ndarray, b: np.ndarray) -> tuple[float, float]:
     return float(d.max()), float(np.sqrt((d ** 2).mean()))
 
 
-def time_steps(torch, step, steps: int = STEPS, warmup: int = 3) -> list[float]:
-    """Per-step milliseconds from CUDA events around each of ``steps``
-    state-chained calls of ``step()``, after ``warmup`` calls.  The card
-    first spins for twice the host's time to enqueue the steps, so every
-    step is queued before the card reaches it and the events time the card,
-    not the host's launch gaps."""
-    for _ in range(warmup):
-        step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step()
-    enqueue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(min(0.5, 2 * steps * enqueue_s + 1e-3) * 2e9))
-    evs = []
-    for _ in range(steps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        step()
-        b.record()
-        evs.append((a, b))
-    torch.cuda.synchronize()
-    return [a.elapsed_time(b) for a, b in evs]
-
-
 def ptxas_summary(lib) -> dict:
     """Registers and spills per kernel, from the build's ``-Xptxas -v`` log."""
     log = lib.with_name(lib.name.replace("libcsdr_kernels-", "nvcc-").replace(".so", ".log"))
@@ -508,13 +457,13 @@ def phase_compare(torch, ct, ff, dev, card):
 
 
 def reset_counts():
-    from csdr_tpu_torch.apps.soapy_sdr_cli import reset_kernel_launches
+    from csdr_tpu_torch.ops.cuda import reset_kernel_launches
 
     reset_kernel_launches()
 
 
 def read_counts() -> dict:
-    from csdr_tpu_torch.apps.soapy_sdr_cli import kernel_launches
+    from csdr_tpu_torch.ops.cuda import kernel_launches
 
     return kernel_launches()
 
@@ -650,12 +599,9 @@ def phase_main_path(torch, ff, pf, dev, card, tmp):
                 "--demod", f"DeNBFM {KF} F32", "--backend", backend, "--device", "cuda",
                 "--blocksize", str(BLOCK)]
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        t0 = time.perf_counter()
         rc = cli_main(argv)
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
         launches = ff.launches
         check(rc == 0, f"CLI {backend} exit code {rc}")
         check(fv.launches == fx.launches == 0, f"the {backend} CLI run launched a FIR kernel")
@@ -669,16 +615,13 @@ def phase_main_path(torch, ff, pf, dev, card, tmp):
         check(bool(np.isfinite(audio).all()), f"CLI {backend}: non-finite audio")
         runs[backend] = audio
         emit(dict(phase="main_path", backend=backend, wire="cu8", samples=CAPTURE,
-                  channels=nch, blocksize=BLOCK, seconds=dt, msps=CAPTURE / dt / 1e6,
-                  flagship_fused_launches=launches,
-                  peak_device_mib=torch.cuda.max_memory_allocated() / 2 ** 20, **card))
+                  channels=nch, blocksize=BLOCK, flagship_fused_launches=launches, **card))
         check(not any(pf.launches.values()), f"the {backend} CLI run launched a PFB kernel")
         if backend == "fused":
             check(launches > 0, "the fused CLI run launched the kernel no time")
-            fused_launches, fused_msps = launches, CAPTURE / dt / 1e6
+            fused_launches = launches
         else:
             check(launches == 0, "the eager CLI run launched the fused kernel")
-            eager_msps = CAPTURE / dt / 1e6
 
     emax, erms = errors_np(runs["fused"][:, 1:], runs["eager"][:, 1:])
     # every channel demodulates its own tone: the audio's spectral peak sits
@@ -692,21 +635,19 @@ def phase_main_path(torch, ff, pf, dev, card, tmp):
     check(emax < MAX_ERR and erms < RMS_ERR, f"CLI fused vs eager max {emax} rms {erms}")
     check(bool((peaks == want).all()),
           f"channels off their tone: {np.flatnonzero(peaks != want).tolist()}")
-    return fused_launches, fused_msps, eager_msps, runs, path, want
+    return fused_launches, runs, path, want
 
 
-def cli_run(torch, cli_main, argv: list[str]) -> tuple[float, dict]:
+def cli_run(torch, cli_main, argv: list[str]) -> dict:
     """One CLI run with every kernel count set to 0 just before it; returns
-    (seconds, the counts just after)."""
+    the counts just after."""
 
     torch.cuda.synchronize()
     reset_counts()
-    t0 = time.perf_counter()
     rc = cli_main(argv)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
     check(rc == 0, f"CLI {' '.join(argv[-8:])}: exit code {rc}")
-    return dt, read_counts()
+    return read_counts()
 
 
 def check_counts(counts: dict, want, what: str):
@@ -768,225 +709,72 @@ def phase_main_path_pfb(torch, ct, dev, card, tmp, capture, runs, want_bins):
 
     # K3: --backend pfb_fused against phase 4's fused and eager runs
     prefix = os.path.join(tmp, "pfb_fused")
-    dt, counts = cli_run(torch, cli_main, ["--filename", capture, "-c", str(nch),
-                                                   "-o", prefix, "--demod", f"DeNBFM {KF} F32",
-                                                   "--backend", "pfb_fused", *common])
+    counts = cli_run(torch, cli_main, ["--filename", capture, "-c", str(nch), "-o", prefix,
+                                       "--demod", f"DeNBFM {KF} F32", "--backend", "pfb_fused",
+                                       *common])
     check_counts(counts, "pfb_fm_fused", "CLI pfb_fused")
     audio = read_channels(prefix, "f32", np.float32, nch, frames * 4)
     check(bool(np.isfinite(audio).all()), "CLI pfb_fused: non-finite audio")
     vs = {b: errors_np(audio[:, 1:], runs[b][:, 1:]) for b in ("fused", "eager")}
     on_tone = int((tone_peaks(audio) == want_bins).sum())
     emit(dict(phase="main_path_pfb", flow="DeNBFM", backend="pfb_fused", wire="cu8",
-              samples=CAPTURE, channels=nch, seconds=dt, msps=CAPTURE / dt / 1e6,
+              samples=CAPTURE, channels=nch,
               launches=counts, vs_fused_max=vs["fused"][0], vs_fused_rms=vs["fused"][1],
               vs_eager_max=vs["eager"][0], vs_eager_rms=vs["eager"][1],
               channels_on_their_tone=on_tone, **card))
     for b, (mx, rms) in vs.items():
         check(mx < PFB_MAX_ERR and rms < RMS_ERR, f"CLI pfb_fused vs {b}: max {mx} rms {rms}")
     check(on_tone == nch, "CLI pfb_fused: channels off their tone")
-    out["pfb_fm_fused"] = dict(launches=counts["pfb_fm_fused"], msps=CAPTURE / dt / 1e6)
+    out["pfb_fm_fused"] = dict(launches=counts["pfb_fm_fused"])
 
     # K4 with AGC + squelch: even channels occupied, odd ones empty
     agc_path = write_agc_capture(torch, ct, dev, card, tmp)
     agc = {}
     for backend in ("pfb_fused", "eager"):
         prefix = os.path.join(tmp, f"agc_{backend}")
-        dt, counts = cli_run(torch, cli_main, [
+        counts = cli_run(torch, cli_main, [
             "--filename", agc_path, "-c", str(nch), "-o", prefix, "--demod", f"DeNBFM {KF} F32",
             "-a", str(AGC_T), "--backend", backend, *common])
         check_counts(counts, "pfb_channelize_fused" if backend == "pfb_fused" else None,
                      f"CLI -a {AGC_T} {backend}")
         audio = read_channels(prefix, "f32", np.float32, nch, frames * 4)
         check(bool(np.isfinite(audio).all()), f"CLI -a {backend}: non-finite audio")
-        agc[backend] = (audio, dt, counts)
+        agc[backend] = (audio, counts)
     got, want = agc["pfb_fused"][0], agc["eager"][0]
     rel = float(np.abs(got.astype(np.float64) - want).max() / np.abs(want).max())
     on_tone = int((tone_peaks(got[0::2]) == want_bins[0::2]).sum())
     closed = [int(not a[1::2].any()) for a in (got, want)]
     emit(dict(phase="main_path_pfb", flow="DeNBFM -a", backend="pfb_fused", wire="cu8",
               samples=CAPTURE, channels=nch, threshold_db=AGC_T,
-              seconds=agc["pfb_fused"][1], msps=CAPTURE / agc["pfb_fused"][1] / 1e6,
-              eager_seconds=agc["eager"][1], eager_msps=CAPTURE / agc["eager"][1] / 1e6,
-              launches=agc["pfb_fused"][2], vs_eager_rel=rel,
+              launches=agc["pfb_fused"][1], vs_eager_rel=rel,
               occupied_on_their_tone=on_tone, empty_all_zero=closed, **card))
     check(rel < AGC_REL_ERR, f"CLI AGC pfb_fused vs eager: rel {rel}")
     check(closed == [1, 1], "CLI AGC: an empty channel let audio through the squelch")
     check(on_tone == nch // 2, "CLI AGC: occupied channels off their tone")
-    out["pfb_channelize_fused"] = dict(launches=agc["pfb_fused"][2]["pfb_channelize_fused"],
-                                       msps=CAPTURE / agc["pfb_fused"][1] / 1e6,
-                                       eager_msps=CAPTURE / agc["eager"][1] / 1e6)
+    out["pfb_channelize_fused"] = dict(launches=agc["pfb_fused"][1]["pfb_channelize_fused"])
 
     # K4 raw split: -c 4 --demod DeNo, pfb_fused against eager
     split = {}
     for backend in ("pfb_fused", "eager"):
         prefix = os.path.join(tmp, f"raw_{backend}")
-        dt, counts = cli_run(torch, cli_main, [
+        counts = cli_run(torch, cli_main, [
             "--filename", capture, "-c", "4", "-o", prefix, "--demod", "DeNo",
             "--backend", backend, *common])
         check_counts(counts, "pfb_channelize_fused" if backend == "pfb_fused" else None,
                      f"CLI -c 4 DeNo {backend}")
         split[backend] = (read_channels(prefix, "cf32", np.complex64, 4, CAPTURE // 4 * 8),
-                          dt, counts)
+                          counts)
         for k in range(4):
             os.unlink(f"{prefix}_ch{k + 1}.cf32")
     got, want = split["pfb_fused"][0], split["eager"][0]
     mx, rms = errors_np(got.view(np.float32), want.view(np.float32))
     emit(dict(phase="main_path_pfb", flow="-c 4 DeNo", backend="pfb_fused", wire="cu8",
-              samples=CAPTURE, channels=4, seconds=split["pfb_fused"][1],
-              msps=CAPTURE / split["pfb_fused"][1] / 1e6,
-              eager_msps=CAPTURE / split["eager"][1] / 1e6, launches=split["pfb_fused"][2],
+              samples=CAPTURE, channels=4, launches=split["pfb_fused"][1],
               vs_eager_max=mx, vs_eager_rms=rms, **card))
     check(bool(np.isfinite(got).all()), "CLI DeNo: non-finite output")
     check(mx < PFB_MAX_ERR and rms < RMS_ERR, f"CLI DeNo pfb_fused vs eager: max {mx} rms {rms}")
-    out["raw_split"] = dict(launches=split["pfb_fused"][2]["pfb_channelize_fused"],
-                            msps=CAPTURE / split["pfb_fused"][1] / 1e6,
-                            eager_msps=CAPTURE / split["eager"][1] / 1e6)
+    out["raw_split"] = dict(launches=split["pfb_fused"][1]["pfb_channelize_fused"])
     return out, agc_path
-
-
-def phase_cli_rates(torch, card, tmp, capture, agc_path):
-    """5b. The CLI flows' end-to-end rates, each backend run in turns
-    (A, B, B, A) so that neither pays alone for the first run's pinned
-    buffers and file creation; the median per backend."""
-    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
-
-    common = ["-n", str(CAPTURE), "--device", "cuda", "--blocksize", str(BLOCK)]
-    flows = {
-        "DeNBFM": (["--filename", capture, "-c", "64", "--demod", f"DeNBFM {KF} F32"],
-                   {"fused": "flagship_fused", "pfb_fused": "pfb_fm_fused", "eager": None}),
-        "DeNBFM -a": (["--filename", agc_path, "-c", "64", "--demod", f"DeNBFM {KF} F32",
-                       "-a", str(AGC_T)], {"pfb_fused": "pfb_channelize_fused", "eager": None}),
-        "-c 4 DeNo": (["--filename", capture, "-c", "4", "--demod", "DeNo"],
-                      {"pfb_fused": "pfb_channelize_fused", "eager": None}),
-    }
-    rates = {}
-    for flow, (argv, backends) in flows.items():
-        order = list(backends) + list(backends)[::-1]
-        secs = {b: [] for b in backends}
-        for b in order:
-            prefix = os.path.join(tmp, "rate")
-            dt, counts = cli_run(torch, cli_main,
-                                 argv + ["-o", prefix, "--backend", b, *common])
-            check_counts(counts, backends[b], f"CLI {flow} {b}")
-            secs[b].append(dt)
-        for b, v in secs.items():
-            rates[(flow, b)] = CAPTURE / statistics.median(v) / 1e6
-        emit(dict(phase="cli_rates", flow=flow, order=order, samples=CAPTURE,
-                  seconds={b: v for b, v in secs.items()},
-                  median_msps={b: rates[(flow, b)] for b in backends}, **card))
-    return rates
-
-
-def phase_timing(torch, ct, ff, dev, card):
-    """Kernel, its plain twin and the eager graph, one 2^23-sample
-    device-resident block, in turns (plain, kernel, kernel, plain); then the
-    kernel and its twin at nch 20 (K2's any-nch path) on cu8."""
-    nch = 64
-    x = occupied_band(torch, dev, nch, BLOCK, SEED + 1)
-    inputs = {"f32": x, "u8": to_cu8(torch, x)}
-    eager = ct.channelized_fm_receiver(nch, kf=KF, backend="eager")
-    graphs = {"f32": eager, "u8": ct.chain(ct.u8_to_iq(), eager)}
-    medians = {}
-    n20 = block_len(20, ff.DEFAULT_TILE_F)
-    u8_20 = to_cu8(torch, occupied_band(torch, dev, 20, n20, SEED + 20))
-    box20 = {}
-
-    def run_kernel20():
-        box20["k"], _ = ff.flagship_fused_step(box20["k"], u8_20, nch=20, kf=KF)
-
-    def run_twin20():
-        box20["t"], _ = ff.flagship_fused_ref(box20["t"], u8_20, nch=20, kf=KF)
-
-    box20.update(k=ff.flagship_fused_init(20, dev), t=ff.flagship_fused_init(20, dev))
-    ms20 = {"kernel": [], "twin": []}
-    for name, fn in (("twin", run_twin20), ("kernel", run_kernel20),
-                     ("kernel", run_kernel20), ("twin", run_twin20)):
-        ms20[name] += time_steps(torch, fn)
-    for name, v in ms20.items():
-        med = statistics.median(v)
-        medians[("u8_nch20", name)] = med
-        emit(dict(phase="timing", path=name, input="u8", nch=20, n=n20, steps=len(v),
-                  median_ms=med, min_ms=min(v), msps=n20 / (med * 1e-3) / 1e6, **card))
-    for fmt, xb in inputs.items():
-        xe = xb if fmt == "f32" else xb.view(BLOCK, 2)
-        box = {}
-
-        def run_kernel():
-            box["k"], _ = ff.flagship_fused_step(box["k"], xb, nch=nch, kf=KF)
-
-        def run_twin():
-            box["t"], _ = ff.flagship_fused_ref(box["t"], xb, nch=nch, kf=KF)
-
-        def run_eager():
-            box["e"], _ = graphs[fmt].apply(box["e"], xe)
-
-        box.update(k=ff.flagship_fused_init(nch, dev), t=ff.flagship_fused_init(nch, dev),
-                   e=graphs[fmt].init(dev))
-        run_kernel()
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        run_kernel()
-        torch.cuda.synchronize()
-        medians[(fmt, "step_peak_mib")] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-        emit(dict(phase="step_memory", input=fmt, nch=nch, n=BLOCK,
-                  step_peak_mib=medians[(fmt, "step_peak_mib")],
-                  note="device memory one kernel step allocates beyond its input and state",
-                  **card))
-        ms = {"kernel": [], "twin": [], "eager": []}
-        for name, fn in (("eager", run_eager), ("twin", run_twin), ("kernel", run_kernel),
-                         ("kernel", run_kernel), ("twin", run_twin), ("eager", run_eager)):
-            ms[name] += time_steps(torch, fn)
-        for name, v in ms.items():
-            med = statistics.median(v)
-            q = statistics.quantiles(v, n=4)
-            medians[(fmt, name)] = med
-            emit(dict(phase="timing", path=name, input=fmt, nch=nch, n=BLOCK, steps=len(v),
-                      median_ms=med, q1_ms=q[0], q3_ms=q[2], min_ms=min(v),
-                      msps=BLOCK / (med * 1e-3) / 1e6, **card))
-    return medians
-
-
-def phase_timing_pfb(torch, ct, pf, dev, card):
-    """5b. K3 and K4 alone against their plain versions on one 2^23-sample
-    block's panels, and the PFBFusedFM path against the eager graph,
-    state-chained, in turns (plain, kernel, kernel, plain)."""
-    nch = 64
-    x = occupied_band(torch, dev, nch, BLOCK, SEED + 2)
-    taps, W = pf.pfb_design(nch, 7, 80.0, dev)
-    v3 = block_panels(torch, pf, x, nch)
-    v4 = v3[1:].contiguous()
-    graphs = {"pfb_fused": ct.channelized_fm_receiver(nch, kf=KF, backend="pfb_fused"),
-              "eager": ct.channelized_fm_receiver(nch, kf=KF, backend="eager")}
-    box = {k: g.init(dev) for k, g in graphs.items()}
-
-    def path(name):
-        def run():
-            box[name], _ = graphs[name].apply(box[name], x)
-        return run
-
-    cases = {
-        "pfb_fm_fused": (lambda: pf.pfb_fm_fused(v3, taps, W, nch=nch, L=14, kf=KF),
-                         lambda: pf.pfb_fm_fused_ref(v3, taps, W, nch=nch, L=14, kf=KF)),
-        "pfb_channelize_fused": (lambda: pf.pfb_channelize_fused(v4, taps, W, nch=nch, L=14),
-                                 lambda: pf.pfb_channelize_fused_ref(v4, taps, W, nch=nch,
-                                                                     L=14)),
-        "pfb_fused_fm_path": (path("pfb_fused"), path("eager")),
-    }
-    medians = {}
-    for name, (kernel, plain) in cases.items():
-        ms = {"kernel": [], "plain": []}
-        for which, fn in (("plain", plain), ("kernel", kernel), ("kernel", kernel),
-                          ("plain", plain)):
-            ms[which] += time_steps(torch, fn)
-        for which, v in ms.items():
-            med = statistics.median(v)
-            q = statistics.quantiles(v, n=4)
-            medians[(name, which)] = med
-            emit(dict(phase="timing_pfb", path=name, impl=which, nch=nch, n=BLOCK,
-                      steps=len(v), median_ms=med, q1_ms=q[0], q3_ms=q[2], min_ms=min(v),
-                      msps=BLOCK / (med * 1e-3) / 1e6, **card))
-    return medians
 
 
 def cw_taps(rate: float):
@@ -1011,7 +799,7 @@ def rel_err(torch, got, want) -> tuple[float, float]:
 
 
 def fir_cases(torch, dev):
-    """3c/5c shapes: (name, kernel, plain, taps, rows, n, complex input)."""
+    """3c's shapes: (name, kernel, plain, taps, rows, n, complex input)."""
     from csdr_tpu_torch.ops.cuda import fft_fir as fx
     from csdr_tpu_torch.ops.cuda import fir_valid as fv
 
@@ -1040,7 +828,7 @@ def fir_cases(torch, dev):
          BLOCK, True),
         ("fft_fir", "c1_real_real_3651", fx.fft_fir_valid, fx.fft_fir_valid_ref, cw1, 1, BLOCK,
          False),
-        # K6 at K5's two complex shapes: the K5/K6 crossover
+        # K6 at K5's two complex shapes
         ("fft_fir", "k6_c64_complex_585", fx.fft_fir_valid, fx.fft_fir_valid_ref, cw64, 64,
          BLOCK // 64, True),
         ("fft_fir", "k6_c1_complex_3651", fx.fft_fir_valid, fx.fft_fir_valid_ref, cw1, 1, BLOCK,
@@ -1170,7 +958,7 @@ def phase_main_path_fir(torch, dev, card, tmp):
     path = os.path.join(tmp, "keyed_cw.cu8")
     u8.cpu().numpy().tofile(path)
     common = ["-n", str(CAPTURE), "--device", "cuda", "--blocksize", str(BLOCK)]
-    out, rates = {}, {}
+    out = {}
 
     # -c 64 DeCW: eager (K5), pfb_fused (K4 + K5), and eager with K5's plain
     # version in its place
@@ -1181,30 +969,28 @@ def phase_main_path_fir(torch, dev, card, tmp):
                                  ("plain_k5", "eager", None)):
         prefix = os.path.join(tmp, f"cw_{label}")
         with plain_k5() if label == "plain_k5" else contextlib.nullcontext():
-            dt, counts = cli_run(torch, cli_main, [
+            counts = cli_run(torch, cli_main, [
                 "--filename", path, "-c", str(nch), "-o", prefix, "--demod",
                 f"DeCW {CW_BW:g} {CW_PITCH:g} WAV", "--backend", backend, *common])
         check_counts(counts, want, f"CLI -c 64 DeCW {label}")
-        cw[label] = (read_wavs(prefix, nch, frames), dt, counts)
+        cw[label] = (read_wavs(prefix, nch, frames), counts)
     plain = cw["plain_k5"][0]
     peaks, power = pitch_check(cw["eager"][0], chan_rate)
     on_pitch = np.abs(peaks[0::2] - CW_PITCH) <= 2 * chan_rate / frames
     margin = float(power[0::2].min() - power[1::2].max())
     for label in ("eager", "pfb_fused"):
-        audio, dt, counts = cw[label]
+        audio, counts = cw[label]
         check(bool(np.isfinite(audio).all()), f"CLI DeCW {label}: non-finite audio")
         rel = float(np.abs(audio.astype(np.float64) - plain).max() / np.abs(plain).max())
         emit(dict(phase="main_path_fir", flow="-c 64 DeCW", backend=label, wire="cu8",
-                  samples=CAPTURE, channels=nch, seconds=dt, msps=CAPTURE / dt / 1e6,
-                  launches=counts, vs_plain_k5_rel=rel, plain_k5_seconds=cw["plain_k5"][1],
+                  samples=CAPTURE, channels=nch, launches=counts, vs_plain_k5_rel=rel,
                   occupied_on_pitch=int(on_pitch.sum()), empty_margin_db=margin,
                   taps=585, **card))
         check(rel < K5_REL_ERR, f"CLI DeCW {label} vs plain K5: rel {rel}")
-        rates[("-c 64 DeCW", label)] = CAPTURE / dt / 1e6
     check(bool(on_pitch.all()), f"DeCW channels off their pitch: {peaks[0::2].round(1)}")
     check(margin >= CW_EMPTY_DB, f"DeCW empty channels only {margin:.1f} dB below")
-    out["fir_valid"] = dict(launches=cw["eager"][2]["fir_valid"],
-                            launches_pfb_fused=cw["pfb_fused"][2])
+    out["fir_valid"] = dict(launches=cw["eager"][1]["fir_valid"],
+                            launches_pfb_fused=cw["pfb_fused"][1])
     del cw, plain
 
     # -c 1 --offset -b 48000 DeCW: front end + K5.  Tuned CW_TUNE Hz below
@@ -1216,45 +1002,41 @@ def phase_main_path_fir(torch, dev, card, tmp):
     single = {}
     for label in ("kernel", "plain_k5"):
         with plain_k5() if label == "plain_k5" else contextlib.nullcontext():
-            dt, counts = cli_run(torch, cli_main, [
+            counts = cli_run(torch, cli_main, [
                 "--filename", path, "-c", "1", "--offset", repr(offset), "-b", "48000",
                 "-o", prefix, "--demod", f"DeCW {CW_BW:g} {CW_PITCH:g} WAV", "--device",
                 "cuda", "--blocksize", str(BLOCK), "-n", str(n48)])
         check_counts(counts, "fir_valid" if label == "kernel" else None, f"CLI -c 1 DeCW {label}")
-        single[label] = (read_wavs(prefix, 1, n48), dt, counts)
+        single[label] = (read_wavs(prefix, 1, n48), counts)
     audio = single["kernel"][0]
     rel = float(np.abs(audio.astype(np.float64) - single["plain_k5"][0]).max()
                 / np.abs(single["plain_k5"][0]).max())
     peak, _ = pitch_check(audio, 48000.0)
     emit(dict(phase="main_path_fir", flow="-c 1 --offset -b 48000 DeCW", offset_hz=offset,
-              samples_in=CAPTURE, samples_out=n48, seconds=single["kernel"][1],
-              msps_in=CAPTURE / single["kernel"][1] / 1e6, launches=single["kernel"][2],
+              samples_in=CAPTURE, samples_out=n48, launches=single["kernel"][1],
               vs_plain_k5_rel=rel, peak_hz=float(peak[0]), taps=701, **card))
     check(bool(np.isfinite(audio).all()), "CLI -c 1 DeCW: non-finite audio")
     check(rel < K5_REL_ERR, f"CLI -c 1 DeCW vs plain K5: rel {rel}")
     check(abs(peak[0] - CW_PITCH - CW_TUNE) <= 2 * 48000.0 / n48,
           f"CLI -c 1 DeCW peak {peak[0]} Hz, want {CW_PITCH + CW_TUNE}")
-    rates[("-c 1 -b 48000 DeCW", "kernel")] = CAPTURE / single["kernel"][1] / 1e6
-    out["fir_valid_single"] = single["kernel"][2]["fir_valid"]
+    out["fir_valid_single"] = single["kernel"][1]["fir_valid"]
 
     # -c 1 DeAM -a: no kernel; the CPU runs the same flow on the first 2^22
     n_cpu = min(1 << 22, CAPTURE)
     am = {}
     for device, n, block in (("cuda", CAPTURE, BLOCK), ("cpu", n_cpu, n_cpu)):
         prefix = os.path.join(tmp, f"am_{device}")
-        dt, counts = cli_run(torch, cli_main, [
+        counts = cli_run(torch, cli_main, [
             "--filename", path, "-c", "1", "-o", prefix, "--demod", "DeAM WAV",
             "-a", str(AM_T), "--device", device, "--blocksize", str(block), "-n", str(n)])
         check_counts(counts, None, f"CLI -c 1 DeAM -a {device}")
-        am[device] = (read_wavs(prefix, 1, n), dt)
-    got, want = am["cuda"][0][:, :n_cpu], am["cpu"][0]
+        am[device] = read_wavs(prefix, 1, n)
+    got, want = am["cuda"][:, :n_cpu], am["cpu"]
     rel = float(np.abs(got.astype(np.float64) - want).max() / np.abs(want).max())
     emit(dict(phase="main_path_fir", flow="-c 1 DeAM -a", threshold_db=AM_T, samples=CAPTURE,
-              seconds=am["cuda"][1], msps=CAPTURE / am["cuda"][1] / 1e6, launches={},
-              vs_cpu_rel=rel, cpu_samples=n_cpu, **card))
-    check(bool(np.isfinite(am["cuda"][0]).all()), "CLI DeAM: non-finite audio")
+              launches={}, vs_cpu_rel=rel, cpu_samples=n_cpu, **card))
+    check(bool(np.isfinite(am["cuda"]).all()), "CLI DeAM: non-finite audio")
     check(rel < AGC_REL_ERR, f"CLI DeAM card vs CPU: rel {rel}")
-    rates[("-c 1 DeAM -a", "eager")] = CAPTURE / am["cuda"][1] / 1e6
     del am, got, want
 
     # K6 through the library: u8 → IQ → FIRFilter(USB band-pass) → real
@@ -1267,79 +1049,29 @@ def phase_main_path_fir(torch, dev, card, tmp):
         sink = ct.CollectSink()
         torch.cuda.synchronize()
         reset_counts()
-        t0 = time.perf_counter()
         total = pipe.run(ct.cu8_file_source(path, BLOCK), sink)
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
         counts = read_counts()
         check_counts(counts, want, f"library FIRFilter {strategy}")
         check(total == CAPTURE, f"library FIRFilter {strategy}: {total} samples")
-        lib[strategy] = (sink.concat(), dt, counts)
+        lib[strategy] = (sink.concat(), counts)
     got, want = lib["pallas_fft"][0], lib["fft"][0]
     rel = float(np.abs(got.astype(np.float64) - want).max() / np.abs(want).max())
     emit(dict(phase="main_path_fir", flow="library FIRFilter pallas_fft", samples=CAPTURE,
-              taps=len(taps), seconds=lib["pallas_fft"][1],
-              msps=CAPTURE / lib["pallas_fft"][1] / 1e6, fft_seconds=lib["fft"][1],
-              fft_msps=CAPTURE / lib["fft"][1] / 1e6, launches=lib["pallas_fft"][2],
-              vs_fft_strategy_rel=rel, **card))
+              taps=len(taps), launches=lib["pallas_fft"][1], vs_fft_strategy_rel=rel, **card))
     check(got.shape == (CAPTURE,) and bool(np.isfinite(got).all()), "library K6: output")
     check(rel < K6_FFT_REL_ERR, f"library K6 vs fft strategy: rel {rel}")
-    rates[("library USB band-pass", "pallas_fft")] = CAPTURE / lib["pallas_fft"][1] / 1e6
-    rates[("library USB band-pass", "fft")] = CAPTURE / lib["fft"][1] / 1e6
-    out["fft_fir"] = dict(launches=lib["pallas_fft"][2]["fft_fir"])
-    return out, rates, path
+    out["fft_fir"] = dict(launches=lib["pallas_fft"][1]["fft_fir"])
+    os.unlink(path)
+    return out
 
 
-def phase_timing_fir(torch, dev, card, tmp, cw_path):
-    """5c. K5 and K6 alone against their plain versions and the "fft"
-    strategy at the shapes of 3c, one block each, in turns (plain, kernel,
-    kernel, plain); then the -c 64 DeCW CLI backends in turns."""
-    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
-    from csdr_tpu_torch.ops.fir import conv_valid
-
-    medians = {}
-    for kname, case, kernel, plain, taps, rows, n, cplx in fir_cases(torch, dev):
-        K = len(taps)
-        xfull = rand_rows(torch, dev, rows, n + K - 1, cplx, SEED + 7 * K)
-        fns = {"kernel": lambda: kernel(xfull, taps), "plain": lambda: plain(xfull, taps),
-               "fft": lambda: conv_valid(xfull, taps, "fft")}
-        ms = {k: [] for k in fns}
-        for which in ("fft", "plain", "kernel", "kernel", "plain", "fft"):
-            ms[which] += time_steps(torch, fns[which])
-        for which, v in ms.items():
-            med = statistics.median(v)
-            q = statistics.quantiles(v, n=4)
-            medians[(case, which)] = med
-            emit(dict(phase="timing_fir", kernel=kname, case=case, impl=which, rows=rows, n=n,
-                      taps=K, complex_in=cplx, steps=len(v), median_ms=med, q1_ms=q[0],
-                      q3_ms=q[2], min_ms=min(v), msps=rows * n / (med * 1e-3) / 1e6, **card))
-        del xfull
-
-    common = ["--filename", cw_path, "-c", "64", "--demod", f"DeCW {CW_BW:g} {CW_PITCH:g} WAV",
-              "-n", str(CAPTURE), "--device", "cuda", "--blocksize", str(BLOCK)]
-    secs = {"eager": [], "pfb_fused": []}
-    order = ["eager", "pfb_fused", "pfb_fused", "eager"]
-    for b in order:
-        prefix = os.path.join(tmp, "rate_cw")
-        dt, counts = cli_run(torch, cli_main, common + ["-o", prefix, "--backend", b])
-        check_counts(counts, ("fir_valid",) if b == "eager" else
-                     ("fir_valid", "pfb_channelize_fused"), f"CLI DeCW rate {b}")
-        secs[b].append(dt)
-    rates = {b: CAPTURE / statistics.median(v) / 1e6 for b, v in secs.items()}
-    emit(dict(phase="cli_rates", flow="-c 64 DeCW", order=order, samples=CAPTURE,
-              seconds=secs, median_msps=rates, **card))
-    return medians, rates
-
-
-def cli_flow(torch, cli_main, argv: list[str], samples: int, want, what: str) -> dict:
-    """One CLI flow: a run timed on the host clock with every kernel count
-    set to 0 just before it and read just after (its kernels in ``want``
-    launched, no other), then the same run under torch.profiler for the
-    device-idle share (``idle_share``)."""
-    dt, counts = cli_run(torch, cli_main, argv)
+def cli_flow(torch, cli_main, argv: list[str], want, what: str) -> dict:
+    """One CLI flow with every kernel count set to 0 just before it and read
+    just after: its kernels in ``want`` launched, no other."""
+    counts = cli_run(torch, cli_main, argv)
     check_counts(counts, want, what)
-    return dict(seconds=dt, msps=samples / dt / 1e6, launches=counts,
-                **idle_share({"cli": argv}))
+    return dict(launches=counts)
 
 
 def read_wav(path: str, channels: int, frames: int, rate: int) -> np.ndarray:
@@ -1393,7 +1125,7 @@ def phase_wbfm(torch, dev, card, tmp) -> dict:
     argv = lambda n, device: ["--filename", path, "-s", "2560000", "-b", str(int(FM_BW)),  # noqa: E731
                               "-n", str(n), "--demod", f"DeWBFM {decim} WAV", "-o", prefix,
                               "--device", device]
-    flow = cli_flow(torch, cli_main, argv(n, "cuda"), CAPTURE, None, "CLI DeWBFM")
+    flow = cli_flow(torch, cli_main, argv(n, "cuda"), None, "CLI DeWBFM")
     audio = read_wav(prefix + ".wav", 1, n // decim, rate)[0]
     check(bool(np.isfinite(audio).all()), "CLI DeWBFM: non-finite audio")
     # the de-emphasised message is the tone scaled by the de-emphasis gain
@@ -1402,13 +1134,13 @@ def phase_wbfm(torch, dev, card, tmp) -> dict:
     amp, snr = tone_fit(audio[rate // 10:], WBFM_TONE, rate)
     # the same flow on the CPU over the first 2^22 capture samples
     n_cpu = min(1 << 22, CAPTURE) * 5 // 64
-    dt_cpu, _ = cli_run(torch, cli_main, argv(n_cpu, "cpu"))
+    cli_run(torch, cli_main, argv(n_cpu, "cpu"))
     cpu = read_wav(prefix + ".wav", 1, n_cpu // decim, rate)[0]
     rel = float(np.abs(audio[:len(cpu)].astype(np.float64) - cpu).max() / np.abs(cpu).max())
     emit(dict(phase="wbfm", flow="-s 2560000 -b 200000 DeWBFM 8 WAV", wire="cu8",
               samples=CAPTURE, frames=len(audio), rate=rate, tone_hz=WBFM_TONE,
               snr_db=snr, amplitude=amp, deemph_amplitude=want_amp, vs_cpu_rel=rel,
-              cpu_samples=n_cpu * 64 // 5, cpu_seconds=dt_cpu, **flow, **card))
+              cpu_samples=n_cpu * 64 // 5, **flow, **card))
     check(snr >= SNR_DB, f"CLI DeWBFM: tone SNR {snr:.1f} dB")
     check(abs(amp / want_amp - 1) < 0.01, f"CLI DeWBFM: tone amplitude {amp}, want {want_amp}")
     check(rel < CPU_REL_ERR, f"CLI DeWBFM card vs CPU: rel {rel}")
@@ -1468,7 +1200,7 @@ def phase_stereo_rds(torch, dev, card, tmp) -> dict:
     prefix = os.path.join(tmp, "stereo")
     argv = ["--filename", path, "-b", str(int(FM_BW)), "-n", str(n), "--demod",
             f"DeFMS {decim} WAV", "--rds", "-o", prefix, "--device", "cuda"]
-    flow = cli_flow(torch, cli_main, argv, CAPTURE, "fir_valid", "CLI DeFMS --rds")
+    flow = cli_flow(torch, cli_main, argv, "fir_valid", "CLI DeFMS --rds")
     # the CLI's graph behind the front end, for its block count and flush
     g, block = fms_graph(decim)
     total = n + g.flush_len()
@@ -1524,12 +1256,10 @@ def phase_mix(torch, dev, card, tmp) -> dict:
                   "DeNBFM 0.3 WAV", "--backend", backend, "--device", "cuda", "--blocksize",
                   str(BLOCK), *extra]
         prefix = os.path.join(tmp, "mix")
-        # the per-channel run first: it also warms the backend's first use
-        # of nch 16, so the timed -m run below is a warm one
-        _, counts = cli_run(torch, cli_main, common + ["-o", prefix])
+        counts = cli_run(torch, cli_main, common + ["-o", prefix])
         check_counts(counts, want, f"CLI -c {nch} {label}")
         per = read_wavs(prefix, nch, frames).astype(np.float64)
-        flow = cli_flow(torch, cli_main, common + ["-m", "-o", prefix], CAPTURE, want,
+        flow = cli_flow(torch, cli_main, common + ["-m", "-o", prefix], want,
                         f"CLI -c {nch} -m {label}")
         mixed = read_wav(prefix + ".wav", 1, frames, rate)[0].astype(np.float64)
         check(bool(np.isfinite(mixed).all()), f"CLI -m {label}: non-finite audio")
@@ -1580,13 +1310,10 @@ def phase_checkpoint(torch, ct, dev, card, capture) -> dict:
             whole = ct.CollectSink()
             torch.cuda.synchronize()
             reset_counts()
-            t0 = time.perf_counter()
             total = make().run(src(), whole)
             torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
             counts = read_counts()
             check_counts(counts, want, f"library -c 64 {backend}")
-            idle = idle_share({"checkpoint": backend, "capture": capture})
             first = ct.CollectSink()
             p1 = make()
             p1.run(ct.take_n(src(), half), first)
@@ -1601,8 +1328,8 @@ def phase_checkpoint(torch, ct, dev, card, capture) -> dict:
                   f"checkpoint {backend}: shapes {got.shape} {want_all.shape}")
             same = bool(np.array_equal(rest.concat(), want_all[:, pos // nch:]))
             mx = float(np.abs(got.astype(np.float64) - want_all).max())
-            out[backend] = dict(seconds=dt, msps=CAPTURE / dt / 1e6, launches=counts, **idle,
-                                position=pos, bit_identical=same, resumed_vs_whole_max=mx)
+            out[backend] = dict(launches=counts, position=pos, bit_identical=same,
+                                resumed_vs_whole_max=mx)
             emit(dict(phase="checkpoint", path=f"-c 64 DeNBFM {backend}", wire="cu8",
                       samples=CAPTURE, **out[backend], **card))
             check(same, f"checkpoint {backend}: resumed run differs by {mx}")
@@ -1867,21 +1594,18 @@ def phase_packet(torch, ct, dev, card, tmp, samples: int = CAPTURE) -> dict:
     """8. The packet receivers: each CLI flow on a seeded cu8 capture on the
     card, every injected message decoded and nothing else, its .txt equal
     to the same flow's --device cpu run's, its kernels' launches (K5 in
-    DeRTTY, none elsewhere), MSPS and, each in a child process, the device
-    idle share and device time; then the band monitor through the library
-    on K4 against eager.  DeRTTY's capture is ``samples`` long (its text at
+    DeRTTY, none elsewhere); then the band monitor through the library on
+    K4 against eager.  DeRTTY's capture is ``samples`` long (its text at
     45.45 Bd needs ~32 M samples), the others' and the band's half that
     (their messages fill any length; the band's pages need ~8 M)."""
     from csdr_tpu_torch.apps import soapy_sdr_cli as cli
 
-    out, idle_specs = {}, []
+    out = {}
     for i, (kind, (make, fs, extra, rate)) in enumerate(packet_flows(ct).items()):
         n = samples if kind == "DeRTTY" else samples // 2
-        t0 = time.perf_counter()
         x, msgs = make(n, SEED + 800 + 10 * i)
         path = os.path.join(tmp, f"{kind}.cu8")
         write_cu8(path, x)
-        gen_s = time.perf_counter() - t0
         del x
         n_out = n * rate // fs
         want = cli.packet_lines(kind, msgs)
@@ -1891,11 +1615,9 @@ def phase_packet(torch, ct, dev, card, tmp, samples: int = CAPTURE) -> dict:
         suffix = cli.PACKET_SUFFIX[kind]
         # the CLI prints every decoded message: thousands of lines
         with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
-            dt, counts = cli_run(torch, cli.main,
-                                 common + ["-o", prefix["cuda"], "--device", "cuda"])
+            counts = cli_run(torch, cli.main, common + ["-o", prefix["cuda"], "--device", "cuda"])
             check_counts(counts, PACKET_KERNELS.get(kind), f"CLI {kind}")
-            dt_cpu, _ = cli_run(torch, cli.main,
-                                common + ["-o", prefix["cpu"], "--device", "cpu"])
+            cli_run(torch, cli.main, common + ["-o", prefix["cpu"], "--device", "cpu"])
         with open(prefix["cuda"] + suffix) as f:
             got = f.read()
         with open(prefix["cpu"] + suffix) as f:
@@ -1903,56 +1625,39 @@ def phase_packet(torch, ct, dev, card, tmp, samples: int = CAPTURE) -> dict:
         lines = got.splitlines()
         missing = list((Counter(want) - Counter(lines)).elements())
         extra_lines = list((Counter(lines) - Counter(want)).elements())
-        out[kind] = dict(seconds=dt, msps=n / dt / 1e6, launches=counts,
-                         messages=len(lines), injected=len(want), cpu_seconds=dt_cpu,
-                         capture_seconds=gen_s, equal_to_cpu=got == got_cpu)
+        out[kind] = dict(launches=counts, messages=len(lines), injected=len(want),
+                         equal_to_cpu=got == got_cpu)
         emit(dict(phase="packet", flow=f"-s {fs} {' '.join(extra)} {PACKET_DEMOD[kind]}",
                   wire="cu8", samples=n, output_rate=rate,
                   missing=missing[:3], unexpected=extra_lines[:3], **out[kind], **card))
         check(lines == want, f"CLI {kind}: {len(missing)} injected messages missing, "
                              f"{len(extra_lines)} unexpected, of {len(want)}")
         check(got == got_cpu, f"CLI {kind}: the card's {suffix} differs from --device cpu's")
-        idle_specs.append({"cli": common + ["-o", prefix["cuda"], "--device", "cuda"]})
-        out[kind]["path"] = path
+        os.unlink(path)
 
     # the band monitor through the library: K4 against eager
     n = samples // 2
-    t0 = time.perf_counter()
     x, want = band_capture(n, SEED + 900)
     band_path = os.path.join(tmp, "band.cu8")
     write_cu8(band_path, x)
-    gen_s = time.perf_counter() - t0
     del x
     from csdr_tpu_torch.models import pocsag
 
-    def band_run(backend, kern):
+    res = {}
+    for backend, kern in (("pfb_fused", "pfb_channelize_fused"), ("eager", None)):
         sink = ct.CollectSink()
         torch.cuda.synchronize()
         reset_counts()
-        t0 = time.perf_counter()
         band_pipeline(ct, backend, dev).run(ct.cu8_file_source(band_path, BLOCK), sink)
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
         counts = read_counts()
         check_counts(counts, kern, f"band monitor {backend}")
-        return dt, counts, sink
-
-    res, kerns = {}, {"pfb_fused": "pfb_channelize_fused", "eager": None}
-    for backend, kern in kerns.items():
-        _, counts, sink = band_run(backend, kern)
         score, env = sink.concat()
         check(score.shape == env.shape == (BAND_NCH, n // BAND_NCH),
               f"band monitor {backend}: leaves {score.shape} {env.shape}")
         msgs = pocsag.decode_channels((score, env), BAND_RATE)
-        res[backend] = dict(secs=[], launches=counts, msgs=msgs, score=score, env=env)
-        idle_specs.append({"band_monitor": backend, "capture": band_path})
-    # the rate: warm runs in turns, after the runs above paid each first use
-    order = ["pfb_fused", "eager", "eager", "pfb_fused"]
-    for backend in order:
-        res[backend]["secs"].append(band_run(backend, kerns[backend])[0])
-    for r in res.values():
-        r["seconds"] = statistics.median(r["secs"])
-        r["msps"] = n / r["seconds"] / 1e6
+        res[backend] = dict(launches=counts, msgs=msgs, score=score, env=env)
+    os.unlink(band_path)
     paged = sorted(BAND_PAGES)
     (k, e) = res["pfb_fused"], res["eager"]
     env_max = float(np.abs(k["env"] - e["env"]).max())
@@ -1964,12 +1669,10 @@ def phase_packet(torch, ct, dev, card, tmp, samples: int = CAPTURE) -> dict:
     key = lambda m: (m["channel"], m["ric"], m["fn"], m["text"])  # noqa: E731
     for backend, r in res.items():
         out[f"band monitor {backend}"] = dict(
-            seconds=r["seconds"], msps=r["msps"], seconds_in_turns=r["secs"],
-            launches=r["launches"],
-            messages=len(r["msgs"]), injected=len(want), capture_seconds=gen_s,
+            launches=r["launches"], messages=len(r["msgs"]), injected=len(want),
             decoded_as_injected=[key(m) for m in r["msgs"]] == [key(m) for m in want])
     emit(dict(phase="packet", flow=f"library pocsag_band_monitor({BAND_NCH}, {BAND_RATE:g})",
-              wire="cu8", samples=n, blocks=-(-n // BLOCK), order=order,
+              wire="cu8", samples=n, blocks=-(-n // BLOCK),
               on_air_share=float(on_air.mean()),
               k4_vs_eager_env_max=env_max, k4_vs_eager_score_max_paged=score_max,
               **{f"{b}": out[f"band monitor {b}"] for b in res}, **card))
@@ -1981,19 +1684,6 @@ def phase_packet(torch, ct, dev, card, tmp, samples: int = CAPTURE) -> dict:
           f"band monitor K4 vs eager: envelope {env_max}, score {score_max}")
     out["band monitor pfb_fused"].update(k4_vs_eager_env_max=env_max,
                                          k4_vs_eager_score_max_paged=score_max)
-    del res
-
-    # idle share and device time of every flow, each in a process of its own
-    labels = list(packet_flows(ct)) + ["band monitor pfb_fused", "band monitor eager"]
-    for label, spec in zip(labels, idle_specs):
-        out[label].update(idle_share(spec))
-    for kind in packet_flows(ct):
-        os.unlink(out[kind].pop("path"))
-    os.unlink(band_path)
-    emit(dict(phase="packet_summary", **{label: {k: v for k, v in r.items() if k in (
-        "msps", "device_idle_share", "device_ms", "device_ms_by_kernel", "port_kernels",
-        "idle_session")}
-        for label, r in out.items()}, **card))
     return out
 
 
@@ -2004,189 +1694,10 @@ SYNC_CHANNELS = (3, 11, 19, 27, 35, 43, 51, 59)   # helicopter 2-FSK; the rest n
 SYNC_PPM = 100e-6              # each channel's symbol clock within ±100 ppm
 SYNC_FE_RATE, SYNC_FE_K = 48000, 12   # -c 1 -b 48000: 4,000 baud at 12 samples/symbol
 SYNC_FE_BLOCK = 1 << 16        # the -c 1 flow's --blocksize; the CPU run takes 2 blocks
-# the sync against another float order: 2e-3 relative to the largest output
-# (tests/test_sharding_generic.py:346) of the reference's output or, where
-# float order picks (record_ties: a phase-rounding tie, or a window position
-# at an integer), of its output of the other pick
-SYNC_TOL, SYNC_TIE = 2e-3, 0.01
-SCAN_SETTLE = 20               # symbols: SymSyncScan's loop time constant, 1/lf_bw
 TRACK_K, TRACK_M = 4, 3        # the tracker's RRC-shaped packets (tests/test_modem.py)
 TRACK_SNR = {"qpsk": 20.0, "qam16": 26.0}
 TRACK_PACKETS, TRACK_BITS, TRACK_TRAIN = 64, 512, 2048
 TRACK_BLOCK = 1 << 16          # the tracker's Pipeline block, in samples
-BEACONS, BEACON_SNR_DB = 32, -13.0   # tests/test_beacon.py:31-45
-BEACON_REFUSED = [19]          # the CRC refuses this one in both packages (the mode's limit)
-
-
-def other_pick(sync, bank, xfull, nout: int, tm, slope, cm, width: float):
-    """Where float order picks a SymSync output, the output of the other
-    pick: (codes int8, other outputs) as numpy (…, nout), for the step with
-    constants ``sync`` (``BlockSync``) and ``bank`` that interpolated
-    ``nout`` outputs of ``xfull`` on the line (tm, slope, cm).
-
-      * code 1: round(frac·npfb) lies within ``width`` of a rounding tie;
-        the other pick is the neighbouring bank phase;
-      * code 2: the window position lies within width/npfb of an integer;
-        the other pick is the window one sample over with the phase wrapped
-        (0 ↔ npfb − 1).  Bank row p interpolates at ipos − p/npfb (the JAX
-        package's bank), so the two picks are two samples of time apart;
-      * code 0: no other pick (the output itself)."""
-    import torch
-
-    from csdr_tpu_torch.ops.cuda import symsync_block as k9
-
-    npfb = bank.shape[0]
-    ipos, ph, f = k9.positions(sync, npfb, nout, tm, slope, cm)
-    ipos, ph, f = (v.expand(*xfull.shape[:-1], nout) for v in (ipos, ph, f))
-    lo, hi = f < width, f > npfb - width
-    tie = (torch.abs(f - torch.floor(f) - 0.5) < width) & ~lo & ~hi
-    ph_tie = torch.where(ph == torch.floor(f).to(torch.int64), ph + 1, ph - 1)
-    ipos_alt = ipos - lo.to(torch.int64) + hi.to(torch.int64)
-    ph_alt = torch.where(lo, npfb - 1, torch.where(hi, 0, torch.where(
-        tie, ph_tie.clamp(0, npfb - 1), ph)))
-    code = torch.where(lo | hi, 2, tie.to(torch.int64)).to(torch.int8)
-    return code.cpu().numpy(), k9.bank_sum(xfull, ipos_alt, ph_alt, bank,
-                                           sync.m * sync.k).cpu().numpy()
-
-
-@contextlib.contextmanager
-def record_ties(width: float = SYNC_TIE):
-    """For holding two implementations of the symbol sync against each
-    other: inside the block every ``SymSync`` step of the port appends
-    ``other_pick``'s (codes, other outputs) for its outputs to the yielded
-    list, on the line the step interpolated on (K9's own on a card).  It
-    wraps ``ops/cuda/symsync_block.symsync_block`` for the block's
-    duration."""
-    import torch
-
-    from csdr_tpu_torch.ops.cuda import symsync_block as k9
-
-    log: list = []
-    route = k9.symsync_block
-
-    def recording(x, bank, rot, state, sync):
-        fit: list = []
-        out = route(x, bank, rot, state, sync, fit)
-        n = x.shape[-1]
-        log.append(other_pick(sync, bank, torch.cat([state[0], x], dim=-1),
-                              (n // sync.k) * sync.out_per_sym, *fit[0], width))
-        return out
-
-    k9.symsync_block = recording
-    try:
-        yield log
-    finally:
-        k9.symsync_block = route
-
-
-def scan_ties(taus, loop, npfb: int, width: float = SYNC_TIE) -> np.ndarray:
-    """Outputs of a ``SymSyncScan`` run (its twin's per-output τ, ``trace``)
-    whose window start or bank row lies within ``width`` bank steps of a
-    rounding boundary: where τ ± width/npfb samples gives another (floor of
-    the position, bank row) than τ, in the kernel's float32 order.  There
-    two right implementations in another float order may pick apart, and
-    the pick feeds back through the loop.  An output at the initial τ = 0
-    (before the loop first moves τ) is no tie: every run holds exactly 0
-    there.  Bool (…, nout) as numpy."""
-    import torch
-
-    from csdr_tpu_torch.ops.cuda.symsync_scan import picks
-
-    j = torch.arange(taus.shape[-1], dtype=torch.float32, device=taus.device)
-    d = np.float32(width / npfb)
-    at = picks(taus, j, loop, npfb)
-    tie = torch.zeros(taus.shape, dtype=torch.bool, device=taus.device)
-    for t in (taus - d, taus + d):
-        other = picks(t, j, loop, npfb)
-        tie |= (other[0] != at[0]) | (other[1] != at[1])
-    return (tie & (taus != 0)).cpu().numpy()
-
-
-def scan_agree(got: np.ndarray, want: np.ndarray, ties: np.ndarray, block: int = 0) -> dict:
-    """A ``SymSyncScan`` output (…, nout) against the reference run ``want``
-    with its ``scan_ties``: within SYNC_TOL of the largest output up to each
-    row's first tie; after it the two runs must decode the same symbols:
-    the signs of their centre samples (even outputs, real parts) equal,
-    block by block (``block`` outputs each; 0: one block) under one
-    whole-symbol shift per block, 0 in the block of the first tie, changing
-    by at most one symbol at each later block's start: there τ's wrap by
-    ±k moves one run's output grid by a symbol when the parted runs sit on
-    either side of ±k/2.  The grid moves by k samples, not by the runs'
-    τ difference, so after a change of shift the first SCAN_SETTLE centres
-    (the loop's time constant, 1/lf_bw symbols) sample other points of the
-    eye and are not compared.  Returns {"max_err": the
-    worst error before the first tie, "first_tie": the earliest first tie,
-    "sign_mismatches": centre samples after it whose signs differ under
-    their block's best shift, "centres_after": how many were compared,
-    "shifts": the nonzero shifts (row, block, symbols), "max_err_all": the
-    worst error anywhere, "outputs"}."""
-    got, want, ties = (np.atleast_2d(v) for v in (got, want, ties))
-    n = got.shape[-1]
-    block = block or n
-    out = dict(max_err=0.0, first_tie=n, sign_mismatches=0, centres_after=0, shifts=[],
-               max_err_all=0.0, outputs=int(got.size))
-    rows = zip(got.reshape(-1, n), want.reshape(-1, n), ties.reshape(-1, n))
-    for r, (g, w, t) in enumerate(rows):
-        err = np.abs(g.astype(np.complex128) - w) / (np.abs(w).max() + 1e-12)
-        first = int(np.argmax(t)) if t.any() else n
-        out["max_err"] = max(out["max_err"], float(err[:first].max(initial=0.0)))
-        out["max_err_all"] = max(out["max_err_all"], float(err.max()))
-        out["first_tie"] = min(out["first_tie"], first)
-        prev = None
-        for b0 in range(first - first % block, n, block):
-            c0 = max(b0, first + first % 2)
-            sg = np.sign(g[c0:b0 + block:2].real)
-            sw = np.sign(w[b0:b0 + block:2].real)
-            i0 = (c0 - b0) // 2
-            best = None
-            # none in the block of the first tie; then ±1 at each block's end,
-            # past which the first SCAN_SETTLE centres are not compared
-            for shift in ([0] if prev is None else (prev - 1, prev, prev + 1)):
-                skip = SCAN_SETTLE if prev is not None and shift != prev else 0
-                lo, hi = max(0, i0 + shift + skip), min(len(sw), i0 + len(sg) + shift)
-                if hi - lo < len(sg) - skip - 3:
-                    continue
-                bad = int((sg[lo - i0 - shift:hi - i0 - shift] != sw[lo:hi]).sum())
-                if best is None or bad < best[0]:
-                    best = (bad, shift, hi - lo)
-            out["sign_mismatches"] += best[0]
-            out["centres_after"] += best[2]
-            prev = best[1]
-            if prev:
-                out["shifts"].append((r, b0 // block, prev))
-    return out
-
-
-def scan_ok(agree: dict) -> bool:
-    return agree["max_err"] < SYNC_TOL and agree["sign_mismatches"] == 0
-
-
-def heli_text(ch: int) -> str:
-    """Channel ch's two coordinate records (two-digit degrees, mmss)."""
-    return (f"AN {40 + ch % 50:02d} {10 + ch % 49:02d}{13 * ch % 100:02d}\r\n"
-            f"BW {10 + ch % 80:02d} {20 + ch % 39:02d}{7 * ch % 100:02d}\r\n")
-
-
-def heli_levels(text: str, nsym: int) -> np.ndarray:
-    """The helicopter frame layout (tests/test_cli_apps.py:345-352), 710-bit
-    frames of 71 10-bit characters between 20-bit syncs, as ±1 symbol levels
-    (bit '0' → +1), repeated to at least nsym symbols."""
-    payload = (b"\xff\xff" + (text * 3).encode())[:71]
-    frame = "".join("".join("1" if (b >> j) & 1 else "0" for j in range(8)) + "11"
-                    for b in payload)
-    unit = "1100000000" + "0100000000" + frame
-    bits = unit * (nsym // len(unit) + 2)
-    return np.where(np.frombuffer(bits.encode(), np.uint8) == ord("0"), 1.0, -1.0)
-
-
-def heli_coord(text: str) -> tuple:
-    """The (lat deg, min, sec, lon deg, min, sec) helidecode parses from a
-    record pair."""
-    a, b = text.split("\r\n")[:2]
-    _, ad, am = a.split()
-    _, bd, bm = b.split()
-    return (float(int(ad)), float(int(am[:2])), int(am[2:]) / 100.0 * 60.0,
-            float(int(bd)), float(int(bm[:2])), int(bm[2:]) / 100.0 * 60.0)
 
 
 def sync_capture(torch, dev, n: int, seed: int):
@@ -2236,17 +1747,6 @@ def sync_agree(parts: list) -> list:
     return [max(p[0] for p in parts)] + [sum(p[i] for p in parts) for i in range(1, 5)]
 
 
-def heli_decode(path: str) -> list:
-    """helidecode's coordinates of one .f32 file, as tuples."""
-    from csdr_tpu_torch.apps import helidecode
-
-    base = path[:-4]
-    cs = helidecode.decode_file(path, base + ".kml", base + ".m")
-    for ext in (".kml", ".m"):
-        os.unlink(base + ext)
-    return [(c.lat_deg, c.lat_min, c.lat_sec, c.lon_deg, c.lon_min, c.lon_sec) for c in cs]
-
-
 def sync_graph(ct, backend: str):
     """The CLI's -c 64 DeNBFMSync graph behind the cu8 reader."""
     from csdr_tpu_torch.models.receivers import channelized_receiver
@@ -2261,16 +1761,15 @@ def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
 
     9a. K4 at the DeNBFMSync graph's block (its granule nch·tileF·k/… rounds
         2^23 down to 8,376,320 samples, F = 130,880 frames) against its plain
-        version over 3 state-chained blocks, and timed there; then
+        version over 3 state-chained blocks; then
         PerChannel(fm_dem_with_sync(10)) on K4's output on the card against
         the same graph on the CPU, on the occupied channels.
     9b. -c 64 "DeNBFMSync 10" on a 2^25-sample cu8 capture with helicopter
         frames on 8 channels, pfb_fused (K4 once and K9 twice per block, no
-        other kernel) and eager (K9 alone), in turns: occupied channels
-        against each other, helidecode's coordinates on both (every occupied
-        channel, the same count, nothing on the empty ones); MSPS, idle
-        share, the step's time and peak memory, the sync step's, and K9
-        alone at the flow's panel against its plain version on the card.
+        other kernel) and eager (K9 alone): occupied channels against each
+        other, helidecode's coordinates on both (every occupied channel, the
+        same count, nothing on the empty ones), and K9 alone at the flow's
+        panel against its plain version on the card.
     9c. -c 1 --offset F -b 48000 "DeNBFMSync 12" on one of those channels,
         on the card and on the CPU (2 blocks): samples and coordinates.
     9d. The library: coded qpsk and qam16 packets through sym_tracker →
@@ -2286,14 +1785,12 @@ def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
     block = BLOCK // graph.granule * graph.granule
     F = block // SYNC_NCH
     nblocks = -(-CAPTURE // block)
-    t0 = time.perf_counter()
     x, texts, eps_of = sync_capture(torch, dev, CAPTURE, SEED + 1000)
     path = os.path.join(tmp, "heli.cu8")
     to_cu8(torch, x).cpu().numpy().tofile(path)
-    gen_s = time.perf_counter() - t0
     emit(dict(phase="sync_capture", samples=CAPTURE, granule=graph.granule, block=block,
               frames_per_block=F, blocks=nblocks, channels=list(SYNC_CHANNELS),
-              clock_ppm={ch: e * 1e6 for ch, e in eps_of.items()}, capture_seconds=gen_s, **card))
+              clock_ppm={ch: e * 1e6 for ch, e in eps_of.items()}, **card))
 
     # 9a. K4 at F frames, and the sync on the card against the CPU
     sk = st = ct.firpfbch_channelizer(SYNC_NCH).init(dev)
@@ -2309,14 +1806,6 @@ def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
     check(ks[0].shape == (SYNC_NCH, F), f"9a: K4 output {tuple(ks[0].shape)}")
     k4_max, k4_rms = errors(as_real(torch, torch.cat(ks, 1)), as_real(torch, torch.cat(ts, 1)))
     del ts
-    taps, W = pf.pfb_design(SYNC_NCH, 7, 80.0, dev)
-    v4 = block_panels(torch, pf, x[:block], SYNC_NCH)[1:].contiguous()
-    k4_ms = statistics.median(time_steps(
-        torch, lambda: pf.pfb_channelize_fused(v4, taps, W, nch=SYNC_NCH, L=14), steps=10))
-    k4_plain_ms = statistics.median(time_steps(
-        torch, lambda: pf.pfb_channelize_fused_ref(v4, taps, W, nch=SYNC_NCH, L=14), steps=5,
-        warmup=1))
-    del v4
     sync = PerChannel(symsync.fm_dem_with_sync(SYNC_K), SYNC_NCH)
     sg, sc = sync.init(dev), sync.init(torch.device("cpu"))
     occ = list(SYNC_CHANNELS)
@@ -2332,9 +1821,7 @@ def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
                   for ch in occ]
     worst = sync_agree(parts)
     del ks, sg, sc
-    out["9a"] = dict(k4_vs_plain_max=k4_max, k4_vs_plain_rms=k4_rms, k4_ms=k4_ms,
-                     k4_plain_ms=k4_plain_ms, sync_card_vs_cpu=worst,
-                     **pfb_bound(block, SYNC_NCH, False))
+    out["9a"] = dict(k4_vs_plain_max=k4_max, k4_vs_plain_rms=k4_rms, sync_card_vs_cpu=worst)
     emit(dict(phase="sync_kernel", shape=f"({F + 13}, {SYNC_NCH}) -> ({SYNC_NCH}, {F})",
               blocks=3, **out["9a"], **card))
     check(k4_max < PFB_MAX_ERR and k4_rms < RMS_ERR, f"9a: K4 vs plain max {k4_max} rms {k4_rms}")
@@ -2350,25 +1837,20 @@ def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
                       "--blocksize", str(block), "-o", prefix[b], "--device", "cuda"]
     # K4 on pfb_fused; K9, the sync, twice a block on both
     kern = {"pfb_fused": ("pfb_channelize_fused", "symsync_block"), "eager": "symsync_block"}
-    runs = {b: dict(secs=[]) for b in kern}
+    runs = {b: {} for b in kern}
     with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
-        _, counts = cli_run(torch, cli.main, argv("pfb_fused"))
+        counts = cli_run(torch, cli.main, argv("pfb_fused"))
         check_counts(counts, kern["pfb_fused"], "9b pfb_fused")
         check(counts["pfb_channelize_fused"] == nblocks,
               f"9b: K4 launched {counts['pfb_channelize_fused']} times for {nblocks} blocks")
         runs["pfb_fused"]["launches"] = counts
         with record_ties(SYNC_TIE) as rec:
-            _, counts = cli_run(torch, cli.main, argv("eager"))
+            counts = cli_run(torch, cli.main, argv("eager"))
         check_counts(counts, kern["eager"], "9b eager")
         runs["eager"]["launches"] = counts
         for b in kern:
             got = runs[b]["launches"]["symsync_block"]
             check(got == 2 * nblocks, f"9b {b}: K9 launched {got} times for {nblocks} blocks")
-        order = ["pfb_fused", "eager", "eager", "pfb_fused"]
-        for b in order:
-            dt, counts = cli_run(torch, cli.main, argv(b))
-            check_counts(counts, kern[b], f"9b {b}")
-            runs[b]["secs"].append(dt)
     nout = CAPTURE * 2 // (SYNC_NCH * SYNC_K)
     # sample by sample on the full blocks: the last block is zero-padded past
     # the capture's end, where the channels hold only the DC blocker's decay
@@ -2385,55 +1867,18 @@ def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
               for b in kern}
     frames = CAPTURE // (SYNC_K * SYNC_NCH) // 730
     for b, r in runs.items():
-        r["seconds"] = statistics.median(r["secs"])
-        r["msps"] = CAPTURE / r["seconds"] / 1e6
         r["coords_per_channel"] = {ch: len(coords[b][ch]) for ch in occ}
         r["coords_on_empty_channels"] = sum(len(coords[b][ch]) for ch in range(SYNC_NCH)
                                             if ch not in occ)
-    # one step of each backend's graph at the block: time and peak memory;
-    # the sync alone at (64, F)
+    # K9 alone on the panel the main path's sync hands it (the first block,
+    # no carried τ), held to its plain version's eager ops on the card on
+    # the occupied channels
     u8 = torch.from_numpy(np.fromfile(path, np.uint8, count=2 * block).reshape(block, 2)).to(dev)
-    for b in kern:
-        g = sync_graph(ct, b)
-        box = {"s": g.init(dev)}
-
-        def step():
-            box["s"], _ = g.apply(box["s"], u8)
-
-        step()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        step()
-        torch.cuda.synchronize()
-        runs[b]["step_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-        runs[b]["step_ms"] = statistics.median(time_steps(torch, step, steps=10))
-        del box
     chan = ct.chain(ct.u8_to_iq(), ct.dc_blocker(), ct.firpfbch_channelizer(SYNC_NCH))
     _, panel = chan.apply(chan.init(dev), u8)
-    box = {"s": sync.init(dev)}
-
-    def sync_step():
-        box["s"], _ = sync.apply(box["s"], panel)
-
-    sync_step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    sync_step()
-    torch.cuda.synchronize()
-    sync_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-    sync_ms = statistics.median(time_steps(torch, sync_step, steps=10))
-    # K9 alone on the panel the main path's sync hands it (the first block,
-    # no carried τ): timed against its plain version's eager ops on the
-    # card, and held to them on the occupied channels
     with kernel_inputs(k9, "symsync_block") as seen:
         sync.apply(sync.init(dev), panel)
     x9, bank9, rot9, st9, c9 = seen[0]
-    k9_ms = statistics.median(time_steps(
-        torch, lambda: k9.symsync_block(x9, bank9, rot9, st9, c9), steps=10))
-    k9_plain_ms = statistics.median(time_steps(
-        torch, lambda: k9.symsync_block_ref(x9, bank9, rot9, st9, c9), steps=3, warmup=1))
     (_, tau9, _), y9 = k9.symsync_block(x9, bank9, rot9, st9, c9)
     line9: list = []
     (_, tau9_plain, _), y9_plain = k9.symsync_block_ref(x9, bank9, rot9, st9, c9, line9)
@@ -2441,25 +1886,18 @@ def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
                                 *line9[0], SYNC_TIE)
     y9, y9_plain = y9.cpu().numpy(), y9_plain.cpu().numpy()
     k9_run = dict(
-        ms=k9_ms, plain_ms=k9_plain_ms,
         shape=f"{tuple(x9.shape)} {str(x9.dtype)[6:]} -> {tuple(y9.shape)}",
         vs_plain=sync_agree([sync_close(y9[ch], y9_plain[ch], (codes9[ch], other9[ch]))
                              for ch in occ]),
-        tau_err=float((tau9 - tau9_plain)[occ].abs().max()),
-        **sync_scan_bound(x9.shape[0], st9[0].shape[-1] + x9.shape[-1], y9.shape[-1],
-                          bank9.shape[1], bank9.shape[0], x9.is_complex()))
-    del u8, panel, box, seen, x9, st9, y9, y9_plain, other9
-    for b in kern:
-        runs[b].update(idle_share({"cli": argv(b)}))
-    out["9b"] = dict(runs=runs, order=order, pfb_vs_eager_occupied=worst,
-                     pfb_vs_eager_occupied_padded_block=last, block=block,
-                     sync_step_ms=sync_ms, sync_step_peak_mib=sync_peak, k9=k9_run)
+        tau_err=float((tau9 - tau9_plain)[occ].abs().max()))
+    del u8, panel, seen, x9, st9, y9, y9_plain, other9
+    out["9b"] = dict(runs=runs, pfb_vs_eager_occupied=worst,
+                     pfb_vs_eager_occupied_padded_block=last, block=block, k9=k9_run)
     emit(dict(phase="sync_main_path", flow=f"-c {SYNC_NCH} DeNBFMSync {SYNC_K}", wire="cu8",
-              samples=CAPTURE, block=block, blocks=nblocks, order=order,
+              samples=CAPTURE, block=block, blocks=nblocks,
               pfb_fused_vs_eager_occupied=worst, compared_outputs_per_channel=full,
               pfb_fused_vs_eager_occupied_padded_block=last, frames_per_channel=frames,
-              sync_step_ms=sync_ms, sync_step_peak_mib=sync_peak, k9=k9_run,
-              **{b: {k: v for k, v in r.items()} for b, r in runs.items()}, **card))
+              k9=k9_run, **runs, **card))
     check(k9_run["vs_plain"][0] < SYNC_TOL and k9_run["tau_err"] < 1e-3,
           f"9b: K9 vs its plain version {k9_run['vs_plain']} (max, other pick, ties, "
           f"crossings, of), tau {k9_run['tau_err']}")
@@ -2493,10 +1931,10 @@ def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
                             f"DeNBFMSync {SYNC_FE_K}", "--blocksize", str(SYNC_FE_BLOCK),
                             "-o", fe_prefix[d], "--device", d]
     with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
-        fe_dt, counts = cli_run(torch, cli.main, fe_argv("cuda", n_out))
+        counts = cli_run(torch, cli.main, fe_argv("cuda", n_out))
         check_counts(counts, "symsync_block", "9c")
         with record_ties(SYNC_TIE) as rec:
-            cpu_dt, _ = cli_run(torch, cli.main, fe_argv("cpu", n_cpu))
+            cli_run(torch, cli.main, fe_argv("cpu", n_cpu))
     card_y = np.fromfile(fe_prefix["cuda"] + ".f32", np.float32)
     cpu_y = np.fromfile(fe_prefix["cpu"] + ".f32", np.float32)
     check(card_y.shape == (n_out * 2 // SYNC_FE_K,) and cpu_y.shape == (n_cpu * 2 // SYNC_FE_K,),
@@ -2506,7 +1944,6 @@ def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
                               for i in (0, 1)))
     fe_coords = {d: heli_decode(fe_prefix[d] + ".f32") for d in fe_prefix}
     out["9c"] = dict(flow=f"-c 1 --offset {offset:g} -b {SYNC_FE_RATE} DeNBFMSync {SYNC_FE_K}",
-                     seconds=fe_dt, msps=CAPTURE / fe_dt / 1e6, cpu_seconds=cpu_dt,
                      card_vs_cpu=fe_err, coords={d: len(v) for d, v in fe_coords.items()})
     emit(dict(phase="sync_front_end", channel=ch, samples=CAPTURE, cpu_output_samples=n_cpu,
               **out["9c"], **card))
@@ -2523,22 +1960,6 @@ def phase_sync(torch, ct, pf, dev, card, tmp) -> dict:
     del x
 
     out["9d"] = phase_sync_library(torch, ct, dev, card)
-    return out
-
-
-def beacon_set():
-    """BEACONS coded beacons of random messages at BEACON_SNR_DB in the full
-    baseband bandwidth (tests/test_beacon.py:31-45): [(message, IQ)]."""
-    from csdr_tpu_torch.models import beacon
-
-    rng = np.random.default_rng(SEED + 1200)
-    sigma = np.sqrt(10.0 ** (-BEACON_SNR_DB / 10.0) / 2.0)
-    out = []
-    for _ in range(BEACONS):
-        m = rng.integers(0, 2, beacon.MESSAGE_BITS)
-        x = beacon.beacon_modulate(m, spsym=64)
-        out.append((m, (x + sigma * (rng.normal(size=len(x)) + 1j * rng.normal(size=len(x))))
-                    .astype(np.complex64)))
     return out
 
 
@@ -2582,41 +2003,10 @@ def track_stream(ms: str, seed: int):
     return x.astype(np.complex64), idx, packets
 
 
-def viterbi_acs_on_card(torch, llr):
-    """The other design for ops/fec.viterbi_decode, timed beside it in 9d:
-    the add-compare-select as one step of tensor ops per coded symbol on
-    the LLRs' device (~7 launches per step, no host sync inside the loop),
-    the decisions copied to the host once, then the same numpy traceback.
-    Returns the decoded message bits (CCSDS K = 7, tail)."""
-    from csdr_tpu_torch.ops import fec
-
-    S, prev_np, bit_in, branch_out = fec._tables(fec.CCSDS_POLYS, 7)
-    dev = llr.device
-    prev = torch.as_tensor(prev_np.reshape(-1), device=dev)
-    sign = torch.as_tensor(1.0 - 2.0 * branch_out, dtype=torch.float32, device=dev)
-    bm = torch.einsum("tg,hgs->ths", llr.to(torch.float32).reshape(-1, 2), sign)
-    metric = torch.full((S,), -1e9, dtype=torch.float32, device=dev)
-    metric[0] = 0.0
-    decisions = []
-    for t in range(bm.shape[0]):
-        cand = metric[prev].reshape(2, S) + bm[t]
-        decisions.append(cand[1] > cand[0])
-        new = torch.maximum(cand[0], cand[1])
-        metric = new - new.max()
-    dec = torch.stack(decisions).to(torch.uint8).cpu().numpy()
-    T, state = dec.shape[0], 0
-    bits = np.empty(T, np.uint8)
-    for t in range(T - 1, -1, -1):
-        bits[t] = bit_in[state]
-        state = int(prev_np[dec[t, state], state])
-    return bits[: T - 6]
-
-
 def phase_sync_library(torch, ct, dev, card) -> dict:
     """9d: the tracker and the coded packet link, the beacon, FSKDemod."""
     from csdr_tpu_torch.blocks import fsk_demodulator
     from csdr_tpu_torch.models import beacon, modem, symsync
-    from csdr_tpu_torch.ops import fec
 
     out = {}
     for i, ms in enumerate(("qpsk", "qam16")):
@@ -2625,10 +2015,8 @@ def phase_sync_library(torch, ct, dev, card) -> dict:
         sink = ct.CollectSink()
         torch.cuda.synchronize()
         reset_counts()
-        t0 = time.perf_counter()
         ct.Pipeline(tracker, block_size=TRACK_BLOCK, device=dev).run(iter([x]), sink)
         torch.cuda.synchronize()
-        track_s = time.perf_counter() - t0
         check_counts(read_counts(), "symsync_block", f"9d tracker {ms}")
         y = sink.concat()
         check(y.shape == (len(x) // TRACK_K,) and bool(np.isfinite(y).all()),
@@ -2639,51 +2027,25 @@ def phase_sync_library(torch, ct, dev, card) -> dict:
                                       == tx[1000:TRACK_TRAIN - 16])), L) for L in range(0, 33))
         check(acc > 0.98, f"9d tracker {ms}: {acc} of the training symbols at lag {lag}")
         yd = torch.from_numpy(y).to(dev)
-        secs, vit, ok = [], [], 0
+        ok = 0
         nv = 10 ** (-TRACK_SNR[ms] / 10.0)
         for pos, n, bits in packets:
-            seg = yd[pos + lag:pos + lag + n]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = modem.coded_packet_demodulate(seg, ms, noise_var=nv)
-            secs.append(time.perf_counter() - t0)
+            got = modem.coded_packet_demodulate(yd[pos + lag:pos + lag + n], ms, noise_var=nv)
             ok += got is not None and np.array_equal(got, bits)
-        llr = modem.soft_llrs(yd[packets[0][0] + lag:packets[0][0] + lag + packets[0][1]], ms,
-                              nv).reshape(-1)[64:]
-        vit_card = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            host_bits = fec.viterbi_decode(llr)
-            vit.append(time.perf_counter() - t0)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            card_bits = viterbi_acs_on_card(torch, llr)
-            vit_card.append(time.perf_counter() - t0)
-        check(np.array_equal(host_bits.cpu().numpy(), card_bits),
-              f"9d {ms}: the Viterbi's ACS on the card decodes other bits than on the host")
         out[ms] = dict(symbols=len(y), lag=lag, training_accuracy=acc, packets=len(packets),
-                       decoded=ok, tracker_seconds=track_s,
-                       tracker_msps=len(x) / track_s / 1e6,
-                       decode_ms_per_packet=statistics.median(secs) * 1e3,
-                       viterbi_ms_per_packet=statistics.median(vit) * 1e3,
-                       viterbi_acs_on_card_ms_per_packet=statistics.median(vit_card) * 1e3,
-                       viterbi_steps=llr.shape[0] // 2)
+                       decoded=ok)
         emit(dict(phase="sync_library", what=f"sym_tracker -> coded_packet_demodulate {ms}",
                   **out[ms], **card))
         check(ok == len(packets), f"9d {ms}: {ok} of {len(packets)} payloads decoded")
 
-    secs, ok, refused, wrong = [], [], [], []
+    ok, refused, wrong = [], [], []
     for i, (m, xb) in enumerate(beacon_set()):
-        t0 = time.perf_counter()
         got, info = beacon.beacon_decode(xb, spsym=64)
-        secs.append(time.perf_counter() - t0)
         (refused if got is None else ok if np.array_equal(got, m) else wrong).append(i)
     te = beacon.tone_energies_device(torch.from_numpy(xb).to(dev), 64).cpu().numpy()
     te_rel = float(np.abs(te - beacon.tone_energies(xb, 64)).max() / np.abs(te).max())
     out["beacon"] = dict(beacons=BEACONS, snr_db=BEACON_SNR_DB, decoded=len(ok),
-                         refused=refused, wrong=wrong, decode_ms=statistics.median(secs) * 1e3,
-                         tone_energies_device_rel=te_rel)
+                         refused=refused, wrong=wrong, tone_energies_device_rel=te_rel)
     emit(dict(phase="sync_library", what="beacon_decode", **out["beacon"], **card))
     # the mode's own limit: at −13 dB the JAX package refuses the same
     # beacons of this set (tests/test_torch_modem.py holds the port to it)
@@ -2751,20 +2113,17 @@ def recording_tracks(app):
 
 def app_run(torch, app, argv: list[str]) -> dict:
     """One offline-decoder run (``app.main(argv)``) with every kernel count
-    set to 0 just before it; its seconds, the counts, the track it decoded
-    and what it printed."""
+    set to 0 just before it; the counts, the track it decoded and what it
+    printed."""
 
     buf = io.StringIO()
     torch.cuda.synchronize()
     reset_counts()
     with recording_tracks(app) as tracks, contextlib.redirect_stdout(buf):
-        t0 = time.perf_counter()
         rc = app.main(argv)
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
     check(rc == 0, f"{app.__name__} {' '.join(argv)}: exit code {rc}: {buf.getvalue()}")
-    return dict(seconds=dt, counts=read_counts(), track=tracks[0],
-                out=buf.getvalue().strip())
+    return dict(counts=read_counts(), track=tracks[0], out=buf.getvalue().strip())
 
 
 def read_pnm(path: str) -> np.ndarray:
@@ -2854,9 +2213,7 @@ def imagery_case(torch, tmp, card, name, app, path, argv, samples, first,
     res = dict(samples=samples, lines=ic["lines"], image_shape=list(c["image"].shape),
                card_vs_cpu_track_rel=rel, pixels_differing=int((diff > 0).sum()) if same_shape
                else None, max_lsb=int(diff.max()) if same_shape else None,
-               error_median=med, error_q95=q95,
-               card_sps=samples / c["seconds"], cpu_sps=samples / p["seconds"],
-               card_seconds=c["seconds"], cpu_seconds=p["seconds"], report=c["out"])
+               error_median=med, error_q95=q95, report=c["out"])
     emit(dict(phase="imagery", app=name, **res, **card))
     check(rel < GOLDEN_REL, f"10a {name}: card vs CPU track {rel}")
     check(ic == ip, f"10a {name}: lines/syncs differ: card {ic} cpu {ip}")
@@ -2889,7 +2246,6 @@ def phase_imagery(torch, dev, card, tmp) -> dict:
         return (*image_error(va_got, va_want), (3.0, 12.0))  # tests/test_apt.py:68-69
 
     audio = apt.apt_modulate(img, APT_FS)
-    # the .cf32 pass first: its card run also warms the card's FFT plans
     part = audio[:APT_CF32_LINES * apt.LINE_WORDS * 8]
     iq = np.exp(1j * 2 * np.pi * APT_KF * np.cumsum(part, dtype=np.float64)).astype(np.complex64)
     path = os.path.join(tmp, "apt.cf32")
@@ -2897,15 +2253,6 @@ def phase_imagery(torch, dev, card, tmp) -> dict:
     out["apt_cf32"] = imagery_case(
         torch, tmp, card, "apt_cf32", apt_decode, path, ["-s", str(APT_FS)], len(iq), 0,
         apt_info, lambda got, info: apt_error(got, info, img[:APT_CF32_LINES]))
-    # the idle share of the 120-line pass: a profiler window over the whole
-    # pass (~340 launches per block) takes longer to read back than the rest
-    # of the phase
-    t0 = time.perf_counter()
-    idle = idle_share({"app": "apt_decode", "argv": [
-        path, "-s", str(APT_FS), "-o", os.path.join(tmp, "apt_idle.pgm")]})
-    emit(dict(phase="imagery_idle", app="apt_cf32", child_seconds=time.perf_counter() - t0,
-              **idle, **card))
-    out["apt_cf32"].update(idle)
     os.unlink(path)
     path = os.path.join(tmp, "apt.f32")
     audio.tofile(path)
@@ -3002,11 +2349,10 @@ def phase_wav(torch, dev, card, tmp) -> dict:
         argv = ["--filename", path, "-s", "48000", "-n", str(n_iq), "-c", "64", "--demod",
                 "DeNBFM 0.6 F32", "--backend", backend, "--blocksize", str(BLOCK // 2),
                 "-o", prefix]
-        dt, counts = cli_run(torch, cli_main, argv)
+        counts = cli_run(torch, cli_main, argv)
         check_counts(counts, "flagship_fused" if backend == "fused" else None,
                      f"10b -c 64 WAV {backend}")
-        runs[backend] = dict(seconds=dt, msps_iq=n_iq / dt / 1e6,
-                             msps_wav=WAV_SAMPLES / dt / 1e6, launches=counts, argv=argv)
+        runs[backend] = dict(launches=counts)
         runs[backend]["audio"] = read_channels(prefix, "f32", np.float32, 64, frames * 4)
         for k in range(64):
             os.unlink(f"{prefix}_ch{k + 1}.f32")
@@ -3015,12 +2361,8 @@ def phase_wav(torch, dev, card, tmp) -> dict:
     finite = bool(np.isfinite(runs["fused"]["audio"]).all())
     for r in runs.values():
         del r["audio"]
-    t0 = time.perf_counter()
-    runs["fused"].update(idle_share({"cli": runs["fused"]["argv"]}),
-                         idle_child_seconds=time.perf_counter() - t0)
     res = dict(wav_samples=WAV_SAMPLES, iq_samples=n_iq, source_card_vs_cpu_rel=src_rel,
-               fused_vs_eager_max=mx, fused_vs_eager_rms=rms,
-               runs={b: {k: v for k, v in r.items() if k != "argv"} for b, r in runs.items()})
+               fused_vs_eager_max=mx, fused_vs_eager_rms=rms, runs=runs)
     emit(dict(phase="wav_input", flow="-c 64 DeNBFM 0.6 F32 on a mono WAV", **res, **card))
     os.unlink(path)
     check(src_rel < GOLDEN_REL, f"10b wav_iq_source card vs CPU: {src_rel}")
@@ -3063,7 +2405,7 @@ def phase_file_surface(torch, dev, card, tmp) -> dict:
                 "-o", prefix] + (["--profile"] if prof else [])
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            dt, counts = cli_run(torch, cli_main, argv)
+            counts = cli_run(torch, cli_main, argv)
         check_counts(counts, "pfb_fm_fused", f"10c --profile={prof}")
         check(counts["pfb_fm_fused"] == blocks,
               f"10c --profile={prof}: pfb_fm_fused launched {counts['pfb_fm_fused']} times, "
@@ -3071,8 +2413,7 @@ def phase_file_surface(torch, dev, card, tmp) -> dict:
         outs[prof] = read_channels(prefix, "f32", np.float32, 64, frames * 4)
         for k in range(64):
             os.unlink(f"{prefix}_ch{k + 1}.f32")
-        res["profile" if prof else "plain"] = dict(seconds=dt, msps=PROFILE_SAMPLES / dt / 1e6,
-                                                   launches=counts["pfb_fm_fused"])
+        res["profile" if prof else "plain"] = dict(launches=counts["pfb_fm_fused"])
         if prof:
             table = buf.getvalue()
     check("Per-stage budget" in table and "pfb_fused_fm(64)" in table and "TOTAL" in table,
@@ -3095,14 +2436,14 @@ def phase_file_surface(torch, dev, card, tmp) -> dict:
         prefix = os.path.join(tmp, f"am_{name}")
         argv = fe + ["--demod", f"DeAM {fmt}", "-o", prefix, "--device", dev_] + (
             ["--spectrum", "--constellation"] if plots else [])
-        dt, counts = cli_run(torch, cli_main, argv)
+        counts = cli_run(torch, cli_main, argv)
         check_counts(counts, None, f"10d DeAM {fmt} on {dev_}")
         if fmt == "AU":
             audio, rate = read_au(prefix + ".au")
             check(rate == 256000, f"10d: AU rate {rate}")
         else:
             audio = np.fromfile(prefix + ".f32", np.float32)
-        runs[name] = dict(seconds=dt, audio=audio,
+        runs[name] = dict(audio=audio,
                           plots=[plot_arrays(f"{prefix}_{k}.m") for k in ("spectrum",
                                                                            "constellation")]
                           if plots else None)
@@ -3115,8 +2456,7 @@ def phase_file_surface(torch, dev, card, tmp) -> dict:
                                               and np.array_equal(au["audio"], f32["audio"])),
                 card_vs_cpu_audio_rel=float(np.abs(au["audio"] - cpu["audio"]).max()
                                             / np.abs(cpu["audio"]).max()),
-                plot_card_vs_cpu_rel=plot_rel, plots_parse=shapes_ok,
-                seconds={k: r["seconds"] for k, r in runs.items()})
+                plot_card_vs_cpu_rel=plot_rel, plots_parse=shapes_ok)
     emit(dict(phase="au_and_plots", flow="-s 2560000 --offset 100000 -b 256000 -c 1 DeAM AU "
               "--spectrum --constellation", **res2, **card))
     os.unlink(path)
@@ -3128,23 +2468,16 @@ def phase_file_surface(torch, dev, card, tmp) -> dict:
 
 def phase_imagery_and_files(torch, dev, card, tmp) -> dict:
     """Phase 10: 10a, 10b, then 10c and 10d."""
-    res, secs = {}, {}
-    for name, fn in (("imagery", phase_imagery), ("wav", phase_wav),
-                     ("files", phase_file_surface)):
-        t0 = time.perf_counter()
-        res[name] = fn(torch, dev, card, tmp)
-        secs[name] = time.perf_counter() - t0
-    emit(dict(phase="imagery_and_files", seconds=sum(secs.values()), by_part=secs, **card))
-    return res
+    return {name: timed(name, fn, torch, dev, card, tmp)
+            for name, fn in (("imagery", phase_imagery), ("wav", phase_wav),
+                             ("files", phase_file_surface))}
 
 
 # ---- 11. the live-device path ------------------------------------------------
 
 RTL_RATE, RTL_FREQ, RTL_PPM = 2_560_000, 100_000_000, 3
-LIVE_MSPS = 3.2          # the fastest rate an RTL-SDR streams (2.4–3.2 MS/s)
 SYN_SAMPLES = 1 << 24    # 11b's synthetic device run
 TILES = (8, 16, 32, 64, 128, 256, 512)   # 11d: K1's tileF candidates at nch 64
-AUTOTUNE_ENV = "CSDR_TPU_TORCH_AUTOTUNE_CACHE"
 
 
 @contextlib.contextmanager
@@ -3193,9 +2526,8 @@ def phase_device_rtl(torch, dev, card, tmp) -> dict:
     reads it with --devname rtl_tcp and runs -c 64 DeNBFM on K1.  Its 64
     files equal the --filename run of the same samples as CF32 (the
     client's own conversion, ``iq_from_u8``) bit for bit and the cu8 file
-    run's within U8_ERR; every channel sits on its tone; the server's
-    command log holds the tuning.  Device and CF32 runs in turns A, B, B,
-    A; the device flow's idle share in a child process."""
+    run's within U8_ERR; each source's two runs are equal; every channel
+    sits on its tone; the server's command log holds the tuning."""
     from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
     from csdr_tpu_torch.io.rtl_tcp import iq_from_u8
 
@@ -3214,14 +2546,13 @@ def phase_device_rtl(torch, dev, card, tmp) -> dict:
                 "--ppm", str(RTL_PPM), *common]
     want_log = [["set_sample_rate", RTL_RATE], ["set_frequency", RTL_FREQ],
                 ["set_gain_mode", 0], ["set_freq_correction", RTL_PPM]]
-    secs = {"rtl_tcp": [], "cf32": []}
     audio, launches = {}, {}
     for turn, src in enumerate(("rtl_tcp", "cf32", "cf32", "rtl_tcp")):
         out = os.path.join(tmp, f"live_{turn}")
         if src == "rtl_tcp":
             with rtl_server(cu8_path, tmp, 1) as (port, proc, log), \
                     env_var("CSDR_RTLTCP_ADDR", f"127.0.0.1:{port}"):
-                dt, counts = cli_run(torch, cli_main, dev_argv + ["-o", out])
+                counts = cli_run(torch, cli_main, dev_argv + ["-o", out])
                 proc.wait(timeout=60)
                 text = open(log).read()
             check(proc.returncode == 0, f"11a: rtl_tcp_server exit code {proc.returncode}")
@@ -3230,10 +2561,8 @@ def phase_device_rtl(torch, dev, card, tmp) -> dict:
             check(cmds == [want_log], f"11a: the server's command log {cmds}, want {want_log}")
             check("served 1 client(s)" in text, f"11a: server log {text[-500:]}")
         else:
-            dt, counts = cli_run(torch, cli_main, ["--filename", cf32_path, *common,
-                                                           "-o", out])
+            counts = cli_run(torch, cli_main, ["--filename", cf32_path, *common, "-o", out])
         check_counts(counts, "flagship_fused", f"11a {src} run")
-        secs[src].append(dt)
         got = read_channels(out, "f32", np.float32, nch, frames * 4)
         for k in range(nch):
             os.unlink(f"{out}_ch{k + 1}.f32")
@@ -3244,8 +2573,7 @@ def phase_device_rtl(torch, dev, card, tmp) -> dict:
     check(np.array_equal(audio["rtl_tcp"], audio["cf32"]),
           "11a: the rtl_tcp run differs from the CF32 file run of the same samples")
     out = os.path.join(tmp, "live_cu8")
-    dt_cu8, counts = cli_run(torch, cli_main, ["--filename", cu8_path, *common,
-                                                       "-o", out])
+    counts = cli_run(torch, cli_main, ["--filename", cu8_path, *common, "-o", out])
     check_counts(counts, "flagship_fused", "11a cu8 run")
     cu8_max, cu8_rms = errors_np(read_channels(out, "f32", np.float32, nch, frames * 4),
                                  audio["rtl_tcp"])
@@ -3254,18 +2582,12 @@ def phase_device_rtl(torch, dev, card, tmp) -> dict:
     peaks = tone_peaks(audio["rtl_tcp"])
     on_tone = int((peaks == j * (frames // 1024)).sum())
     del audio
-    with rtl_server(cu8_path, tmp, 0) as (port, _, _), \
-            env_var("CSDR_RTLTCP_ADDR", f"127.0.0.1:{port}"):
-        idle = idle_share({"cli": dev_argv + ["-o", os.path.join(tmp, "live_idle")]})
     for f in (cu8_path, cf32_path):
         os.unlink(f)
-    msps = {s: CAPTURE / statistics.mean(v) / 1e6 for s, v in secs.items()}
     res = dict(phase="device_rtl_tcp", flow=" ".join(dev_argv), samples=CAPTURE,
-               seconds_in_turns=secs, msps_in_turns=msps,
-               real_time_factor_vs_3_2_msps=msps["rtl_tcp"] / LIVE_MSPS, cu8_file_msps=CAPTURE
-               / dt_cu8 / 1e6, launches=launches["rtl_tcp"], bit_equal_to_cf32_run=True,
+               launches=launches["rtl_tcp"], bit_equal_to_cf32_run=True,
                vs_cu8_run_max=cu8_max, vs_cu8_run_rms=cu8_rms, channels_on_their_tone=on_tone,
-               server_commands=want_log, **idle, **card)
+               server_commands=want_log, **card)
     emit(res)
     check(cu8_max < U8_ERR, f"11a: rtl_tcp run vs the cu8 file run max {cu8_max}")
     check(on_tone == nch, f"11a: channels off their tone: {np.flatnonzero(peaks != j * (frames // 1024)).tolist()}")
@@ -3294,13 +2616,12 @@ def phase_device_synthetic(torch, dev, card, tmp) -> dict:
         for how, argv in (("device", ["--devname", "synthetic", "-s", "2.56e6"]),
                           ("file", ["--filename", path])):
             out = os.path.join(tmp, f"syn_{backend}_{how}")
-            dt, counts = cli_run(torch, cli_main, argv + common + ["--backend", backend,
-                                                                          "-o", out])
+            counts = cli_run(torch, cli_main, argv + common + ["--backend", backend, "-o", out])
             check_counts(counts, kern, f"11b {backend} {how} run")
             got[how] = read_channels(out, "f32", np.float32, nch, n // nch * 4)
             for k in range(nch):
                 os.unlink(f"{out}_ch{k + 1}.f32")
-            runs[backend, how] = dict(seconds=dt, msps=n / dt / 1e6, launches=counts)
+            runs[backend, how] = dict(launches=counts)
         check(np.array_equal(got["device"], got["file"]),
               f"11b {backend}: the synthetic device run differs from its file run")
         runs[backend] = got["device"]
@@ -3320,99 +2641,65 @@ def phase_device_synthetic(torch, dev, card, tmp) -> dict:
 
 def phase_native(torch, card, tmp) -> dict:
     """11c. native_cf32_source against cf32_file_source on a 2^25-sample CF32
-    file (read from the page cache, turns Python, native, native, Python):
-    the same bytes, MB/s each; NativeRawFileSink writes it back equal."""
+    file: the same bytes; NativeRawFileSink writes it back equal."""
     from csdr_tpu_torch.io import native
     from csdr_tpu_torch.io.sources import cf32_file_source
 
-    t0 = time.perf_counter()
     native.load_lib()
-    build_s = time.perf_counter() - t0
     path = os.path.join(tmp, "native.cf32")
     data = np.random.default_rng(SEED + 1102).standard_normal(2 * CAPTURE, dtype=np.float32)
     data.tofile(path)
     readers = {"python": lambda: cf32_file_source(path, 1 << 18),
                "native": lambda: native.native_cf32_source(path, 1 << 18)}
-    secs = {k: [] for k in readers}
-    for name in ("python", "native", "native", "python"):
-        t0 = time.perf_counter()
-        got = sum(len(c) for c in readers[name]())
-        secs[name].append(time.perf_counter() - t0)
+    for name, read in readers.items():
+        got = sum(len(c) for c in read())
         check(got == CAPTURE, f"11c: the {name} reader gave {got} samples")
     for a, b in zip(readers["python"](), readers["native"]()):
         check(a.tobytes() == b.tobytes(), "11c: the native reader's bytes differ")
     out = os.path.join(tmp, "native_out.cf32")
-    t0 = time.perf_counter()
     with native.NativeRawFileSink(out) as sink:
         for c in native.native_cf32_source(path, 1 << 18):
             sink(c)
-    write_s = time.perf_counter() - t0
     check(np.array_equal(np.fromfile(out, np.float32), data), "11c: NativeRawFileSink round trip")
     for f in (path, out):
         os.unlink(f)
-    mb = CAPTURE * 8 / 1e6
-    res = dict(phase="native_io", samples=CAPTURE, megabytes=mb, build_or_load_s=build_s,
-               seconds=secs, mb_per_s={k: mb / statistics.mean(v) for k, v in secs.items()},
-               native_copy_mb_per_s=mb / write_s, bytes_equal=True, **card)
+    res = dict(phase="native_io", samples=CAPTURE, bytes_equal=True, **card)
     emit(res)
     return res
 
 
-def phase_autotune(torch, ff, dev, card, tmp) -> dict:
-    """11d. K1's tileF swept at nch 64 on cu8 2^23-sample steps through
-    utils/autotune.sweep into a temporary cache (TILES; a tile the kernel's
-    own checks refuse is recorded as infeasible); each tile's step ms from
-    time_steps.  FlagshipFused(tileF=None) built afterwards takes the
-    winner, and its output stays within MAX_ERR and RMS_ERR of the
-    default tile's."""
-    from csdr_tpu_torch.blocks.fused_blocks import FlagshipFused
-    from csdr_tpu_torch.utils import autotune
-
+def phase_tiles(torch, ff, dev, card) -> dict:
+    """11d. K1 at every tileF of TILES at nch 64 on one cu8 2^23-sample
+    block: a tile the wrapper's own checks refuse (ValueError) is recorded
+    as infeasible; every other tile's output stays within MAX_ERR and
+    RMS_ERR of the default tile's."""
     u8 = to_cu8(torch, occupied_band(torch, dev, 64, BLOCK, SEED + 1103))
-    step_ms = {}
-
-    def bench(t: int) -> float:
-        box = {"s": ff.flagship_fused_init(64, dev)}
-
-        def step():
-            box["s"], _ = ff.flagship_fused_step(box["s"], u8, nch=64, kf=KF, tileF=t)
-
-        step_ms[t] = statistics.median(time_steps(torch, step))
-        return BLOCK / step_ms[t] / 1e3
-
-    with env_var(AUTOTUNE_ENV, os.path.join(tmp, "autotune.json")):
-        reset_counts()
-        best, results = autotune.sweep("flagship_fused", 64, TILES, bench)
-        sweep_launches = ff.launches
-        blk = FlagshipFused(64, kf=KF)
-        entry = json.load(open(autotune.cache_path()))
-    check(blk.tileF == best, f"11d: FlagshipFused took tileF {blk.tileF}, the sweep's best {best}")
-    check(f"flagship_fused:{autotune.card()}:64" in entry, f"11d: cache keys {list(entry)}")
-    _, y_best = blk.apply(blk.init(dev), u8)
     _, y_def = ff.flagship_fused_step(ff.flagship_fused_init(64, dev), u8, nch=64, kf=KF)
-    mx, rms = errors(y_best, y_def)
-    res = dict(phase="autotune", kernel="flagship_fused", nch=64, input="cu8", n=BLOCK,
-               best_tileF=best, default_tileF=ff.DEFAULT_TILE_F, step_ms=step_ms,
-               infeasible={r["tileF"]: r["error"] for r in results if "error" in r},
-               sweep_launches=sweep_launches, best_vs_default_max=mx, best_vs_default_rms=rms,
-               **card)
+    errs, infeasible = {}, {}
+    for t in TILES:
+        try:
+            _, y = ff.flagship_fused_step(ff.flagship_fused_init(64, dev), u8, nch=64, kf=KF,
+                                          tileF=t)
+        except ValueError as e:  # a tile the wrapper's checks refuse
+            infeasible[t] = str(e)[:200]
+            continue
+        errs[t] = errors(y, y_def)
+    res = dict(phase="tiles", kernel="flagship_fused", nch=64, input="cu8", n=BLOCK,
+               default_tileF=ff.DEFAULT_TILE_F, vs_default={t: list(e) for t, e in errs.items()},
+               infeasible=infeasible, **card)
     emit(res)
-    check(mx < MAX_ERR and rms < RMS_ERR, f"11d: tile {best} vs default max {mx} rms {rms}")
+    check(ff.DEFAULT_TILE_F in errs, f"11d: the default tile {ff.DEFAULT_TILE_F} is refused")
+    for t, (mx, rms) in errs.items():
+        check(mx < MAX_ERR and rms < RMS_ERR, f"11d: tile {t} vs default max {mx} rms {rms}")
     return res
 
 
 def phase_device(torch, ff, dev, card, tmp) -> dict:
     """Phase 11: 11a–11d."""
-    res, secs = {}, {}
-    for name, fn in (("11a", lambda: phase_device_rtl(torch, dev, card, tmp)),
-                     ("11b", lambda: phase_device_synthetic(torch, dev, card, tmp)),
-                     ("11c", lambda: phase_native(torch, card, tmp)),
-                     ("11d", lambda: phase_autotune(torch, ff, dev, card, tmp))):
-        t0 = time.perf_counter()
-        res[name] = fn()
-        secs[name] = time.perf_counter() - t0
-    emit(dict(phase="device", seconds=sum(secs.values()), by_part=secs, **card))
-    return res
+    return {"11a": timed("device_rtl", phase_device_rtl, torch, dev, card, tmp),
+            "11b": timed("device_synthetic", phase_device_synthetic, torch, dev, card, tmp),
+            "11c": timed("native", phase_native, torch, card, tmp),
+            "11d": timed("tiles", phase_tiles, torch, ff, dev, card)}
 
 
 MESH_MAX = 4                 # ranks of the mesh phase: min(cards, MESH_MAX)
@@ -3427,10 +2714,8 @@ def mesh_rank(device, capture: str, agc_path: str, world: int) -> dict:
         main-path capture through ShardedPipeline with every kernel count set
         to 0 just before and read just after; rank 0 holds the audio and
         the carried state against the serial K1 (FlagshipFused) on the same
-        card; the sharded step's time (time_steps, every rank stepping)
-        against the serial K1 step's, and one torch.profiler window over 5
-        sharded steps on rank 0 for K1's launches and the NCCL kernels'
-        device time per step.
+        card; then 5 sharded steps on every rank of its segment of one
+        device-resident block, K1's launches counted over them.
     7b. ShardedChannelizedFM on mesh (world, 1) and, at 4 ranks, (2, 2):
         eager, use_fused (K3) and use_fused with -a (K4), MESH_BLOCKS
         blocks each, held on rank 0 against the eager single-device graphs."""
@@ -3448,34 +2733,25 @@ def mesh_rank(device, capture: str, agc_path: str, world: int) -> dict:
     def sharded_run(sh, path, n):
         """The sharded receiver over the first n samples of a capture
         through ShardedPipeline.stream; rank 0 returns the audio; every rank
-        its kernel counts of the run and the seconds to each block's end."""
+        its kernel counts of the run."""
         sink = ct.CollectSink() if rank == 0 else None
         torch.cuda.synchronize()
         dist.barrier()
         reset_counts()
-        t0 = time.perf_counter()
         pipe = ShardedPipeline(sh)
-        ends = []
         for out in pipe.stream(ct.cu8_file_source(path, BLOCK) if rank == 0 else None, n):
             if out is not None:
                 sink(out)
-            ends.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
         counts = read_counts()
         audio = sink.concat() if sink else None
-        return audio, pipe.state, counts, 0 if audio is None else audio.shape[1], secs, ends
+        return audio, pipe.state, counts, 0 if audio is None else audio.shape[1]
 
     # 7a. ShardedFlagship over the main-path capture
     mesh = build_mesh(world, 1, device.type)
     sf = ShardedFlagship(mesh, nch=nch, block_size=BLOCK, kf=KF, force_full=world == 1)
-    audio, state, counts, total, secs, ends = sharded_run(sf, capture, CAPTURE)
-    # the same run again: the first pays for each new communicator and
-    # allocation, the second shows the streaming rate
-    warm = sharded_run(sf, capture, CAPTURE)
-    flag = dict(mesh=[world, 1], force_full=world == 1, launches=counts, seconds=secs,
-                msps=CAPTURE / secs / 1e6, block_end_seconds=ends, warm_seconds=warm[4],
-                warm_msps=CAPTURE / warm[4] / 1e6, warm_block_end_seconds=warm[5])
+    audio, state, counts, total = sharded_run(sf, capture, CAPTURE)
+    flag = dict(mesh=[world, 1], force_full=world == 1, launches=counts)
     if rank == 0:
         from csdr_tpu_torch.blocks.fused_blocks import FlagshipFused
 
@@ -3490,51 +2766,19 @@ def mesh_rank(device, capture: str, agc_path: str, world: int) -> dict:
                     state_err={k: float((state[k] - pipe.state[k]).abs().max())
                                for k in ("hist", "x_last", "y_dc_last", "phase")})
         del audio, want, d, serial, pipe
-    # step times: every rank steps its segment of one device-resident block
-    x = occupied_band(torch, device, nch, BLOCK, SEED + 1)
-    seg = to_cu8(torch, x).view(BLOCK, 2)[rank * (BLOCK // world):][:BLOCK // world].contiguous()
-    box = {"s": sf.init()}
-
-    def step():
-        box["s"], _ = sf.step(box["s"], seg)
-
+    # 5 sharded steps, every rank stepping its segment of one device-resident
+    # block: one K1 launch a step
+    seg = to_cu8(torch, occupied_band(torch, device, nch, BLOCK, SEED + 1)).view(BLOCK, 2)
+    seg = seg[rank * (BLOCK // world):][:BLOCK // world].contiguous()
+    st = sf.init()
     torch.cuda.synchronize()
     dist.barrier()
-    flag["sharded_step_ms"] = statistics.median(time_steps(torch, step))
-    dist.barrier()
-    if rank == 0:
-        u8 = to_cu8(torch, x)
-        kbox = {"k": ff.flagship_fused_init(nch, device)}
-
-        def serial_step():
-            kbox["k"], _ = ff.flagship_fused_step(kbox["k"], u8, nch=nch, kf=KF)
-
-        flag["serial_step_ms"] = statistics.median(time_steps(torch, serial_step))
-        del u8
-    dist.barrier()
-    # one profiler window over 5 sharded steps on rank 0 (no retry: every
-    # rank must make the same number of steps)
-    step()
+    reset_counts()
+    for _ in range(5):
+        st, _ = sf.step(st, seg)
     torch.cuda.synchronize()
-    dist.barrier()
-    if rank == 0:
-        prof, _ = traced(torch, lambda: [step() for _ in range(5)])
-        kern = device_kernels(prof)
-        nccl = {k: v for k, v in kern.items() if "nccl" in k.lower()}
-        k1 = {k: v for k, v in kern.items()
-              if any(n in k for n in ("dc_chunk", "carry_scan", "channel_tile"))}
-        flag.update(profile_steps=5, launch_calls=launch_calls(prof),
-                    device_kernels=sum(v["count"] for v in kern.values()),
-                    device_ms_per_step=sum(v["device_us"] for v in kern.values()) / 5e3,
-                    k1_launches_per_step=sum(v["count"] for v in k1.values()) / 5,
-                    k1_device_ms_per_step=sum(v["device_us"] for v in k1.values()) / 5e3,
-                    nccl_device_ms_per_step=sum(v["device_us"] for v in nccl.values()) / 5e3,
-                    nccl_kernels_per_step={k: v["count"] / 5 for k, v in nccl.items()})
-    else:
-        for _ in range(5):
-            step()
-        torch.cuda.synchronize()
-    del x, seg, box
+    flag["k1_launches_per_step"] = ff.launches / 5
+    del seg, st
     out["flagship"] = flag
 
     # 7b. ShardedChannelizedFM, eager / K3 / K4 + AGC
@@ -3560,9 +2804,9 @@ def mesh_rank(device, capture: str, agc_path: str, world: int) -> dict:
                 ("pfb_fused -a", {"use_fused": True, "agc_threshold_db": AGC_T}, agc_path,
                  "agc", 5e-3, 0)):
             sh = ShardedChannelizedFM(cmesh, nch=nch, block_size=BLOCK, kf=KF, **kw)
-            audio, _, counts, total, secs, _ = sharded_run(sh, path, n)
+            audio, _, counts, total = sharded_run(sh, path, n)
             r = dict(mesh=list(shape), backend=label, launches=counts, blocks=MESH_BLOCKS,
-                     seconds=secs, bound=bound, from_frame=f0)
+                     bound=bound, from_frame=f0)
             if rank == 0:
                 want = refs[ref]
                 r.update(total=total, shape=list(audio.shape),
@@ -3601,9 +2845,9 @@ def phase_mesh(torch, card, tmp, capture, agc_path, fused_cli) -> dict:
     for r in ranks:
         check_counts(r["flagship"]["launches"], "flagship_fused",
                      f"mesh flagship run on rank {r['rank']}")
-    check(flag["k1_launches_per_step"] == 3 and flag["launch_calls"] == flag["device_kernels"],
-          f"mesh flagship profile: {flag['k1_launches_per_step']} K1 launches per step, "
-          f"{flag['launch_calls']} launch calls, {flag['device_kernels']} device kernels")
+        check(r["flagship"]["k1_launches_per_step"] == 1,
+              f"mesh flagship steps on rank {r['rank']}: "
+              f"{r['flagship']['k1_launches_per_step']} K1 launches per step")
     want_k = {"eager": None, "pfb_fused": "pfb_fm_fused", "pfb_fused -a": "pfb_channelize_fused"}
     channelized = []
     for i, c in enumerate(r0["channelized"]):
@@ -3626,9 +2870,7 @@ def phase_mesh(torch, card, tmp, capture, agc_path, fused_cli) -> dict:
             "-n", str(CAPTURE), "-c", "64", "--mesh", f"{world}x1", "--backend", "fused",
             "--demod", f"DeNBFM {KF} F32", "--device", "cuda", "--blocksize", str(BLOCK),
             "-v", "-o", prefix]
-    t0 = time.perf_counter()
     r = subprocess.run(argv, capture_output=True, text=True, timeout=600, cwd=HERE)
-    wall = time.perf_counter() - t0
     check(r.returncode == 0, f"CLI --mesh: exit code {r.returncode}: {r.stderr.strip()[-2000:]}")
     m = re.search(r"\(([\d.]+) MSPS\)", r.stdout)
     cli_counts = [json.loads(c) for c in re.findall(r"Kernel launches on rank \d+: (\{[^}]*\})",
@@ -3638,7 +2880,7 @@ def phase_mesh(torch, card, tmp, capture, agc_path, fused_cli) -> dict:
         check_counts(counts, "flagship_fused", "CLI --mesh")
     audio = read_channels(prefix, "f32", np.float32, 64, CAPTURE // 64 * 4).astype(np.float64)
     d = np.abs(audio - fused_cli)
-    cli = dict(msps=float(m.group(1)), wall_seconds=wall, launches_per_rank=cli_counts,
+    cli = dict(launches_per_rank=cli_counts,
                vs_serial_cli_max=float(d.max()), share_over_0_01=float(np.mean(d > 0.01)),
                q99=float(np.quantile(d, 0.99)), bit_equal=bool(np.array_equal(audio, fused_cli)))
     emit(dict(phase="mesh", part="cli", world=world, flow=f"-c 64 --mesh {world}x1 --backend fused",
@@ -3704,13 +2946,11 @@ def mix_capture(torch, dev, tmp) -> str:
 def channel_layout_rank(torch, ct, device, world: int, captures: dict) -> dict:
     """12c on one NCCL rank, on (W, 1) and, on four cards, (2, 2), for each
     graph of ``channel_graphs`` (every rank calls every collective in the
-    same order): the sharded step's time against the serial step's on rank
-    0 (a device-resident block of the graph's kind), one profiler window
-    over 5 sharded steps on rank 0, then the ShardedChain over the 2^25-
-    sample capture through ShardedPipeline twice (the first run pays for
-    the runner's new communicators) with every kernel count set to 0 just
-    before each run and read just after; rank 0 holds the output against
-    the serial port Pipeline of the same graph on its card."""
+    same order): the ShardedChain over the 2^25-sample capture through
+    ShardedPipeline twice (the second run on the same communicators) with
+    every kernel count set to 0 just before each run and read just after;
+    rank 0 holds the output against the serial port Pipeline of the same
+    graph on its card."""
     import torch.distributed as dist
 
     from csdr_tpu_torch.parallel import ShardedChain, ShardedPipeline, build_mesh
@@ -3720,8 +2960,6 @@ def channel_layout_rank(torch, ct, device, world: int, captures: dict) -> dict:
     for shape in [(world, 1)] + ([(2, 2)] if world == 4 else []):
         dt, dc = shape
         mesh = build_mesh(dt, dc, device.type)
-        ti = rank // dc
-        nloc = BLOCK // dt
         for label, (graph, bound_rel, kernel, cap) in channel_graphs(ct).items():
             nch = graph.blocks[2].nch
             sh = ShardedChain(graph, mesh, BLOCK)
@@ -3732,75 +2970,28 @@ def channel_layout_rank(torch, ct, device, world: int, captures: dict) -> dict:
                 r.update(taps=taps, k5_shape_per_rank=(
                     f"({nch // dc}, {BLOCK // dt // nch + taps - 1}) complex64 x {taps} "
                     f"real taps"))
-            seg = to_cu8(torch, occupied_band(torch, device, nch, BLOCK, SEED + 12)).view(BLOCK, 2)
-            box = {"s": sh.init()}
-            mine = seg[ti * nloc:(ti + 1) * nloc].contiguous()
-
-            def step():
-                box["s"], _ = sh.step(box["s"], mine)
-
-            torch.cuda.synchronize()
-            dist.barrier()
-            r["sharded_step_ms"] = statistics.median(time_steps(torch, step))
-            dist.barrier()
-            if rank == 0:
-                sbox = {"s": graph.init(device)}
-
-                def serial_step():
-                    sbox["s"], _ = graph.apply(sbox["s"], seg)
-
-                r["serial_step_ms"] = statistics.median(time_steps(torch, serial_step))
-                del sbox
-            dist.barrier()
-            step()
-            torch.cuda.synchronize()
-            dist.barrier()
-            if rank == 0:
-                prof, _ = traced(torch, lambda: [step() for _ in range(5)])
-                kern = device_kernels(prof)
-                nccl = {k: v for k, v in kern.items() if "nccl" in k.lower()}
-                k5 = {k: v for k, v in kern.items() if "fir_valid" in k}
-                r.update(profile_steps=5, launch_calls=launch_calls(prof),
-                         device_kernels=sum(v["count"] for v in kern.values()),
-                         device_ms_per_step=sum(v["device_us"] for v in kern.values()) / 5e3,
-                         k5_launches_per_step=sum(v["count"] for v in k5.values()) / 5,
-                         k5_device_ms_per_step=sum(v["device_us"] for v in k5.values()) / 5e3,
-                         nccl_device_ms_per_step=sum(v["device_us"] for v in nccl.values()) / 5e3,
-                         top_kernels=[[k[:100], v["device_us"] / 5] for k, v in sorted(
-                             kern.items(), key=lambda kv: -kv[1]["device_us"])[:6]])
-            else:
-                for _ in range(5):
-                    step()
-                torch.cuda.synchronize()
-            del box, seg, mine
             runs = []
             for _ in range(2):
                 sink = ct.CollectSink() if rank == 0 else None
                 torch.cuda.synchronize()
                 dist.barrier()
                 reset_counts()
-                t0 = time.perf_counter()
                 total = ShardedPipeline(sh).run(
                     ct.cu8_file_source(captures[cap], BLOCK) if rank == 0 else None, sink)
                 torch.cuda.synchronize()
-                runs.append((time.perf_counter() - t0, read_counts(), sink))
-            (secs, counts, _), (warm, warm_counts, sink) = runs
-            r.update(launches=counts, seconds=secs, msps=CAPTURE / secs / 1e6,
-                     warm_launches=warm_counts, warm_seconds=warm,
-                     warm_msps=CAPTURE / warm / 1e6)
+                runs.append((read_counts(), sink))
+            (counts, _), (second_counts, sink) = runs
+            r.update(launches=counts, second_launches=second_counts)
             del runs
             if rank == 0:
                 got = sink.concat()
                 if label not in serial_out:
                     serial = ct.CollectSink()
-                    t0 = time.perf_counter()
                     ct.Pipeline(graph, block_size=BLOCK, device=device).run(
                         ct.cu8_file_source(captures[cap], BLOCK), serial)
-                    torch.cuda.synchronize()
-                    serial_out[label] = (serial.concat(), time.perf_counter() - t0)
-                want, ssecs = serial_out[label]
-                r.update(serial_seconds=ssecs, serial_msps=CAPTURE / ssecs / 1e6, total=total,
-                         shape=list(got.shape), want_shape=list(want.shape),
+                    serial_out[label] = serial.concat()
+                want = serial_out[label]
+                r.update(total=total, shape=list(got.shape), want_shape=list(want.shape),
                          finite=bool(np.isfinite(got).all()),
                          vs_serial_rel=float(np.abs(got.astype(np.float64) - want).max()
                                              / np.abs(want).max()))
@@ -3818,15 +3009,11 @@ def chain_rank(device, capture: str, world: int, mix_path: str, specs: list) -> 
     mixed monitor reads ``mix_path``); 12e, the stereo, RDS, packet and
     sync graphs, is ``flow_rank`` over ``specs``.
 
-    For each graph of ``chain_graphs``: the sharded step's time
-    (time_steps, every rank stepping its segment of one device-resident
-    block; this also warms the graph up) against the serial step's on rank
-    0, and one torch.profiler window over 5 sharded steps on rank 0 (kernel
-    launches and device time per step, NCCL's apart); then the ShardedChain
-    on mesh (world, 1) over phase 4's capture through ShardedPipeline, with
-    every kernel count set to 0 just before and read just after, rank 0
-    holding its output against the serial port Pipeline of the same graph
-    on its card."""
+    For each graph of ``chain_graphs``: the ShardedChain on mesh (world, 1)
+    over phase 4's capture through ShardedPipeline, twice (the second run
+    on the same communicators), with every kernel count set to 0 just
+    before each run and read just after, rank 0 holding its output against
+    the serial port Pipeline of the same graph on its card."""
     import torch
     import torch.distributed as dist
 
@@ -3836,81 +3023,28 @@ def chain_rank(device, capture: str, world: int, mix_path: str, specs: list) -> 
     rank = dist.get_rank()
     mesh = build_mesh(world, 1, device.type)
     out = dict(rank=rank, device=str(device))
-    nloc = BLOCK // world
-    seg = to_cu8(torch, occupied_band(torch, device, 64, BLOCK, SEED + 12)).view(BLOCK, 2)
     for label, (graph, bound_rel, kernel) in chain_graphs(ct).items():
         sh = ShardedChain(graph, mesh, BLOCK)
         r = dict(blocks=CAPTURE // BLOCK, bound=bound_rel, kernel=kernel,
                  taps=len(graph.blocks[2].taps) if label == "DeCW" else None)
-        # step times: every rank steps its segment of one device-resident block
-        box = {"s": sh.init()}
-        mine = seg[rank * nloc:(rank + 1) * nloc].contiguous()
-
-        def step():
-            box["s"], _ = sh.step(box["s"], mine)
-
-        torch.cuda.synchronize()
-        dist.barrier()
-        r["sharded_step_ms"] = statistics.median(time_steps(torch, step))
-        dist.barrier()
-        if rank == 0:
-            sbox = {"s": graph.init(device)}
-
-            def serial_step():
-                sbox["s"], _ = graph.apply(sbox["s"], seg)
-
-            r["serial_step_ms"] = statistics.median(time_steps(torch, serial_step))
-        dist.barrier()
-        # one profiler window over 5 sharded steps on rank 0 (every rank
-        # makes the same number of steps)
-        step()
-        torch.cuda.synchronize()
-        dist.barrier()
-        if rank == 0:
-            prof, _ = traced(torch, lambda: [step() for _ in range(5)])
-            kern = device_kernels(prof)
-            nccl = {k: v for k, v in kern.items() if "nccl" in k.lower()}
-            k5 = {k: v for k, v in kern.items() if "fir_valid" in k}
-            r.update(profile_steps=5, launch_calls=launch_calls(prof),
-                     device_kernels=sum(v["count"] for v in kern.values()),
-                     device_ms_per_step=sum(v["device_us"] for v in kern.values()) / 5e3,
-                     k5_launches_per_step=sum(v["count"] for v in k5.values()) / 5,
-                     k5_device_ms_per_step=sum(v["device_us"] for v in k5.values()) / 5e3,
-                     nccl_device_ms_per_step=sum(v["device_us"] for v in nccl.values()) / 5e3,
-                     top_kernels=[[k[:100], v["device_us"] / 5] for k, v in sorted(
-                         kern.items(), key=lambda kv: -kv[1]["device_us"])[:6]])
-        else:
-            for _ in range(5):
-                step()
-            torch.cuda.synchronize()
-        del box
-        # the library run over the capture, twice: the first pays for each
-        # new communicator (the runner's scatter, gather and header
-        # broadcast), the second shows the streaming rate
         runs = []
         for _ in range(2):
             sink = ct.CollectSink() if rank == 0 else None
             torch.cuda.synchronize()
             dist.barrier()
             reset_counts()
-            t0 = time.perf_counter()
             total = ShardedPipeline(sh).run(
                 ct.cu8_file_source(capture, BLOCK) if rank == 0 else None, sink)
             torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t0, read_counts(), sink))
-        (secs, counts, _), (warm, warm_counts, sink) = runs
-        r.update(launches=counts, seconds=secs, msps=CAPTURE / secs / 1e6,
-                 warm_launches=warm_counts, warm_seconds=warm, warm_msps=CAPTURE / warm / 1e6)
+            runs.append((read_counts(), sink))
+        (counts, _), (second_counts, sink) = runs
+        r.update(launches=counts, second_launches=second_counts)
         del runs
         if rank == 0:
             got = sink.concat()
             serial = ct.CollectSink()
-            t0 = time.perf_counter()
             ct.Pipeline(graph, block_size=BLOCK, device=device).run(
                 ct.cu8_file_source(capture, BLOCK), serial)
-            torch.cuda.synchronize()
-            r["serial_seconds"] = time.perf_counter() - t0
-            r["serial_msps"] = CAPTURE / r["serial_seconds"] / 1e6
             want = serial.concat()
             r.update(total=total, shape=list(got.shape), want_shape=list(want.shape),
                      finite=bool(np.isfinite(got).all()),
@@ -3983,7 +3117,6 @@ def flow_specs(torch, ct, dev, tmp, world: int) -> list[dict]:
         return front_end_cf32(ct, dev, path, fs, offset, bw, os.path.join(tmp, f"{name}.cf32"))
 
     specs = []
-    t0 = time.perf_counter()
     stereo = os.path.join(tmp, "flow_stereo.cu8")
     stereo_capture(torch, dev, CAPTURE, SEED + 500).cpu().numpy().tofile(stereo)
     fe, n = front(stereo, 2.56e6, 0.0, FM_BW, "flow_stereo_fe")
@@ -4029,7 +3162,7 @@ def flow_specs(torch, ct, dev, tmp, world: int) -> list[dict]:
                       bound=SYNC_TOL, kernel="symsync_block", per_block=2, sync=True,
                       channels=list(SYNC_CHANNELS), texts=texts,
                       meshes=[[world, 1]] + ([[2, 2]] if world == 4 else [])))
-    emit(dict(phase="chain", part="flow_captures", seconds=time.perf_counter() - t0,
+    emit(dict(phase="chain", part="flow_captures",
               cases={s["label"]: dict(samples=s["samples"], block=s["block"],
                                       rate=s["rate"]) for s in specs}))
     return specs
@@ -4038,7 +3171,7 @@ def flow_specs(torch, ct, dev, tmp, world: int) -> list[dict]:
 def flow_serial(torch, ct, device, spec) -> dict:
     """The serial port Pipeline of a 12e graph over its input on this card,
     at the spec's block: the collected output (and for the sync the other
-    picks of ``record_ties``), seconds and kernel launches."""
+    picks of ``record_ties``) and kernel launches."""
 
     graph = flow_graph(ct, spec["label"])
     src = (ct.cu8_file_source if spec["wire"] == "cu8" else ct.cf32_file_source)(
@@ -4046,12 +3179,10 @@ def flow_serial(torch, ct, device, spec) -> dict:
     sink = ct.CollectSink()
     torch.cuda.synchronize()
     reset_counts()
-    t0 = time.perf_counter()
     with record_ties(SYNC_TIE) as rec:
         ct.Pipeline(graph, block_size=spec["block"], device=device).run(src, sink)
     torch.cuda.synchronize()
-    out = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
-               y=sink.concat())
+    out = dict(launches=read_counts(), y=sink.concat())
     if rec:
         out["codes"], out["other"] = (np.concatenate([r[i] for r in rec], axis=-1)
                                       for i in (0, 1))
@@ -4109,13 +3240,10 @@ def flow_compare(spec, got, want: dict) -> dict:
 
 def flow_rank(torch, ct, device, world: int, specs: list) -> dict:
     """12e on one NCCL rank: for each case of ``flow_specs`` and mesh, the
-    sharded step's time against the serial step's on rank 0 (one device-
-    resident block), the sharded step's peak memory on this rank, one
-    profiler window over 5 sharded steps on rank 0, then the ShardedChain
-    over the case's input through ShardedPipeline with every kernel count
-    set to 0 just before and read just after; rank 0 holds the output
-    against the serial port Pipeline at the same block (``flow_serial``,
-    once per case) by ``flow_compare``."""
+    ShardedChain over the case's input through ShardedPipeline with every
+    kernel count set to 0 just before and read just after; rank 0 holds
+    the output against the serial port Pipeline at the same block
+    (``flow_serial``, once per case) by ``flow_compare``."""
     import torch.distributed as dist
 
     from csdr_tpu_torch.parallel import ShardedChain, ShardedPipeline, build_mesh
@@ -4127,94 +3255,31 @@ def flow_rank(torch, ct, device, world: int, specs: list) -> dict:
         source = ct.cu8_file_source if spec["wire"] == "cu8" else ct.cf32_file_source
         first = next(iter(source(spec["path"], block)))
         check(len(first) == block, f"12e {label}: input shorter than one block")
-        whole = torch.from_numpy(first.copy()).to(device)
         for dt, dc in spec["meshes"]:
             if dt * dc > world:
                 continue
             mesh = build_mesh(dt, dc, device.type)
             graph = flow_graph(ct, label)
             sh = ShardedChain(graph, mesh, block)
-            nloc = block // dt
-            mine = whole[(rank // dc) * nloc:(rank // dc + 1) * nloc].contiguous()
-            box = {"s": sh.init()}
-
-            def step():
-                box["s"], _ = sh.step(box["s"], mine)
-
-            r = dict(mesh=[dt, dc], block=block, nloc=nloc,
+            r = dict(mesh=[dt, dc], block=block, nloc=block // dt,
                      blocks=-(-(spec["samples"] + graph.flush_len()) // block))
-            step()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            step()
-            torch.cuda.synchronize()
-            r["step_peak_mib_per_rank"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-            dist.barrier()
-            r["sharded_step_ms"] = statistics.median(time_steps(torch, step, steps=10))
-            dist.barrier()
             if rank == 0 and label not in serial:
-                sbox = {"s": graph.init(device)}
-
-                def serial_step():
-                    sbox["s"], _ = graph.apply(sbox["s"], whole)
-
-                serial_step()
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                base = torch.cuda.memory_allocated()
-                serial_step()
-                torch.cuda.synchronize()
-                peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-                ms = statistics.median(time_steps(torch, serial_step, steps=10))
-                del sbox
                 serial[label] = flow_serial(torch, ct, device, spec)
-                serial[label].update(step_ms=ms, step_peak_mib=peak)
-            dist.barrier()
-            step()
-            torch.cuda.synchronize()
-            dist.barrier()
-            if rank == 0:
-                prof, _ = traced(torch, lambda: [step() for _ in range(5)])
-                kern = device_kernels(prof)
-                nccl = {k: v for k, v in kern.items() if "nccl" in k.lower()}
-                k5 = {k: v for k, v in kern.items() if "fir_valid" in k}
-                r.update(launch_calls=launch_calls(prof),
-                         device_kernels=sum(v["count"] for v in kern.values()),
-                         device_ms_per_step=sum(v["device_us"] for v in kern.values()) / 5e3,
-                         k5_launches_per_step=sum(v["count"] for v in k5.values()) / 5,
-                         k5_device_ms_per_step=sum(v["device_us"] for v in k5.values()) / 5e3,
-                         nccl_device_ms_per_step=sum(v["device_us"] for v in nccl.values())
-                         / 5e3,
-                         top_kernels=[[k[:100], v["device_us"] / 5] for k, v in sorted(
-                             kern.items(), key=lambda kv: -kv[1]["device_us"])[:4]])
-            else:
-                for _ in range(5):
-                    step()
-                torch.cuda.synchronize()
-            del box, mine
             sink = ct.CollectSink() if rank == 0 else None
             torch.cuda.synchronize()
             dist.barrier()
             reset_counts()
-            t0 = time.perf_counter()
             total = ShardedPipeline(sh).run(source(spec["path"], block) if rank == 0 else None,
                                             sink)
             torch.cuda.synchronize()
-            r.update(seconds=time.perf_counter() - t0, launches=read_counts(),
-                     total=total)
-            r["msps"] = spec["samples"] / r["seconds"] / 1e6
+            r.update(launches=read_counts(), total=total)
             if rank == 0:
                 want = serial[label]
                 r.update(flow_compare(spec, sink.concat(), want),
-                         serial_seconds=want["seconds"], serial_launches=want["launches"],
-                         serial_msps=spec["samples"] / want["seconds"] / 1e6,
-                         serial_step_ms=want["step_ms"],
-                         serial_step_peak_mib=want["step_peak_mib"])
+                         serial_launches=want["launches"])
             del sink, sh
             dist.barrier()
             out[f"{label} {dt}x{dc}"] = r
-        del whole
     return out
 
 
@@ -4235,7 +3300,6 @@ def phase_chain_flows(torch, card, tmp, world: int, specs: list, ranks: list) ->
         per_rank = [r["flows"][key]["launches"] for r in ranks]
         emit(dict(phase="chain", part="flow_library", flow=key, world=world,
                   samples=spec["samples"], rate=spec["rate"], launches_per_rank=per_rank,
-                  peak_mib_per_rank=[r["flows"][key]["step_peak_mib_per_rank"] for r in ranks],
                   **{k: v for k, v in r0.items() if not k.endswith("launches")}, **card))
         what = f"sharded flow {key}"
         seen = {k: r0.get(k) for k in ("shape", "want_shape", "finite", "vs_serial_rel",
@@ -4248,9 +3312,6 @@ def phase_chain_flows(torch, card, tmp, world: int, specs: list, ranks: list) ->
             if kernel:
                 check(counts[kernel] == want_n,
                       f"{what}: {counts[kernel]} {kernel} launches, want {want_n}")
-        if kernel == "fir_valid":
-            check(r0["k5_launches_per_step"] == spec["per_block"],
-                  f"{what}: K5 {r0['k5_launches_per_step']} launches per profiled step")
         res["flows"][key] = dict(r0, launches_per_rank=per_rank)
 
     # 12f. three CLI runs over the mesh against the serial CLI's files, each
@@ -4273,7 +3334,7 @@ def phase_chain_flows(torch, card, tmp, world: int, specs: list, ranks: list) ->
         prefix = {k: os.path.join(tmp, f"flow_cli_{k}") for k in ("serial", "mesh")}
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf), record_ties(SYNC_TIE) as rec:
-            main_serial, serial_counts = cli_run(torch, cli_main, common + [
+            serial_counts = cli_run(torch, cli_main, common + [
                 "-o", prefix["serial"], "--device", "cuda", "-v"])
         m = re.search(thru, buf.getvalue())
         check(m is not None, f"serial CLI {label} output: {buf.getvalue()[-2000:]}")
@@ -4281,7 +3342,7 @@ def phase_chain_flows(torch, card, tmp, world: int, specs: list, ranks: list) ->
         mesh = f"{world}x1"
         argv = [sys.executable, "-m", "csdr_tpu_torch.apps.soapy_sdr_cli", *common,
                 "--mesh", mesh, "--device", "cuda", "-v", "-o", prefix["mesh"]]
-        r, wall, stamps = run_stamped(argv)
+        r = subprocess.run(argv, capture_output=True, text=True, timeout=600, cwd=HERE)
         what = f"CLI {label} --mesh {mesh}"
         check(r.returncode == 0, f"{what}: exit code {r.returncode}: {r.stderr.strip()[-2000:]}")
         mm = re.search(thru, r.stdout)
@@ -4295,12 +3356,8 @@ def phase_chain_flows(torch, card, tmp, world: int, specs: list, ranks: list) ->
                 check(counts[kernel] == serial_counts[kernel],
                       f"{what}: {counts[kernel]} {kernel} launches, the serial CLI "
                       f"{serial_counts[kernel]}")
-        c = dict(samples_in=samples_in, msps=samples_in / float(mm.group(1)) / 1e6,
-                 serial_msps=samples_in / float(m.group(1)) / 1e6,
-                 rank0_seconds=float(mm.group(1)),
-                 wall_seconds=wall, first_line_seconds=min(stamps.values()),
-                 launches_per_rank=cli_counts, serial_seconds=float(m.group(1)),
-                 serial_main_seconds=main_serial, serial_launches=serial_counts)
+        c = dict(samples_in=samples_in, launches_per_rank=cli_counts,
+                 serial_launches=serial_counts)
         if label == "DeFMS --rds":
             got, want = (np.fromfile(prefix[k] + ".wav", "<f4", offset=44) for k in prefix)
             txt = {k: open(prefix[k] + ".rds.txt").read() for k in prefix}
@@ -4345,40 +3402,13 @@ def phase_chain_flows(torch, card, tmp, world: int, specs: list, ranks: list) ->
                 for ch in range(SYNC_NCH):
                     os.unlink(f"{prefix[k]}_ch{ch + 1}.f32")
         emit(dict(phase="chain", part="flow_cli", world=world, flow=f"{label} --mesh {mesh}",
-                  line_seconds=stamps, **c, **card))
+                  **c, **card))
         check(ok, f"{what} vs the serial CLI: {c}")
         res["flow_cli"][label] = c
     for sp in specs:
         for f in {sp["path"], sp.get("cu8", sp["path"])}:
             os.unlink(f)
     return res
-
-
-def run_stamped(argv: list[str], timeout: float = 600.0):
-    """Run a CLI process unbuffered: (CompletedProcess, wall seconds, the
-    seconds after its start at which the first line of each kind reached
-    stdout), to see where a --mesh run's wall time goes."""
-    import threading
-
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                            cwd=HERE, env=dict(os.environ, PYTHONUNBUFFERED="1"))
-    timer = threading.Timer(timeout, proc.kill)
-    timer.start()
-    err: list[str] = []
-    reader = threading.Thread(target=lambda: err.append(proc.stderr.read()))
-    reader.start()
-    out, stamps = [], {}
-    for line in proc.stdout:
-        out.append(line)
-        key = " ".join(line.split()[:2])
-        stamps.setdefault(key, time.perf_counter() - t0)
-    proc.wait()
-    reader.join()
-    timer.cancel()
-    stamps["exit"] = wall = time.perf_counter() - t0
-    return (subprocess.CompletedProcess(argv, proc.returncode, "".join(out), "".join(err)),
-            wall, stamps)
 
 
 def phase_chain(torch, card, tmp, capture) -> dict:
@@ -4398,7 +3428,6 @@ def phase_chain(torch, card, tmp, capture) -> dict:
     import csdr_tpu_torch as ct
 
     world = min(torch.cuda.device_count(), CHAIN_MAX)
-    t_start = time.perf_counter()
     mix_path = mix_capture(torch, torch.device("cuda", 0), tmp)
     specs = flow_specs(torch, ct, torch.device("cuda", 0), tmp, world)
     ranks = spawn(chain_rank, world, "cuda", args=(capture, world, mix_path, specs),
@@ -4415,7 +3444,7 @@ def phase_chain(torch, card, tmp, capture) -> dict:
         check(r0["finite"] and r0["shape"] == r0["want_shape"] == [n_out]
               and r0["total"] == n_out, f"{what}: output {r0['shape']} vs {r0['want_shape']}")
         check(r0["vs_serial_rel"] < r0["bound"], f"{what}: rel {r0['vs_serial_rel']} vs serial")
-        for counts in per_rank + [r[label]["warm_launches"] for r in ranks]:
+        for counts in per_rank + [r[label]["second_launches"] for r in ranks]:
             check_counts(counts, kernel, what)
             if kernel:
                 check(counts[kernel] == CAPTURE // BLOCK,
@@ -4431,14 +3460,11 @@ def phase_chain(torch, card, tmp, capture) -> dict:
     prefix = os.path.join(tmp, "chain_serial")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        main_serial, counts = cli_run(torch, cli_main,
-                                      common + ["-o", prefix, "--device", "cuda", "-v"])
-    # each CLI's own clock from its first block to its last (-v's
-    # Throughput line), the set-up before it left out on both sides
+        counts = cli_run(torch, cli_main, common + ["-o", prefix, "--device", "cuda", "-v"])
+    # -v's Throughput line ends each CLI's run
     thru = r"Throughput: \d+ samples into the flow in ([\d.]+) s"
     m = re.search(thru, buf.getvalue())
     check(m is not None, f"serial CLI -c 1 DeCW output: {buf.getvalue()[-2000:]}")
-    dt_serial = float(m.group(1))
     check_counts(counts, "fir_valid", "serial CLI -c 1 DeCW")
     check(counts["fir_valid"] == -(-n48 // CHAIN_CLI_BLOCK),
           f"serial CLI -c 1 DeCW: {counts['fir_valid']} K5 launches")
@@ -4446,9 +3472,7 @@ def phase_chain(torch, card, tmp, capture) -> dict:
     prefix = os.path.join(tmp, "chain_mesh")
     argv = [sys.executable, "-m", "csdr_tpu_torch.apps.soapy_sdr_cli", *common,
             "--mesh", f"{world}x1", "--device", "cuda", "-v", "-o", prefix]
-    t0 = time.perf_counter()
     r = subprocess.run(argv, capture_output=True, text=True, timeout=600, cwd=HERE)
-    wall = time.perf_counter() - t0
     check(r.returncode == 0, f"CLI -c 1 --mesh: exit code {r.returncode}: "
                              f"{r.stderr.strip()[-2000:]}")
     m = re.search(thru, r.stdout)
@@ -4463,10 +3487,7 @@ def phase_chain(torch, card, tmp, capture) -> dict:
               f"CLI -c 1 --mesh DeCW: {counts['fir_valid']} K5 launches, want {blocks}")
     audio = read_wavs(prefix, 1, n48)
     rel = float(np.abs(audio.astype(np.float64) - serial).max() / np.abs(serial).max())
-    cli = dict(msps=CAPTURE / float(m.group(1)) / 1e6, rank0_seconds=float(m.group(1)),
-               wall_seconds=wall, launches_per_rank=cli_counts, serial_seconds=dt_serial,
-               serial_msps=CAPTURE / dt_serial / 1e6, serial_main_seconds=main_serial,
-               serial_launches=counts["fir_valid"],
+    cli = dict(launches_per_rank=cli_counts, serial_launches=counts["fir_valid"],
                vs_serial_cli_rel=rel, finite=bool(np.isfinite(audio).all()),
                bit_equal=bool(np.array_equal(audio, serial)), samples_in=CAPTURE,
                samples_out=n48, offset_hz=offset)
@@ -4479,7 +3500,7 @@ def phase_chain(torch, card, tmp, capture) -> dict:
     res["channels"] = {}
     for key, r0 in ranks[0]["channels"].items():
         per_rank = [r["channels"][key]["launches"] for r in ranks]
-        warm = [r["channels"][key]["warm_launches"] for r in ranks]
+        second = [r["channels"][key]["second_launches"] for r in ranks]
         emit(dict(phase="chain", part="channel_library", flow=key, world=world, samples=CAPTURE,
                   launches_per_rank=per_rank,
                   **{k: v for k, v in r0.items() if not k.endswith("launches")}, **card))
@@ -4489,14 +3510,11 @@ def phase_chain(torch, card, tmp, capture) -> dict:
               and r0["total"] == CAPTURE // r0["nch"],
               f"{what}: output {r0['shape']} vs {r0['want_shape']}")
         check(r0["vs_serial_rel"] < r0["bound"], f"{what}: rel {r0['vs_serial_rel']} vs serial")
-        for counts in per_rank + warm:
+        for counts in per_rank + second:
             check_counts(counts, r0["kernel"], what)
             if r0["kernel"]:
                 check(counts[r0["kernel"]] == CAPTURE // BLOCK,
                       f"{what}: {counts[r0['kernel']]} K5 launches, want one per block")
-        if r0["kernel"]:
-            check(r0["k5_launches_per_step"] == 1, f"{what}: K5 {r0['k5_launches_per_step']} "
-                                                   f"launches per profiled step")
         res["channels"][key] = dict(r0, launches_per_rank=per_rank)
 
     # 12d. the -c N CLI flows over the mesh, each in a process of its own,
@@ -4514,11 +3532,10 @@ def phase_chain(torch, card, tmp, capture) -> dict:
         prefix = os.path.join(tmp, "chain_ch_serial")
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            main_serial, serial_counts = cli_run(torch, cli_main, common + [
+            serial_counts = cli_run(torch, cli_main, common + [
                 "--backend", "eager", "-o", prefix, "--device", "cuda", "-v"])
         m = re.search(thru, buf.getvalue())
         check(m is not None, f"serial CLI {label} output: {buf.getvalue()[-2000:]}")
-        dt_serial = float(m.group(1))
         check_counts(serial_counts, kernel, f"serial CLI {label}")
         if kernel:
             check(serial_counts[kernel] == CAPTURE // BLOCK,
@@ -4528,7 +3545,7 @@ def phase_chain(torch, card, tmp, capture) -> dict:
             prefix = os.path.join(tmp, "chain_ch_mesh")
             argv = [sys.executable, "-m", "csdr_tpu_torch.apps.soapy_sdr_cli", *common,
                     "--mesh", mesh, "--device", "cuda", "-v", "-o", prefix]
-            r, wall, stamps = run_stamped(argv)
+            r = subprocess.run(argv, capture_output=True, text=True, timeout=600, cwd=HERE)
             what = f"CLI {label} --mesh {mesh}"
             check(r.returncode == 0, f"{what}: exit code {r.returncode}: "
                                      f"{r.stderr.strip()[-2000:]}")
@@ -4545,12 +3562,9 @@ def phase_chain(torch, card, tmp, capture) -> dict:
                           f"{what}: {counts[kernel]} K5 launches, want {CAPTURE // BLOCK}")
             audio = read_wavs(prefix, files, frames)
             rel = float(np.abs(audio - serial).max() / np.abs(serial).max())
-            c = dict(msps=CAPTURE / float(m.group(1)) / 1e6, rank0_seconds=float(m.group(1)),
-                     wall_seconds=wall, launches_per_rank=cli_counts, serial_seconds=dt_serial,
-                     serial_msps=CAPTURE / dt_serial / 1e6, serial_main_seconds=main_serial,
-                     serial_launches=serial_counts,
+            c = dict(launches_per_rank=cli_counts, serial_launches=serial_counts,
                      vs_serial_cli_rel=rel, finite=bool(np.isfinite(audio).all()),
-                     files=files, frames=frames, samples_in=CAPTURE, line_seconds=stamps)
+                     files=files, frames=frames, samples_in=CAPTURE)
             emit(dict(phase="chain", part="channel_cli", world=world,
                       flow=f"{label} --mesh {mesh}", **c, **card))
             check(c["finite"] and rel < bound_rel, f"{what} vs serial CLI: rel {rel}")
@@ -4558,87 +3572,18 @@ def phase_chain(torch, card, tmp, capture) -> dict:
         del serial
     res.update(phase_chain_flows(torch, card, tmp, world, specs, ranks))
     os.unlink(mix_path)
-    res["seconds"] = time.perf_counter() - t_start
-    emit(dict(phase="chain", part="seconds", seconds=res["seconds"], **card))
     return res
 
 
 SCAN_PLL_N = 1 << 16            # 13a: K7 on one row, two state-chained blocks of 2^15
-SCAN_PLAIN_N = 1 << 14          # 13a: the samples the twins are timed at on the card
 SCAN_SYNC_ROWS, SCAN_SYNC_N = 4, 1 << 14   # 13a: K8 on 4 rows, three blocks of 2^14
 SCAN_CHECK_N = 1 << 16         # 13b: K7's outputs at the flow's shape held against the twin
 SCAN_SEP_DB = 15.0    # the scan PLL's separation after pull-in (tests/test_symsync_stereo.py:222)
 SCAN_FLOW_TOL = 1e-5  # K7 at the DeFMS block against its twin (the φ pass's atan2f vs the CPU's)
-# An estimate, not a reading: the dependent chain per serial step that the
-# designs count, in cycles, for the phase record's chain_floor_est_ms. K7 per sample,
-# nine dependent FP32 instructions (d = φ − θ, the e wrap's compare and
-# predicated add, β·e, freq, (θ + ω) + freq, + α·e, the mod's compare and
-# select) at ~4.5 cycles; K8 per pair of outputs, the position to the bank
-# row (~44: add, floor, add, mul, the rint add, int clamps, the address),
-# the shared-memory loads (~30), four dependent multiply-adds (~16), five
-# shuffle levels (~135) and the TED and PI update (~36).
-PLL_CHAIN_CYCLES, SYNC_CHAIN_CYCLES = 40, 290
-
-
-def sync_rows(rows: int, n: int, k: int, seed: int, cplx: bool) -> np.ndarray:
-    """Rows of the JAX package's own symbol-sync test signals
-    (tests/test_symsync_stereo.py:33-61), each with its own bits, timing
-    phase and symbol clock within ±100 ppm (read off a k-samples/symbol
-    grid by linear interpolation): real, NRZ smoothed by a 7-tap Hann
-    window (float32); complex, RRC (β 0.5, m 3) BPSK (complex64)."""
-    from csdr_tpu_torch.utils import firdes
-
-    rng = np.random.default_rng(seed)
-    out = np.empty((rows, n), np.complex64 if cplx else np.float32)
-    for r in range(rows):
-        eps, d0 = rng.uniform(-1e-4, 1e-4), rng.uniform(0, k)
-        nsym = int(n * (1 + 2e-4) / k) + 8
-        bits = rng.integers(0, 2, nsym) * 2.0 - 1.0
-        if cplx:
-            up = np.zeros(nsym * k)
-            up[::k] = bits
-            xs = np.convolve(up, firdes.rrc(k, 3, 0.5))[:nsym * k] * np.sqrt(k)
-        else:
-            xs = np.convolve(np.repeat(bits, k), np.hanning(7) / np.hanning(7).sum(), "same")
-        t = (np.arange(n) + d0) * (1 + eps)
-        out[r] = np.interp(t, np.arange(len(xs)), xs)
-    return out
-
-
 def pll_constants():
     """K7's (ω, α, β) at the DeFMS flow's 200 kHz quad rate."""
     bw = 9.0 / FM_BW
     return 2 * np.pi * 19000.0 / FM_BW, 4.0 * bw, 4.0 * bw * bw
-
-
-def pll_bound(rows: int, n: int) -> dict:
-    """K7: p read once (8 B), sub38 written once (8 B) per sample; per
-    sample the complex product (6 FLOP), the loop update (5), and one each
-    for the two sincosf, the atan2f and the mod."""
-    return bound(16 * rows * n + 16 * rows, 15 * rows * n)
-
-
-def sync_scan_bound(rows: int, L: int, nout: int, W: int, npfb: int, cplx: bool) -> dict:
-    """K8: each row of xfull read once, each output written once, the bank
-    once; per output W multiply-adds (2 FLOP, 4 complex) and ~12 for the
-    position and the loop."""
-    dt = 8 if cplx else 4
-    return bound(rows * (dt * L + dt * nout) + 4 * npfb * W,
-                 rows * nout * (W * (4 if cplx else 2) + 12))
-
-
-def sm_clock_mhz() -> dict:
-    """The SM clock nvidia-smi reports: now and its maximum, MHz."""
-    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
-                        "--format=csv,noheader,nounits"], capture_output=True, text=True)
-    now, top = (float(v) for v in r.stdout.splitlines()[0].split(","))
-    return dict(sm_mhz=now, sm_max_mhz=top)
-
-
-def chain_floor_est_ms(cycles_per_step: float, steps: int, mhz: float) -> float:
-    """An estimate of the dependent chain's least time from the design's
-    counted cycles per serial step: cycles × steps ÷ the clock."""
-    return cycles_per_step * steps / (mhz * 1e3)
 
 
 def phase_scan_kernels(torch, dev, card) -> dict:
@@ -4653,9 +3598,7 @@ def phase_scan_kernels(torch, dev, card) -> dict:
     SCAN_SYNC_N: every output and τ bit for bit (the twin steps and sums
     in the kernel's order), and once with a carried η of −30 that runs τ
     back through the row, so the window ring is re-seated and pairs read
-    the row: bit for bit.  Each kernel launches once per block.
-    Then each twin's time on the card at SCAN_PLAIN_N samples beside its
-    kernel's."""
+    the row: bit for bit.  Each kernel launches once per block."""
     from csdr_tpu_torch.models import symsync
     from csdr_tpu_torch.ops.cuda import pll_scan as k7
     from csdr_tpu_torch.ops.cuda import symsync_scan as k8
@@ -4732,27 +3675,6 @@ def phase_scan_kernels(torch, dev, card) -> dict:
         check(agree["launches"] == 3, f"13a: K8 {kind} launched {agree['launches']} times")
         check(agree["bit_equal"] and agree["ring_paths_bit_equal"],
               f"13a: K8 {kind} vs twin {agree}")
-
-    # the twins' time on the card beside the kernels', at SCAN_PLAIN_N samples
-    pn = p[:, :SCAN_PLAIN_N].to(dev)
-    c0 = (torch.zeros(1, device=dev), torch.zeros(1, device=dev))
-    out["pll"]["plain_ms"] = min(time_steps(
-        torch, lambda: k7.pll_scan_ref(pn, c0, omega, alpha, beta), steps=1, warmup=0))
-    out["pll"]["ms_at_plain_shape"] = statistics.median(time_steps(
-        torch, lambda: k7.pll_scan(pn, c0, omega, alpha, beta), steps=5, warmup=1))
-    out["pll"]["plain_shape"] = f"(1, {SCAN_PLAIN_N}) complex64"
-    blk = symsync.sym_sync_r(SYNC_K, 4, 0.0, 64, mode="scan")
-    xs = torch.from_numpy(sync_rows(SCAN_SYNC_ROWS, SCAN_PLAIN_N, SYNC_K, SEED + 1313,
-                                    False)).to(dev)
-    xf = torch.cat([torch.zeros(SCAN_SYNC_ROWS, blk.H, device=dev), xs], dim=-1)
-    bank = symsync._bank_on(blk.k, blk.m, blk.npfb, blk.ftype, blk.beta, dev)
-    z = torch.zeros(SCAN_SYNC_ROWS, device=dev)
-    loop = blk.loop(SCAN_PLAIN_N)
-    out["sync_real"]["plain_ms"] = min(time_steps(
-        torch, lambda: k8.symsync_scan_ref(xf, bank, (z, z, z, z), loop), steps=1, warmup=0))
-    out["sync_real"]["ms_at_plain_shape"] = statistics.median(time_steps(
-        torch, lambda: k8.symsync_scan(xf, bank, (z, z, z, z), loop), steps=5, warmup=1))
-    out["sync_real"]["plain_shape"] = f"({SCAN_SYNC_ROWS}, {blk.H + SCAN_PLAIN_N}) float32"
     emit(dict(phase="scan_kernels", **out, **card))
     return out
 
@@ -4774,40 +3696,6 @@ def kernel_inputs(mod, name: str):
         yield seen
     finally:
         setattr(mod, name, fn)
-
-
-def scan_step(torch, graph, x, dev, steps: int) -> dict:
-    """One block of ``graph`` on the device-resident input x: the step's
-    median ms (CUDA events, after one warm-up), its peak memory above what
-    was allocated before it, and its device kernels (launches and ms per
-    step) from one profiler window of ``steps`` steps."""
-    box = {"s": graph.init(dev)}
-
-    def step():
-        box["s"], _ = graph.apply(box["s"], x)
-
-    step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    step()
-    torch.cuda.synchronize()
-    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-    ms = statistics.median(time_steps(torch, step, steps=steps, warmup=0))
-    kern = profile_kernels(torch, step, steps)
-    port = {}
-    for k, v in kern.items():
-        if m := PORT_KERNEL.search(k):
-            c = port.setdefault(m.group(1), [0.0, 0.0])
-            c[0] += v["count"] / steps
-            c[1] += v["device_us"] / steps / 1e3
-    return dict(step_ms=ms, step_peak_mib=peak,
-                launches_per_step=sum(v["count"] for v in kern.values()) / steps,
-                device_ms=sum(v["device_us"] for v in kern.values()) / steps / 1e3,
-                device_ms_by_kernel={k[:60]: v["device_us"] / steps / 1e3
-                                     for k, v in sorted(kern.items(),
-                                                        key=lambda kv: -kv[1]["device_us"])[:4]},
-                port_kernels_per_step=port)
 
 
 def tracker_graph(ct, mode: str):
@@ -4833,24 +3721,17 @@ def phase_scan_flows(torch, ct, dev, card, tmp) -> dict:
     each occupied channel, at least every one sent after the first block
     (each τ wrap at a block's end may cost the frame across it, in the JAX
     package too: tests/test_torch_scan.py), and nothing on the empty ones.
-    For each, one block's step ms, device ms, launches and peak memory,
-    beside the default mode's (closed_form, block), and the kernel's ns per
-    serial step.  Each kernel is then launched alone on the arguments the
-    flow's first block hands it (``kernel_inputs``), timed there, and held
-    against its twin on the CPU: K7's first SCAN_CHECK_N outputs and θ at
-    the cut within SCAN_FLOW_TOL, K8's every output and τ bit for bit (the
-    twin steps and sums in the kernel's order).  Each kernel's record has
-    its ns per serial step and the dependent chain's floor (the design's
-    cycles per step × steps ÷ the SM clock nvidia-smi reports) beside the
-    byte bound."""
+    Each kernel is then launched alone on the arguments the flow's first
+    block hands it (``kernel_inputs``; that block launches it once) and
+    held against its twin on the CPU: K7's first SCAN_CHECK_N outputs and θ
+    at the cut within SCAN_FLOW_TOL, K8's every output and τ bit for bit
+    (the twin steps and sums in the kernel's order)."""
     from csdr_tpu_torch.models import rds
-    from csdr_tpu_torch.models import symsync
     from csdr_tpu_torch.ops.cuda import pll_scan as k7
     from csdr_tpu_torch.ops.cuda import symsync_scan as k8
 
     out = {}
     # DeFMS --rds, pll_mode="scan"
-    t0 = time.perf_counter()
     cu8 = os.path.join(tmp, "scan_stereo.cu8")
     stereo_capture(torch, dev, CAPTURE, SEED + 500).cpu().numpy().tofile(cu8)
     fe, n = front_end_cf32(ct, dev, cu8, 2.56e6, 0.0, FM_BW, os.path.join(tmp, "scan_fe.cf32"))
@@ -4859,10 +3740,8 @@ def phase_scan_flows(torch, ct, dev, card, tmp) -> dict:
     sink = ct.CollectSink()
     torch.cuda.synchronize()
     reset_counts()
-    t1 = time.perf_counter()
     ct.Pipeline(g, block_size=block, device=dev).run(ct.cf32_file_source(fe, block), sink)
     torch.cuda.synchronize()
-    run_s = time.perf_counter() - t1
     counts = read_counts()
     audio, bits = sink.concat()
     blocks = -(-(n + g.flush_len()) // block)
@@ -4875,21 +3754,18 @@ def phase_scan_flows(torch, ct, dev, card, tmp) -> dict:
         band = lambda f0: spec[(f > f0 - 100) & (f < f0 + 100)].max()  # noqa: E731
         sep.append(float(10 * np.log10(band(fw) / band(fo))))
     info = rds.decode_groups(bits)
+    # K7 alone on the pilot the flow's first block hands it: its first
+    # SCAN_CHECK_N outputs held against the twin (the loop is causal) with
+    # θ at the cut
     x = torch.from_numpy(np.fromfile(fe, np.complex64, count=block)).to(dev)
-    steps = {mode: scan_step(torch, fms_graph(FMS_DECIM, mode)[0], x, dev, 3)
-             for mode in ("scan", "closed_form")}
-    k7_launches, k7_dev = steps["scan"]["port_kernels_per_step"].get("pll_scan_rows", [0, 0.0])
-    # K7 alone on the pilot the flow's first block hands it: timed at the
-    # flow's shape, and its first SCAN_CHECK_N outputs held against the twin
-    # (the loop is causal) with θ at the cut
     g = fms_graph(FMS_DECIM, "scan")[0]
+    reset_counts()
     with kernel_inputs(k7, "pll_scan") as seen:
         g.apply(g.init(dev), x)
+    k7_launches = read_counts()["pll_scan"]
     del x
     os.unlink(fe)
     p_a, c0, *consts = seen[0]
-    k7_ms = statistics.median(time_steps(torch, lambda: k7.pll_scan(p_a, c0, *consts),
-                                         steps=3, warmup=1))
     _, sub = k7.pll_scan(p_a, c0, *consts)
     (th, _), sub_c = k7.pll_scan_ref(p_a[..., :SCAN_CHECK_N].cpu(), tuple(c.cpu() for c in c0),
                                      *consts)
@@ -4899,33 +3775,25 @@ def phase_scan_flows(torch, ct, dev, card, tmp) -> dict:
                                      - torch.complex(torch.cos(2 * th), torch.sin(2 * th)))
                                     .abs().max()),
                 checked=f"the first {SCAN_CHECK_N} of {p_a.shape[-1]} outputs")
-    clock = sm_clock_mhz()
-    out["DeFMS"] = dict(samples=n, block=block, blocks=blocks, seconds=run_s,
-                        msps=n / run_s / 1e6, launches=counts, separation_db=sep,
-                        pi=info["pi"], ps=info["ps"], steps=steps, k7_ms=k7_ms,
-                        k7_vs_twin=full, k7_launches_per_step=k7_launches, k7_device_ms=k7_dev,
-                        k7_ns_per_step=k7_dev * 1e6 / p_a.shape[-1],
-                        k7_chain_floor_est_ms=chain_floor_est_ms(
-                            PLL_CHAIN_CYCLES, p_a.shape[-1], clock["sm_max_mhz"]),
-                        k7_chain_cycles_per_step=PLL_CHAIN_CYCLES, **clock,
-                        k7_shape=f"{tuple(p_a.shape)} complex64 -> {tuple(sub.shape)} complex64",
-                        **pll_bound(int(np.prod(p_a.shape[:-1])), p_a.shape[-1]))
+    out["DeFMS"] = dict(samples=n, block=block, blocks=blocks, launches=counts,
+                        separation_db=sep, pi=info["pi"], ps=info["ps"], k7_vs_twin=full,
+                        k7_launches_per_step=k7_launches,
+                        k7_shape=f"{tuple(p_a.shape)} complex64 -> {tuple(sub.shape)} complex64")
     del p_a, sub, seen
     emit(dict(phase="scan_flows", flow="DeFMS 8 --rds, pll_mode scan", wire="cf32",
-              capture_seconds=t1 - t0, **out["DeFMS"], **card))
+              **out["DeFMS"], **card))
     check_counts(counts, ("pll_scan", "fir_valid"), "13b DeFMS scan")
     check(counts["pll_scan"] == blocks, f"13b DeFMS: K7 launched {counts['pll_scan']} times in "
                                         f"{blocks} blocks")
     check(counts["fir_valid"] >= blocks, f"13b DeFMS: K5 launched {counts['fir_valid']} times")
     check(bool(np.isfinite(audio).all()), "13b DeFMS: non-finite audio")
     check(min(sep) > SCAN_SEP_DB, f"13b DeFMS: L/R separation {sep} dB")
-    check(k7_launches == 1, f"13b DeFMS: {k7_launches} K7 launches per profiled step")
+    check(k7_launches == 1, f"13b DeFMS: {k7_launches} K7 launches in the first block's step")
     check(info["pi"] == RDS_PI and info["ps"] == RDS_PS, f"13b DeFMS: RDS {info}")
     check(full["max_abs_err"] < SCAN_FLOW_TOL and full["theta_cut_err"] < SCAN_FLOW_TOL,
           f"13b DeFMS: K7 at the flow's shape vs twin {full}")
 
     # the -c 64 DeNBFMSync 10 tracker, mode="scan", behind K4
-    t0 = time.perf_counter()
     xh, texts, eps_of = sync_capture(torch, dev, CAPTURE, SEED + 1000)
     path = os.path.join(tmp, "scan_heli.cu8")
     to_cu8(torch, xh).cpu().numpy().tofile(path)
@@ -4936,10 +3804,8 @@ def phase_scan_flows(torch, ct, dev, card, tmp) -> dict:
     sink = ct.CollectSink()
     torch.cuda.synchronize()
     reset_counts()
-    t1 = time.perf_counter()
     ct.Pipeline(g, block_size=block, device=dev).run(ct.cu8_file_source(path, block), sink)
     torch.cuda.synchronize()
-    run_s = time.perf_counter() - t1
     counts = read_counts()
     y = sink.concat()
     check(y.shape == (SYNC_NCH, CAPTURE * 2 // (SYNC_NCH * SYNC_K)) and bool(np.isfinite(y).all()),
@@ -4954,50 +3820,36 @@ def phase_scan_flows(torch, ct, dev, card, tmp) -> dict:
     after_first = 2 * ((CAPTURE - block) // (SYNC_K * SYNC_NCH * 730) - 1)
     u8 = torch.from_numpy(np.fromfile(path, np.uint8, count=2 * block).reshape(block, 2)).to(dev)
     os.unlink(path)
-    steps = {mode: scan_step(torch, tracker_graph(ct, mode), u8, dev, 3)
-             for mode in ("scan", "block")}
-    # K8 alone on the panel the tracker's first block hands it: timed at
-    # the flow's shape, and every output held against the twin on the CPU
+    # K8 alone on the panel the tracker's first block hands it: every output
+    # held against the twin on the CPU
     g = tracker_graph(ct, "scan")
+    reset_counts()
     with kernel_inputs(k8, "symsync_scan") as seen:
         g.apply(g.init(dev), u8)
+    k8_launches = read_counts()["symsync_scan"]
     del u8
     xf, bank, carry, loop = seen[0]
-    k8_ms = statistics.median(time_steps(
-        torch, lambda: k8.symsync_scan(xf, bank, carry, loop), steps=5, warmup=1))
-    t2 = time.perf_counter()
     (tau, *_), yk = k8.symsync_scan(xf, bank, carry, loop)
     (tau_c, *_), yc = k8.symsync_scan_ref(xf.cpu(), bank.cpu(), tuple(c.cpu() for c in carry),
                                           loop)
     yk = yk.cpu()
     full = dict(max_err=float((yk - yc).abs().max() / yc.abs().max()),
                 tau_err=float((tau.cpu() - tau_c).abs().max()), outputs=int(yc.numel()),
-                bit_equal=torch.equal(yk, yc) and torch.equal(tau.cpu(), tau_c),
-                twin_seconds=time.perf_counter() - t2)
-    k8_launches, k8_dev = steps["scan"]["port_kernels_per_step"].get("symsync_scan_rows",
-                                                                      [0, 0.0])
-    blk = symsync.sym_sync_r(SYNC_K, 4, 0.0, 64, mode="scan")
+                bit_equal=torch.equal(yk, yc) and torch.equal(tau.cpu(), tau_c))
     out["tracker"] = dict(
-        samples=CAPTURE, block=block, blocks=blocks, seconds=run_s, msps=CAPTURE / run_s / 1e6,
+        samples=CAPTURE, block=block, blocks=blocks,
         launches=counts, coords_per_channel={ch: len(coords[ch]) for ch in SYNC_CHANNELS},
         coords_after_first_block=after_first,
         coords_on_empty_channels=sum(len(coords[ch]) for ch in range(SYNC_NCH)
                                      if ch not in SYNC_CHANNELS),
-        clock_ppm={ch: e * 1e6 for ch, e in eps_of.items()}, steps=steps,
+        clock_ppm={ch: e * 1e6 for ch, e in eps_of.items()},
         k8_shape=f"{tuple(xf.shape)} {str(xf.dtype)[6:]} -> {tuple(yk.shape)}",
-        k8_ms=k8_ms, k8_vs_twin=full, k8_launches_per_step=k8_launches, k8_device_ms=k8_dev,
-        k8_ns_per_step=k8_dev * 1e6 / loop.nout, k8_ns_per_pair=k8_dev * 2e6 / loop.nout,
-        k8_chain_floor_est_ms=chain_floor_est_ms(SYNC_CHAIN_CYCLES, loop.nout // 2 + 1,
-                                                 sm_clock_mhz()["sm_max_mhz"]),
-        k8_chain_cycles_per_pair=SYNC_CHAIN_CYCLES,
-        **sync_scan_bound(int(np.prod(xf.shape[:-1])), xf.shape[-1], loop.nout, blk.W, blk.npfb,
-                          xf.is_complex()))
+        k8_vs_twin=full, k8_launches_per_step=k8_launches)
     del xf, seen, yk
     emit(dict(phase="scan_flows", flow=f"-c {SYNC_NCH} DeNBFMSync {SYNC_K}, mode scan, "
-                                       "pfb_fused", wire="cu8", capture_seconds=t1 - t0,
-              **out["tracker"], **card))
+                                       "pfb_fused", wire="cu8", **out["tracker"], **card))
     check_counts(counts, ("pfb_channelize_fused", "symsync_scan"), "13b tracker")
-    check(k8_launches == 1, f"13b tracker: {k8_launches} K8 launches per profiled step")
+    check(k8_launches == 1, f"13b tracker: {k8_launches} K8 launches in the first block's step")
     check(counts["symsync_scan"] == blocks and counts["pfb_channelize_fused"] == blocks,
           f"13b tracker: K8 {counts['symsync_scan']}, K4 {counts['pfb_channelize_fused']} "
           f"launches in {blocks} blocks")
@@ -5024,9 +3876,7 @@ def phase_bundle(torch, card, tmp, capture: str, fused_audio: np.ndarray) -> dic
     from csdr_tpu_torch.apps.package_app import build_bundle
     from csdr_tpu_torch.ops.cuda import _build
 
-    t0 = time.perf_counter()
     dist = build_bundle(os.path.join(tmp, "dist"))
-    bundle_s = time.perf_counter() - t0
     built = os.path.join(dist, "build")
     # the repo's library is built by now, and the bundle carries it: take it
     # out, so that the bundle builds its own from the zipapp's sources
@@ -5042,9 +3892,7 @@ def phase_bundle(torch, card, tmp, capture: str, fused_audio: np.ndarray) -> dic
     argv = [os.path.join(dist, "csdr"), "soapy-sdr", "--filename", capture, "-n", str(CAPTURE),
             "-c", "64", "-o", prefix, "--demod", f"DeNBFM {KF} F32", "--backend", "fused",
             "--device", "cuda", "--blocksize", str(BLOCK), "-v"]
-    t0 = time.perf_counter()
     r = subprocess.run(argv, capture_output=True, text=True, timeout=600, cwd=tmp, env=env)
-    run_s = time.perf_counter() - t0
     check(r.returncode == 0, f"13c: the bundle's CLI exit code {r.returncode}: "
                              f"{r.stderr.strip()[-2000:]}")
     line = [ln for ln in r.stdout.splitlines() if ln.startswith("Kernel launches: ")]
@@ -5055,9 +3903,7 @@ def phase_bundle(torch, card, tmp, capture: str, fused_audio: np.ndarray) -> dic
     blocks = CAPTURE // BLOCK
     equal = all(np.array_equal(np.fromfile(f"{prefix}_ch{k + 1}.f32", np.float32), fused_audio[k])
                 for k in range(64))
-    out = dict(bundle_seconds=bundle_s, run_seconds=run_s, msps=CAPTURE / run_s / 1e6,
-               carried=carried,
-               launches=counts, library=os.path.relpath(lib, tmp),
+    out = dict(carried=carried, launches=counts, library=os.path.relpath(lib, tmp),
                library_built_in_bundle=os.path.exists(lib) and os.path.exists(log),
                files_equal_repo_cli=equal)
     emit(dict(phase="bundle", flow="-c 64 DeNBFM fused through the bundle's launcher", **out,
@@ -5090,7 +3936,7 @@ def fused_reference(torch, tmp, capture: str) -> np.ndarray:
 
     prefix = os.path.join(tmp, "fused")
     with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
-        _, counts = cli_run(torch, cli_main, [
+        counts = cli_run(torch, cli_main, [
             "--filename", capture, "-n", str(CAPTURE), "-c", "64", "-o", prefix, "--demod",
             f"DeNBFM {KF} F32", "--backend", "fused", "--device", "cuda", "--blocksize",
             str(BLOCK)])
@@ -5099,403 +3945,6 @@ def fused_reference(torch, tmp, capture: str) -> np.ndarray:
     for k in range(64):
         os.unlink(f"{prefix}_ch{k + 1}.f32")
     return audio
-
-
-HBM_BPS, FP32_FLOPS = 3.35e12, 67e12   # H100 SXM data sheet
-
-
-def bound(nbytes: float, flops: float) -> dict:
-    """The least time the card could take: bytes over HBM, operations over
-    the FP32 peak, whichever is larger."""
-    t_b, t_o = nbytes / HBM_BPS, flops / FP32_FLOPS
-    return dict(bound_ms=max(t_b, t_o) * 1e3, bound_by="bytes" if t_b >= t_o else "operations",
-                bound_bytes=nbytes, bound_flops=flops)
-
-
-def fft_flops(N: int) -> float:
-    """Operations of one N-point complex FFT, 5·N·log2 N."""
-    return 5.0 * N * np.log2(N)
-
-
-def flagship_bound(n: int, nch: int, cu8: bool, L: int = 14) -> dict:
-    """K1/K2 per step: 2 B (cu8) or 8 B in per sample, 4 B of audio out per
-    frame-channel; per sample the branch FIR (L+1 complex-by-real MACs, 4
-    FLOP each), an nch-point FFT (5·log2 nch), the DC blocker (8), the NCO
-    rotation (6), the u8 map (4, cu8 only) and the demod's conjugate
-    product and atan2 (26)."""
-    per = 4 * (L + 1) + 5 * np.log2(nch) + 8 + 6 + (4 if cu8 else 0) + 26
-    return bound((2 if cu8 else 8) * n + 4 * n, per * n)
-
-
-def pfb_bound(n: int, nch: int, demod: bool, L: int = 14) -> dict:
-    """K3 (demod) / K4 per step: panels (F + L, nch) complex in, audio or
-    complex channels out; FIR, FFT and (K3) the demod per sample."""
-    F = n // nch
-    per = 4 * (L + 1) + 5 * np.log2(nch) + (26 if demod else 0)
-    return bound(8 * (F + L) * nch + (4 if demod else 8) * n, per * n)
-
-
-def overlap_save_flops(rows: int, n: int, K: int, cplx: bool, ctaps: bool) -> float:
-    """Operations of a valid FIR by overlap-save at K6's segment size: per
-    transform a forward and an inverse 16384-point FFT and the spectrum
-    product, one transform per segment (per pair of segments, real × real)."""
-    from csdr_tpu_torch.ops.cuda import fft_fir as fx
-
-    _, nseg = fx.segments(n, K)
-    pair = not cplx and not ctaps
-    transforms = rows * (-(-nseg // 2) if pair else nseg)
-    return transforms * (2 * fft_flops(fx.S) + 6 * fx.S)
-
-
-def fir_bound(rows: int, n: int, K: int, cplx: bool, ctaps: bool) -> dict:
-    """K5: each row read once and written once; the least operations the
-    function needs, the direct FIR's MACs or overlap-save's FFTs, whichever
-    is fewer, so the bound holds whichever algorithm computes it."""
-    dt = 8 if cplx else 4
-    mac = 4 if (cplx and not ctaps) else 2 if not cplx else 8
-    return bound(rows * (dt * (n + K - 1) + dt * n) + 4 * K,
-                 min(rows * n * K * mac, overlap_save_flops(rows, n, K, cplx, ctaps)))
-
-
-def fft_fir_bound(rows: int, n: int, K: int, cplx: bool, ctaps: bool) -> dict:
-    """K6: rows read and written once; overlap-save's operations."""
-    din, dout = (8 if cplx else 4), (8 if (cplx or ctaps) else 4)
-    return bound(rows * (din * (n + K - 1) + dout * n) + (8 if ctaps else 4) * K,
-                 overlap_save_flops(rows, n, K, cplx, ctaps))
-
-
-def conv1d_call(torch, xfull, taps):
-    """One torch.nn.functional.conv1d computing the same valid FIR (real or
-    complex rows and taps as real channels); TF32 off, so FP32 like the
-    kernels."""
-    import torch.nn.functional as Fn
-
-    h = np.asarray(taps)
-    cplx_x, cplx_h = xfull.is_complex(), np.iscomplexobj(h)
-    hr = torch.from_numpy(np.ascontiguousarray(h.real[::-1]).astype(np.float32)).to(xfull.device)
-    if not cplx_h:
-        w = hr.view(1, 1, -1)
-        if cplx_x:
-            x = torch.view_as_real(xfull).movedim(-1, -2).reshape(-1, 1, xfull.shape[-1])
-            return lambda: Fn.conv1d(x, w)
-        x = xfull.reshape(-1, 1, xfull.shape[-1])
-        return lambda: Fn.conv1d(x, w)
-    hi = torch.from_numpy(np.ascontiguousarray(h.imag[::-1]).astype(np.float32)).to(xfull.device)
-    w = torch.stack([torch.stack([hr, -hi]), torch.stack([hi, hr])])     # (2 out, 2 in, K)
-    x = (torch.view_as_real(xfull).movedim(-1, -2) if cplx_x
-         else torch.stack([xfull, torch.zeros_like(xfull)], dim=-2))
-    x = x.reshape(-1, 2, xfull.shape[-1])
-    return lambda: Fn.conv1d(x, w)
-
-
-def phase_library(torch, dev, card):
-    """library_ms for K5 and K6: one conv1d call at each kernel's main
-    shape, checked against the kernel's plain version."""
-    from csdr_tpu_torch.ops.cuda import fft_fir as fx
-    from csdr_tpu_torch.ops.cuda import fir_valid as fv
-
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    out = {}
-    try:
-        for name, taps, rows, n, cplx, plain in (
-                ("fir_valid", cw_taps(2.56e6 / 64), 64, BLOCK // 64, True, fv.fir_valid_ref),
-                ("fft_fir", usb_taps(), 1, BLOCK, True, fx.fft_fir_valid_ref)):
-            xfull = rand_rows(torch, dev, rows, n + len(taps) - 1, cplx, SEED + 11)
-            call = conv1d_call(torch, xfull, taps)
-            y = call()
-            want = plain(xfull, taps)
-            got = y.reshape(rows, 2, n).movedim(-2, -1).contiguous()
-            rel, _ = rel_err(torch, torch.view_as_complex(got), want)
-            check(rel < 2e-3, f"library conv1d for {name}: rel {rel}")
-            v = time_steps(torch, call, steps=5, warmup=1)
-            out[name] = statistics.median(v)
-            emit(dict(phase="library", kernel=name, call="torch.nn.functional.conv1d",
-                      rows=rows, n=n, taps=len(taps), median_ms=out[name], min_ms=min(v),
-                      vs_plain_rel=rel, tf32=False, **card))
-            del xfull, y, want, got
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
-    return out
-
-
-def traced(torch, fn):
-    """torch.profiler around one call of ``fn()``; returns (profiler, fn's
-    wall seconds)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    return prof, wall
-
-
-def profile_kernels(torch, fn, steps: int, want: int | None = None, tries: int = 5) -> dict:
-    """Device kernels of ``steps`` calls of ``fn()`` (after one unprofiled
-    call), from torch.profiler: kernel name → dict(count, device_us), both
-    summed over the steps.  The tracer now and then loses a kernel record,
-    even in a process's first session: a session that traced fewer device
-    kernels than launch calls, or other than ``want`` per step, is run
-    again, up to ``tries`` times."""
-    fn()
-    for _ in range(tries):
-        prof, _ = traced(torch, lambda: [fn() for _ in range(steps)])
-        kern = device_kernels(prof)
-        n = sum(v["count"] for v in kern.values())
-        if n == launch_calls(prof) and (want is None or n == want * steps):
-            break
-    return kern
-
-
-def trace_events(prof) -> list[tuple[str, bool, float]]:
-    """(name, on the device, duration µs) of every event of a torch.profiler
-    run, read once from its Kineto results and kept on ``prof``: the events
-    ``key_averages`` sums, without building the profiler's FunctionEvent
-    tree."""
-    if not hasattr(prof, "_csdr_events"):
-        prof._csdr_events = [(e.name(), str(e.device_type()).endswith("CUDA"),
-                              e.duration_ns() / 1e3)
-                             for e in prof.profiler.kineto_results.events()]
-    return prof._csdr_events
-
-
-def device_kernels(prof) -> dict:
-    """Kernel name → dict(count, device_us) of a torch.profiler run: the
-    device events, less copies, sets and the ranges ProcessGroupNCCL
-    records around its kernels ("nccl:broadcast", …)."""
-    kern = {}
-    for name, on_device, us in trace_events(prof):
-        if on_device and "ProfilerStep" not in name and not name.startswith(
-                ("aten::", "Memcpy", "Memset", "nccl:")):
-            k = kern.setdefault(name, dict(count=0, device_us=0.0))
-            k["count"] += 1
-            k["device_us"] += us
-    return kern
-
-
-def launch_calls(prof) -> int:
-    """Kernel launches the host made in a torch.profiler run: the CUDA
-    runtime's and driver's launch calls in its trace."""
-    return sum(1 for name, on_device, _ in trace_events(prof)
-               if not on_device and name.startswith(("cudaLaunch", "cuLaunch")))
-
-
-IDLE_POOL = 6          # idle-share children started together, each then measures one flow
-_POOL: list = []       # children imported and waiting for their flow: (process, stderr file)
-
-
-def _answer(p, err, what: str) -> str:
-    """The next stdout line of idle-share child ``p`` (600 s at most); the
-    script fails with the child's stderr where none comes."""
-    ready, _, _ = select.select([p.stdout], [], [], 600)
-    line = p.stdout.readline() if ready else ""
-    if not line:
-        p.kill()
-        p.wait()
-        err.seek(0)
-        fail(f"idle share ({what}): no answer (exit code {p.returncode}): "
-             f"{err.read().strip()[-2000:]}")
-    return line
-
-
-def stop_idle_pool():
-    """Close the waiting idle-share children (at exit)."""
-    while _POOL:
-        p, err = _POOL.pop()
-        p.stdin.close()
-        try:
-            p.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            p.wait()
-        err.close()
-
-
-def idle_share(spec: dict) -> dict:
-    """Device idle share of one run of a flow, 1 − (device kernel time ÷
-    wall time) under torch.profiler (PERF.md §2), measured by
-    ``idle_child`` in a fresh process: later profiler sessions of a long
-    process drop kernel records, which read as idle (a child that measured
-    several flows in turn lost 8 of 21).  ``spec`` is {"cli": argv},
-    {"app": module of csdr_tpu_torch.apps, "argv": argv}, {"band_monitor":
-    backend, "capture": path} or {"checkpoint": backend, "capture": path}.
-    Children are started IDLE_POOL at a time, side by side, while this
-    process waits for their imports (6–8 s each, a third of a child's
-    time); each then waits, idle and off the card, for one flow.  The spec
-    carries this process's CSDR_* environment."""
-    t0 = time.perf_counter()
-    if not _POOL:
-        started = []
-        for _ in range(IDLE_POOL):
-            err = tempfile.TemporaryFile(mode="w+")
-            started.append((subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--idle-share"],
-                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err, text=True,
-                cwd=HERE), err))
-        for p, err in started:
-            _answer(p, err, "imports")
-        _POOL.extend(started)
-    p, err = _POOL.pop()
-    env = {k: v for k, v in os.environ.items() if k.startswith("CSDR_")}
-    p.stdin.write(json.dumps(dict(spec, env=env)) + "\n")
-    p.stdin.close()
-    out = json.loads(_answer(p, err, str(spec)))
-    p.wait()
-    err.close()
-    check(p.returncode == 0, f"idle share of {spec}: exit code {p.returncode}")
-    out["idle_session"]["child_s"] = time.perf_counter() - t0
-    return out
-
-
-PORT_KERNEL = re.compile(r"(dc_chunk|carry_scan|channel_tile|pfb_tile<[^>]*>|fir_valid_tile|"
-                         r"fft_fir_segment|pll_scan_rows|symsync_scan_rows)")
-
-
-def idle_child(tries: int = 3) -> int:
-    """The process behind ``idle_share``: its imports, then a {"ready"}
-    line; then it reads its flow's JSON spec line from stdin (with the
-    parent's CSDR_* environment; EOF: exits), makes its CUDA context, runs
-    the flow once unprofiled, then profiled until a session whose trace
-    holds a device kernel for every launch call (at most ``tries``), and
-    prints {"device_idle_share", "device_ms", "device_ms_by_kernel",
-    "port_kernels", "idle_session"}; the share is null where every session
-    lost records; "idle_session" also holds the seconds to import, warm
-    up, trace and read.  It touches the card only once it has its flow:
-    children that had set up CUDA and the profiler while they waited lost
-    the kernel records of 9 of 21 flows."""
-    t_start = time.perf_counter()
-    import torch
-
-    sys.path.insert(0, HERE)
-    import csdr_tpu_torch as ct
-    from csdr_tpu_torch.apps.soapy_sdr_cli import main as cli_main
-
-    stamps = {"import_s": time.perf_counter() - t_start}
-    emit({"ready": True})
-    line = sys.stdin.readline()
-    if line:
-        spec = json.loads(line)
-        for k in [k for k in os.environ if k.startswith("CSDR_")]:
-            del os.environ[k]
-        os.environ.update(spec.pop("env", {}))
-        dev = torch.device("cuda", 0)
-        torch.cuda.set_device(dev)
-        idle_measure(torch, ct, cli_main, dev, spec, tries, stamps)
-    return 0
-
-
-def idle_measure(torch, ct, cli_main, dev, spec: dict, tries: int, stamps: dict):
-    """One flow of ``idle_child``: its unprofiled run, its profiled ones,
-    the answer line."""
-    if "cli" in spec:
-        def fn():
-            # a packet flow prints every decoded message
-            with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
-                check(cli_main(spec["cli"]) == 0, f"idle share: CLI {spec['cli']}")
-    elif "app" in spec:
-        import importlib
-
-        app = importlib.import_module(f"csdr_tpu_torch.apps.{spec['app']}")
-
-        def fn():
-            with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
-                check(app.main(spec["argv"]) == 0, f"idle share: {spec['app']} {spec['argv']}")
-    elif "band_monitor" in spec:
-        def fn():
-            band_pipeline(ct, spec["band_monitor"], dev).run(
-                ct.cu8_file_source(spec["capture"], BLOCK), ct.CollectSink())
-    else:
-        def fn():
-            checkpoint_pipeline(ct, spec["checkpoint"], dev).run(
-                ct.cu8_file_source(spec["capture"], BLOCK), ct.NullSink())
-    t0 = time.perf_counter()
-    fn()
-    stamps["warm_run_s"] = time.perf_counter() - t0
-    for t in range(1, tries + 1):
-        t0 = time.perf_counter()
-        prof, wall = traced(torch, fn)
-        t1 = time.perf_counter()
-        kern = device_kernels(prof)
-        n_dev, n_host = sum(v["count"] for v in kern.values()), launch_calls(prof)
-        stamps.update(traced_s=t1 - t0, read_s=time.perf_counter() - t1)
-        if n_dev == n_host:
-            break
-    busy_s = sum(v["device_us"] for v in kern.values()) * 1e-6
-    top = sorted(kern.items(), key=lambda kv: -kv[1]["device_us"])[:4]
-    emit(dict(device_idle_share=1.0 - busy_s / wall if n_dev == n_host else None,
-              device_ms=busy_s * 1e3,
-              device_ms_by_kernel={k[:60]: v["device_us"] * 1e-3 for k, v in top},
-              # the port's own kernels, whatever their share: (launches, device ms)
-              port_kernels={m.group(1): (v["count"], v["device_us"] * 1e-3)
-                            for k, v in kern.items() if (m := PORT_KERNEL.search(k))},
-              idle_session=dict(device_kernels=n_dev, launch_calls=n_host, sessions=t,
-                                wall_s=wall, **stamps)))
-
-
-def phase_profile(torch, dev, card):
-    """CUDA launches per step and device time by kernel, from torch.profiler
-    over 5 steps of each kernel at its main shape: name → (launches per
-    step, device ms per step).  Fails where the profiler records no device
-    kernels or a step makes other than its launches: 3 for K1/K2 (DC chunk,
-    carry scan, channel tile), 1 for the others."""
-    from csdr_tpu_torch.ops.cuda import fft_fir as fx
-    from csdr_tpu_torch.ops.cuda import fir_valid as fv
-    from csdr_tpu_torch.ops.cuda import flagship_fused as ff
-    from csdr_tpu_torch.ops.cuda import pfb_fused as pf
-
-    x = occupied_band(torch, dev, 64, BLOCK, SEED + 3)
-    u8 = to_cu8(torch, x)
-    n20 = block_len(20, ff.DEFAULT_TILE_F)
-    u8_20 = to_cu8(torch, occupied_band(torch, dev, 20, n20, SEED + 4))
-    box = {"k": ff.flagship_fused_init(64, dev), "k20": ff.flagship_fused_init(20, dev)}
-
-    def k1():
-        box["k"], _ = ff.flagship_fused_step(box["k"], u8, nch=64, kf=KF)
-
-    def k2():
-        box["k20"], _ = ff.flagship_fused_step(box["k20"], u8_20, nch=20, kf=KF)
-
-    taps, W = pf.pfb_design(64, 7, 80.0, dev)
-    v3 = block_panels(torch, pf, x, 64)
-    v4 = v3[1:].contiguous()
-    del x
-    usb, cw1, cw64 = usb_taps(), cw_taps(2.56e6), cw_taps(2.56e6 / 64)
-    xu = rand_rows(torch, dev, 1, BLOCK + len(usb) - 1, True, SEED + 12)
-    xr = rand_rows(torch, dev, 1, BLOCK + len(cw1) - 1, False, SEED + 13)
-    x5 = rand_rows(torch, dev, 64, BLOCK // 64 + len(cw64) - 1, True, SEED + 14)
-    x3 = rand_rows(torch, dev, 1, BLOCK + len(cw1) - 1, True, SEED + 15)
-    rtty = rtty_taps()
-    xr1 = rand_rows(torch, dev, 1, RTTY_BLOCK + len(rtty) - 1, True, SEED + 16)[0]
-    steps = {
-        "flagship_fused": k1,
-        "flagship_fused_nch20": k2,
-        "pfb_fm_fused": lambda: pf.pfb_fm_fused(v3, taps, W, nch=64, L=14, kf=KF),
-        "pfb_channelize_fused": lambda: pf.pfb_channelize_fused(v4, taps, W, nch=64, L=14),
-        "fir_valid": lambda: fv.fir_valid(x5, cw64),
-        "fir_valid_3651": lambda: fv.fir_valid(x3, cw1),
-        "fir_valid_rtty": lambda: fv.fir_valid(xr1, rtty),
-        "fft_fir": lambda: fx.fft_fir_valid(xu, usb),
-        "fft_fir_real_real": lambda: fx.fft_fir_valid(xr, cw1),
-    }
-    want = {name: 3 if name.startswith("flagship") else 1 for name in steps}
-    out = {}
-    for name, fn in steps.items():
-        kern = profile_kernels(torch, fn, 5, want[name])
-        launches = sum(v["count"] for v in kern.values())
-        out[name] = (launches / 5 if launches else None,
-                     sum(v["device_us"] for v in kern.values()) / 5e3 if launches else None)
-        emit(dict(phase="profile", kernel=name, steps=5,
-                  launches_per_step=out[name][0], device_ms_per_step=out[name][1],
-                  device_us_per_step={k: v["device_us"] / 5 for k, v in kern.items()},
-                  note=None if launches else "the profiler recorded no device kernels",
-                  **card))
-        check(launches > 0, f"profile of {name}: the profiler recorded no device kernels")
-        check(out[name][0] == want[name],
-              f"profile of {name}: {out[name][0]} launches per step, want {want[name]}")
-    return out
 
 
 def timed(label: str, fn, *args):
@@ -5523,7 +3972,6 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         fail("torch.cuda.is_available() is false: this script runs on a CUDA card")
     if not os.path.isdir(os.path.join(HERE, "csdr_tpu_torch")):
         fail(f"no csdr_tpu_torch package beside {__file__}: run from a checkout")
-    atexit.register(stop_idle_pool)
     sys.path.insert(0, HERE)
     import csdr_tpu_torch as ct
     from csdr_tpu_torch.ops.cuda import _build
@@ -5543,11 +3991,9 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
     torch.cuda.set_device(dev)
 
     # 2. build
-    t0 = time.perf_counter()
-    lib = _build.build()
-    build_s = time.perf_counter() - t0
+    lib = timed("build", _build.build)
     ptxas = ptxas_summary(lib)
-    emit(dict(phase="build", seconds=build_s, library=os.path.relpath(lib, HERE), ptxas=ptxas))
+    emit(dict(phase="build", library=os.path.relpath(lib, HERE), ptxas=ptxas))
 
     if sync_only:
         with tempfile.TemporaryDirectory() as tmp:
@@ -5584,8 +4030,8 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         return 0
     if mesh_only:
         with tempfile.TemporaryDirectory() as tmp:
-            _, _, _, runs, capture, _ = timed("main_path", phase_main_path, torch, ff, pf, dev,
-                                              card, tmp)
+            _, runs, capture, _ = timed("main_path", phase_main_path, torch, ff, pf, dev, card,
+                                        tmp)
             agc_path = write_agc_capture(torch, ct, dev, card, tmp)
             mesh = timed("mesh", phase_mesh, torch, card, tmp, capture, agc_path, runs["fused"])
         print(smi, flush=True)
@@ -5596,14 +4042,11 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
     errs = timed("compare", phase_compare, torch, ct, ff, dev, card)
     errs.update(timed("compare_pfb", phase_compare_pfb, torch, ct, pf, dev, card))  # 3b
     errs.update(timed("compare_fir", phase_compare_fir, torch, dev, card))  # 3c
-    # the profile comes before any other profiler window: later in the
-    # process the tracer dropped kernel records (PERF.md §7)
-    per_step = timed("profile", phase_profile, torch, dev, card)
 
     # 4. main paths through the CLI
     with tempfile.TemporaryDirectory() as tmp:
-        launches, fused_msps, eager_msps, runs, capture, bins = timed(
-            "main_path", phase_main_path, torch, ff, pf, dev, card, tmp)
+        launches, runs, capture, bins = timed("main_path", phase_main_path, torch, ff, pf, dev,
+                                              card, tmp)
         pfb_runs, agc_path = timed("main_path_pfb", phase_main_path_pfb, torch, ct, dev,
                                    card, tmp, capture, runs, bins)  # 4b
         mesh = timed("mesh", phase_mesh, torch, card, tmp, capture, agc_path, runs["fused"])  # 7
@@ -5611,17 +4054,11 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         scan = timed("scan", phase_scan, torch, ct, dev, card, tmp, capture,
                      runs["fused"])  # 13
         del runs
-        rates = timed("cli_rates", phase_cli_rates, torch, card, tmp, capture,
-                      agc_path)  # 5b
         ckpt = timed("checkpoint", phase_checkpoint, torch, ct, dev, card, capture)  # 6d
         for f in (capture, agc_path):
             os.unlink(f)
-        fir_runs, fir_rates, cw_path = timed("main_path_fir", phase_main_path_fir, torch, dev,
-                                             card, tmp)  # 4c
-        fir_med, cw_rates = timed("timing_fir", phase_timing_fir, torch, dev, card, tmp,
-                                  cw_path)  # 5c
-        os.unlink(cw_path)
-        wbfm = timed("wbfm", phase_wbfm, torch, dev, card, tmp)  # 6a
+        fir_runs = timed("main_path_fir", phase_main_path_fir, torch, dev, card, tmp)  # 4c
+        timed("wbfm", phase_wbfm, torch, dev, card, tmp)  # 6a
         fms = timed("stereo_rds", phase_stereo_rds, torch, dev, card, tmp)  # 6b
         mix = timed("mix", phase_mix, torch, dev, card, tmp)  # 6c
         pkt = timed("packet", phase_packet, torch, ct, dev, card, tmp)  # 8
@@ -5629,75 +4066,39 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         img = timed("imagery_and_files", phase_imagery_and_files, torch, dev, card,
                     tmp)  # 10
         live = timed("device", phase_device, torch, ff, dev, card, tmp)  # 11
-        emit(dict(phase="broadcast_and_mix_flows", msps={
-            "DeWBFM": wbfm["msps"], "DeFMS --rds": fms["msps"],
-            **{f"-c {MIX_NCH} -m {k}": v["msps"] for k, v in mix.items()},
-            **{f"checkpoint {k}": v["msps"] for k, v in ckpt.items()}},
-            device_idle_share={
-            "DeWBFM": wbfm["device_idle_share"], "DeFMS --rds": fms["device_idle_share"],
-            **{f"-c {MIX_NCH} -m {k}": v["device_idle_share"] for k, v in mix.items()},
-            **{f"checkpoint {k}": v["device_idle_share"] for k, v in ckpt.items()}}, **card))
-
-    # 5. timings
-    med = timed("timing", phase_timing, torch, ct, ff, dev, card)
-    med.update(timed("timing_pfb", phase_timing_pfb, torch, ct, pf, dev, card))  # 5b
-    lib_ms = timed("library", phase_library, torch, dev, card)
 
     print(smi, flush=True)
     flagship = {
         "route": "cuda",
         "source": "csdr_tpu_torch/csrc/flagship_fused.cu",
         "launches": launches,
-        "ms": med[("u8", "kernel")],
-        "plain_ms": med[("u8", "twin")],
-        "eager_ms": med[("u8", "eager")],
         "shape": f"cu8 ({2 * BLOCK},) uint8 -> (64, {BLOCK // 64}) float32",
-        "pipeline_msps": {"fused": fused_msps, "eager": eager_msps},
-        "pipeline_msps_in_turns": {b: rates[("DeNBFM", b)] for b in ("fused", "eager")},
-        "launches_per_step": per_step["flagship_fused"][0],
-        "device_ms": per_step["flagship_fused"][1],
         "launches_mix_run": mix["fused"]["launches"]["flagship_fused"],
         "launches_checkpoint_run": ckpt["fused"]["launches"]["flagship_fused"],
         "launches_wav_run": img["wav"]["runs"]["fused"]["launches"]["flagship_fused"],
         "launches_rtl_tcp_device_run": live["11a"]["launches"],
-        "device_flow": {k: live["11a"][k] for k in (
-            "msps_in_turns", "real_time_factor_vs_3_2_msps", "device_idle_share",
-            "vs_cu8_run_max")},
-        "launches_autotune_sweep": live["11d"]["sweep_launches"],
         "launches_bundle_run": scan["13c"]["launches"].get("flagship_fused"),
-        "autotune_sweep_step_ms": live["11d"]["step_ms"],
-        "autotune_best_tileF": live["11d"]["best_tileF"],
         "launches_mesh_run_per_rank": [c["flagship_fused"]
                                        for c in mesh["flagship_launches_per_rank"]],
         "launches_mesh_cli_per_rank": [c["flagship_fused"]
                                        for c in mesh["cli"]["launches_per_rank"]],
-        "mesh": {"world": mesh["world"], "sharded_step_ms": mesh["flagship"]["sharded_step_ms"],
-                 "serial_step_ms": mesh["flagship"]["serial_step_ms"],
-                 "nccl_device_ms_per_step": mesh["flagship"]["nccl_device_ms_per_step"],
-                 "q99_vs_serial": mesh["flagship"]["q99"], "cli_msps": mesh["cli"]["msps"]},
-        "step_peak_mib": med[("u8", "step_peak_mib")],
-        "library_ms": None,
-        **flagship_bound(BLOCK, 64, True),
+        "mesh": {"world": mesh["world"], "q99_vs_serial": mesh["flagship"]["q99"]},
+        "tiles_vs_default": live["11d"]["vs_default"],
     }
     emit({"kernels": [dict(
         name="flagship_fused_wide",
         replaces="csdr_tpu/ops/pallas/flagship_fused_wide.py:537",
         max_abs_err=errs[(64, "u8")],
-        note="K1 (nch | 64) and K2 are one CUDA kernel; launches, ms, plain_ms and "
-             "max_abs_err read the -c 64 main path and the nch 64 cu8 runs",
+        note="K1 (nch | 64) and K2 are one CUDA kernel; launches and max_abs_err read the "
+             "-c 64 main path and the nch 64 cu8 runs",
         **flagship,
     ), dict(
         name="flagship_fused",
         replaces="csdr_tpu/ops/pallas/flagship_fused.py:479",
         max_abs_err=errs[(64, "u8")],
-        note="the same kernel as flagship_fused_wide: launches, ms, plain_ms and "
-             "max_abs_err read the same -c 64 main path and nch 64 cu8 runs; "
-             "K2's any-nch path is timed and compared at nch 20 under nch20",
-        nch20={"ms": med[("u8_nch20", "kernel")], "plain_ms": med[("u8_nch20", "twin")],
-               "max_abs_err": max(errs[(20, "f32")], errs[(20, "u8")]),
-               "launches_per_step": per_step["flagship_fused_nch20"][0],
-               "device_ms": per_step["flagship_fused_nch20"][1],
-               **flagship_bound(block_len(20, ff.DEFAULT_TILE_F), 20, True),
+        note="the same kernel as flagship_fused_wide; K2's any-nch path is compared at "
+             "nch 20 under nch20",
+        nch20={"max_abs_err": max(errs[(20, "f32")], errs[(20, "u8")]),
                "shape": f"cu8 ({2 * block_len(20, ff.DEFAULT_TILE_F)},) uint8 -> "
                         f"(20, {block_len(20, ff.DEFAULT_TILE_F) // 20}) float32"},
         **flagship,
@@ -5715,18 +4116,8 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
             f"{c['mesh'][0]}x{c['mesh'][1]}": [n["pfb_fm_fused"] for n in c["launches_per_rank"]]
             for c in mesh["channelized"] if c["backend"] == "pfb_fused"},
         "max_abs_err": errs[("pfb_fm_fused", 64)],
-        "ms": med[("pfb_fm_fused", "kernel")],
-        "plain_ms": med[("pfb_fm_fused", "plain")],
-        "path_ms": {"pfb_fused": med[("pfb_fused_fm_path", "kernel")],
-                    "eager": med[("pfb_fused_fm_path", "plain")]},
         "shape": f"({BLOCK // 64 + 14}, 64) complex64 -> (64, {BLOCK // 64}) float32",
-        "pipeline_msps": {"pfb_fused": pfb_runs["pfb_fm_fused"]["msps"]},
-        "pipeline_msps_in_turns": {"pfb_fused": rates[("DeNBFM", "pfb_fused")]},
-        "launches_per_step": per_step["pfb_fm_fused"][0],
-        "device_ms": per_step["pfb_fm_fused"][1],
-        "library_ms": None,
         "ptxas": {k: v for k, v in ptxas.items() if k.startswith("pfb_tile<1")},
-        **pfb_bound(BLOCK, 64, True),
     }, {
         "name": "pfb_channelize_fused",
         "route": "cuda",
@@ -5743,36 +4134,16 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         "denbfmsync": {
             "shape": f"({sync['9b']['block'] // 64 + 13}, 64) complex64 -> "
                      f"(64, {sync['9b']['block'] // 64}) complex64",
-            "ms": sync["9a"]["k4_ms"], "plain_ms": sync["9a"]["k4_plain_ms"],
-            "max_abs_err": sync["9a"]["k4_vs_plain_max"],
-            **{k: sync["9a"][k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_flops")},
-            "pipeline_msps_in_turns": {b: r["msps"] for b, r in sync["9b"]["runs"].items()},
-            "device_idle_share": {b: r["device_idle_share"]
-                                  for b, r in sync["9b"]["runs"].items()}},
+            "max_abs_err": sync["9a"]["k4_vs_plain_max"]},
         "band_monitor": {k: pkt["band monitor pfb_fused"][k] for k in (
-            "msps", "device_idle_share", "device_ms", "k4_vs_eager_env_max",
-            "k4_vs_eager_score_max_paged")},
+            "k4_vs_eager_env_max", "k4_vs_eager_score_max_paged")},
         "launches_mesh_runs_per_rank": {
             f"{c['mesh'][0]}x{c['mesh'][1]}": [n["pfb_channelize_fused"]
                                                for n in c["launches_per_rank"]]
             for c in mesh["channelized"] if c["backend"] == "pfb_fused -a"},
         "max_abs_err": errs[("pfb_channelize_fused", 64)],
-        "ms": med[("pfb_channelize_fused", "kernel")],
-        "plain_ms": med[("pfb_channelize_fused", "plain")],
         "shape": f"({BLOCK // 64 + 13}, 64) complex64 -> (64, {BLOCK // 64}) complex64",
-        "pipeline_msps": {
-            "agc_pfb_fused": pfb_runs["pfb_channelize_fused"]["msps"],
-            "agc_eager": pfb_runs["pfb_channelize_fused"]["eager_msps"],
-            "raw_split_pfb_fused": pfb_runs["raw_split"]["msps"],
-            "raw_split_eager": pfb_runs["raw_split"]["eager_msps"]},
-        "pipeline_msps_in_turns": {f"{flow} {b}": rates[(flow, b)]
-                                   for flow in ("DeNBFM -a", "-c 4 DeNo")
-                                   for b in ("pfb_fused", "eager")},
-        "launches_per_step": per_step["pfb_channelize_fused"][0],
-        "device_ms": per_step["pfb_channelize_fused"][1],
-        "library_ms": None,
         "ptxas": {k: v for k, v in ptxas.items() if k.startswith("pfb_tile<0")},
-        **pfb_bound(BLOCK, 64, False),
     }, {
         "name": "fir_valid",
         "route": "cuda",
@@ -5792,11 +4163,7 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
             "world": chain["world"],
             "shape": f"({BLOCK // chain['world'] + chain['DeCW']['taps'] - 1},) complex64 "
                      f"x {chain['DeCW']['taps']} real taps per rank",
-            **{k: chain["DeCW"][k] for k in (
-                "sharded_step_ms", "serial_step_ms", "k5_launches_per_step",
-                "k5_device_ms_per_step", "nccl_device_ms_per_step", "vs_serial_rel",
-                "warm_msps", "serial_msps")},
-            "cli_msps": chain["cli"]["msps"], "serial_cli_msps": chain["cli"]["serial_msps"]},
+            "vs_serial_rel": chain["DeCW"]["vs_serial_rel"]},
         "launches_channel_chain_per_rank": {
             key: [c["fir_valid"] for c in r["launches_per_rank"]]
             for key, r in chain["channels"].items() if r["kernel"] == "fir_valid"},
@@ -5811,60 +4178,21 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         "sharded_flows": {
             key: {"shape_per_rank": f"(1, {r['nloc'] + K - 1}) "
                                     f"{'complex64' if cplx else 'float32'} x {K} real taps",
-                  "launches_per_step_per_rank": per,
-                  **{k: r[k] for k in ("sharded_step_ms", "serial_step_ms",
-                                       "k5_launches_per_step", "k5_device_ms_per_step",
-                                       "nccl_device_ms_per_step", "device_ms_per_step",
-                                       "vs_serial_rel", "msps", "serial_msps")},
-                  **fir_bound(1, r["nloc"], K, cplx, False)}
+                  "vs_serial_rel": r["vs_serial_rel"]}
             for key, r in chain["flows"].items()
-            for K, cplx, per in [(333, False, 1) if key.startswith("DeFMS") else (1056, True, 2)]
+            for K, cplx in [(333, False) if key.startswith("DeFMS") else (1056, True)]
             if key.startswith(("DeFMS", "DeRTTY"))},
         "channel_chain": {
             key: {"shape_per_rank": r["k5_shape_per_rank"], "panel_per_rank": r["panel_per_rank"],
-                  **{k: r[k] for k in (
-                      "sharded_step_ms", "serial_step_ms", "k5_launches_per_step",
-                      "k5_device_ms_per_step", "nccl_device_ms_per_step",
-                      "device_ms_per_step", "vs_serial_rel", "warm_msps", "serial_msps")},
-                  **fir_bound(r["panel_per_rank"][0], r["panel_per_rank"][1], r["taps"], True,
-                              False)}
+                  "vs_serial_rel": r["vs_serial_rel"]}
             for key, r in chain["channels"].items() if r["kernel"] == "fir_valid"},
         "max_abs_err": errs["c64_complex_585"][0],
         "vs_fft_strategy_rel": errs["c64_complex_585"][1],
-        "ms": fir_med[("c64_complex_585", "kernel")],
-        "plain_ms": fir_med[("c64_complex_585", "plain")],
-        "fft_strategy_ms": fir_med[("c64_complex_585", "fft")],
         "shape": f"(64, {BLOCK // 64 + 584}) complex64 x 585 real taps -> (64, {BLOCK // 64})",
-        "other_shapes": {c: {"ms": fir_med[(c, "kernel")], "plain_ms": fir_med[(c, "plain")],
-                             "fft_strategy_ms": fir_med[(c, "fft")], "max_abs_err": errs[c][0],
-                             "vs_fft_strategy_rel": errs[c][1], **extra}
-                         for c, extra in (
-                             ("c64_real_585", fir_bound(64, BLOCK // 64, 585, False, False)),
-                             ("c1_complex_3651", dict(
-                                 launches_per_step=per_step["fir_valid_3651"][0],
-                                 device_ms=per_step["fir_valid_3651"][1],
-                                 **fir_bound(1, BLOCK, 3651, True, False))),
-                             ("c1_real_rds_333", fir_bound(1, fms_graph()[1], 333, False,
-                                                           False)),
-                             ("c1_complex_rtty_1056", dict(
-                                 launches_per_step=per_step["fir_valid_rtty"][0],
-                                 device_ms=per_step["fir_valid_rtty"][1],
-                                 **fir_bound(1, RTTY_BLOCK, 1056, True, False))))},
-        "pipeline_msps": {f"{f} {b}": r for (f, b), r in fir_rates.items()
-                          if "DeCW" in f},
-        "pipeline_msps_in_turns": {f"-c 64 DeCW {b}": r for b, r in cw_rates.items()},
-        "crossover": {shape: {"fir_valid_ms": fir_med[(c5, "kernel")],
-                              "fft_fir_ms": fir_med[(c6, "kernel")],
-                              "fft_strategy_ms": fir_med[(c5, "fft")],
-                              "fft_fir_max_abs_err": errs[c6][0]}
-                      for shape, c5, c6 in (
-                          ("(64, 2^17) complex x 585", "c64_complex_585", "k6_c64_complex_585"),
-                          ("(1, 2^23) complex x 3651", "c1_complex_3651", "k6_c1_complex_3651"))},
-        "launches_per_step": per_step["fir_valid"][0],
-        "device_ms": per_step["fir_valid"][1],
-        "library_ms": lib_ms["fir_valid"],
+        "other_shapes": {c: {"max_abs_err": errs[c][0], "vs_fft_strategy_rel": errs[c][1]}
+                         for c in ("c64_real_585", "c1_complex_3651", "c1_real_rds_333",
+                                   "c1_complex_rtty_1056")},
         "ptxas": {k: v for k, v in ptxas.items() if k.startswith("fir_valid_tile")},
-        **fir_bound(64, BLOCK // 64, 585, True, False),
     }, {
         "name": "fft_fir",
         "route": "cuda",
@@ -5873,113 +4201,52 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
         "launches": fir_runs["fft_fir"]["launches"],
         "max_abs_err": errs["c1_complex_usb_1826"][0],
         "vs_fft_strategy_rel": errs["c1_complex_usb_1826"][1],
-        "ms": fir_med[("c1_complex_usb_1826", "kernel")],
-        "plain_ms": fir_med[("c1_complex_usb_1826", "plain")],
-        "fft_strategy_ms": fir_med[("c1_complex_usb_1826", "fft")],
         "shape": f"({BLOCK + 1825},) complex64 x 1826 complex taps -> ({BLOCK},) complex64",
-        "other_shapes": {"c1_real_real_3651": {
-            "ms": fir_med[("c1_real_real_3651", "kernel")],
-            "plain_ms": fir_med[("c1_real_real_3651", "plain")],
-            "fft_strategy_ms": fir_med[("c1_real_real_3651", "fft")],
-            "max_abs_err": errs["c1_real_real_3651"][0],
-            "vs_fft_strategy_rel": errs["c1_real_real_3651"][1],
-            "launches_per_step": per_step["fft_fir_real_real"][0],
-            "device_ms": per_step["fft_fir_real_real"][1],
-            **fft_fir_bound(1, BLOCK, 3651, False, False)}},
-        "pipeline_msps": {f"{f} {b}": r for (f, b), r in fir_rates.items()
-                          if f.startswith("library")},
-        "launches_per_step": per_step["fft_fir"][0],
-        "device_ms": per_step["fft_fir"][1],
-        "library_ms": lib_ms["fft_fir"],
-        **fft_fir_bound(1, BLOCK, 1826, True, True),
+        "other_shapes": {c: {"max_abs_err": errs[c][0], "vs_fft_strategy_rel": errs[c][1]}
+                         for c in ("c1_real_real_3651", "k6_c64_complex_585",
+                                   "k6_c1_complex_3651")},
     }, {
         "name": "pll_scan",
         "route": "cuda",
         "source": "csdr_tpu_torch/csrc/pll_scan.cu",
         "replaces": "csdr_tpu/models/stereo.py:39",
         "note": "K7, no Pallas counterpart: fms_pll_scan's lax.scan (csdr_tpu/models/"
-                "stereo.py:62), StereoFMDecoder(pll_mode='scan'). One block of three warps "
-                "per row: warp 1 writes phi = atan2(p) for chunk t, lane 0 of warp 0 runs "
-                "the loop on chunk t - 1 (e = wrap(phi - theta) and the mod 2pi as selects, "
-                "32 steps between branches, a flagged group rerun with the rotated product "
-                "and the floored mod), warp 2 stores e^{2j theta} of chunk t - 2; bound by "
-                "the loop's dependent chain (13b's k7_chain_floor_est_ms estimates it), "
-                "not bytes (bound_ms). ms, "
-                "device_ms, the bound and max_abs_err (against the twin, over the first "
-                "2^16 outputs) on the pilot of the DeFMS 8 --rds scan flow's block (13b), "
-                "max_abs_err_13a over 13a's two chained blocks, plain_ms (the per-sample "
-                "twin on the card) at plain_shape beside ms_at_plain_shape (13a)",
+                "stereo.py:62), StereoFMDecoder(pll_mode='scan'). max_abs_err against the "
+                "twin over the first 2^16 outputs of the DeFMS 8 --rds scan flow's first "
+                "block (13b); max_abs_err_13a over 13a's two chained blocks",
         "launches": scan["13b"]["DeFMS"]["launches"]["pll_scan"],
+        "launches_per_step": scan["13b"]["DeFMS"]["k7_launches_per_step"],
         "max_abs_err": scan["13b"]["DeFMS"]["k7_vs_twin"]["max_abs_err"],
         "max_abs_err_13a": scan["13a"]["pll"]["max_abs_err"],
-        "ms": scan["13b"]["DeFMS"]["k7_ms"],
-        "plain_ms": scan["13a"]["pll"]["plain_ms"],
-        "plain_shape": scan["13a"]["pll"]["plain_shape"],
-        "ms_at_plain_shape": scan["13a"]["pll"]["ms_at_plain_shape"],
         "shape": scan["13b"]["DeFMS"]["k7_shape"],
-        "launches_per_step": scan["13b"]["DeFMS"]["k7_launches_per_step"],
-        "device_ms": scan["13b"]["DeFMS"]["k7_device_ms"],
-        "ns_per_step": scan["13b"]["DeFMS"]["k7_ns_per_step"],
-        "flow_step_ms": {m: st["step_ms"] for m, st in scan["13b"]["DeFMS"]["steps"].items()},
-        "library_ms": None,
-        **pll_bound(1, scan["13b"]["DeFMS"]["block"]),
     }, {
         "name": "symsync_scan",
         "route": "cuda",
         "source": "csdr_tpu_torch/csrc/symsync_scan.cu",
         "replaces": "csdr_tpu/models/symsync.py:281",
         "note": "K8, no Pallas counterpart: SymSyncScan's lax.scan (csdr_tpu/models/"
-                "symsync.py:362), sym_sync_r/sym_sync_c(mode='scan'). One warp per row: "
-                "each edge output and the centre after it share tau, so both windows are "
-                "summed in one pass (two shuffle trees interleaved) before one loop "
-                "update; the windows are read from a ring of the row in shared memory "
-                "that cp.async keeps a chunk ahead (a window outside it from the row, same "
-                "order), the bank rows padded to whole lanes; bit for bit equal to the "
-                "twin; bound by the dependent chain per pair (13b's k8_chain_floor_est_ms "
-                "estimates it), not bytes (bound_ms). ms, device_ms, the bound and "
-                "max_abs_err (against the twin, every output, relative to the largest) "
-                "on the -c 64 DeNBFMSync 10 scan "
-                "tracker's (64, F) panel (13b), max_abs_err_13a over 13a's real and "
-                "complex rows, plain_ms at plain_shape beside ms_at_plain_shape",
+                "symsync.py:362), sym_sync_r/sym_sync_c(mode='scan'); bit for bit equal to "
+                "the twin. max_abs_err on the -c 64 DeNBFMSync 10 scan tracker's first (64, F) "
+                "panel (13b), max_abs_err_13a over 13a's real and complex rows",
         "launches": scan["13b"]["tracker"]["launches"]["symsync_scan"],
+        "launches_per_step": scan["13b"]["tracker"]["k8_launches_per_step"],
         "max_abs_err": scan["13b"]["tracker"]["k8_vs_twin"]["max_err"],
         "max_abs_err_13a": max(scan["13a"][f"sync_{k}"]["max_err"] for k in ("real", "complex")),
-        "ms": scan["13b"]["tracker"]["k8_ms"],
-        "plain_ms": scan["13a"]["sync_real"]["plain_ms"],
-        "plain_shape": scan["13a"]["sync_real"]["plain_shape"],
-        "ms_at_plain_shape": scan["13a"]["sync_real"]["ms_at_plain_shape"],
         "shape": scan["13b"]["tracker"]["k8_shape"],
-        "launches_per_step": scan["13b"]["tracker"]["k8_launches_per_step"],
-        "device_ms": scan["13b"]["tracker"]["k8_device_ms"],
-        "ns_per_step": scan["13b"]["tracker"]["k8_ns_per_step"],
-        "flow_step_ms": {m: st["step_ms"] for m, st in scan["13b"]["tracker"]["steps"].items()},
-        "library_ms": None,
-        **{k: scan["13b"]["tracker"][k] for k in ("bound_ms", "bound_by", "bound_bytes",
-                                                   "bound_flops")},
     }, {
         "name": "symsync_block",
         "route": "cuda",
         "source": "csdr_tpu_torch/csrc/symsync_block.cu",
         "replaces": "csdr_tpu/models/symsync.py:180",
-        "note": "K9, no Pallas counterpart: SymSync.apply's jnp gathers (block mode), "
-                "DeNBFMSync, sym_sync_r/sym_sync_c and sym_tracker's sync. Two launches a "
-                "block: sync_tone (the timing tone's fixed partial sums) and sync_interp "
-                "(the line fit, the positions, the staged window span and the W-tap sum "
-                "against the bank in shared memory); bound by bytes (bound_ms). launches "
-                "read the -c 64 DeNBFMSync 10 pfb_fused CLI run (9b, 2 a block); ms, "
-                "plain_ms (the plain version's eager ops on the card), max_abs_err (either "
-                "pick, relative to the largest output, occupied channels), tau_err and the "
-                "bound at that flow's (64, F) panel",
+        "note": "K9, no Pallas counterpart: SymSync.apply's jnp gathers (block mode). "
+                "launches read the -c 64 DeNBFMSync 10 pfb_fused CLI run (9b, 2 a block); "
+                "max_abs_err (either pick, relative to the largest output, occupied "
+                "channels) and tau_err against the plain version at that flow's (64, F) panel",
         "launches": sync["9b"]["runs"]["pfb_fused"]["launches"]["symsync_block"],
         "launches_eager_run": sync["9b"]["runs"]["eager"]["launches"]["symsync_block"],
         "max_abs_err": sync["9b"]["k9"]["vs_plain"][0],
         "tau_err": sync["9b"]["k9"]["tau_err"],
-        "ms": sync["9b"]["k9"]["ms"],
-        "plain_ms": sync["9b"]["k9"]["plain_ms"],
         "shape": sync["9b"]["k9"]["shape"],
-        "library_ms": None,
-        **{k: sync["9b"]["k9"][k] for k in ("bound_ms", "bound_by", "bound_bytes",
-                                            "bound_flops")},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -5987,8 +4254,6 @@ def main(mesh_only: bool = False, sync_only: bool = False, imagery_only: bool = 
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--idle-share"]:
-        sys.exit(idle_child())
     sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh-only"],
                   sync_only=sys.argv[1:2] == ["--sync-only"],
                   imagery_only=sys.argv[1:2] == ["--imagery-only"],

@@ -123,6 +123,7 @@ from ..core.runtime import Pipeline, take_n
 from ..io import sinks as S
 from ..io import sources as SRC
 from ..io.wav import probe_wav
+from ..ops.cuda import kernel_launches
 
 __all__ = ["main", "build_parser", "run_opts", "parse_demod", "packet_messages", "packet_lines",
            "PACKET_SUFFIX"]
@@ -752,33 +753,6 @@ def _run_mesh(opts, demod, agc_t) -> int:
         print(f"--mesh {opts.mesh}: {e}", file=sys.stderr)
         return 1
     return 0
-
-
-def _kernel_modules() -> tuple:
-    """The modules of the hand-written kernels.  Each counts its launches in
-    ``launches``: an int, or (pfb_fused) a dict of one count per kernel."""
-    from ..ops.cuda import (fft_fir, fir_valid, flagship_fused, pfb_fused, pll_scan,
-                            symsync_block, symsync_scan)
-
-    return pfb_fused, flagship_fused, fir_valid, fft_fir, pll_scan, symsync_scan, symsync_block
-
-
-def kernel_launches() -> dict:
-    """Each hand-written kernel's launch count in this process."""
-    out = {}
-    for mod in _kernel_modules():
-        counts = mod.launches
-        out.update(counts if isinstance(counts, dict) else {mod.__name__.rsplit(".", 1)[1]: counts})
-    return out
-
-
-def reset_kernel_launches() -> None:
-    """Set every hand-written kernel's launch count to 0."""
-    for mod in _kernel_modules():
-        if isinstance(mod.launches, dict):
-            mod.launches.update(dict.fromkeys(mod.launches, 0))
-        else:
-            mod.launches = 0
 
 
 def _mesh_rank(device: torch.device, opts, demod, agc_t) -> int:

@@ -260,20 +260,16 @@ class Pipeline:
 
     def profile_report(self) -> str:
         """The per-stage budget table of a ``profile=True`` run, with the
-        Pipeline's own spans (host ms per block, step 0 apart), the MB
-        copied per block and the MB a block of the stages' own counters
-        (the symbol sync's output by route)."""
+        Pipeline's own spans (host ms per block, step 0 apart) and the MB
+        copied per block."""
         if self._rec is None:
             return "(profiling disabled: construct Pipeline(profile=True))"
         stats = self.stage_stats
         n, later = self._applied, self._applied_later
         pipe_ms = {k: 1e3 * t / later for k, t in self._pipe_s.items()} if later else None
-        mb = {k.removesuffix("_bytes"): v / n / 1e6
-              for k, v in self._rec.counters.items()} if n else {}
-        copied = {k.removeprefix("pipeline."): v for k, v in mb.items()
-                  if k.startswith("pipeline.")}
-        own = {k: v for k, v in mb.items() if not k.startswith("pipeline.")}
-        return prof.stage_table(stats, pipe_ms, copied or None, own or None)
+        copied = {k.removeprefix("pipeline.").removesuffix("_bytes"): v / n / 1e6
+                  for k, v in self._rec.counters.items()} if n else {}
+        return prof.stage_table(stats, pipe_ms, copied or None)
 
     def _to_host(self, y):
         """Queue the device→host copy of every output leaf; returns (host

@@ -32,11 +32,9 @@ and a ``BlockSync``.  ``symsync_block`` (``SymSync.apply``) and
 device: a CPU tensor takes the plain version (``symsync_block_ref``,
 ``symsync_block_shard_ref``), a CUDA tensor the two launches, or they
 raise; no fallback.  Both check the input first, on either device.
-``launches`` counts the kernel launches; the counters
-``symsync.kernel_out_bytes`` and ``symsync.plain_out_bytes``
-(``utils/prof``) add each route's output bytes while a recorder records.
-Both routes take the energies in float32, multiply them by the same
-rotator and sum in float64, then round each window's sum to complex64:
+``launches`` counts the kernel launches.  Both routes take the energies
+in float32, multiply them by the same rotator and sum in float64, then
+round each window's sum to complex64:
 where the tone sits on the real axis (a signal on an integer timing grid)
 the sign of its imaginary part picks τ ≈ 0 or ≈ k at the first window's
 unwrap, and a float32 sum would leave that sign to its order.  Kernel and
@@ -57,7 +55,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ...utils import prof
 from ._build import source_ints
 
 __all__ = ["BlockSync", "windows", "tone", "fit_line", "positions", "bank_sum",
@@ -270,7 +267,6 @@ def symsync_block_ref(x: torch.Tensor, bank: torch.Tensor, rot: torch.Tensor, st
     ipos, ph, _ = positions(sync, bank.shape[0], nout, tm, slope, cm)
     lead = xfull.shape[:-1]
     y = bank_sum(xfull, ipos.expand(*lead, nout), ph.expand(*lead, nout), bank, sync.m * k)
-    prof.count_bytes("symsync.plain_out_bytes", y)
     return (xfull[..., -sync.H:].clone(), tau_carry, torch.ones_like(tau_valid)), y
 
 
@@ -299,7 +295,6 @@ def symsync_block_shard_ref(x: torch.Tensor, bank: torch.Tensor, rot: torch.Tens
     lead = x.shape[:-1]
     y = bank_sum(ext, (ipos - ctx.ti * nloc).expand(*lead, nout_loc),
                  ph.expand(*lead, nout_loc), bank, sync.m * k)
-    prof.count_bytes("symsync.plain_out_bytes", y)
     new_hist = ctx.from_last_time(x[..., -sync.H:].contiguous())
     return (new_hist, tau_carry, torch.ones_like(tau_valid)), y
 
@@ -441,7 +436,6 @@ def symsync_block(x: torch.Tensor, bank: torch.Tensor, rot: torch.Tensor, state,
     partials = _tone(x, None, rot, nw, n // nw)
     y, tau_carry, new_hist = _interp((hist, x), bank, partials, tau_prev, tau_valid, sync, n,
                                      (n // k) * sync.out_per_sym, 0, 0, True, line)
-    prof.count_bytes("symsync.kernel_out_bytes", y)
     return (new_hist, tau_carry, torch.ones_like(tau_valid)), y
 
 
@@ -472,6 +466,5 @@ def symsync_block_shard(x: torch.Tensor, bank: torch.Tensor, rot: torch.Tensor, 
     y, tau_carry, _ = _interp((left, x, right), bank, partials.contiguous(), tau_prev,
                               tau_valid, sync, n, nout_loc, ctx.ti * nout_loc, ctx.ti * nloc,
                               False)
-    prof.count_bytes("symsync.kernel_out_bytes", y)
     new_hist = ctx.from_last_time(x[..., -sync.H:].contiguous())
     return (new_hist, tau_carry, torch.ones_like(tau_valid)), y

@@ -5,9 +5,7 @@ Counterpart of ``csdr_tpu/utils/prof.py``.  The recorder keeps, in memory,
   * spans: a name, a start and an end, the id of the span it nests under
     and the number of the Pipeline step it belongs to (every span of one
     step shares it; step k feeds block k and drains block k−1's output);
-  * counters: the bytes the Pipeline hands the device and takes back, and
-    the symbol sync's output bytes by route (``symsync.kernel_out_bytes``,
-    ``symsync.plain_out_bytes``, ``ops/cuda/symsync_block``).
+  * counters: the bytes the Pipeline hands the device and takes back.
 
 Spans are stamped with the clock ``torch.profiler`` stamps its host and
 CUDA-runtime events with (Kineto's approximate clock,
@@ -307,12 +305,10 @@ class StageStat:
 
 
 def stage_table(stats: list[StageStat], pipeline_ms: dict[str, float] | None = None,
-                mb_per_block: dict[str, float] | None = None,
-                counted_mb: dict[str, float] | None = None) -> str:
+                mb_per_block: dict[str, float] | None = None) -> str:
     """Budget table over a profiled run: which stage takes the time; with
-    ``pipeline_ms`` the Pipeline's own spans (host ms per block), with
-    ``mb_per_block`` the MB copied per block each way and with
-    ``counted_mb`` the MB a block of the stages' own byte counters."""
+    ``pipeline_ms`` the Pipeline's own spans (host ms per block) and with
+    ``mb_per_block`` the MB copied per block each way."""
     total = sum(s.seconds for s in stats) or 1e-12
     w = max([len(s.name) for s in stats] + [len(k) for k in pipeline_ms or ()] + [5])
     lines = [f"{'stage':<{w}}  {'calls':>5}  {'time_s':>8}  {'MSPS_in':>9}  "
@@ -330,9 +326,6 @@ def stage_table(stats: list[StageStat], pipeline_ms: dict[str, float] | None = N
     if mb_per_block:
         lines.append("MB copied per block: " + ", ".join(f"{k} {v:.3f}"
                                                         for k, v in mb_per_block.items()))
-    if counted_mb:
-        lines.append("MB counted per block: " + ", ".join(f"{k} {v:.3f}"
-                                                         for k, v in counted_mb.items()))
     return "\n".join(lines)
 
 

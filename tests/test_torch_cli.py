@@ -511,6 +511,35 @@ def test_cuda_device_without_a_card_is_an_error(captures, tmp_path):
     assert not any(f.startswith("x_ch") for f in os.listdir(tmp_path))
 
 
+def test_kernel_launch_tally_counts_the_eight_kernels():
+    """``ops/cuda``'s launch tally, which the CLI's ``-v`` lines print and
+    chip_smoke.py reads around every run: one count for each of the eight
+    hand-written kernels, and ``reset_kernel_launches()`` sets every count
+    to 0, the int counters and pfb_fused's dict alike."""
+    from csdr_tpu_torch.ops import cuda
+    from csdr_tpu_torch.ops.cuda import (fft_fir, fir_valid, flagship_fused, pfb_fused, pll_scan,
+                                         symsync_block, symsync_scan)
+
+    names = {"pfb_fm_fused", "pfb_channelize_fused", "flagship_fused", "fir_valid", "fft_fir",
+             "pll_scan", "symsync_scan", "symsync_block"}
+    saved = cuda.kernel_launches()
+    assert set(saved) == names and len(saved) == 8
+    try:
+        fir_valid.launches += 3
+        symsync_block.launches += 2
+        pfb_fused.launches["pfb_channelize_fused"] += 5
+        got = cuda.kernel_launches()
+        assert got["fir_valid"] == saved["fir_valid"] + 3
+        assert got["symsync_block"] == saved["symsync_block"] + 2
+        assert got["pfb_channelize_fused"] == saved["pfb_channelize_fused"] + 5
+        cuda.reset_kernel_launches()
+        assert cuda.kernel_launches() == dict.fromkeys(names, 0)
+    finally:
+        for mod in (fft_fir, fir_valid, flagship_fused, pll_scan, symsync_block, symsync_scan):
+            mod.launches = saved[mod.__name__.rsplit(".", 1)[1]]
+        pfb_fused.launches.update({k: saved[k] for k in pfb_fused.launches})
+
+
 def test_package_imports_without_jax():
     """Every module of csdr_tpu_torch (walked, not listed; csrc holds the
     CUDA sources) imports with ``jax`` made unimportable, and none of them
@@ -584,8 +613,8 @@ def heli_captures(tmp_path_factory):
 
 def _run_with_ties(argv):
     """The port's CLI with every SymSync step's outputs of the other pick
-    recorded (``chip_smoke.record_ties``): (rc, (nch, n) outputs)."""
-    from chip_smoke import record_ties
+    recorded (``torch_oracles.record_ties``): (rc, (nch, n) outputs)."""
+    from torch_oracles import record_ties
     from tests.test_torch_symsync import TIE
 
     with record_ties(TIE) as rec:

@@ -3,7 +3,7 @@ serial CLI's ``.f32`` files: ``-c 8`` (``dc_blocker >>
 firpfbch_channelizer(8) >> PerChannel(fm_dem_with_sync(10))``, the channel
 layout) on 2x1 and 2x2, and ``-c 1`` on 2x1.  The sync's outputs are held
 within 2e-3 of the serial output or of its other pick where float order
-picks (``chip_smoke.record_ties`` around the serial run,
+picks (``torch_oracles.record_ties`` around the serial run,
 tests/test_sharding_generic.py:346), on full blocks only (the captures are
 whole blocks long: a zero-padded last block's line fit reads atan2 of
 rounding).  The flows run through the CLI's rank function on module-scoped
@@ -97,7 +97,7 @@ def runs(captures, tmp_path_factory):
     """The mesh ranks in a thread (2x1, then 2x2) while the serial CLI runs
     each flow here inside ``record_ties``: {flow: (serial (files, n), the
     serial run's other picks (files, n), {mesh: (files, n)})}."""
-    from chip_smoke import record_ties
+    from torch_oracles import record_ties
 
     outdir = str(tmp_path_factory.mktemp("mesh_sync_out"))
     serial = {}

@@ -442,14 +442,14 @@ def test_sym_sync_on_card_matches_cpu(dev, case):
     """The block sync on the card (K9, two launches a block) against the
     CPU's plain version, state-chained blocks: 2e-3 relative to the
     largest output (tests/test_sharding_generic.py:346) of the CPU's output
-    or, where float order picks (``chip_smoke.record_ties`` at 0.01), of the
+    or, where float order picks (``torch_oracles.record_ties`` at 0.01), of the
     CPU's output of the other pick (tests/test_torch_symsync.py); the
     carried τ within 1e-3 samples.  Real (kaiser, npfb 64) and complex
     (rnyquist npfb 32 two outputs a symbol; ``sym_tracker``'s RRC sync, one)
     panels, one un-batched row, one timing window, an invalid carried τ,
     carries that slip past B and windows that leave the row at both ends
     (a carried τ of ±300 samples)."""
-    from chip_smoke import record_ties
+    from torch_oracles import record_ties
     from csdr_tpu_torch.ops.cuda import symsync_block as k9
 
     blk, xs, edit = _sync_case(case)
@@ -960,7 +960,7 @@ def test_symsync_scan_kernel_matches_twin(dev, kind, rows):
     rnyquist) on ragged row counts (kWarps = 4 rows per block) of the JAX
     sync tests' signals, three state-chained blocks, against its twin on
     the CPU; one launch per block."""
-    from chip_smoke import sync_rows
+    from torch_oracles import sync_rows
     from csdr_tpu_torch.models import symsync
     from csdr_tpu_torch.ops.cuda import symsync_scan as k8
 
@@ -1018,7 +1018,7 @@ def test_symsync_scan_kernel_ring_paths_match_twin(dev, kind, case):
     row (re-seats chunk after chunk, pairs straddling the ring's edge read
     from the row); against the twin on the CPU, bit for bit, every output
     and τ."""
-    from chip_smoke import sync_rows
+    from torch_oracles import sync_rows
     from csdr_tpu_torch.models import symsync
     from csdr_tpu_torch.ops.cuda import symsync_scan as k8
 

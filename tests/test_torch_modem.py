@@ -266,21 +266,21 @@ def test_golden_beacon_decode(gold):
 
 
 def test_chip_smoke_beacon_set_decodes_as_jax():
-    """The 32 beacons at −13 dB that chip_smoke.py decodes on the card: the
-    port decodes every one but those the script expects refused (the CRC
-    refuses them: the mode's limit at this SNR), and on those and two
-    decoded ones its result equals the JAX package's (message, offset,
-    frequency bin, scores)."""
-    import chip_smoke
+    """The 32 beacons at −13 dB that chip_smoke.py decodes on the card
+    (``torch_oracles.beacon_set``): the port decodes every one but those
+    expected refused (the CRC refuses them: the mode's limit at this SNR),
+    and on those and two decoded ones its result equals the JAX package's
+    (message, offset, frequency bin, scores)."""
+    import torch_oracles
 
     refused = []
-    for i, (m, x) in enumerate(chip_smoke.beacon_set()):
+    for i, (m, x) in enumerate(torch_oracles.beacon_set()):
         got, info = beacon.beacon_decode(x, spsym=64)
         if got is None:
             refused.append(i)
         else:
             assert np.array_equal(got, m), i
-        if i in chip_smoke.BEACON_REFUSED or i < 2:
+        if i in torch_oracles.BEACON_REFUSED or i < 2:
             want, jinfo = j_beacon.beacon_decode(x, spsym=64)
             assert info == jinfo and (got is None) == (want is None), i
-    assert refused == chip_smoke.BEACON_REFUSED
+    assert refused == torch_oracles.BEACON_REFUSED

@@ -12,7 +12,7 @@ output, the reference's bound for a chain in another float order
 here.  ``SymSyncScan``: 2e-3 of the largest output
 (tests/test_sharding_generic.py:346) up to the first output whose window
 start or bank row lies within SYNC_TIE bank steps of a rounding boundary
-in the reference run (``chip_smoke.scan_ties``: a tiny change of τ moves
+in the reference run (``torch_oracles.scan_ties``: a tiny change of τ moves
 the pick there, and a moved pick feeds back through the loop); after it
 both runs must decode the same symbols (the signs of the centre samples),
 and the carried τ's parting is only reported.  The reference's ties are
@@ -52,8 +52,8 @@ from csdr_tpu_torch.ops.cuda import symsync_scan as k8
 from csdr_tpu_torch.ops.cuda._build import source_ints
 from csdr_tpu_torch.parallel.generic import ShardedChain
 from csdr_tpu_torch.utils.convert import from_jax_chain_state
-from chip_smoke import (SYNC_TIE, SYNC_TOL, heli_coord, heli_decode, heli_levels, heli_text,
-                        scan_agree, scan_ok, scan_ties)
+from torch_oracles import (SYNC_TIE, SYNC_TOL, heli_coord, heli_decode, heli_levels,
+                           heli_text, scan_agree, scan_ok, scan_ties)
 
 torch.set_num_threads(1)
 
@@ -408,7 +408,7 @@ def _pair(kind):
 
 def _chain(jb, pb, x, nblocks, jstate=None, pstate=None):
     """Both blocks over nblocks state-chained blocks of x (…, n); the port's
-    steps run with ``chip_smoke.scan_ties`` recorded from its twin.
+    steps run with ``torch_oracles.scan_ties`` recorded from its twin.
     Returns (JAX outputs, port outputs, ties, JAX states, port states)."""
     n = x.shape[-1] // nblocks // pb.granule * pb.granule
     js = jb.init() if jstate is None else jstate
@@ -496,7 +496,7 @@ def test_symsync_scan_open_loop_matches_jax(kind):
     the carry JAX held there (recomputed from JAX's outputs by
     ``_jax_carries``, and equal to JAX's own carry at each block's end) and
     runs two outputs.  Those outputs are within 2e-3 of the largest of
-    JAX's except at a tie of JAX's τ (``chip_smoke.scan_ties``), and the
+    JAX's except at a tie of JAX's τ (``torch_oracles.scan_ties``), and the
     twin's τ and η after them equal JAX's within 1e-5 wherever the centre
     is no tie: wrong PI gains, a wrong TED or a wrong pick fail here
     though the closed loop might still lock.  No tie feeds back, so the

@@ -16,7 +16,7 @@ shape, module-scoped, rank 0 collecting every case of its shape through
 this process computes the JAX side.  The ranks import this module, so the
 JAX package is imported inside the fixtures and tests only.  Bounds: stereo
 and AFSK 2e-3 relative to the largest output (tests/test_sharding_generic.py:60,
-:274); the sync 2e-3 of either pick (``chip_smoke.record_ties``,
+:274); the sync 2e-3 of either pick (``torch_oracles.record_ties``,
 tests/test_sharding_generic.py:346); GMSK and RDS bits equal."""
 
 import concurrent.futures
@@ -230,7 +230,7 @@ def _jax_run(name, shape, keep_first=False):
 def _serial(name):
     """The port's serial graph over the case's blocks: (outputs, and for the
     sync cases the outputs of the other pick, ``record_ties``)."""
-    from chip_smoke import record_ties
+    from torch_oracles import record_ties
 
     _, block, nblocks, _ = CASES[name]
     g = graph_of(name, ct)
