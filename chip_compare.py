@@ -16,7 +16,11 @@ queued behind a spin of the card) and ``profile_kernels`` (torch.profiler
 device time); the inputs come from ``chip_smoke.py`` of this script's own
 directory (its signal generators, and through it ``tests/torch_oracles.py``):
 
-  kernels alone, one 2^23-sample block: K1/K2 (cu8, nch 64), K3 and K4 on
+  kernels alone, one 2^23-sample block: K1/K2 (cu8, nch 64; and K1 at nch
+  20 on 8,388,480 samples, and at nch 64 on 2^21, a 4-rank shard's block;
+  the untraced host time the resident loop takes to enqueue a K1 step, the
+  nbfm64.resident cell's graph on cu8 rows: the median of 5 means over 200
+  steps queued behind a spin of the card), K3 and K4 on
   the block's panels, K5 at (64, 2^17) complex x 585 taps; the serial
   recurrences at their flows' shapes: K7 on one seeded noisy 19 kHz pilot
   row of 1,046,400 samples (the DeFMS 8 block at 200 kHz) and K8 on 64
@@ -75,6 +79,27 @@ def time_steps(torch, step, steps: int = STEPS, warmup: int = 3) -> list[float]:
         evs.append((a, b))
     torch.cuda.synchronize()
     return [a.elapsed_time(b) for a, b in evs]
+
+
+def enqueue_us(torch, step, steps: int = 200, warmup: int = 3) -> float:
+    """Mean host microseconds per call of ``step()`` over ``steps`` calls,
+    none synchronising, queued behind a spin of the card for twice the
+    host's time, so the card never drains the queue nor the host waits on
+    it: the host's own step, untraced."""
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    one_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(2.0, 2 * steps * one_s + 1e-3) * 2e9))
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * host_s / steps
 
 
 def profile_kernels(torch, fn, steps: int, want: int | None = None, tries: int = 5) -> dict:
@@ -225,11 +250,26 @@ def worker(root: str, turn: int) -> None:
     blk9 = ct.PerChannel(symsync.sym_sync_r(sm.SYNC_K, 4, 0.0, 64), sm.SYNC_NCH)
     x9 = torch.from_numpy(sm.sync_rows(sm.SYNC_NCH, 262080, sm.SYNC_K, sm.SEED + 1752,
                                        False)).to(dev)
-    box = {"k1": ff.flagship_fused_init(64, dev), "k9": blk9.init(dev)}
+    n20 = B - B % (20 * ff.DEFAULT_TILE_F)
+    u8_20 = sm.to_cu8(torch, sm.occupied_band(torch, dev, 20, n20, sm.SEED + 2))
+    u8_21 = u8[:2 << 21]
+    resident = ct.channelized_fm_receiver(64, kf=sm.KF, backend="fused")
+    box = {"k1": ff.flagship_fused_init(64, dev), "k9": blk9.init(dev),
+           "k1_20": ff.flagship_fused_init(20, dev), "k1_21": ff.flagship_fused_init(64, dev),
+           "resident": resident.init(dev)}
     box.update({name: g.init(dev) for name, (g, _) in graphs.items()})
 
     def k1():
         box["k1"], _ = ff.flagship_fused_step(box["k1"], u8, nch=64, kf=sm.KF)
+
+    def k1_20():
+        box["k1_20"], _ = ff.flagship_fused_step(box["k1_20"], u8_20, nch=20, kf=sm.KF)
+
+    def k1_21():
+        box["k1_21"], _ = ff.flagship_fused_step(box["k1_21"], u8_21, nch=64, kf=sm.KF)
+
+    def resident_step():
+        box["resident"], _ = resident.apply(box["resident"], u8.view(B, 2))
 
     def k9():
         box["k9"], _ = blk9.apply(box["k9"], x9)
@@ -243,6 +283,8 @@ def worker(root: str, turn: int) -> None:
 
     steps = {
         "K1 flagship_fused cu8 nch 64": k1,
+        "K1 flagship_fused cu8 nch 20": k1_20,
+        "K1 flagship_fused cu8 nch 64 2^21": k1_21,
         "K3 pfb_fm_fused": lambda: pf.pfb_fm_fused(v3, taps, W, nch=64, L=14, kf=sm.KF),
         "K4 pfb_channelize_fused": lambda: pf.pfb_channelize_fused(v4, taps, W, nch=64, L=14),
         "K5 fir_valid (64, 2^17) complex x 585": lambda: fv.fir_valid(x5, cw64),
@@ -261,6 +303,11 @@ def worker(root: str, turn: int) -> None:
             min_ms=min(ms), device_us=sum(v["device_us"] for v in kern.values()) / 5,
             launches=sum(v["count"] for v in kern.values()) / 5,
             top_kernels_us={k: v["device_us"] / 5 for k, v in top})), flush=True)
+    host_us = [enqueue_us(torch, resident_step) for _ in range(5)]
+    print(json.dumps(dict(root=root, turn=turn, step="K1 resident loop host enqueue",
+                          steps=200, median_ms=statistics.median(host_us) / 1e3,
+                          min_ms=min(host_us) / 1e3, device_us=None, launches=None,
+                          top_kernels_us={})), flush=True)
 
 
 def main() -> int:
@@ -305,7 +352,7 @@ def main() -> int:
             os.path.relpath(root, HERE): dict(
                 median_ms=statistics.median(r["median_ms"] for r in rows
                                             if r["step"] == step and r["root"] == root),
-                device_us=statistics.median(r["device_us"] for r in rows
+                device_us=statistics.median(r["device_us"] or 0.0 for r in rows
                                             if r["step"] == step and r["root"] == root),
                 turns_ms=[r["median_ms"] for r in rows
                           if r["step"] == step and r["root"] == root])

@@ -8,6 +8,15 @@ On a CUDA tensor ``flagship_fused_step`` launches the hand-written kernel of
 plain twin, ``flagship_fused_ref``.  ``launches`` counts the calls that
 launched the CUDA kernels (one per step; the CPU twin does not count).
 
+The channel pass (``channel_tile``) is a persistent walk: ``channel_plan``
+cuts the F frames into tiles of ``tile_frames`` frames and hands each block
+a run of them, as many blocks as the card holds at once (fewer where F is
+short: then one tile a block).  Only a run's first tile stages the L+1
+frames before it; ``staged_samples`` counts what the pass stages, and a
+launch adds it and the block's samples to the ``utils/prof`` counters
+``flagship.channel_staged_samples`` and ``flagship.samples`` while a
+session records.
+
 State (the JAX kernel's layout, with the re/im planes joined):
 
     phase      float32 ()           NCO phase at the block's first sample
@@ -27,18 +36,20 @@ import functools
 import numpy as np
 import torch
 
+from ...utils import prof
 from ..iir import dc_blocker_stream
 from ..nco import mix_stream, phase_increment, phase_ramp
 from ..pfb import pfb_offset, pfb_taps
 
 __all__ = ["flagship_fused_init", "flagship_fused_step", "flagship_fused_ref",
-           "permuted_tap_panel", "launches", "DEFAULT_TILE_F"]
+           "permuted_tap_panel", "launches", "DEFAULT_TILE_F", "tile_frames", "channel_plan",
+           "staged_samples"]
 
 DEFAULT_TILE_F = 32
 _TWO_PI = 2.0 * np.pi
 _SCAN_THREADS = 1024   # csrc/flagship_fused.cu kScanThreads
 _CHANNEL_THREADS = 256  # csrc/flagship_fused.cu kChannelThreads
-_BLOCK_SAMPLES = 2048   # samples a channel block takes when it groups tiles
+_TILE_SAMPLES = 4096    # samples a channel tile takes where tileF allows
 _SMEM_LIMIT = 232448   # bytes of shared memory a Hopper block may use
 _MODES = {"complex": 0, "u8": 1, "u8_planes": 2}
 
@@ -149,20 +160,41 @@ def _dc_split(C: int) -> tuple[int, int]:
     return spt, C // spt
 
 
-def block_frames(nch: int, tileF: int, F: int) -> int:
-    """Frames per channel-tile block: q·tileF for the largest q that divides
-    F/tileF with q·tileF·nch <= 2048 samples (q = 1 at nch 64)."""
-    tiles = F // tileF
-    q = max(1, _BLOCK_SAMPLES // (tileF * nch))
-    while tiles % q:
-        q -= 1
-    return q * tileF
+def tile_frames(nch: int, tileF: int, F: int, L: int) -> int:
+    """Frames per channel tile: the largest multiple of tileF with
+    TF·nch <= 4096 samples (tileF at least), raised above L so that a tile
+    holds the next one's FIR halo, and at most F (64 at nch 64: the G = 4
+    lanes of the 64-point FFT fill the 256 threads).  The stream's last
+    tile takes what is left of F, a multiple of tileF."""
+    TF = max(1, _TILE_SAMPLES // (tileF * nch)) * tileF
+    while TF <= L:
+        TF += tileF
+    return min(TF, F)
 
 
-def _replay_split(nch: int, L: int, tileF: int) -> int:
-    """Samples per thread of the channel tile's DC replay over its frames
-    and halo."""
-    return -(-(tileF + L + 1) * nch // _CHANNEL_THREADS)
+def channel_plan(nch: int, tileF: int, F: int, L: int, slots: int) -> tuple[int, int, int]:
+    """(TF, run, grid): tiles of TF frames, ``run`` consecutive tiles per
+    channel block, ``grid`` blocks, as few tiles per block as ``slots``
+    resident blocks allow (one where the tiles are fewer than the slots)."""
+    TF = tile_frames(nch, tileF, F, L)
+    tiles = -(-F // TF)
+    run = -(-tiles // max(1, slots))
+    return TF, run, -(-tiles // run)
+
+
+def staged_samples(nch: int, F: int, L: int, TF: int, run: int) -> int:
+    """Input samples the channel pass stages for a block of F frames: every
+    tile's own, and each run's halo, the L+1 frames before its first tile
+    that lie in the block (the stream's earlier frames come from hist)."""
+    tiles = -(-F // TF)
+    grid = -(-tiles // run)
+    return (F + sum(min(L + 1, b * run * TF) for b in range(grid))) * nch
+
+
+def _replay_splits(nch: int, L: int, TF: int) -> tuple[int, int]:
+    """Samples per thread of the channel tile's DC replay: over a run's
+    first range (halo and tile), and over a later tile."""
+    return -(-(TF + L + 1) * nch // _CHANNEL_THREADS), -(-TF * nch // _CHANNEL_THREADS)
 
 
 @functools.lru_cache(maxsize=64)
@@ -170,20 +202,21 @@ def _constants(nch: int, m: int, as_db: float, tileF: int, dc_alpha: float, n: i
                device: torch.device):
     """Device-resident design constants of one (configuration, block
     length, device): taps, twiddles, the NCO ramp and powers of r, the
-    latter made in float64 on the host.  o_h is the offset of every tile's
+    latter made in float64 on the host.  o_h is the offset of every run's
     halo start inside its chunk."""
     r = 1.0 - dc_alpha
     C = tileF * nch
     spt, nthr = _dc_split(C)
-    tb = block_frames(nch, tileF, n // nch)
-    spt2 = _replay_split(nch, 2 * m, tb)
+    TF = tile_frames(nch, tileF, n // nch, 2 * m)
+    spt_a, spt_b = _replay_splits(nch, 2 * m, TF)
     o_h = -(2 * m + 1) * nch % C
     n_chunks = n // C
     mpt = -(-n_chunks // _SCAN_THREADS)
     tw = np.exp(-2j * np.pi * np.arange(nch) / nch).astype(np.complex64)
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return dict(
-        spt=spt, m=mpt, rC=float(np.float32(r ** C)), tb=tb, spt2=spt2, o_h=o_h,
+        spt=spt, m=mpt, rC=float(np.float32(r ** C)), TF=TF, spt_a=spt_a, spt_b=spt_b,
+        o_h=o_h,
         r=float(np.float32(r)), g=float(np.float32((1.0 + r) / 2.0)),
         phase_inc=float(np.float32(phase_increment(float(pfb_offset(nch)), int(n)))),
         r_loc=float(np.float32(r ** (o_h % spt))), r_oh=float(np.float32(r ** o_h)),
@@ -193,9 +226,28 @@ def _constants(nch: int, m: int, as_db: float, tileF: int, dc_alpha: float, n: i
         pow_thr=put(np.power(r, spt * np.arange(nthr + 1, dtype=np.float64)).astype(np.float32)),
         pow_blk=put(np.power(r, float(C) * mpt * np.arange(_SCAN_THREADS + 1,
                                                            dtype=np.float64)).astype(np.float32)),
-        pow_rep=put(np.power(r, spt2 * np.arange(_CHANNEL_THREADS + 1,
-                                                 dtype=np.float64)).astype(np.float32)),
+        pow_rep=put(np.power(r, np.outer([spt_a, spt_b], np.arange(
+            _CHANNEL_THREADS + 1, dtype=np.float64))).astype(np.float32)),
     )
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_plan(mode: str, nch: int, L: int, tileF: int, F: int, vec: int,
+                 device: torch.device) -> tuple[int, int, int]:
+    """(TF, run, staged samples) of one launch shape on ``device``: its runs
+    sized from the channel blocks the card holds at once."""
+    lib = _library()
+    TF = tile_frames(nch, tileF, F, L)
+    smem = lib.csdr_channel_smem(_MODES[mode], nch, L, TF, vec)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"nch={nch}, tileF={tileF} needs {smem} B of shared memory per "
+                         f"tile of {TF} frames (limit {_SMEM_LIMIT}); use a smaller tileF")
+    with torch.cuda.device(device):
+        slots = lib.csdr_channel_slots(_MODES[mode], nch, L, TF, vec)
+    if slots < 1:
+        raise RuntimeError(f"no channel block of nch={nch}, {TF} frames fits on {device}")
+    TF, run, _ = channel_plan(nch, tileF, F, L, slots)
+    return TF, run, staged_samples(nch, F, L, TF, run)
 
 
 @functools.lru_cache(maxsize=None)
@@ -209,10 +261,11 @@ def _library():
                                                                   _CHANNEL_THREADS):
         raise RuntimeError("csrc/flagship_fused.cu thread counts differ from the wrapper's")
     lib.csdr_channel_smem.restype = ctypes.c_longlong
-    lib.csdr_channel_smem.argtypes = [ctypes.c_int] * 3
+    lib.csdr_channel_slots.restype = ctypes.c_int
+    lib.csdr_channel_smem.argtypes = lib.csdr_channel_slots.argtypes = [ctypes.c_int] * 5
     fn = lib.csdr_flagship_fused
     P, I, LL, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    fn.argtypes = [I, P, P, LL] + [I] * 9 + [Fl] * 7 + [P] * 19
+    fn.argtypes = [I, P, P, LL] + [I] * 11 + [Fl] * 7 + [P] * 19
     fn.restype = ctypes.c_int
     return lib
 
@@ -261,18 +314,17 @@ def flagship_fused_step(state, x, *, nch: int, m: int = 7, as_db: float = 80.0,
     if mode == "u8" and x0.data_ptr() % 2:
         raise ValueError("interleaved u8 input must start on an even byte (uchar2 loads)")
     lib = _library()
-    tb = block_frames(nch, tileF, n // nch)
-    smem = lib.csdr_channel_smem(nch, L, tb)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"nch={nch}, tileF={tileF} needs {smem} B of shared memory per "
-                         f"block of {tb} frames (limit {_SMEM_LIMIT}); use a smaller tileF")
     spt, _ = _dc_split(nch * tileF)
     n_chunks = n // (nch * tileF)
-    if n_chunks >= 2 ** 31:  # one CUDA block per chunk and per tile
+    if n_chunks >= 2 ** 31:  # one CUDA block per chunk
         raise ValueError(f"block of {n} samples is too long")
-
-    c = _constants(nch, m, float(as_db), tileF, float(dc_alpha), n, device)
     F = n // nch
+    # 16-byte loads in the DC chunk pass and the channel tiles' prefetch:
+    # every chunk and tile starts 16-aligned
+    vec = int(nch * tileF % 16 == 0 and all(p is None or p.data_ptr() % 16 == 0
+                                             for p in (x0, x1)))
+    TF, run, staged = _launch_plan(mode, nch, L, tileF, F, vec, device)
+    c = _constants(nch, m, float(as_db), tileF, float(dc_alpha), n, device)
     # few allocations: the step's host time is a good part of its wall time
     cstate = torch.empty((L + 1) * nch + 2, dtype=torch.complex64, device=device)
     new_state = dict(phase=torch.empty((), dtype=torch.float32, device=device),
@@ -281,15 +333,11 @@ def flagship_fused_step(state, x, *, nch: int, m: int = 7, as_db: float = 80.0,
                                                device=device)
     audio = torch.empty((nch, F), dtype=torch.float32, device=device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    # 16-byte loads in the DC chunk pass: every chunk starts 16-aligned
-    vec = int(nch * tileF % 16 == 0 and all(p is None or p.data_ptr() % 16 == 0
-                                             for p in (x0, x1)))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.csdr_flagship_fused(
-            _MODES[mode], ptr(x0), ptr(x1), n, nch, L, tileF, tb, spt, c["m"], c["spt2"],
-            c["o_h"],
-            vec, c["r"], c["g"], c["rC"], c["r_loc"], c["r_oh"],
+            _MODES[mode], ptr(x0), ptr(x1), n, nch, L, tileF, TF, run, spt, c["m"], c["spt_a"],
+            c["spt_b"], c["o_h"], vec, c["r"], c["g"], c["rC"], c["r_loc"], c["r_oh"],
             float(np.float32(1.0 / (_TWO_PI * kf))), c["phase_inc"],
             ptr(c["taps"]), ptr(c["twiddle"]), ptr(c["ramp2"]), ptr(c["pow_thr"]),
             ptr(c["pow_blk"]), ptr(c["pow_rep"]), ptr(state["phase"]), ptr(state["hist"]),
@@ -299,4 +347,6 @@ def flagship_fused_step(state, x, *, nch: int, m: int = 7, as_db: float = 80.0,
     if err != 0:
         raise RuntimeError(f"flagship_fused kernel launch failed: CUDA error {err}")
     launches += 1
+    prof.count("flagship.samples", n)
+    prof.count("flagship.channel_staged_samples", staged)
     return new_state, audio

@@ -5,7 +5,8 @@ Counterpart of ``csdr_tpu/utils/prof.py``.  The recorder keeps, in memory,
   * spans: a name, a start and an end, the id of the span it nests under
     and the number of the Pipeline step it belongs to (every span of one
     step shares it; step k feeds block k and drains block k−1's output);
-  * counters: the bytes the Pipeline hands the device and takes back.
+  * counters: the bytes the Pipeline hands the device and takes back, and
+    the samples K1's channel pass stages (``ops/cuda/flagship_fused``).
 
 Spans are stamped with the clock ``torch.profiler`` stamps its host and
 CUDA-runtime events with (Kineto's approximate clock,
@@ -58,8 +59,8 @@ try:   # a host range at ~1 µs, where record_function's op dispatch takes ~10
 except ImportError:
     _host_range = _profiler.record_function
 
-__all__ = ["Span", "Recorder", "SESSION", "OFF", "recording", "span", "stage", "count_bytes",
-           "StageStat", "stage_table", "trace"]
+__all__ = ["Span", "Recorder", "SESSION", "OFF", "recording", "span", "stage", "count",
+           "count_bytes", "StageStat", "stage_table", "trace"]
 
 
 @dataclass(frozen=True)
@@ -238,14 +239,19 @@ def stage(block, x):
     return _Open(block.name or type(block).__name__, None, dev)
 
 
+def count(name: str, n: int):
+    """Add ``n`` to counter ``name`` of every recorder that records now."""
+    if not (_targets or _profiler._is_profiler_enabled):
+        return
+    for rec in _recorders():
+        rec.counters[name] = rec.counters.get(name, 0) + n
+
+
 def count_bytes(name: str, tree):
     """Add the bytes of ``tree``'s leaves (arrays or tensors, in tuples) to
     counter ``name`` of every recorder that records now."""
-    if not (_targets or _profiler._is_profiler_enabled):
-        return
-    n = _nbytes(tree)
-    for rec in _recorders():
-        rec.counters[name] = rec.counters.get(name, 0) + n
+    if _targets or _profiler._is_profiler_enabled:
+        count(name, _nbytes(tree))
 
 
 def _nbytes(tree) -> int:

@@ -78,15 +78,45 @@ def occupied_band(nch, n, seed, per_frame=False):
     return x.astype(np.complex64)
 
 
+def _k1_frames(nch, fmt, runs, dev):
+    """Frames a block: 1,536 (at most 24 tiles, fewer than the card's
+    resident channel blocks: one tile a block), or, for ``runs="short"``,
+    enough tiles that every block walks a run of several and the last run
+    is shorter than the others."""
+    if runs == "one":
+        return 1536
+    mode = {"f32": "complex", "u8": "u8", "u8_planes": "u8_planes"}[fmt]
+    TF = ff.tile_frames(nch, ff.DEFAULT_TILE_F, 1 << 30, 14)
+    with torch.cuda.device(dev):
+        slots = ff._library().csdr_channel_slots(ff._MODES[mode], nch, 14, TF, 1)
+    tiles = 2 * slots + 1
+    if tiles % 3 == 0:
+        tiles += 1
+    TF_, run, grid = ff.channel_plan(nch, ff.DEFAULT_TILE_F, tiles * TF, 14, slots)
+    assert TF_ == TF and run == 3 and tiles - (grid - 1) * run < run
+    return tiles * TF
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nch,fmt", [(64, "f32"), (20, "f32"), (64, "u8"), (20, "u8_planes"),
-                                     (8, "f32"), (32, "u8")])
-def test_kernel_matches_twin(dev, nch, fmt):
-    x = occupied_band(nch, nch * 32 * 48 * 3, seed=nch)
+@pytest.mark.parametrize("nch,fmt,runs", [(64, "f32", "one"), (20, "f32", "one"),
+                                          (64, "u8", "one"), (20, "u8_planes", "one"),
+                                          (8, "f32", "one"), (32, "u8", "one"),
+                                          (64, "u8", "short"), (20, "f32", "short"),
+                                          (8, "u8_planes", "short"), (32, "f32", "short")])
+def test_kernel_matches_twin(dev, nch, fmt, runs):
+    """K1 against its twin over 3 chained blocks, with one tile a channel
+    block or runs of tiles whose last is short; a second run of the same
+    blocks equals the first bit for bit.  The long blocks of the runs take
+    the tone per frame: at a tone per sample some of their 2·10^6 phase
+    steps a channel come within float32 rounding of ±π, where kernel and
+    twin may land on the two sides of atan2's branch cut."""
+    x = occupied_band(nch, nch * _k1_frames(nch, fmt, runs, dev) * 3, seed=nch,
+                      per_frame=runs == "short")
     if fmt != "f32":
         q = np.clip(np.round(np.stack([x.real, x.imag], 1) * 60 + 127.5), 0, 255)
         x = q.astype(np.uint8).reshape(-1)
     sk, st = ff.flagship_fused_init(nch, dev), ff.flagship_fused_init(nch, dev)
+    again = ff.flagship_fused_init(nch, dev)
     for blk in np.split(x, 3):
         xb = torch.from_numpy(blk).to(dev)
         if fmt == "u8_planes":
@@ -97,8 +127,60 @@ def test_kernel_matches_twin(dev, nch, fmt):
         st, yt = ff.flagship_fused_ref(st, xb, nch=nch)
         assert yk.shape == yt.shape == (nch, len(blk) // nch // (1 if fmt == "f32" else 2))
         assert torch.max(torch.abs(yk - yt)).item() < 1.2e-3
+        again, ya = ff.flagship_fused_step(again, xb, nch=nch)
+        assert torch.equal(ya, yk)
     for k in ("phase", "hist", "x_last", "y_dc_last"):
         assert torch.allclose(sk[k], st[k], rtol=1e-4, atol=1e-5), k
+        assert torch.equal(again[k], sk[k]), k
+
+
+@pytest.mark.cuda
+def test_kernel_counts_its_staging(dev):
+    """At the nbfm64 cell's shape (cu8, nch 64, 2^23 samples) a step adds
+    its samples and the channel pass's staged samples to the recorder's
+    counters: the share staged more than once is under 5 %."""
+    from csdr_tpu_torch.utils import prof
+
+    n = 1 << 23
+    u8 = torch.randint(0, 256, (2 * n,), dtype=torch.uint8, device=dev)
+    st = ff.flagship_fused_init(64, dev)
+    with prof.recording() as rec:
+        ff.flagship_fused_step(st, u8, nch=64)
+    TF, run, staged = ff._launch_plan("u8", 64, 14, ff.DEFAULT_TILE_F, n // 64, 1, dev)
+    assert rec.counters["flagship.samples"] == n
+    assert rec.counters["flagship.channel_staged_samples"] == staged
+    assert staged == ff.staged_samples(64, n // 64, 14, TF, run) and staged / n <= 1.05
+
+
+def _sharded_flagship_rank(device, blocks):
+    """The one rank of a one-card mesh: ``ShardedFlagship`` over ``blocks``
+    and the serial K1 step over the same blocks; whether each output and the
+    state after are equal bit for bit."""
+    from csdr_tpu_torch.parallel import build_mesh
+    from csdr_tpu_torch.parallel.flagship import ShardedFlagship
+
+    sh = ShardedFlagship(build_mesh(1, 1, "cuda"), 64, len(blocks[0]) // 2)
+    ss, st = sh.init(), ff.flagship_fused_init(64, device)
+    same = []
+    for b in blocks:
+        xb = torch.from_numpy(b).to(device)
+        ss, ys = sh.step(ss, xb)
+        st, yt = ff.flagship_fused_step(st, xb, nch=64)
+        same.append(torch.equal(ys, yt))
+    return same + [torch.equal(ss[k], st[k]) for k in ("phase", "hist", "x_last", "y_dc_last")]
+
+
+@pytest.mark.cuda
+def test_sharded_flagship_one_card_equals_serial(dev):
+    """``ShardedFlagship`` at one card (W = 1) equals serial K1 bit for
+    bit over 3 chained cu8 blocks of 2^21 samples."""
+    from csdr_tpu_torch.parallel import spawn
+
+    x = occupied_band(64, 3 << 21, seed=21)
+    q = np.clip(np.round(np.stack([x.real, x.imag], 1) * 60 + 127.5), 0, 255)
+    blocks = np.split(q.astype(np.uint8).reshape(-1), 3)
+    [same] = spawn(_sharded_flagship_rank, 1, "cuda", args=(blocks,), timeout=600.0)
+    assert all(same), same
 
 
 @pytest.mark.cuda
